@@ -24,6 +24,12 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        'markers', 'gpu: needs a CUDA device; skips (with a reason) '
+        'where torch finds none')
+
+
 @pytest.fixture(autouse=True)
 def _seed():
     np.random.seed(1)
