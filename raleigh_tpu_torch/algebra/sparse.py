@@ -3,24 +3,24 @@
 PyTorch port of the device half of ``raleigh_tpu/algebra/sparse.py``:
 
   * ``SparseSymmetricMatrix``  SpMM on (m, n) row blocks — host SciPy CSR
-    for ndarrays, the DIA device matrix (ops/spmm.py) for tensors;
+    for ndarrays, the DIA, ELL or BSR device matrix (ops/spmm.py) for
+    tensors;
+  * ``spectral_bounds``        (lo, hi) bounds on a spectrum, on the host;
   * ``Chebyshev``              polynomial approximation to A^-1 on
     [lo, hi], a recurrence of ``degree`` SpMMs that runs on the device;
   * ``Operator``               adapter giving an object with an
     ndarray-level ``apply`` the tensor interface.
 
-``spectral_bounds`` is pure NumPy and shared with the JAX package by
-import.  ``SparseSymmetricSolver`` and ``IncompleteLU`` come with the
-shift-invert path (ROADMAP queue 1, item 7).
+``SparseSymmetricSolver`` and ``IncompleteLU`` come with the shift-invert
+path (ROADMAP queue 1, item 7).
 """
 
 import numpy as np
 import scipy.sparse as scs
 import torch
 
-from raleigh_tpu.algebra.sparse import spectral_bounds  # noqa: F401
-
-from ..ops.spmm import _device_layout, _to_full_csr, torch_dtype
+from ..ops.spmm import (_device_layout, _to_full_csr, rows_matmat_operands,
+                        torch_dtype)
 
 
 def resolve_device(arch='cpu', device=None):
@@ -43,7 +43,7 @@ class SparseSymmetricMatrix:
     sparse format.  A device arch or ``device`` builds the device matrix
     as well."""
 
-    def __init__(self, matrix, arch='cpu', dtype=None, device=None):
+    def __init__(self, matrix, arch='cpu', dtype=None, bs=128, device=None):
         a = scs.csr_matrix(matrix)
         if dtype is not None:
             a = a.astype(dtype)
@@ -53,7 +53,8 @@ class SparseSymmetricMatrix:
         self.__dev = None
         if device is not None:
             self.__dev = _device_layout(self.__csr_full,
-                                        self.__csr_full.dtype.type, device)
+                                        self.__csr_full.dtype.type, device,
+                                        bs=bs)
 
     def size(self):
         return self.__csr.shape[0]
@@ -85,6 +86,56 @@ class SparseSymmetricMatrix:
         y[...] = self.__csr_full.dot(np.asarray(x).T).T
 
 
+def spectral_bounds(matrix, iters=20, seed=7):
+    """(lo, hi) bounds on the spectrum of a symmetric sparse matrix:
+    Gershgorin upper bound, and a Lanczos estimate of the smallest
+    eigenvalue when Gershgorin's lower bound is non-positive (it is for
+    nearly every FE/Laplacian matrix, and a fudged ``lo`` silently degrades
+    the Chebyshev polynomial this feeds).  A handful of Lanczos steps gives
+    the right order of magnitude, which is all [lo, hi] needs."""
+    a = scs.csr_matrix(matrix)
+    d = a.diagonal()
+    radius = np.abs(a).sum(axis=1).A.ravel() - np.abs(d)
+    hi = float((d + radius).max())
+    lo = float((d - radius).min())
+    if lo <= 0:
+        # Lanczos (full orthogonalization at these tiny iteration counts)
+        rng = np.random.RandomState(seed)
+        n = a.shape[0]
+        k = int(min(max(iters, 8), n - 1, 40))
+        q = rng.standard_normal(n)
+        q /= np.linalg.norm(q)
+        Q = np.zeros((k + 1, n))
+        Q[0] = q
+        alpha = np.zeros(k)
+        beta = np.zeros(k)
+        j = 0
+        for j in range(k):
+            w = a @ Q[j]
+            alpha[j] = Q[j] @ w
+            w -= Q[:j + 1].T @ (Q[:j + 1] @ w)   # full reorthogonalization
+            b = np.linalg.norm(w)
+            beta[j] = b
+            if b <= 1e-12 * hi:
+                j += 1
+                break
+            Q[j + 1] = w / b
+        else:
+            j = k
+        T = np.diag(alpha[:j])
+        if j > 1:
+            T += np.diag(beta[:j - 1], 1) + np.diag(beta[:j - 1], -1)
+        ritz = np.linalg.eigvalsh(T)
+        # the smallest Ritz value converges to lmin from above (and slowly
+        # on Laplacian-like clustered low ends): take a quarter of it for a
+        # safe under-estimate — a 4x margin costs the Chebyshev degree only
+        # a factor 2, against the 1e8 condition of the old hi*1e-8 fudge
+        lo = 0.25 * float(ritz[0])
+        if lo <= 0:
+            lo = hi * 1e-8
+    return lo, hi
+
+
 class Chebyshev:
     """Polynomial (Chebyshev) approximation to A^-1 on [lo, hi] applied by
     a short SpMM recurrence: every application is ``degree`` SpMMs on the
@@ -92,17 +143,23 @@ class Chebyshev:
     is kept as given, so ``partial_hevp`` can tell when A's device matrix
     is already built."""
 
-    def __init__(self, matrix, lo, hi, degree=8, arch='cpu', device=None):
+    def __init__(self, matrix, lo, hi, degree=8, arch='cpu',
+                 device_matrix=None, device=None):
+        """``device_matrix`` (optional): a device sparse matrix built
+        before (ops/spmm.py) that the recurrence uses instead of building
+        its own — a ``BsrMatrix`` made by hand, say, which
+        ``device_sparse`` would not choose."""
         self.matrix = matrix
         self.__op = (matrix if isinstance(matrix, SparseSymmetricMatrix)
                      else SparseSymmetricMatrix(matrix, arch=arch,
                                                 device=device))
+        self.__dev_override = device_matrix
         self.lo = float(lo)
         self.hi = float(hi)
         self.degree = int(degree)
 
     def device_matrix(self):
-        return self.__op.device_matrix()
+        return self.__dev_override or self.__op.device_matrix()
 
     def device_rows_operands(self, m, n=None, dtype=None, stream_bf16=None):
         """(fn, operands) with ``fn(operands, w)`` applying the whole
@@ -113,20 +170,20 @@ class Chebyshev:
         accumulation inside the SpMM, the caller's dtype in and out): a
         preconditioner is an approximate inverse, so bf16 iterates cost
         the outer iteration nothing while the SpMMs stream half the
-        bytes.  ``None`` = auto: on when the outer iteration is f32 and
-        the recurrence's working set exceeds the device matrix's
-        ``WINDOW_HBM_BYTES``."""
+        bytes.  ``None`` = auto: on when the matrix is DIA, the outer
+        iteration is f32 and the recurrence's working set exceeds the
+        device matrix's ``WINDOW_HBM_BYTES``; ELL and BSR matrices stream
+        bf16 only when asked."""
         dev = self.device_matrix()
         if n is None:
             n = dev.shape[0]
         dtype = torch.float32 if dtype is None else torch_dtype(dtype)
         if stream_bf16 is None:
-            noff = len(dev.offsets)
+            noff = len(getattr(dev, 'offsets', ()))
             ws = 2 * m * n * 4 + noff * n * 4
             stream_bf16 = (noff > 0 and dtype == torch.float32
                            and ws > dev.WINDOW_HBM_BYTES)
-        it_dtype = torch.bfloat16 if stream_bf16 else dtype
-        mat_fn, ops = dev.rows_operand_form()
+        mat_fn, ops = rows_matmat_operands(dev)
         theta = 0.5 * (self.hi + self.lo)
         delta = 0.5 * (self.hi - self.lo)
         sigma1 = theta / delta

@@ -14,10 +14,9 @@ import time
 import numpy as np
 import torch
 
-from raleigh_tpu.core.solver import Options
-
 from ..algebra.sparse import SparseSymmetricMatrix, resolve_device
 from ..core.device_solver import default_block, lobpcg
+from ..core.solver import Options
 from ..ops.spmm import canonical_dtype
 
 
@@ -103,6 +102,6 @@ def _device_matrix(A, T, device):
     this device already holds it, and A then sits on the device once."""
     dev = T.device_matrix() if getattr(T, 'matrix', None) is A else None
     if (dev is None or dev.device != device
-            or dev.val.dtype != canonical_dtype(A.dtype)):
+            or dev.dtype != canonical_dtype(A.dtype)):
         dev = SparseSymmetricMatrix(A, device=device).device_matrix()
     return dev

@@ -12,6 +12,11 @@ from raleigh_tpu.algebra.sparse import spectral_bounds
 from raleigh_tpu.examples.laplace import lap3d
 from raleigh_tpu_torch.algebra.sparse import Chebyshev
 
+# One torch thread: the suite runs in several worker processes at once, and
+# with a thread pool per process they fight over the cores (the small
+# operand blocks here gain nothing from more threads).
+torch.set_num_threads(1)
+
 M = 8
 
 

@@ -1,4 +1,5 @@
-"""The CUDA DIA kernel against its plain PyTorch version on the card.
+"""The CUDA kernels (DIA SpMM, BSR SpMM, stream scale) against their plain
+PyTorch versions on the card.
 
 Marked ``gpu``: without a CUDA device every test here skips (the fixture
 decides, so every pytest-xdist worker collects the same tests).  Run on a
@@ -9,7 +10,10 @@ it).
 Tolerances: f32, 1e-6 of the largest |entry| of the plain result (both
 accumulate in f32); bf16, the entrywise bound of ``chip_smoke.bf16_excess``
 (one bf16 rounding on either side plus the f32 summation error bound),
-which a bf16 running sum or bf16 products fail.
+which a bf16 running sum or bf16 products fail.  BSR: the entrywise bound
+of ``chip_smoke.bsr_excess`` (twice the f32 summation error bound of an
+entry's terms, plus one rounding on either side for a bf16 result).  Stream:
+exact equality with ``torch.mul``.
 """
 
 import importlib.util
@@ -19,9 +23,17 @@ import numpy as np
 import pytest
 import torch
 
+from raleigh_tpu_torch.examples.fe_model import fe_pencil
 from raleigh_tpu_torch.examples.laplace import lap3d
+from raleigh_tpu_torch.ops import spmm_pallas as sp
 from raleigh_tpu_torch.ops import spmm_window as sw
-from raleigh_tpu_torch.ops.spmm import DiaMatrix
+from raleigh_tpu_torch.ops import stream as st
+from raleigh_tpu_torch.ops.spmm import BsrMatrix, DiaMatrix
+
+# One torch thread: the suite runs in several worker processes at once, and
+# with a thread pool per process they fight over the cores (the small
+# operand blocks here gain nothing from more threads).
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.gpu
 
@@ -103,3 +115,71 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         sw.dia_matmat_rows(dm.val, x[:, :-1].contiguous(), dm.offsets_t)
     with pytest.raises(ValueError, match='device'):
         sw.dia_matmat_rows(dm.val.cpu(), x, dm.offsets_t)
+
+
+@pytest.mark.parametrize('operand', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('tiles', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('bs,m', [(64, 24), (128, 16), (48, 5), (160, 3)])
+def test_bsr_kernel_matches_plain(cuda, bs, m, tiles, operand):
+    """A small girder (n = 2,796, a multiple of no block size here) with
+    one block row emptied: block sizes below, at and above the kernel's
+    128-row slab and off its 32-column chunk, m below, at and above its
+    16-row group."""
+    import scipy.sparse as scs
+    k = fe_pencil(9, 3, 0.1, seed=2, which='k')
+    n = k.shape[0]
+    keep = np.ones(n)
+    keep[2 * bs:3 * bs] = 0.0
+    k = scs.csr_matrix(scs.diags(keep) @ k @ scs.diags(keep))
+    k.eliminate_zeros()
+    bm = BsrMatrix(k, bs=bs, dtype=tiles, device=cuda)
+    assert n % bs and np.diff(bm.block_indptr).min() == 0
+    g = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn((m, n), generator=g, device=cuda).to(operand)
+    key = (sp._NAMES[tiles], sp._NAMES[operand])
+    before = sp.LAUNCHES[key]
+    y = bm.matmat_rows(x)
+    want = sp.bsr_matmat_rows_plain(bm.blocks, bm.block_indptr_t,
+                                    bm.block_cols, x, n)
+    torch.cuda.synchronize()
+    assert y.dtype == operand and y.shape == x.shape
+    assert sp.LAUNCHES[key] == before + 1
+    worst, _ = _chip_smoke().bsr_excess(torch, sp, bm, x, y, want)
+    assert worst <= 1
+    assert torch.all(y[:, 2 * bs:3 * bs] == 0)
+    if tiles == operand == torch.float32:
+        exact = (k @ x.double().cpu().numpy().T).T
+        err = np.abs(y.cpu().numpy() - exact).max() / np.abs(exact).max()
+        assert err < 1e-6
+
+
+def test_bsr_kernel_refuses_what_it_cannot_take(cuda):
+    k = fe_pencil(9, 3, 0.1, seed=2, which='k')
+    n = k.shape[0]
+    bm = BsrMatrix(k, bs=64, device=cuda)
+    x = torch.randn((8, n), device=cuda)
+    args = (bm.blocks, bm.block_indptr_t, bm.block_cols)
+    with pytest.raises(TypeError, match='float64'):
+        sp.bsr_matmat_rows(*args, x.double(), n)
+    with pytest.raises(ValueError, match='contiguous'):
+        sp.bsr_matmat_rows(*args, torch.randn((n, 8), device=cuda).T, n)
+    with pytest.raises(ValueError, match='shape'):
+        sp.bsr_matmat_rows(*args, x[:, :-1].contiguous(), n)
+    with pytest.raises(ValueError, match='device'):
+        sp.bsr_matmat_rows(bm.blocks.cpu(), bm.block_indptr_t,
+                           bm.block_cols, x, n)
+
+
+@pytest.mark.parametrize('count,offset', [(1 << 20, 0), (1000003, 0),
+                                          (1000003, 1), (3, 0)])
+def test_stream_kernel_equals_torch_mul(cuda, count, offset):
+    """16-byte aligned and not, with and without a tail."""
+    g = torch.Generator(cuda).manual_seed(1)
+    x = torch.randn(count + offset, generator=g, device=cuda)[offset:]
+    before = st.LAUNCHES['float32']
+    y = st.stream_scale(x, st.REFERENCE_SCALE)
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.mul(x, st.REFERENCE_SCALE))
+    assert st.LAUNCHES['float32'] == before + 1
+    with pytest.raises(TypeError, match='f32'):
+        st.stream_scale(x.double(), 2.0)

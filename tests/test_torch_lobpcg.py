@@ -21,6 +21,11 @@ from raleigh_tpu_torch.algebra.sparse import Chebyshev
 from raleigh_tpu_torch.core.device_solver import default_block, lobpcg
 from raleigh_tpu_torch.ops.spmm import device_sparse
 
+# One torch thread: the suite runs in several worker processes at once, and
+# with a thread pool per process they fight over the cores (the small
+# operand blocks here gain nothing from more threads).
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def f64_default():

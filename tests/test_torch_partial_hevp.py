@@ -15,6 +15,11 @@ from raleigh_tpu.interfaces.partial_hevp import partial_hevp as jax_hevp
 from raleigh_tpu_torch import (Chebyshev, SparseSymmetricMatrix,
                                partial_hevp, spectral_bounds)
 
+# One torch thread: the suite runs in several worker processes at once, and
+# with a thread pool per process they fight over the cores (the small
+# operand blocks here gain nothing from more threads).
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def f64_default():
