@@ -12,8 +12,9 @@ Four phases; any failure exits non-zero.
    inputs, at the main path's shapes, with times from CUDA events over many
    launches after a warm-up (plain, kernel, kernel, plain), the time of
    the one PyTorch call that computes the same function
-   (``torch.sparse.mm`` on a CSR tensor) and the least time the card could
-   take (``bound``).
+   (``torch.sparse.mm`` on a CSR tensor; for the BSR kernel also the
+   product of its tiles as a ``torch.sparse_bsr_tensor``) and the least
+   time the card could take (``bound``).
    * DIA SpMM of lap3d(100,100,128) (n = 1,280,000) with m = 16 in f32 and
      bf16 operands, and lap3d 50^3 (n = 125,000) with m = 24.  Tolerances:
      f32, 1e-6 of the largest |entry| of the plain result; bf16, entrywise,
@@ -153,6 +154,25 @@ def library_spmm_ms(torch, csr, x, reps):
     except (RuntimeError, NotImplementedError) as e:
         print('  torch.sparse.mm on a CSR tensor is not available: %s'
               % str(e).splitlines()[0])
+        return None
+
+
+def library_bsr_ms(torch, bm, x, reps):
+    """Milliseconds of one PyTorch product of ``bm``'s own tiles as a
+    ``torch.sparse_bsr_tensor`` (padded to whole tiles) with the padded
+    (n_padded, m) operand, both in ``x``'s dtype: the BSR kernel's function
+    on the same tiles.  None (with a note) if this torch cannot do it: a
+    measurement, not a gate."""
+    try:
+        a = torch.sparse_bsr_tensor(
+            bm.block_indptr_t.long(), bm.block_cols.long(),
+            bm.blocks.to(x.dtype), size=(bm.n_padded, bm.n_padded))
+        xt = torch.nn.functional.pad(
+            x, (0, bm.n_padded - x.shape[1])).T.contiguous()
+        return time_ms(torch, lambda: a @ xt, reps)
+    except (RuntimeError, NotImplementedError) as e:
+        print('  a torch.sparse_bsr_tensor product in %s is not available: '
+              '%s' % (x.dtype, str(e).splitlines()[0]))
         return None
 
 
@@ -447,19 +467,34 @@ def phase_bsr(torch, np, sp, BsrMatrix, EllMatrix, fe, k_nat, k_rel):
                       + 2 * m * n * x.element_size())
             flops = 2 * bm.blocks.numel() * m
             bound_ms, bound_by = bound(nbytes, flops)
-            lib_here = lib if (bkey, xkey) == ('f32', 'f32') else None
+            # the library call: the faster of the f32 CSR product and the
+            # product of the same tiles as a sparse BSR tensor, which torch
+            # takes in one type for tiles and operand, not in a mixed pair
+            csr_here = lib if (bkey, xkey) == ('f32', 'f32') else None
+            bsr_here = (library_bsr_ms(torch, bm, x, 10) if bkey == xkey
+                        else None)
+            lib_here = min((t for t in (csr_here, bsr_here)
+                            if t is not None), default=None)
             print('%s n=%d m=%d: max abs err %.3e (worst %.3f of the bound), '
                   'kernel %.4f ms (%.0f GB/s, %.2f Gnnz/s), plain %.4f ms, '
-                  'torch.sparse.mm %s, bound %.4f ms (%s)'
+                  'torch.sparse.mm on CSR %s, sparse_bsr_tensor product %s, '
+                  'bound %.4f ms (%s)'
                   % (name, n, m, diff, worst, tk, nbytes / tk / 1e6,
-                     bm.nnz / tk / 1e6, tp, fmt_ms(lib_here), bound_ms,
-                     bound_by))
+                     bm.nnz / tk / 1e6, tp, fmt_ms(csr_here),
+                     fmt_ms(bsr_here), bound_ms, bound_by))
             rows[name] = dict(
                 name=name, route='cuda', source=BSR[0], replaces=BSR[1],
                 launches=0, max_abs_err=diff, ms=tk, plain_ms=tp,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_here,
                 bytes=nbytes)
-    del mats, bm
+    # m = 24 is two groups of 16 operand rows, the second half empty: a
+    # kernel limited by the tile bytes would take m = 16's time
+    x24 = torch.randn((24, n), generator=gen, device='cuda')
+    bm = mats['f32']
+    check_bsr(torch, sp, bm, x24, 'bsr_spmm_rows_f32_f32 m=24')
+    print('bsr_spmm_rows_f32_f32 n=%d m=24: kernel %.4f ms'
+          % (n, time_ms(torch, lambda: bm.matmat_rows(x24), 20)))
+    del mats, bm, x24
 
     # awkward shape: n not a multiple of bs, m past one row group, one
     # block row emptied
@@ -690,8 +725,11 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
     lo, hi = spectral_bounds(k_nat)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    bsr_k = BsrMatrix(k_nat, bs=128, device='cuda')
-    bsr_m = BsrMatrix(m_nat, bs=128, device='cuda')
+    # no device named: the layouts and the solve default to the card
+    bsr_k = BsrMatrix(k_nat, bs=128)
+    bsr_m = BsrMatrix(m_nat, bs=128)
+    if bsr_k.device.type != 'cuda':
+        fail('BsrMatrix with no device argument is on %s' % bsr_k.device)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     bsr_k16 = BsrMatrix.from_arrays(
@@ -723,8 +761,10 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
         if launches[('f32', 'f32')] <= 0 or launches[key] <= 0:
             fail('%s skipped the BSR kernel: launches %s'
                  % (label, launches))
-        for k5, count in launches.items():
-            rows['bsr_spmm_rows_%s_%s' % k5]['launches'] += count
+        # each instantiation's count is that of the one solve that is its
+        # path: f32 tiles and operands of the field itself, the others of
+        # the variant built to drive them
+        rows['bsr_spmm_rows_%s_%s' % key]['launches'] = launches[key]
         bsr_lmd, rel = check_pencil(np, label, k_nat, m_nat, lmd, x, st,
                                     which)
         agree = float(np.abs(bsr_lmd / ell_lmd - 1).max())

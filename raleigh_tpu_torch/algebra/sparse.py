@@ -20,7 +20,7 @@ import scipy.sparse as scs
 import torch
 
 from ..ops.spmm import (_device_layout, _to_full_csr, rows_matmat_operands,
-                        torch_dtype)
+                        storage_device, torch_dtype)
 
 
 def resolve_device(arch='cpu', device=None):
@@ -30,12 +30,7 @@ def resolve_device(arch='cpu', device=None):
     if device is None:
         if arch != 'gpu':
             return None
-        device = 'cuda'
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('%s was asked for, but torch finds no CUDA '
-                           'device' % device)
-    return device
+    return storage_device(device)
 
 
 class SparseSymmetricMatrix:

@@ -21,7 +21,7 @@ optional deflation against ``constraints``.  f32 products run at full f32
 import numpy as np
 import torch
 
-from ..ops.spmm import torch_dtype
+from ..ops.spmm import storage_device, torch_dtype
 
 
 def _gram(a, b):
@@ -164,7 +164,8 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
     dtype : iteration dtype (torch or numpy).
     sharding : multi-device runs are not ported yet (ROADMAP queue 1,
         item 13); anything but None raises.
-    device : device of the iteration (default: ``op.device``, else CPU).
+    device : device of the iteration (default: ``op.device``, else the
+        card; CUDA with no card raises).
 
     Returns (lmd (k,), x (n, k), resid (k,), niter, status) as NumPy
     arrays, status 0 = converged, 2 = iteration limit, 3 = no search
@@ -176,8 +177,8 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
     if n is None:
         n = op.shape[0]
     if device is None:
-        device = getattr(op, 'device', 'cpu')
-    device = torch.device(device)
+        device = getattr(op, 'device', None)
+    device = storage_device(device)
     dtype = torch_dtype(dtype)
     m = block_size or default_block(k, n)
     if m < k:

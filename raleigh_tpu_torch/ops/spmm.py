@@ -9,8 +9,9 @@ PyTorch port of ``raleigh_tpu/ops/spmm.py``, three layouts:
   * ``BsrMatrix``  the nonempty (bs x bs) tiles, dense — patterns with
     block locality (finite-element matrices in the mesher's order).
 
-``device_sparse`` picks one by the JAX package's rule.  Operands are
-(m, n) blocks with vectors as rows.  On CUDA every DIA and BSR row apply
+``device_sparse`` picks one by the JAX package's rule.  Every layout is
+built on the card unless ``device`` names another, and raises when there
+is no card.  Operands are (m, n) blocks with vectors as rows.  On CUDA every DIA and BSR row apply
 goes through its hand-written kernel (``ops/spmm_window.py``,
 ``ops/spmm_pallas.py``) at every size, and on the CPU through the
 kernel's plain PyTorch version.  The ELL apply is plain PyTorch on either
@@ -45,6 +46,18 @@ def canonical_dtype(dtype):
     if dt == torch.float64 and torch.get_default_dtype() != torch.float64:
         return torch.float32
     return dt
+
+
+def storage_device(device=None):
+    """The torch.device a device matrix lives on: the card unless
+    ``device`` names another (``'cpu'``, as the CPU tests do).  CUDA with
+    no card raises: nothing falls back to the CPU."""
+    device = torch.device('cuda' if device is None else device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('%s was asked for, but torch finds no CUDA '
+                           "device (pass device=None to stay on the host)"
+                           % device)
+    return device
 
 
 def _to_full_csr(a):
@@ -100,14 +113,14 @@ class DiaMatrix:
     # the SpMM itself: the CUDA kernel serves every size.
     WINDOW_HBM_BYTES = 112 * 2 ** 20
 
-    def __init__(self, a, dtype=np.float32, device='cpu'):
+    def __init__(self, a, dtype=np.float32, device=None):
         csr = _to_full_csr(a)
         rows, offsets, k = _diagonals(csr)
         self._init(offsets, _dia_values(csr, rows, offsets, k, dtype),
                    device)
 
     @classmethod
-    def from_arrays(cls, offsets, val, device='cpu'):
+    def from_arrays(cls, offsets, val, device=None):
         """The port's matrix from another DIA matrix's arrays, e.g. the
         ``offsets`` and ``np.asarray(val)`` of a ``raleigh_tpu``
         ``DiaMatrix``."""
@@ -120,7 +133,7 @@ class DiaMatrix:
         n = val.shape[1]
         self.shape = (n, n)
         self.offsets = tuple(int(o) for o in offsets)
-        self.device = torch.device(device)
+        self.device = storage_device(device)
         self.val = torch.as_tensor(val, dtype=canonical_dtype(val.dtype),
                                    device=self.device).contiguous()
         self.dtype = self.val.dtype
@@ -166,7 +179,7 @@ class EllMatrix:
     k-th entry, rows padded with (column 0, value 0) to ``row_degree``, the
     largest degree rounded up to a multiple of ``pad_to``."""
 
-    def __init__(self, a, dtype=np.float32, pad_to=8, device='cpu'):
+    def __init__(self, a, dtype=np.float32, pad_to=8, device=None):
         a = _to_full_csr(a)
         n = a.shape[0]
         deg = np.diff(a.indptr)
@@ -182,7 +195,7 @@ class EllMatrix:
         self._init(idx, val, int(a.nnz), device)
 
     @classmethod
-    def from_arrays(cls, idx, val, nnz=None, device='cpu'):
+    def from_arrays(cls, idx, val, nnz=None, device=None):
         """The port's matrix from another ELL matrix's arrays, e.g. the
         ``np.asarray`` of a ``raleigh_tpu`` ``EllMatrix``'s ``idx`` and
         ``val``."""
@@ -194,7 +207,7 @@ class EllMatrix:
         n, k = val.shape
         self.shape = (n, n)
         self.row_degree = k
-        self.device = torch.device(device)
+        self.device = storage_device(device)
         self.idx = _int32(idx, self.device).contiguous()
         self.val = _values(val, None, self.device)
         self.nnz = int(torch.count_nonzero(self.val)) if nnz is None else nnz
@@ -234,7 +247,7 @@ class BsrMatrix:
     ``block_indptr_t`` is the same as an int32 tensor on ``device`` for the
     kernel."""
 
-    def __init__(self, a, dtype=np.float32, bs=128, device='cpu'):
+    def __init__(self, a, dtype=np.float32, bs=128, device=None):
         import scipy.sparse as scs
         a = _to_full_csr(a)
         n = a.shape[0]
@@ -254,7 +267,7 @@ class BsrMatrix:
 
     @classmethod
     def from_arrays(cls, blocks, block_cols, block_indptr, n, nnz=None,
-                    device='cpu'):
+                    device=None):
         """The port's matrix from another BSR matrix's arrays, e.g. the
         ``np.asarray`` of a ``raleigh_tpu`` ``BsrMatrix``'s ``blocks`` and
         ``block_cols`` with its ``block_indptr`` and ``shape[0]``."""
@@ -269,7 +282,7 @@ class BsrMatrix:
         self.n_padded = nb * bs
         self.bs = bs
         self.nb = nb
-        self.device = torch.device(device)
+        self.device = storage_device(device)
         self.block_indptr = np.asarray(block_indptr)
         self.block_indptr_t = _int32(block_indptr, self.device)
         self.block_cols = _int32(block_cols, self.device)
@@ -322,7 +335,7 @@ ELL_MAX_PADDING = 16            # padded ELL entries per nonzero
 
 
 def device_sparse(a, dtype=np.float32, block_width_hint=32, bs=128,
-                  device='cpu'):
+                  device=None):
     """Choose a device layout for the symmetric sparse matrix ``a``: DIA
     when the pattern collapses onto few populated diagonals (stencils,
     banded matrices — no gathers at all), BSR when tile fill times block

@@ -16,6 +16,9 @@ from . import _build
 # the shape the reference streams: 32 rows of 39 tiles of 32768 lanes
 REFERENCE_SHAPE = (32, 39 * 32768)
 REFERENCE_SCALE = 0.99999
+# timed launches of one reading, and the seed of the array they stream
+RATE_REPS = 50
+RATE_SEED = 0
 
 # kernel launches, counted where the kernel is launched
 LAUNCHES = {'float32': 0}
@@ -54,25 +57,25 @@ def stream_scale(x, a):
     return y
 
 
-def stream_rate(device='cuda', reps=50, seed=0):
+def stream_rate(device='cuda'):
     """The card's stream rate in bytes/s, read and write together, as the
-    kernel measures it: ``reps`` launches of ``y = REFERENCE_SCALE * x`` on
+    kernel measures it: ``RATE_REPS`` launches of ``y = REFERENCE_SCALE * x`` on
     a seeded f32 array of ``REFERENCE_SHAPE`` (164 MB in, 164 MB out, well
     past the L2), timed with CUDA events after a warm-up."""
     device = torch.device(device)
     if device.type != 'cuda':
         raise ValueError('the stream rate is a property of a CUDA device, '
                          'not of %s' % device)
-    gen = torch.Generator(device).manual_seed(seed)
+    gen = torch.Generator(device).manual_seed(RATE_SEED)
     x = torch.randn(REFERENCE_SHAPE, generator=gen, device=device)
     for _ in range(3):
         stream_scale(x, REFERENCE_SCALE)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
+    for _ in range(RATE_REPS):
         stream_scale(x, REFERENCE_SCALE)
     end.record()
     end.synchronize()
-    seconds = start.elapsed_time(end) / 1e3 / reps
+    seconds = start.elapsed_time(end) / 1e3 / RATE_REPS
     return 2 * x.numel() * x.element_size() / seconds

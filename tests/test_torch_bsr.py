@@ -84,7 +84,8 @@ def test_bsr_matches_jax_and_scipy(pencil, f64_default, bs, dtype):
     k, _ = pencil
     n = k.shape[0]
     assert n % bs
-    bm, jb = BsrMatrix(k, dtype=dtype, bs=bs), JaxBsr(k, dtype=dtype, bs=bs)
+    bm = BsrMatrix(k, dtype=dtype, bs=bs, device='cpu')
+    jb = JaxBsr(k, dtype=dtype, bs=bs)
     assert (bm.shape, bm.nb, bm.n_padded, bm.nnz, bm.bs) == \
         (jb.shape, jb.nb, jb.n_padded, jb.nnz, jb.bs)
     assert np.array_equal(bm.block_indptr, jb.block_indptr)
@@ -115,7 +116,7 @@ def test_bsr_matches_pallas_kernel_interpreted(seed_pencil):
     x = _block(n, 8, 1, np.float32)
     pm = PallasBsrMatrix(k, bs=64, interpret=True)
     want = np.asarray(pm.matmat_t(jnp.asarray(x.T)))
-    y = BsrMatrix(k, bs=64).matmat_rows(torch.from_numpy(x))
+    y = BsrMatrix(k, bs=64, device='cpu').matmat_rows(torch.from_numpy(x))
     assert _rel(y.numpy().T, want) < 1e-6
 
 
@@ -126,7 +127,7 @@ def test_from_arrays_reproduces_jax_matrix(pencil):
     jb = JaxBsr(k, bs=64)
     bm = BsrMatrix.from_arrays(np.asarray(jb.blocks),
                                np.asarray(jb.block_cols), jb.block_indptr,
-                               jb.shape[0], nnz=jb.nnz)
+                               jb.shape[0], nnz=jb.nnz, device='cpu')
     assert (bm.shape, bm.nb, bm.n_padded, bm.nnz, bm.bs) == \
         (jb.shape, jb.nb, jb.n_padded, jb.nnz, jb.bs)
     assert bm.blocks.dtype == torch.float32
@@ -142,7 +143,7 @@ def test_bsr_bf16_blocks_f32_accumulate(pencil):
     k, _ = pencil
     n = k.shape[0]
     x = _block(n, 8, 3, np.float32)
-    bm = BsrMatrix(k, dtype=torch.bfloat16, bs=64)
+    bm = BsrMatrix(k, dtype=torch.bfloat16, bs=64, device='cpu')
     assert bm.blocks.dtype == torch.bfloat16 and bm.dtype == torch.bfloat16
     want = (k @ x.T.astype(np.float64)).T
     y = bm.matmat_rows(torch.from_numpy(x))
@@ -166,7 +167,7 @@ def test_chip_smoke_bsr_bound_rejects_bf16_accumulation(chip_smoke, pencil,
     the bound; a bf16 running sum and bf16 products do not."""
     k, _ = pencil
     n = k.shape[0]
-    bm = BsrMatrix(k, bs=64)
+    bm = BsrMatrix(k, bs=64, device='cpu')
     x = torch.from_numpy(_block(n, 12, 4, np.float32)).to(operand)
     want = sp.bsr_matmat_rows_plain(bm.blocks, bm.block_indptr_t,
                                     bm.block_cols, x, n)
@@ -197,7 +198,7 @@ def test_empty_block_row_and_tail(pencil):
     keep[3 * bs:4 * bs] = 0.0
     a = scs.csr_matrix(scs.diags(keep) @ k @ scs.diags(keep))
     a.eliminate_zeros()
-    bm = BsrMatrix(a, bs=bs)
+    bm = BsrMatrix(a, bs=bs, device='cpu')
     assert np.diff(bm.block_indptr).min() == 0
     x = _block(n, 24, 5, np.float32)
     y = bm.matmat_rows(torch.from_numpy(x)).numpy()
@@ -211,7 +212,7 @@ def test_wrapper_uses_plain_version_only_on_cpu(pencil):
     cannot take is refused by name."""
     k, _ = pencil
     n = k.shape[0]
-    bm = BsrMatrix(k, bs=64)
+    bm = BsrMatrix(k, bs=64, device='cpu')
     x = torch.from_numpy(_block(n, 8, 6, np.float32))
     args = (bm.blocks, bm.block_indptr_t, bm.block_cols)
     before = dict(sp.LAUNCHES)
@@ -244,7 +245,7 @@ def test_chebyshev_over_bsr_matches_jax(pencil, f64_default):
     n = k.shape[0]
     lo, hi = spectral_bounds(k)
     x = _block(n, 8, 7, np.float64)
-    bm = BsrMatrix(k, dtype=np.float64, bs=64)
+    bm = BsrMatrix(k, dtype=np.float64, bs=64, device='cpu')
     ch = Chebyshev(k, hi * 1e-4, hi, degree=12, device_matrix=bm)
     assert ch.device_matrix() is bm
     fn, ops = ch.device_rows_operands(8, n, dtype=torch.float64)
@@ -254,7 +255,7 @@ def test_chebyshev_over_bsr_matches_jax(pencil, f64_default):
     jfn, jops = jch.device_rows_operands(8, n, dtype=np.float64)
     assert _rel(got, np.asarray(jfn(jops, jnp.asarray(x)))) < 1e-10
     # bf16 iterates stay possible with BSR, on request only
-    f32 = BsrMatrix(k, bs=64)
+    f32 = BsrMatrix(k, bs=64, device='cpu')
     ch32 = Chebyshev(k, hi * 1e-4, hi, degree=12, device_matrix=f32)
     x32 = torch.from_numpy(x.astype(np.float32))
     auto = ch32.device_rows_operands(8, n)
@@ -277,8 +278,8 @@ def test_lobpcg_on_bsr_matches_jax(pencil, f64_default):
     lo, hi = spectral_bounds(k)
     x0 = np.random.RandomState(8).standard_normal((n, 16))
     kw = dict(tol=1e-8, maxit=400, x0=x0, dtype=np.float64, block_size=16)
-    tk = BsrMatrix(k, dtype=np.float64, bs=64)
-    tm = BsrMatrix(mass, dtype=np.float64, bs=64)
+    tk = BsrMatrix(k, dtype=np.float64, bs=64, device='cpu')
+    tm = BsrMatrix(mass, dtype=np.float64, bs=64, device='cpu')
     pre = Chebyshev(k, hi * 1e-4, hi, degree=32, device_matrix=tk) \
         .device_rows_operands(16, n, dtype=torch.float64)
     lam, x, _, it, status = lobpcg(tk, 6, opB=tm, precond=pre, **kw)

@@ -159,7 +159,8 @@ def test_ell_matches_jax_and_scipy(f64_default, which, dtype):
     nc, sp, hole, seed = which.split('-')
     k = fe.fe_pencil(int(nc), int(sp), float(hole), seed=int(seed), which='k')
     n = k.shape[0]
-    em, je = EllMatrix(k, dtype=dtype), jax_spmm.EllMatrix(k, dtype=dtype)
+    em = EllMatrix(k, dtype=dtype, device='cpu')
+    je = jax_spmm.EllMatrix(k, dtype=dtype)
     assert (em.shape, em.nnz, em.row_degree) == \
         (je.shape, je.nnz, je.row_degree)
     assert em.row_degree % 8 == 0
@@ -185,9 +186,9 @@ def test_ell_from_arrays_pad_and_bf16_operand(pencil):
     n = k.shape[0]
     je = jax_spmm.EllMatrix(k, pad_to=16)
     em = EllMatrix.from_arrays(np.asarray(je.idx), np.asarray(je.val),
-                               nnz=je.nnz)
+                               nnz=je.nnz, device='cpu')
     assert em.row_degree == je.row_degree == \
-        EllMatrix(k, pad_to=16).row_degree
+        EllMatrix(k, pad_to=16, device='cpu').row_degree
     assert em.row_degree % 16 == 0 and em.nnz == k.nnz
     x = np.random.RandomState(1).randn(8, n).astype(np.float32)
     want = np.asarray(je.matmat_t(jnp.asarray(x.T))).T
@@ -251,7 +252,7 @@ def test_device_sparse_gives_the_reference_layout(case):
     tests/test_device_solver.py and on both orderings of a girder."""
     make, expected = LAYOUT_CASES[case]
     a, kw = make()
-    dm = device_sparse(a, **kw)
+    dm = device_sparse(a, **kw, device='cpu')
     jdm = jax_spmm.device_sparse(a, **kw)
     assert type(dm).__name__ == type(jdm).__name__
     if expected is not None:
@@ -261,6 +262,28 @@ def test_device_sparse_gives_the_reference_layout(case):
     x = np.random.RandomState(2).randn(4, a.shape[0]).astype(np.float32)
     want = (a @ x.T.astype(np.float64)).T
     assert _rel(dm.matmat_rows(torch.from_numpy(x)).numpy(), want) < 1e-6
+
+
+@pytest.mark.parametrize('entry', ['DiaMatrix', 'EllMatrix', 'BsrMatrix',
+                                   'device_sparse', 'lobpcg'])
+def test_entry_points_default_to_the_card(entry):
+    """With no ``device`` a layout is built on the card and a bare
+    operator is iterated there; with no card that raises, and nothing
+    runs on the CPU unasked."""
+    a = laplace.lap3d(5, 5, 5, 1.0, 1.0, 1.0)
+    if entry == 'lobpcg':
+        def run():
+            return lobpcg(lambda xt: xt, 2, n=a.shape[0])[1]
+    else:
+        def run():
+            return getattr(rt, entry)(a).device
+    if torch.cuda.is_available():
+        run()
+    else:
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            run()
+    if entry != 'lobpcg':
+        assert getattr(rt, entry)(a, device='cpu').device.type == 'cpu'
 
 
 def test_sparse_symmetric_matrix_any_layout(pencil):
@@ -324,14 +347,14 @@ def test_lobpcg_on_ell_matches_jax(pencil, f64_default, layout):
     lo, hi = spectral_bounds(k)
     x0 = np.random.RandomState(6).standard_normal((n, 16))
     kw = dict(tol=1e-8, maxit=400, x0=x0, dtype=np.float64, block_size=16)
-    tk = device_sparse(k, dtype=np.float64)
+    tk = device_sparse(k, dtype=np.float64, device='cpu')
     jk = jax_spmm.device_sparse(k, dtype=np.float64)
     if layout == 'ell':
-        tm = device_sparse(mass, dtype=np.float64)
+        tm = device_sparse(mass, dtype=np.float64, device='cpu')
         jm = jax_spmm.device_sparse(mass, dtype=np.float64)
         assert isinstance(tm, EllMatrix)
     else:
-        tm = BsrMatrix(mass, dtype=np.float64, bs=128)
+        tm = BsrMatrix(mass, dtype=np.float64, bs=128, device='cpu')
         jm = jax_spmm.BsrMatrix(mass, dtype=np.float64, bs=128)
     pre = Chebyshev(k, hi * 1e-4, hi, degree=32, device_matrix=tk) \
         .device_rows_operands(16, n, dtype=torch.float64)
@@ -379,11 +402,11 @@ def test_orderings_share_a_spectrum(f64_default):
         n = k.shape[0]
         lo, hi = spectral_bounds(k)
         if relabel:
-            tk, tm = device_sparse(k, dtype=np.float64), \
-                device_sparse(mass, dtype=np.float64)
+            tk, tm = device_sparse(k, dtype=np.float64, device='cpu'), \
+                device_sparse(mass, dtype=np.float64, device='cpu')
         else:
-            tk, tm = BsrMatrix(k, dtype=np.float64, bs=128), \
-                BsrMatrix(mass, dtype=np.float64, bs=128)
+            tk, tm = BsrMatrix(k, dtype=np.float64, bs=128, device='cpu'), \
+                BsrMatrix(mass, dtype=np.float64, bs=128, device='cpu')
         pre = Chebyshev(k, hi * 1e-4, hi, degree=32, device_matrix=tk) \
             .device_rows_operands(16, n, dtype=torch.float64)
         lam, _, _, _, status = lobpcg(tk, 6, opB=tm, precond=pre, tol=1e-8,

@@ -170,6 +170,23 @@ def test_bsr_kernel_refuses_what_it_cannot_take(cuda):
                            bm.block_cols, x, n)
 
 
+def test_bsr_solve_with_no_device_argument_launches_the_kernel(cuda):
+    """``BsrMatrix(K, bs=128)`` and ``lobpcg`` with no device named run on
+    the card: the solve goes through the BSR kernel."""
+    from raleigh_tpu_torch import Chebyshev, lobpcg, spectral_bounds
+    k, mass = fe_pencil(9, 3, 0.1, seed=2, relabel=False)
+    n = k.shape[0]
+    bk, bmass = BsrMatrix(k, bs=128), BsrMatrix(mass, bs=128)
+    assert bk.device.type == bk.blocks.device.type == 'cuda'
+    _, hi = spectral_bounds(k)
+    pre = Chebyshev(k, hi * 1e-4, hi, degree=32, device_matrix=bk) \
+        .device_rows_operands(16, n)
+    before = sp.LAUNCHES[('f32', 'f32')]
+    lam, _, _, _, status = lobpcg(bk, 6, opB=bmass, precond=pre, tol=1e-4)
+    assert status == 0 and np.all(np.isfinite(lam))
+    assert sp.LAUNCHES[('f32', 'f32')] > before
+
+
 @pytest.mark.parametrize('count,offset', [(1 << 20, 0), (1000003, 0),
                                           (1000003, 1), (3, 0)])
 def test_stream_kernel_equals_torch_mul(cuda, count, offset):

@@ -38,7 +38,8 @@ ell, x, status = rt.partial_hevp(K, B=M, T=T, which=6, tol=1e-4, verb=-1,
                                  arch='gpu', device='cpu')
 assert status == 0, status
 Kn, Mn = rt.fe_model.fe_pencil(9, 3, 0.1, seed=2, relabel=False)
-bK, bM = rt.BsrMatrix(Kn, bs=128), rt.BsrMatrix(Mn, bs=128)
+bK = rt.BsrMatrix(Kn, bs=128, device='cpu')
+bM = rt.BsrMatrix(Mn, bs=128, device='cpu')
 T = rt.Chebyshev(Kn, hi * 1e-4, hi, degree=32, device_matrix=bK)
 n = Kn.shape[0]
 bsr, x, resid, niter, status = rt.lobpcg(

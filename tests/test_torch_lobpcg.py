@@ -70,8 +70,8 @@ def test_lobpcg_matches_jax(lap, f64_default, case):
             .device_rows_operands(8, n, dtype=np.float64)
     if case == 'largest':
         k, kw = 3, dict(kw, largest=True, tol=1e-6)
-    lam, x, r, it, st = lobpcg(device_sparse(a, dtype=np.float64), k,
-                               precond=pre, **kw)
+    dm = device_sparse(a, dtype=np.float64, device='cpu')
+    lam, x, r, it, st = lobpcg(dm, k, precond=pre, **kw)
     jlam, _, _, jit, jst = jax_lobpcg(
         jax_device_sparse(a, dtype=np.float64), k, precond=jpre, **kw)
     assert st == jst == 0
@@ -101,7 +101,7 @@ def test_bf16_stream_iteration_parity(lap):
     lo, hi = spectral_bounds(a)
     ch = Chebyshev(a, hi * 1e-4, hi, degree=10, device='cpu')
     jch = JaxChebyshev(a, hi * 1e-4, hi, degree=10, arch='tpu')
-    dm = device_sparse(a)
+    dm = device_sparse(a, device='cpu')
     jdm = jax_device_sparse(a)
     for tol, slack in ((1e-4, 0), (1e-5, 16)):
         lam, its = {}, {}
@@ -128,8 +128,8 @@ def test_lobpcg_pencil_matches_jax(pencil, f64_default, case):
     kw = dict(tol=1e-8, maxit=300, x0=x0, dtype=np.float64)
     jA = jax_device_sparse(a, dtype=np.float64)
     jB = jax_device_sparse(b, dtype=np.float64)
-    tA = device_sparse(a, dtype=np.float64)
-    tB = device_sparse(b, dtype=np.float64)
+    tA = device_sparse(a, dtype=np.float64, device='cpu')
+    tB = device_sparse(b, dtype=np.float64, device='cpu')
     k = 6
     if case == 'constraints':
         _, xc, _, _, st = jax_lobpcg(jA, 6, opB=jB, **kw)
@@ -149,7 +149,7 @@ def test_default_block_and_errors(lap):
     a, _, _ = lap
     assert default_block(4, 10 ** 6) == 16
     assert default_block(10, 125000) == 24
-    dm = device_sparse(a)
+    dm = device_sparse(a, device='cpu')
     with pytest.raises(ValueError):
         lobpcg(dm, 6, block_size=4)
     with pytest.raises(NotImplementedError, match='item 13'):
@@ -160,9 +160,10 @@ def test_lobpcg_takes_a_bare_callable(lap, f64_default):
     """A column-layout callable on tensors, with ``n`` given, is the same
     operator as the DIA matrix it wraps."""
     a, exact, x0 = lap
-    dm = device_sparse(a, dtype=np.float64)
+    dm = device_sparse(a, dtype=np.float64, device='cpu')
     kw = dict(tol=1e-8, maxit=300, x0=x0, dtype=np.float64)
     lam, _, _, it, st = lobpcg(dm, 6, **kw)
-    lam2, _, _, it2, st2 = lobpcg(dm.matmat_t, 6, n=a.shape[0], **kw)
+    lam2, _, _, it2, st2 = lobpcg(dm.matmat_t, 6, n=a.shape[0],
+                                  device='cpu', **kw)
     assert st == st2 == 0 and it == it2
     assert _rel(lam2, lam) < 1e-12

@@ -70,7 +70,7 @@ def _jax_reference(kind, a, x, dt):
                                        'scipy'])
 def test_dia_rows_matches_references(lap, reference, dtype):
     a, x = lap
-    dm = DiaMatrix(a, dtype=np.float32)
+    dm = DiaMatrix(a, dtype=np.float32, device='cpu')
     xt = torch.from_numpy(x).to(getattr(torch, dtype))
     y = dm.matmat_rows(xt)
     assert y.dtype == xt.dtype and y.shape == xt.shape
@@ -83,7 +83,7 @@ def test_from_arrays_reproduces_jax_matrix(lap):
     the port's matrix, whose product is the JAX matrix's."""
     a, x = lap
     jd = JaxDia(a)
-    dm = DiaMatrix.from_arrays(jd.offsets, np.asarray(jd.val))
+    dm = DiaMatrix.from_arrays(jd.offsets, np.asarray(jd.val), device='cpu')
     assert dm.offsets == jd.offsets and dm.shape == jd.shape
     assert dm.val.dtype == torch.float32
     want = np.asarray(jd.matmat_rows(jnp.asarray(x)))
@@ -99,7 +99,7 @@ def test_unaligned_n_and_m12(dtype):
     a = lap3d(7, 9, 11, 1.0, 1.0, 1.0)
     x = np.random.RandomState(1).randn(12, a.shape[0]).astype(np.float32)
     xt = torch.from_numpy(x).to(getattr(torch, dtype))
-    y = DiaMatrix(a).matmat_rows(xt)
+    y = DiaMatrix(a, device='cpu').matmat_rows(xt)
     want = (a @ xt.float().numpy().astype(np.float64).T).T
     assert _rel(y.float().numpy(), want) < TOL[dtype]
 
@@ -111,12 +111,13 @@ def test_f64_matrix_and_column_layout(lap, monkeypatch):
     a, x = lap
     x64 = np.random.RandomState(2).randn(a.shape[0], 5)
     monkeypatch.setattr(torch, 'get_default_dtype', lambda: torch.float64)
-    d64 = DiaMatrix(a, dtype=np.float64)
+    d64 = DiaMatrix(a, dtype=np.float64, device='cpu')
     assert d64.val.dtype == torch.float64
     y = d64.matmat_t(torch.from_numpy(x64))
     assert _rel(y.numpy(), a @ x64) < 1e-13
     monkeypatch.setattr(torch, 'get_default_dtype', lambda: torch.float32)
-    assert DiaMatrix(a, dtype=np.float64).val.dtype == torch.float32
+    d32 = DiaMatrix(a, dtype=np.float64, device='cpu')
+    assert d32.val.dtype == torch.float32
 
 
 def test_device_sparse_steering():
@@ -126,10 +127,10 @@ def test_device_sparse_steering():
     import scipy.sparse as scs
     from raleigh_tpu.ops.spmm import device_sparse as jax_device_sparse
     a = lap3d(6, 6, 6, 1.0, 1.0, 1.0)
-    assert isinstance(device_sparse(a), DiaMatrix)
+    assert isinstance(device_sparse(a, device='cpu'), DiaMatrix)
     b = scs.random(1500, 1500, density=0.01, random_state=3)
     b = b + b.T + scs.eye(1500)
-    dm = device_sparse(b)
+    dm = device_sparse(b, device='cpu')
     assert type(dm).__name__ == 'EllMatrix'
     assert type(dm).__name__ == type(jax_device_sparse(b)).__name__
 
@@ -138,7 +139,7 @@ def test_wrapper_uses_plain_version_only_on_cpu(lap):
     """A CPU tensor takes the plain version and counts no launch; a tensor
     on another device is refused, never computed elsewhere."""
     a, x = lap
-    dm = DiaMatrix(a)
+    dm = DiaMatrix(a, device='cpu')
     before = dict(sw.LAUNCHES)
     xt = torch.from_numpy(x)
     y = sw.dia_matmat_rows(dm.val, xt, dm.offsets_t)
@@ -181,7 +182,7 @@ def test_chip_smoke_bf16_bound_rejects_bf16_accumulation(control):
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     a = lap3d(7, 9, 11, 1.0, 1.0, 1.0)
-    dm = DiaMatrix(a)
+    dm = DiaMatrix(a, device='cpu')
     x = torch.from_numpy(np.random.RandomState(4).randn(12, a.shape[0])
                          .astype(np.float32)).to(torch.bfloat16)
     want = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
