@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Four phases; any failure exits non-zero.
+Five phases; any failure exits non-zero.
 
 1. Environment: the card's name and power limit, torch's CUDA version,
    the kernel build from ``raleigh_tpu_torch/csrc`` (one ``nvcc`` per
@@ -34,8 +34,19 @@ Four phases; any failure exits non-zero.
      over the tiles and bf16 products, must fail it.
    * The ELL apply (plain PyTorch, no kernel) on the same flagship in both
      orderings, timed, for the layout rule's constants.
-3. The main paths as a user calls them, each driven with every launch
-   counter set to 0 just before it and read just after.
+   * The two staged-window DIA kernels (sliding window, tile ring) at the
+     tile sweep's shape, lap3d(100,100,128) * 0.125 with m = 32 and m = 16
+     f32 rows, at every tile size the sweep runs.  Tolerance entrywise
+     (``window_excess``): twice the f32 summation error bound of the
+     entry's terms; the control, a bf16 running sum, must fail it.  Both
+     keep the plain version's order of summation, so exact equality is
+     reported as well.
+   * The tiled (per_step 1 and 4) and pipelined (depth 2 and 4) stream
+     kernels on 32 x 1,277,952 f32 at every tile size the copy sweep runs,
+     against ``torch.mul``: exact equality.
+3. The main paths as a user calls them, with no device argument, each
+   driven with every launch counter set to 0 just before it and read just
+   after.
    * ``partial_hevp`` with a degree-12 Chebyshev preconditioner on
      lap3d(100,100,128), 4 smallest to 5e-5, checked against the analytic
      eigenvalues (1e-3 relative) with both DIA launch counters > 0; then
@@ -52,7 +63,11 @@ Four phases; any failure exits non-zero.
    of vectors, computed on the host in f64) and agree on the six
    eigenvalues to 1e-3 relative: the two orderings are one mesh.
    * The stream-rate probe ``ops.stream.stream_rate``.
-4. No module of jax or of the JAX package was loaded.
+4. The two kernel-structure sweeps through their ``main``:
+   ``benches.bench_window_tiles`` (ring, slide, tiles; m = 32, and m = 16
+   for the staged kernels) and ``benches.bench_grid_shapes`` (blockspec,
+   blockspec4, manual2, manual4, grid_stride, torch) at full size.
+5. No module of jax or of the JAX package was loaded.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel's launches on its path, error against plain, times and bound.
@@ -78,6 +93,17 @@ DIA = ('raleigh_tpu_torch/csrc/dia_spmm.cu',
 BSR = ('raleigh_tpu_torch/csrc/bsr_spmm.cu',
        'raleigh_tpu/ops/spmm_pallas.py:91')
 STREAM = ('raleigh_tpu_torch/csrc/stream_scale.cu', 'bench.py:289')
+SLIDE = ('raleigh_tpu_torch/csrc/dia_spmm_slide.cu',
+         'raleigh_tpu/ops/spmm_window.py:224')
+TILES = ('raleigh_tpu_torch/csrc/dia_spmm_tiles.cu',
+         'raleigh_tpu/ops/spmm_window.py:354')
+TILED = ('raleigh_tpu_torch/csrc/stream_probes.cu',
+         'benches/bench_grid_shapes.py:36')
+PIPELINED = ('raleigh_tpu_torch/csrc/stream_probes.cu',
+             'benches/bench_grid_shapes.py:58')
+# the tile each staged-window and stream-probe row of the kernels line is
+# timed at (every tile of the sweeps is held against the plain version)
+ROW_TILE = {'slide': 4096, 'tiles': 10240, 'tiled': 1024, 'pipelined': 8192}
 # data-sheet peaks of one H100 SXM: HBM3 bytes/s, f32 flop/s outside the
 # tensor cores
 PEAK_BYTES = 3.35e12
@@ -104,29 +130,20 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps):
-    """Mean milliseconds of ``fn`` over ``reps`` launches, CUDA events,
-    after a warm-up."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+def time_ms(fn, reps):
+    """Mean milliseconds of ``fn`` over ``reps`` launches on the card: the
+    port's one timer (CUDA events after a warm-up)."""
+    from raleigh_tpu_torch.benches.timing import time_ms as timer
+    return timer(fn, reps)
 
 
-def in_turns(torch, kern, plain, reps):
+def in_turns(kern, plain, reps):
     """(kernel ms, plain ms): the best of two timings each, taken in
     turns plain, kernel, kernel, plain."""
-    tp1 = time_ms(torch, plain, reps)
-    tk1 = time_ms(torch, kern, reps)
-    tk2 = time_ms(torch, kern, reps)
-    tp2 = time_ms(torch, plain, reps)
+    tp1 = time_ms(plain, reps)
+    tk1 = time_ms(kern, reps)
+    tk2 = time_ms(kern, reps)
+    tp2 = time_ms(plain, reps)
     return min(tk1, tk2), min(tp1, tp2)
 
 
@@ -150,7 +167,7 @@ def library_spmm_ms(torch, csr, x, reps):
             torch.from_numpy(csr.data.astype('float32')),
             size=csr.shape, device='cuda')
         xt = x.float().T.contiguous()
-        return time_ms(torch, lambda: torch.sparse.mm(a, xt), reps)
+        return time_ms(lambda: torch.sparse.mm(a, xt), reps)
     except (RuntimeError, NotImplementedError) as e:
         print('  torch.sparse.mm on a CSR tensor is not available: %s'
               % str(e).splitlines()[0])
@@ -169,7 +186,7 @@ def library_bsr_ms(torch, bm, x, reps):
             bm.blocks.to(x.dtype), size=(bm.n_padded, bm.n_padded))
         xt = torch.nn.functional.pad(
             x, (0, bm.n_padded - x.shape[1])).T.contiguous()
-        return time_ms(torch, lambda: a @ xt, reps)
+        return time_ms(lambda: a @ xt, reps)
     except (RuntimeError, NotImplementedError) as e:
         print('  a torch.sparse_bsr_tensor product in %s is not available: '
               '%s' % (x.dtype, str(e).splitlines()[0]))
@@ -286,7 +303,7 @@ def phase_kernels(torch, np, lap3d, DiaMatrix, sw):
 
         def plain():
             sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
-        tk, tp = in_turns(torch, kern, plain, reps)
+        tk, tp = in_turns(kern, plain, reps)
         noff = len(dm.offsets)
         nbytes = noff * n * 4 + noff * 4 + 2 * m * n * x.element_size()
         flops = 2 * m * sum(n - abs(o) for o in dm.offsets)
@@ -328,7 +345,7 @@ def phase_stream(torch, st):
                        st.stream_scale_plain(odd, a)):
         fail('stream kernel differs from torch.mul on an odd length')
     del yk, yp
-    tk, tp = in_turns(torch, lambda: st.stream_scale(x, a),
+    tk, tp = in_turns(lambda: st.stream_scale(x, a),
                       lambda: st.stream_scale_plain(x, a), 50)
     nbytes = 2 * x.numel() * 4
     bound_ms, bound_by = bound(nbytes, x.numel())
@@ -461,7 +478,7 @@ def phase_bsr(torch, np, sp, BsrMatrix, EllMatrix, fe, k_nat, k_rel):
             def plain():
                 sp.bsr_matmat_rows_plain(bm.blocks, bm.block_indptr_t,
                                          bm.block_cols, x, n)
-            tk, tp = in_turns(torch, kern, plain, 20)
+            tk, tp = in_turns(kern, plain, 20)
             nbytes = (bm.blocks.numel() * bm.blocks.element_size()
                       + 4 * (bm.block_cols.numel() + bm.nb + 1)
                       + 2 * m * n * x.element_size())
@@ -493,7 +510,7 @@ def phase_bsr(torch, np, sp, BsrMatrix, EllMatrix, fe, k_nat, k_rel):
     bm = mats['f32']
     check_bsr(torch, sp, bm, x24, 'bsr_spmm_rows_f32_f32 m=24')
     print('bsr_spmm_rows_f32_f32 n=%d m=24: kernel %.4f ms'
-          % (n, time_ms(torch, lambda: bm.matmat_rows(x24), 20)))
+          % (n, time_ms(lambda: bm.matmat_rows(x24), 20)))
     del mats, bm, x24
 
     # awkward shape: n not a multiple of bs, m past one row group, one
@@ -522,7 +539,7 @@ def phase_bsr(torch, np, sp, BsrMatrix, EllMatrix, fe, k_nat, k_rel):
     # the ELL apply (plain PyTorch) on the flagship, both orderings
     for label, k in (('relabelled', k_rel), ("mesher's order", k_nat)):
         em = EllMatrix(k, device='cuda')
-        t = time_ms(torch, lambda: em.matmat_rows(x32), 5)
+        t = time_ms(lambda: em.matmat_rows(x32), 5)
         ell_bytes = em.idx.numel() * 4 + em.val.numel() * 4
         print('ell apply (plain PyTorch) flagship %s: row degree %d, %.1f MB '
               'of idx + val, m=%d: %.4f ms (%.2f Gnnz/s)'
@@ -532,8 +549,178 @@ def phase_bsr(torch, np, sp, BsrMatrix, EllMatrix, fe, k_nat, k_rel):
     return rows
 
 
+def window_excess(torch, sw, val, x, offsets, got, want):
+    """Entrywise |got - want| over the bound for two f32 DIA applies that
+    both sum in f32, in any order: twice the f32 summation error bound of
+    the entry's terms, 2 noff 2^-24 sum_k |val_k x|.  Returns (largest
+    ratio, share of entries above 1)."""
+    terms = sw.dia_matmat_rows_plain(val.abs(), x.abs(), offsets)
+    limit = 2 * len(offsets) * 2.0 ** -24 * terms
+    diff = (got.float() - want.float()).abs()
+    ratio = torch.where(diff == 0, 0.0, diff / limit)   # 0/0 is agreement
+    return ratio.max().item(), (ratio > 1).float().mean().item()
+
+
+def phase_variants(torch, np, lap3d, DiaMatrix, sw, st, wt, gs, lib16):
+    """The staged-window DIA kernels against the plain version at the tile
+    sweep's shape, and the tiled and pipelined stream kernels against
+    ``torch.mul`` at the copy sweep's, at every tile the sweeps run.
+    ``lib16`` is ``torch.sparse.mm``'s time at m = 16, taken before.
+    Returns the kernel rows."""
+    rows = {}
+    gen = torch.Generator('cuda').manual_seed(3)
+    csr = (lap3d(*wt.GRID, 1.0, 1.0, 1.0) * wt.SCALE).tocsr()
+    dm = DiaMatrix(csr, dtype=np.float32, device='cuda')
+    n, noff = dm.shape[0], len(dm.offsets)
+    for m in (wt.M, 16):
+        x = torch.randn((m, n), generator=gen, device='cuda')
+        yp = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
+        control = bf16_controls(torch, dm.val, x,
+                                dm.offsets_t)['bf16 running sum']
+        cworst, cshare = window_excess(torch, sw, dm.val, x, dm.offsets_t,
+                                       control, yp)
+        print('  control (bf16 running sum) vs plain, m=%d: %.4f of the '
+              'entries beyond the bound (worst %.1f times it)'
+              % (m, cshare, cworst))
+        if cworst <= 1:
+            fail('the f32 window bound passes the bf16 running sum')
+        del control
+        lib = lib16 if m == 16 else library_spmm_ms(torch, csr, x, 10)
+        nbytes = noff * n * 4 + noff * 4 + 2 * m * n * 4
+        flops = 2 * m * sum(n - abs(o) for o in dm.offsets)
+        bound_ms, bound_by = bound(nbytes, flops)
+        for name, src in (('slide', SLIDE), ('tiles', TILES)):
+            fn = sw.VARIANTS[name]
+            for tile in wt.DEFAULT_TILES[name]:
+                yk = fn(dm.val, x, dm.offsets, tile)
+                torch.cuda.synchronize()
+                if yk.dtype != torch.float32 or yk.shape != (m, n):
+                    fail('%s output %s %s' % (name, yk.dtype,
+                                              tuple(yk.shape)))
+                if not torch.isfinite(yk).all():
+                    fail('%s tile %d m=%d: non-finite output'
+                         % (name, tile, m))
+                worst, share = window_excess(torch, sw, dm.val, x,
+                                             dm.offsets_t, yk, yp)
+                if worst > 1:
+                    fail('%s tile %d m=%d: %.3e of the entries beyond the '
+                         'bound (worst %.2f times it)'
+                         % (name, tile, m, share, worst))
+                diff = (yk - yp).abs().max().item()
+                print('dia_spmm %s tile %d n=%d m=%d: max abs err %.3e '
+                      '(worst %.3f of the bound)%s'
+                      % (name, tile, n, m, diff, worst,
+                         ', equal to plain bit for bit'
+                         if torch.equal(yk, yp) else ''))
+                del yk
+                if tile != ROW_TILE[name]:
+                    continue
+                tk, tp = in_turns(
+                    lambda: fn(dm.val, x, dm.offsets, tile),
+                    lambda: sw.dia_matmat_rows_plain(dm.val, x,
+                                                     dm.offsets_t), 50)
+                key = 'dia_spmm_rows_%s_f32' % name + (
+                    '' if m == wt.M else '_m%d' % m)
+                print('%s tile %d n=%d m=%d: kernel %.4f ms (%.0f GB/s), '
+                      'plain %.4f ms, torch.sparse.mm %s, bound %.4f ms (%s)'
+                      % (key, tile, n, m, tk, nbytes / tk / 1e6, tp,
+                         fmt_ms(lib), bound_ms, bound_by))
+                rows[key] = dict(
+                    name=key, route='cuda', source=src[0], replaces=src[1],
+                    launches=0, max_abs_err=diff, ms=tk, plain_ms=tp,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+                    bytes=nbytes)
+        del x, yp
+    del dm
+
+    x = torch.randn(st.REFERENCE_SHAPE, generator=gen, device='cuda')
+    a = st.REFERENCE_SCALE
+    probes = [('stream_scale_tiled_per_step%d' % ps, TILED, gs.TILED_TILES,
+               ROW_TILE['tiled'], ps,
+               lambda xs, t, ps=ps: st.stream_scale_tiled(xs, a, t, ps))
+              for ps in (1, 4)]
+    probes += [('stream_scale_pipelined_depth%d' % d, PIPELINED,
+                gs.PIPELINED_TILES, ROW_TILE['pipelined'], 1,
+                lambda xs, t, d=d: st.stream_scale_pipelined(xs, a, t, d))
+               for d in st.PIPELINE_DEPTHS]
+    for key, src, tiles, row_tile, per_step, fn in probes:
+        for tile in tiles:
+            # whole blocks only: the copy sweep trims n the same way
+            cut = x.shape[1] - x.shape[1] % (tile * per_step)
+            xs = x if cut == x.shape[1] else x[:, :cut].contiguous()
+            yk = fn(xs, tile)
+            yp = st.stream_scale_plain(xs, a)
+            torch.cuda.synchronize()
+            diff = (yk - yp).abs().max().item()
+            if not torch.equal(yk, yp):
+                fail('%s tile %d differs from torch.mul (max abs %.3e)'
+                     % (key, tile, diff))
+            del yk, yp
+            if tile != row_tile:
+                continue
+            tk, tp = in_turns(lambda: fn(xs, tile),
+                              lambda: st.stream_scale_plain(xs, a), 50)
+            nbytes = 2 * xs.numel() * 4
+            bound_ms, bound_by = bound(nbytes, xs.numel())
+            print('%s tile %d %s f32: equal to torch.mul at every tile of '
+                  '%s, kernel %.4f ms (%.0f GB/s), torch.mul %.4f ms '
+                  '(%.0f GB/s), bound %.4f ms (%s)'
+                  % (key, tile, tuple(xs.shape), tiles, tk,
+                     nbytes / tk / 1e6, tp, nbytes / tp / 1e6, bound_ms,
+                     bound_by))
+            rows[key] = dict(
+                name=key, route='cuda', source=src[0], replaces=src[1],
+                launches=0, max_abs_err=diff, ms=tk, plain_ms=tp,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=tp,
+                bytes=nbytes)
+    return rows
+
+
+def phase_sweeps(mods, rows, card, wt, gs):
+    """The two kernel-structure sweeps as a user runs them: ``main`` with
+    no device argument, at full size.  Each call is one path: the launch
+    counters are set to 0 just before it and read just after."""
+    sw, _, st = mods
+
+    def drive(main, argv, counter, key, row):
+        reset_counters(mods)
+        lines = main(argv)
+        launches = counter[key]
+        if launches <= 0:
+            fail('the sweep %s launched %s no time' % (argv, key))
+        if not all(line['ms'] > 0 for line in lines):
+            fail('the sweep %s printed a time that is not positive' % argv)
+        if row is not None:
+            rows[row]['launches'] = launches
+        print('sweep %s: %d launches of %s [%s]'
+              % (' '.join(argv), launches, key, card))
+
+    drive(wt.main, ['ring'], sw.LAUNCHES, 'float32', None)
+    for name in ('slide', 'tiles'):
+        drive(wt.main, [name], sw.LAUNCHES, name,
+              'dia_spmm_rows_%s_f32' % name)
+        drive(wt.main, [name, '--m', '16'], sw.LAUNCHES, name,
+              'dia_spmm_rows_%s_f32_m16' % name)
+    drive(gs.main, ['blockspec'], st.LAUNCHES, 'tiled',
+          'stream_scale_tiled_per_step1')
+    drive(gs.main, ['blockspec4'], st.LAUNCHES, 'tiled',
+          'stream_scale_tiled_per_step4')
+    for depth in st.PIPELINE_DEPTHS:
+        drive(gs.main, ['manual%d' % depth], st.LAUNCHES,
+              'pipelined_depth%d' % depth,
+              'stream_scale_pipelined_depth%d' % depth)
+    drive(gs.main, ['grid_stride', 'torch'], st.LAUNCHES, 'float32', None)
+    try:
+        gs.main(['hbm2hbm'])
+    except NotImplementedError as e:
+        print('sweep hbm2hbm: %s' % e)
+    else:
+        fail('the copy sweep ran hbm2hbm, which has no kernel yet')
+
+
 def solve(torch, partial_hevp, a, T, which, tol, b=None):
-    """One partial_hevp call on the card: (lmd, x, status, iterations,
+    """One partial_hevp call with no device argument, so on the card:
+    (lmd, x, status, iterations,
     wall seconds, LOBPCG seconds).  The difference of the two times is
     partial_hevp's own set-up; A's device matrix is the preconditioner's,
     built before."""
@@ -542,7 +729,7 @@ def solve(torch, partial_hevp, a, T, which, tol, b=None):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         lmd, x, status = partial_hevp(a, B=b, T=T, which=which, tol=tol,
-                                      verb=0, arch='gpu')
+                                      verb=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     found = re.findall(r'iterations: (\d+), solve time: (\S+)',
@@ -619,13 +806,14 @@ def phase_lap3d(torch, np, mods, rows, card, profile=False):
             reset_counters(mods)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ch = Chebyshev(a, lo, hi, degree=degree, arch='gpu')
+        ch = Chebyshev(a, lo, hi, degree=degree)
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
         lmd, x, st, its, cold, _ = solve(torch, partial_hevp, a, ch, which,
                                          tol)
         if first:
-            launches = dict(sw.LAUNCHES)
+            launches = {key: sw.LAUNCHES[key]
+                        for key in ('float32', 'bfloat16')}
             if min(launches.values()) <= 0:
                 fail('main path skipped a kernel: launches %s' % launches)
             rows['dia_spmm_rows_f32']['launches'] = launches['float32']
@@ -693,7 +881,7 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
     reset_counters(mods)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ch = Chebyshev(k_rel, hi * 1e-4, hi, degree=degree, arch='gpu')
+    ch = Chebyshev(k_rel, hi * 1e-4, hi, degree=degree)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     layout = type(ch.device_matrix()).__name__
@@ -814,6 +1002,8 @@ def main():
         return 1
     import numpy as np
 
+    from raleigh_tpu_torch.benches import bench_grid_shapes as gs
+    from raleigh_tpu_torch.benches import bench_window_tiles as wt
     from raleigh_tpu_torch.examples import fe_model as fe
     from raleigh_tpu_torch.examples.laplace import lap3d
     from raleigh_tpu_torch.ops import _build
@@ -827,6 +1017,9 @@ def main():
     card = phase_environment(torch, _build)
     rows = phase_kernels(torch, np, lap3d, DiaMatrix, sw)
     rows['stream_scale_f32'] = phase_stream(torch, st)
+    rows.update(phase_variants(
+        torch, np, lap3d, DiaMatrix, sw, st, wt, gs,
+        rows['dia_spmm_rows_f32']['library_ms']))
     t0 = time.perf_counter()
     pencils = (fe.shipsec_like(), fe.shipsec_like(relabel=False))
     print('shipsec_like() in both orderings: n=%d, nnz=%d, built in %.1f s'
@@ -837,6 +1030,7 @@ def main():
     phase_lap3d(torch, np, mods, rows, card, profile)
     phase_fe(torch, np, mods, rows, card, pencils, profile)
     rate = phase_stream_rate(mods, rows, card)
+    phase_sweeps(mods, rows, card, wt, gs)
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in ('jax', 'jaxlib', 'raleigh_tpu'))
     if loaded:
@@ -846,10 +1040,11 @@ def main():
         if row['launches'] <= 0:
             fail('%s was launched no time on its path' % row['name'])
         nbytes = row.pop('bytes')
-        print('%s: %.4f ms on %d launches; bound %.4f ms by %s at the data '
-              'sheet, %.4f ms at the measured stream rate; plain %.4f ms; '
-              'library %s [%s]'
-              % (row['name'], row['ms'], row['launches'], row['bound_ms'],
+        print('%s: %.4f ms (%.0f GB/s effective) on %d launches; bound '
+              '%.4f ms by %s at the data sheet, %.4f ms at the measured '
+              'stream rate; plain %.4f ms; library %s [%s]'
+              % (row['name'], row['ms'], nbytes / row['ms'] / 1e6,
+                 row['launches'], row['bound_ms'],
                  row['bound_by'], nbytes / rate * 1e3, row['plain_ms'],
                  fmt_ms(row['library_ms']), card))
     print(card)

@@ -10,6 +10,8 @@ and BSR SpMM through a CUDA kernel written for Hopper.
   algebra/      SparseSymmetricMatrix, spectral_bounds, Chebyshev, Operator
   ops/          DIA, ELL and BSR SpMM, the layout rule, the stream-rate
                 probe: CUDA kernel wrappers, plain PyTorch versions, build
+  benches/      the kernel-structure A/B sweeps (three structures of the
+                DIA SpMM, four of the streaming copy) and the one timer
   csrc/         CUDA C++ sources (built with nvcc at first use)
   examples/     test matrices: Laplacians, finite-element pencils
 

@@ -23,22 +23,23 @@ from ..ops.spmm import (_device_layout, _to_full_csr, rows_matmat_operands,
                         storage_device, torch_dtype)
 
 
-def resolve_device(arch='cpu', device=None):
+def resolve_device(arch=None, device=None):
     """The torch.device the device engines run on, or None for the host.
-    ``device`` names it; otherwise arch 'gpu' means CUDA.  A CUDA device
-    with no card raises: nothing falls back to the CPU."""
-    if device is None:
-        if arch != 'gpu':
-            return None
+    ``device`` names it; otherwise the card, unless ``arch='cpu'`` asks for
+    the host.  A CUDA device with no card raises: nothing falls back to
+    the CPU."""
+    if device is None and arch == 'cpu':
+        return None
     return storage_device(device)
 
 
 class SparseSymmetricMatrix:
     """y = A x for blocks of row-vectors; A real symmetric in any SciPy
-    sparse format.  A device arch or ``device`` builds the device matrix
-    as well."""
+    sparse format.  The device matrix is built as well, on the card
+    unless ``device`` names another device; ``arch='cpu'`` keeps the
+    matrix on the host alone."""
 
-    def __init__(self, matrix, arch='cpu', dtype=None, bs=128, device=None):
+    def __init__(self, matrix, arch=None, dtype=None, bs=128, device=None):
         a = scs.csr_matrix(matrix)
         if dtype is not None:
             a = a.astype(dtype)
@@ -75,7 +76,7 @@ class SparseSymmetricMatrix:
         if isinstance(x, torch.Tensor):
             if self.__dev is None:
                 raise ValueError('tensor operand but no device matrix: '
-                                 "build with arch='gpu' or device=")
+                                 "build without arch='cpu'")
             y.copy_(self.__dev.matmat_rows(x))
             return
         y[...] = self.__csr_full.dot(np.asarray(x).T).T
@@ -138,13 +139,17 @@ class Chebyshev:
     is kept as given, so ``partial_hevp`` can tell when A's device matrix
     is already built."""
 
-    def __init__(self, matrix, lo, hi, degree=8, arch='cpu',
+    def __init__(self, matrix, lo, hi, degree=8, arch=None,
                  device_matrix=None, device=None):
-        """``device_matrix`` (optional): a device sparse matrix built
+        """The matrix's device matrix is built on the card unless
+        ``device`` names another device or ``arch='cpu'`` the host.
+        ``device_matrix`` (optional): a device sparse matrix built
         before (ops/spmm.py) that the recurrence uses instead of building
         its own — a ``BsrMatrix`` made by hand, say, which
         ``device_sparse`` would not choose."""
         self.matrix = matrix
+        if device_matrix is not None and device is None and arch is None:
+            arch = 'cpu'    # the recurrence runs on device_matrix alone
         self.__op = (matrix if isinstance(matrix, SparseSymmetricMatrix)
                      else SparseSymmetricMatrix(matrix, arch=arch,
                                                 device=device))

@@ -21,14 +21,15 @@ from ..ops.spmm import canonical_dtype
 
 
 def partial_hevp(A, B=None, T=None, buckling=False, sigma=0, which=6,
-                 tol=1e-4, verb=0, opt=None, arch='cpu', engine='auto',
+                 tol=1e-4, verb=0, opt=None, arch=None, engine='auto',
                  device=None):
     """Compute the ``which`` smallest eigenpairs of the sparse symmetric
     problem A x = λ x (or A x = λ B x, B positive definite) with the
     preconditioner ``T`` (a ``Chebyshev``).
 
-    ``arch='gpu'`` runs on CUDA and raises when there is no card;
-    ``device`` names the device explicitly (``'cpu'`` included).
+    The solve runs on CUDA and raises when there is no card, unless
+    ``device`` names another device (``'cpu'`` included); ``arch='cpu'``
+    asks for the host-orchestrated path, which is not ported yet.
     ``engine``: 'auto' and 'device' both select the device LOBPCG engine.
 
     Returns (lmd, x, status): status 0 = converged, 2 = iteration limit,
@@ -60,8 +61,8 @@ def partial_hevp(A, B=None, T=None, buckling=False, sigma=0, which=6,
     if dev is not None and hasattr(T, 'device_rows_operands'):
         return _device_path(A, B, T, which, tol, verb, opt, dev)
     if engine == 'device':
-        raise ValueError("engine='device' needs a device (arch='gpu' or "
-                         'device=) and a Chebyshev preconditioner')
+        raise ValueError("engine='device' needs a device (not arch='cpu') "
+                         'and a Chebyshev preconditioner')
     raise NotImplementedError('the host-orchestrated path (core Solver) '
                               'is not ported yet (ROADMAP queue 1, item 3)')
 

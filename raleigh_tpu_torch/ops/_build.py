@@ -27,15 +27,25 @@ BUILD_DIR = _PKG / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
+# bytes of shared memory one thread block can use on an H100 (227 KB); the
+# wrappers of the kernels that size their shared memory at launch check
+# against it, on the CPU too
+SMEM_PER_BLOCK = 232448
+
 # C entry points by source, with their argument types: every pointer (and
 # the stream) as c_void_p, sizes as 64-bit ints, the device ordinal as int
 _DIA_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
              + [ctypes.c_int, ctypes.c_void_p])
 _BSR_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3
              + [ctypes.c_int, ctypes.c_void_p])
+# val, x, y, host offsets; noff, m, n, tile; rows per block, device; stream
+_WINDOW_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4
+                + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 _SIGNATURES = {
     'dia_spmm': {'dia_spmm_rows_f32': _DIA_ARGS,
                  'dia_spmm_rows_bf16': _DIA_ARGS},
+    'dia_spmm_slide': {'dia_spmm_rows_slide_f32': _WINDOW_ARGS},
+    'dia_spmm_tiles': {'dia_spmm_rows_tiles_f32': _WINDOW_ARGS},
     'bsr_spmm': {'bsr_spmm_rows_f32_f32': _BSR_ARGS,
                  'bsr_spmm_rows_f32_bf16': _BSR_ARGS,
                  'bsr_spmm_rows_bf16_f32': _BSR_ARGS,
@@ -43,6 +53,15 @@ _SIGNATURES = {
     'stream_scale': {'stream_scale_f32': [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int64,
         ctypes.c_int, ctypes.c_void_p]},
+    'stream_probes': {
+        # x, y, a, count, chunk, device, stream
+        'stream_scale_tiled_f32': [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
+        # x, y, a, count, tile, depth, device, stream
+        'stream_scale_pipelined_f32': [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]},
 }
 
 _loaded = {}

@@ -55,7 +55,7 @@ def storage_device(device=None):
     device = torch.device('cuda' if device is None else device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('%s was asked for, but torch finds no CUDA '
-                           "device (pass device=None to stay on the host)"
+                           "device (pass device='cpu' to run on the CPU)"
                            % device)
     return device
 

@@ -13,14 +13,37 @@ takes any shape.
 ``val`` (noff, n), ``x`` (m, n), ``offsets`` an int32 (noff,) tensor on
 the same device.  On a CUDA tensor the wrapper launches the kernel (x f32
 or bf16, val f32) or raises; only a CPU tensor takes the plain version.
+
+Two more kernels compute the same function for f32 operands, each through
+an explicitly staged shared-memory window that reads x from device memory
+once.  They are the A/B partners of the production kernel in
+``benches/bench_window_tiles.py`` and serve no solver:
+
+  * ``dia_matmat_rows_slide`` (``csrc/dia_spmm_slide.cu``) replaces
+    ``build_dia_window_slide``: one circular window of tile + reach lanes
+    per row, the next tile's lanes in flight while a tile is computed;
+  * ``dia_matmat_rows_tiles`` (``csrc/dia_spmm_tiles.cu``) replaces
+    ``build_dia_window_tiles``: a ring of four whole tiles per row and no
+    halo, for max|offset| <= tile.
+
+Their ``offsets`` are host ints (``DiaMatrix.offsets``): the launch sizes
+its shared memory from them, and the kernel takes them as an argument.
 """
+
+import ctypes
 
 import torch
 
 from . import _build
 
-# kernel launches per operand dtype, counted where the kernel is launched
-LAUNCHES = {'float32': 0, 'bfloat16': 0}
+# kernel launches, counted where the kernel is launched: the production
+# kernel per operand dtype, and the two staged-window kernels
+LAUNCHES = {'float32': 0, 'bfloat16': 0, 'slide': 0, 'tiles': 0}
+
+# operand rows a block of a staged-window kernel can own, and the most
+# diagonals it takes (they travel as a kernel argument)
+ROWS_PER_BLOCK = (8, 4, 2, 1)
+MAX_WINDOW_OFFSETS = 128
 
 _ENTRY = {torch.float32: ('float32', 'dia_spmm_rows_f32'),
           torch.bfloat16: ('bfloat16', 'dia_spmm_rows_bf16')}
@@ -32,13 +55,16 @@ def reset_launches():
 
 
 def dia_matmat_rows_plain(val, x, offsets):
-    """Plain PyTorch DIA row apply, any device and dtype.  Accumulates in
+    """Plain PyTorch DIA row apply, any device and dtype; ``offsets`` a
+    tensor or a sequence of ints.  Accumulates in
     the promoted type of val and x (f32 for bf16 operands with f32
     values), adding the diagonals in order, and returns x's dtype."""
     m, n = x.shape
     y = torch.zeros((m, n), dtype=torch.promote_types(val.dtype, x.dtype),
                     device=x.device)
-    for k, off in enumerate(offsets.tolist()):
+    if isinstance(offsets, torch.Tensor):
+        offsets = offsets.tolist()
+    for k, off in enumerate(offsets):
         lo, hi = max(0, -off), min(n, n - off)
         if lo < hi:
             y[:, lo:hi] += val[k, lo:hi] * x[:, lo + off:hi + off]
@@ -88,3 +114,107 @@ def dia_matmat_rows(val, x, offsets):
         raise RuntimeError('DIA kernel launch failed: CUDA error %d' % err)
     LAUNCHES[key] += 1
     return y
+
+
+def _rows_per_block(m, lanes, what):
+    """The most operand rows (of ``ROWS_PER_BLOCK``, no more than m needs)
+    whose windows of ``lanes`` f32 lanes each fit one block's shared
+    memory; raises when one row does not fit."""
+    for rows in ROWS_PER_BLOCK:
+        fits = rows * lanes * 4 <= _build.SMEM_PER_BLOCK
+        if fits and (rows == 1 or rows < 2 * m):
+            return rows
+    raise ValueError('%s: one row\'s window of %d lanes takes %d bytes of '
+                     'shared memory; a block has %d'
+                     % (what, lanes, lanes * 4,
+                        _build.SMEM_PER_BLOCK))
+
+
+def _staged(entry, key, val, x, offsets, tile, lanes):
+    """Checks, then the staged-window kernel ``entry`` with as many rows
+    per block as ``lanes`` window lanes per row allow, or the plain version
+    for CPU tensors."""
+    if not val.device == x.device:
+        raise ValueError('val and x must share a device (got %s, %s)'
+                         % (val.device, x.device))
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError('no DIA apply for device %s' % x.device)
+    if x.dtype != torch.float32 or val.dtype != torch.float32:
+        raise TypeError('the staged-window DIA kernels take f32 values and '
+                        'operands (got %s, %s)' % (val.dtype, x.dtype))
+    if (val.dim() != 2 or x.dim() != 2 or val.shape[1] != x.shape[1]
+            or len(offsets) != val.shape[0]):
+        raise ValueError('shape mismatch: val %s, x %s, %d offsets'
+                         % (tuple(val.shape), tuple(x.shape), len(offsets)))
+    if not (val.is_contiguous() and x.is_contiguous()):
+        raise ValueError('the DIA kernels take contiguous tensors')
+    if len(offsets) > MAX_WINDOW_OFFSETS:
+        raise ValueError('the staged-window DIA kernels take at most %d '
+                         'diagonals, got %d'
+                         % (MAX_WINDOW_OFFSETS, len(offsets)))
+    m, n = x.shape
+    rows = _rows_per_block(m, lanes, key)
+    if x.device.type == 'cpu':
+        return dia_matmat_rows_plain(val, x, offsets)
+    y = torch.empty_like(x)
+    if m == 0 or n == 0:
+        return y
+    host_offsets = (ctypes.c_int * len(offsets))(*offsets)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = getattr(_build.library(), entry)(
+        val.data_ptr(), x.data_ptr(), y.data_ptr(), host_offsets,
+        len(offsets), m, n, tile, rows, x.device.index, stream)
+    if err != 0:
+        raise RuntimeError('%s DIA kernel launch failed: CUDA error %d'
+                           % (key, err))
+    LAUNCHES[key] += 1
+    return y
+
+
+def _host_offsets(offsets, tile):
+    """(offsets as a tuple of ints, tile as an int)."""
+    tile = int(tile)
+    if tile < 1:
+        raise ValueError('tile must be at least 1 lane, got %d' % tile)
+    return tuple(int(o) for o in offsets), tile
+
+
+def dia_matmat_rows_slide(val, x, offsets, tile):
+    """(m, n) = DIA matrix applied to the f32 (m, n) row block ``x`` through
+    one sliding shared-memory window per row, ``tile`` lanes per step.
+    ``offsets``: the diagonals as host ints.  A row's window holds
+    reach + 2 * tile lanes (reach = the offsets' extent to the left plus to
+    the right); if that does not fit a block's shared memory, raises
+    ``ValueError``."""
+    offsets, tile = _host_offsets(offsets, tile)
+    reach = max(0, -min(offsets, default=0)) + max(0, max(offsets, default=0))
+    return _staged('dia_spmm_rows_slide_f32', 'slide', val, x, offsets, tile,
+                   reach + 2 * tile)
+
+
+def dia_matmat_rows_tiles(val, x, offsets, tile):
+    """(m, n) = DIA matrix applied to the f32 (m, n) row block ``x`` through
+    a shared-memory ring of four whole tiles of ``tile`` lanes per row, with
+    no halo.  ``offsets``: the diagonals as host ints, none larger than
+    ``tile`` in size.  If four tiles do not fit a block's shared memory,
+    raises ``ValueError``."""
+    offsets, tile = _host_offsets(offsets, tile)
+    if max((abs(o) for o in offsets), default=0) > tile:
+        raise ValueError('tile-ring kernel needs max|offset| <= tile (got '
+                         '%d > %d)' % (max(abs(o) for o in offsets), tile))
+    return _staged('dia_spmm_rows_tiles_f32', 'tiles', val, x, offsets, tile,
+                   4 * tile)
+
+
+def _ring(val, x, offsets, tile=None):
+    """The production kernel in the variants' signature: it has no tile
+    parameter, and takes its offsets as a tensor on x's device."""
+    if not isinstance(offsets, torch.Tensor):
+        offsets = torch.tensor(offsets, dtype=torch.int32, device=x.device)
+    return dia_matmat_rows(val, x, offsets)
+
+
+# the three structures of one function, by the names the JAX package's
+# tile sweep gives them
+VARIANTS = {'ring': _ring, 'slide': dia_matmat_rows_slide,
+            'tiles': dia_matmat_rows_tiles}

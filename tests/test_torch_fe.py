@@ -265,25 +265,40 @@ def test_device_sparse_gives_the_reference_layout(case):
 
 
 @pytest.mark.parametrize('entry', ['DiaMatrix', 'EllMatrix', 'BsrMatrix',
-                                   'device_sparse', 'lobpcg'])
+                                   'device_sparse', 'lobpcg',
+                                   'SparseSymmetricMatrix', 'Chebyshev',
+                                   'partial_hevp'])
 def test_entry_points_default_to_the_card(entry):
-    """With no ``device`` a layout is built on the card and a bare
-    operator is iterated there; with no card that raises, and nothing
-    runs on the CPU unasked."""
+    """With no ``device`` a layout is built on the card, a bare operator
+    is iterated there and ``partial_hevp`` solves there; with no card that
+    raises, and nothing runs on the CPU unasked."""
     a = laplace.lap3d(5, 5, 5, 1.0, 1.0, 1.0)
-    if entry == 'lobpcg':
-        def run():
-            return lobpcg(lambda xt: xt, 2, n=a.shape[0])[1]
-    else:
-        def run():
-            return getattr(rt, entry)(a).device
+
+    def build(**kw):
+        if entry == 'lobpcg':
+            return lobpcg(lambda xt: xt, 2, n=a.shape[0], **kw)[1]
+        if entry == 'SparseSymmetricMatrix':
+            return SparseSymmetricMatrix(a, **kw).device_matrix()
+        if entry == 'Chebyshev':
+            return Chebyshev(a, 0.1, 13.0, **kw).device_matrix()
+        if entry == 'partial_hevp':
+            T = Chebyshev(a, 0.1, 13.0, device=kw.get('device', 'cpu'))
+            return rt.partial_hevp(a, T=T, which=2, verb=-1, **kw)[1]
+        return getattr(rt, entry)(a, **kw)
+
     if torch.cuda.is_available():
-        run()
+        build()
     else:
         with pytest.raises(RuntimeError, match='no CUDA device'):
-            run()
-    if entry != 'lobpcg':
-        assert getattr(rt, entry)(a, device='cpu').device.type == 'cpu'
+            build()
+    on_cpu = build(device='cpu')
+    if entry in ('lobpcg', 'partial_hevp'):
+        assert np.all(np.isfinite(on_cpu))
+    else:
+        assert on_cpu.device.type == 'cpu'
+    if entry in ('SparseSymmetricMatrix', 'Chebyshev'):
+        # arch='cpu' keeps its meaning: the host CSR and no device matrix
+        assert build(arch='cpu') is None
 
 
 def test_sparse_symmetric_matrix_any_layout(pencil):

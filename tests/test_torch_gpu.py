@@ -1,5 +1,6 @@
-"""The CUDA kernels (DIA SpMM, BSR SpMM, stream scale) against their plain
-PyTorch versions on the card.
+"""The CUDA kernels (DIA SpMM in its three structures, BSR SpMM, stream
+scale in its three structures) against their plain PyTorch versions on the
+card.
 
 Marked ``gpu``: without a CUDA device every test here skips (the fixture
 decides, so every pytest-xdist worker collects the same tests).  Run on a
@@ -12,8 +13,9 @@ accumulate in f32); bf16, the entrywise bound of ``chip_smoke.bf16_excess``
 (one bf16 rounding on either side plus the f32 summation error bound),
 which a bf16 running sum or bf16 products fail.  BSR: the entrywise bound
 of ``chip_smoke.bsr_excess`` (twice the f32 summation error bound of an
-entry's terms, plus one rounding on either side for a bf16 result).  Stream:
-exact equality with ``torch.mul``.
+entry's terms, plus one rounding on either side for a bf16 result).  Stream
+kernels: exact equality with ``torch.mul``.  The staged-window DIA kernels
+keep the plain version's order of summation: exact equality.
 """
 
 import importlib.util
@@ -200,3 +202,109 @@ def test_stream_kernel_equals_torch_mul(cuda, count, offset):
     assert st.LAUNCHES['float32'] == before + 1
     with pytest.raises(TypeError, match='f32'):
         st.stream_scale(x.double(), 2.0)
+
+
+@pytest.mark.parametrize('variant', ['slide', 'tiles'])
+@pytest.mark.parametrize('shape,m,tile', [
+    ((8, 8, 16), 8, 256),       # aligned n, two rows of tiles
+    ((7, 9, 11), 5, 100),       # n = 693, not a multiple of 4; ragged tile
+    ((7, 9, 11), 5, 64),        # tiles: max|offset| = 63 just fits
+    ((30, 30, 31), 3, 1000),    # n = 27,900: many segments, m below a group
+    ((30, 30, 31), 16, 4096),   # two row groups
+    ((6, 6, 6), 1, 5000),       # one tile wider than the vector
+])
+def test_staged_window_kernels_equal_plain(cuda, variant, shape, m, tile):
+    """The sliding-window and tile-ring kernels against the plain version
+    at odd shapes: they sum the diagonals in its order, so they are equal
+    bit for bit."""
+    dm = DiaMatrix(lap3d(*shape, 1.0, 1.0, 1.0), device=cuda)
+    g = torch.Generator(cuda).manual_seed(3)
+    x = torch.randn((m, dm.shape[0]), generator=g, device=cuda)
+    before = sw.LAUNCHES[variant]
+    y = sw.VARIANTS[variant](dm.val, x, dm.offsets, tile)
+    want = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
+    torch.cuda.synchronize()
+    assert sw.LAUNCHES[variant] == before + 1
+    assert y.dtype == torch.float32 and y.shape == x.shape
+    assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize('variant', ['slide', 'tiles'])
+def test_staged_window_kernels_unsymmetric_offsets(cuda, variant):
+    """Random values on an unsymmetric offset set, offsets past either end
+    of the vector included."""
+    n = 1003
+    offs, val = _banded(n, [-700, -31, -2, 0, 1, 5, 64, 1100], 2)
+    tile = 1100 if variant == 'tiles' else 128
+    dm = DiaMatrix.from_arrays(offs, val, device=cuda)
+    x = torch.randn((5, n), device=cuda)
+    y = sw.VARIANTS[variant](dm.val, x, dm.offsets, tile)
+    want = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
+
+
+def test_staged_window_kernels_refuse_what_they_cannot_take(cuda):
+    dm = DiaMatrix(lap3d(6, 6, 6, 1.0, 1.0, 1.0), device=cuda)
+    x = torch.randn((5, dm.shape[0]), device=cuda)
+    with pytest.raises(ValueError, match='max.offset. <= tile'):
+        sw.dia_matmat_rows_tiles(dm.val, x, dm.offsets, 35)
+    with pytest.raises(ValueError, match='shared memory'):
+        sw.dia_matmat_rows_tiles(dm.val, x, dm.offsets, 20000)
+    with pytest.raises(ValueError, match='shared memory'):
+        sw.dia_matmat_rows_slide(dm.val, x, dm.offsets, 40000)
+    with pytest.raises(ValueError, match='at least 1'):
+        sw.dia_matmat_rows_slide(dm.val, x, dm.offsets, 0)
+    with pytest.raises(TypeError, match='f32'):
+        sw.dia_matmat_rows_slide(dm.val, x.bfloat16(), dm.offsets, 64)
+    with pytest.raises(ValueError, match='device'):
+        sw.dia_matmat_rows_tiles(dm.val.cpu(), x, dm.offsets, 64)
+
+
+@pytest.mark.parametrize('per_step', [1, 4])
+@pytest.mark.parametrize('m,n,tile', [(5, 4096, 1024), (5, 1000, 8),
+                                      (3, 40 * 52, 52), (1, 16, 4)])
+def test_tiled_stream_kernel_equals_torch_mul(cuda, m, n, tile, per_step):
+    g = torch.Generator(cuda).manual_seed(1)
+    n -= n % (tile * per_step)
+    x = torch.randn((m, n), generator=g, device=cuda)
+    before = st.LAUNCHES['tiled']
+    y = st.stream_scale_tiled(x, st.REFERENCE_SCALE, tile, per_step)
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.mul(x, st.REFERENCE_SCALE))
+    assert st.LAUNCHES['tiled'] == before + 1
+
+
+@pytest.mark.parametrize('depth', [2, 4])
+@pytest.mark.parametrize('m,n,tile', [(5, 4096, 1024), (5, 1000, 8),
+                                      (3, 40 * 52, 52), (1, 16, 4),
+                                      (32, 1 << 16, 8192)])
+def test_pipelined_stream_kernel_equals_torch_mul(cuda, m, n, tile, depth):
+    """Fewer chunks than blocks, more chunks than blocks with an uneven
+    share, and a single chunk."""
+    g = torch.Generator(cuda).manual_seed(1)
+    x = torch.randn((m, n), generator=g, device=cuda)
+    key = 'pipelined_depth%d' % depth
+    before = st.LAUNCHES[key]
+    y = st.stream_scale_pipelined(x, st.REFERENCE_SCALE, tile, depth)
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.mul(x, st.REFERENCE_SCALE))
+    assert st.LAUNCHES[key] == before + 1
+
+
+def test_stream_probes_refuse_what_they_cannot_take(cuda):
+    x = torch.randn((5, 1000), device=cuda)
+    with pytest.raises(ValueError, match='multiple of tile'):
+        st.stream_scale_tiled(x, 2.0, 16)
+    with pytest.raises(ValueError, match='multiple of 4'):
+        st.stream_scale_tiled(x, 2.0, 10)
+    with pytest.raises(ValueError, match='depth'):
+        st.stream_scale_pipelined(x, 2.0, 8, 3)
+    with pytest.raises(ValueError, match='shared memory'):
+        st.stream_scale_pipelined(torch.zeros((1, 1 << 17), device=cuda),
+                                  2.0, 1 << 16, 4)
+    with pytest.raises(ValueError, match='aligned'):
+        st.stream_scale_pipelined(x.reshape(-1)[1:801].reshape(1, 800), 2.0,
+                                  8, 2)
+    with pytest.raises(TypeError, match='f32'):
+        st.stream_scale_tiled(x.double(), 2.0, 8)

@@ -1,6 +1,7 @@
 """The PyTorch port imports neither jax nor anything of the JAX package:
 import it and run its slices (lap3d 10^3 through DIA, a small girder pencil
-through ELL and through hand-built BSR operators) in a fresh interpreter,
+through ELL and through hand-built BSR operators, and the two A/B sweeps
+of ``raleigh_tpu_torch.benches`` at a small size) in a fresh interpreter,
 then look at sys.modules.  The port keeps its own copies of the host code
 both packages need (``Options``, ``spectral_bounds``, ``examples.laplace``,
 ``examples.fe_model``), so no module whose top-level name is
@@ -48,6 +49,14 @@ assert status == 0, status
 # one mesh in two orderings: the same six eigenvalues
 assert np.abs(bsr / np.sort(ell)[:6] - 1).max() < 1e-3, (ell, bsr)
 import raleigh_tpu_torch.ops.stream
+# the kernel-structure sweeps
+from raleigh_tpu_torch.benches import bench_grid_shapes, bench_window_tiles
+small = ['--device', 'cpu', '--reps', '1', '--m', '4']
+assert len(bench_grid_shapes.main(small + ['--n', '512', '--tiles', '64'])) == 6
+for variant in ('ring', 'slide', 'tiles'):
+    rows = bench_window_tiles.main([variant, '128'] + small
+                                   + ['--grid', '8', '8', '8'])
+    assert len(rows) == 2, rows
 import json
 print(json.dumps({'jax': sorted(
     m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')),
