@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Five phases; any failure exits non-zero.
+Five phases; any failure exits non-zero.  No phase catches a failure and
+carries on, and no wrapper gives way to its plain version on the card.
 
 1. Environment: the card's name and power limit, torch's CUDA version,
    the kernel build from ``raleigh_tpu_torch/csrc`` (one ``nvcc`` per
@@ -44,6 +45,19 @@ Five phases; any failure exits non-zero.
    * The tiled (per_step 1 and 4) and pipelined (depth 2 and 4) stream
      kernels on 32 x 1,277,952 f32 at every tile size the copy sweep runs,
      against ``torch.mul``: exact equality.
+   * The copy kernel: ``hbm2hbm`` on 32 x 1,277,952 f32 at tile 32,768 and
+     as one tile, and ``copy_lanes`` of a shard's halo (16 x 10,000 lanes
+     out of 16 x 160,000) and of its body into the slots of an extended
+     operand, 16-byte aligned and shifted by one element, f32 and bf16,
+     against ``Tensor.copy_`` (its plain version and the library's call):
+     exact equality.
+   * The extended-operand DIA kernel on lap3d(100,100,128) cut in 8 and in
+     2 shards, m = 16, f32 and bf16: every shard against its plain version
+     (``window_excess`` / ``bf16_excess``; the controls must fail), and the
+     shards' results side by side equal to the unsharded kernel's apply,
+     bit for bit.  Times per shard, per eight launches, and per whole
+     sharded apply (halo and body copies included) beside the unsharded
+     kernel's.  The shards share the one card: no scaling measurement.
 3. The main paths as a user calls them, with no device argument, each
    driven with every launch counter set to 0 just before it and read just
    after.
@@ -63,10 +77,20 @@ Five phases; any failure exits non-zero.
    of vectors, computed on the host in f64) and agree on the six
    eigenvalues to 1e-3 relative: the two orderings are one mesh.
    * The stream-rate probe ``ops.stream.stream_rate``.
+   * The sharded main path: lap3d(100,100,128) with operator and blocks
+     split over ``make_mesh(8)`` (eight shards of the one card), the
+     preconditioner on the sharded matrix, through ``lobpcg(sharding=)``:
+     status 0, eigenvalues within 1e-3 of the analytic ones and 1e-5 of
+     the unsharded field's, extended-operand and copy launches > 0, none
+     of the unsharded DIA kernel.
+   * ``ShardedEllMatrix`` of ``shipsec_like()``'s stiffness matrix on the
+     same mesh, m = 16: within 1e-5 of SciPy and of ``EllMatrix``.
 4. The two kernel-structure sweeps through their ``main``:
    ``benches.bench_window_tiles`` (ring, slide, tiles; m = 32, and m = 16
    for the staged kernels) and ``benches.bench_grid_shapes`` (blockspec,
-   blockspec4, manual2, manual4, grid_stride, torch) at full size.
+   blockspec4, manual2, manual4, grid_stride, torch, hbm2hbm) at full size;
+   then ``benches.bench_spmm_sharded`` at its default size,
+   ``benches.bench_launch_cost`` and ``graft_entry.dryrun_multichip(8)``.
 5. No module of jax or of the JAX package was loaded.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
@@ -101,6 +125,13 @@ TILED = ('raleigh_tpu_torch/csrc/stream_probes.cu',
          'benches/bench_grid_shapes.py:36')
 PIPELINED = ('raleigh_tpu_torch/csrc/stream_probes.cu',
              'benches/bench_grid_shapes.py:58')
+COPY = ('raleigh_tpu_torch/csrc/copy_lanes.cu',
+        'benches/bench_grid_shapes.py:119')
+EXT = ('raleigh_tpu_torch/csrc/dia_spmm_ext.cu',
+       'raleigh_tpu/ops/spmm_window.py:527')
+# the sharded main path: shards of the one card, and its field
+SHARDS = 8
+SHARDED_AGREE = 1e-5
 # the tile each staged-window and stream-probe row of the kernels line is
 # timed at (every tile of the sweeps is held against the plain version)
 ROW_TILE = {'slide': 4096, 'tiles': 10240, 'tiled': 1024, 'pipelined': 8192}
@@ -215,14 +246,17 @@ def phase_environment(torch, build):
     return card
 
 
-def bf16_excess(torch, sw, val, x, offsets, got, want):
+def bf16_excess(torch, sw, val, x, offsets, got, want, terms=None):
     """Entrywise |got - want| over the bound for two bf16 DIA applies that
     both sum in f32 and round once to bf16: one bf16 rounding on either
     side (2^-7 |want|) plus twice the f32 summation error bound
     (noff 2^-24 sum_k |val_k x|).  At most 1 where ``got`` accumulates in
     f32 in any order; a bf16 sum or bf16 products miss it by orders of
-    magnitude.  Returns (largest ratio, share of entries above 1)."""
-    terms = sw.dia_matmat_rows_plain(val.abs(), x.float().abs(), offsets)
+    magnitude.  ``terms``: sum_k |val_k x| where the caller has it (an
+    extended operand).  Returns (largest ratio, share of entries above
+    1)."""
+    if terms is None:
+        terms = sw.dia_matmat_rows_plain(val.abs(), x.float().abs(), offsets)
     bound = (BF16_HALF_ULP_PAIR * want.float().abs()
              + 2 * len(offsets) * 2.0 ** -24 * terms)
     diff = (got.float() - want.float()).abs()
@@ -549,12 +583,13 @@ def phase_bsr(torch, np, sp, BsrMatrix, EllMatrix, fe, k_nat, k_rel):
     return rows
 
 
-def window_excess(torch, sw, val, x, offsets, got, want):
+def window_excess(torch, sw, val, x, offsets, got, want, terms=None):
     """Entrywise |got - want| over the bound for two f32 DIA applies that
     both sum in f32, in any order: twice the f32 summation error bound of
-    the entry's terms, 2 noff 2^-24 sum_k |val_k x|.  Returns (largest
-    ratio, share of entries above 1)."""
-    terms = sw.dia_matmat_rows_plain(val.abs(), x.abs(), offsets)
+    the entry's terms, 2 noff 2^-24 sum_k |val_k x| (``terms``, where the
+    caller has it).  Returns (largest ratio, share of entries above 1)."""
+    if terms is None:
+        terms = sw.dia_matmat_rows_plain(val.abs(), x.abs(), offsets)
     limit = 2 * len(offsets) * 2.0 ** -24 * terms
     diff = (got.float() - want.float()).abs()
     ratio = torch.where(diff == 0, 0.0, diff / limit)   # 0/0 is agreement
@@ -676,6 +711,223 @@ def phase_variants(torch, np, lap3d, DiaMatrix, sw, st, wt, gs, lib16):
     return rows
 
 
+def phase_copy(torch, st):
+    """The copy kernel against ``Tensor.copy_`` (exact equality): the
+    sweep's whole-array copy in column tiles, and a shard's halo and body
+    into the slots of an extended operand, on the 16-byte path and on the
+    element path.  Returns its rows."""
+    rows = {}
+    gen = torch.Generator('cuda').manual_seed(4)
+    x = torch.randn(st.REFERENCE_SHAPE, generator=gen, device='cuda')
+    nbytes = 2 * x.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 0)
+    for tile in (32768, x.shape[1]):
+        yk = st.hbm2hbm(x, tile)
+        torch.cuda.synchronize()
+        if yk.data_ptr() == x.data_ptr() or not torch.equal(yk, x):
+            fail('hbm2hbm tile %d differs from its input' % tile)
+        del yk
+        tk, tp = in_turns(lambda: st.hbm2hbm(x, tile),
+                          lambda: torch.empty_like(x).copy_(x), 50)
+        print('hbm2hbm %s f32 tile %d: equal to copy_, kernel %.4f ms '
+              '(%.0f GB/s), copy_ %.4f ms (%.0f GB/s), bound %.4f ms (%s)'
+              % (tuple(x.shape), tile, tk, nbytes / tk / 1e6, tp,
+                 nbytes / tp / 1e6, bound_ms, bound_by))
+        if tile == 32768:
+            rows['copy_lanes_hbm2hbm'] = dict(
+                name='copy_lanes_hbm2hbm', route='cuda', source=COPY[0],
+                replaces=COPY[1], launches=0, max_abs_err=0.0, ms=tk,
+                plain_ms=tp, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=tp, bytes=nbytes)
+    del x
+
+    # a shard of lap3d(100,100,128) cut in 8: 160,000 lanes, halos of 10,000
+    m, n_local, halo = 16, 160000, 10000
+    for dt in (torch.float32, torch.bfloat16):
+        key = str(dt).replace('torch.', '')
+        src = torch.randn((m, n_local + 16), generator=gen,
+                          device='cuda').to(dt)
+        got = torch.zeros((m, n_local + 2 * halo + 16), dtype=dt,
+                          device='cuda')
+        want = torch.zeros_like(got)
+        # (name, source lane, slot lane, lanes): the left halo aligned, the
+        # same shifted by one element at either end, and the body
+        cases = [('halo', n_local - halo, 0, halo),
+                 ('halo, source shifted', n_local - halo + 1, 0, halo),
+                 ('halo, slot shifted', n_local - halo, 1, halo),
+                 ('body', 0, halo, n_local),
+                 ('body, slot shifted', 0, halo + 1, n_local)]
+        for name, s0, d0, w in cases:
+            sv = src[:, s0:s0 + w]
+            dk, dp = got[:, d0:d0 + w], want[:, d0:d0 + w]
+            got.zero_()
+            want.zero_()
+            st.copy_lanes(dk, sv)
+            st.copy_lanes_plain(dp, sv)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail('copy_lanes %s %s differs from copy_' % (name, key))
+            tk, tp = in_turns(lambda: st.copy_lanes(dk, sv),
+                              lambda: st.copy_lanes_plain(dp, sv), 200)
+            cbytes = 2 * m * w * src.element_size()
+            b_ms, b_by = bound(cbytes, 0)
+            print('copy_lanes %s (%d, %d) %s: equal to copy_, kernel %.4f ms '
+                  '(%.0f GB/s), copy_ %.4f ms, bound %.5f ms (%s)'
+                  % (name, m, w, key, tk, cbytes / tk / 1e6, tp, b_ms, b_by))
+            if name == 'halo':
+                row = 'copy_lanes_halo_' + ('f32' if key == 'float32'
+                                            else 'bf16')
+                rows[row] = dict(
+                    name=row, route='cuda', source=COPY[0],
+                    replaces=COPY[1], launches=0, max_abs_err=0.0, ms=tk,
+                    plain_ms=tp, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=tp, bytes=cbytes)
+    return rows
+
+
+def ext_controls(torch, val, x_ext, offsets, halo_lo, n):
+    """The extended-operand apply done wrong in two ways a kernel could be:
+    a bf16 running sum, and each product rounded to bf16 before an f32
+    sum."""
+    m = x_ext.shape[0]
+    run = torch.zeros((m, n), dtype=torch.bfloat16, device=x_ext.device)
+    prod = torch.zeros((m, n), dtype=torch.float32, device=x_ext.device)
+    for k, off in enumerate(offsets.tolist()):
+        term = val[k] * x_ext[:, halo_lo + off:halo_lo + off + n]
+        run = (run + term).to(torch.bfloat16)           # rounds to bf16
+        prod += term.to(torch.bfloat16)
+    return {'bf16 running sum': run, 'bf16 products': prod.to(torch.bfloat16)}
+
+
+def phase_ext(torch, np, lap3d, DiaMatrix, sw, st, k1_rows):
+    """The extended-operand DIA kernel at the sharded main path's shapes:
+    lap3d(100,100,128) cut in 8 and in 2 shards of the one card.  Returns
+    its rows (times per shard of the cut in 8)."""
+    from raleigh_tpu_torch.core.device_solver import shard_operator
+    from raleigh_tpu_torch.parallel.mesh import (ShardedRows,
+                                                 blockvec_sharding, make_mesh,
+                                                 ring_extended)
+    rows = {}
+    gen = torch.Generator('cuda').manual_seed(5)
+    a = lap3d(100, 100, 128, 1.0, 1.0, 1.0)
+    whole = DiaMatrix(a, dtype=np.float32)
+    n, noff, m = whole.shape[0], len(whole.offsets), 16
+    lo, hi = max(0, -min(whole.offsets)), max(0, max(whole.offsets))
+    for shards in (SHARDS, 2):
+        mesh = make_mesh(shards)
+        dm = shard_operator(DiaMatrix(a, dtype=np.float32), mesh)
+        offs = dm.offsets_by_device[dm.val.parts[0].device]
+        for dt in (torch.float32, torch.bfloat16):
+            key = 'f32' if dt == torch.float32 else 'bf16'
+            excess = window_excess if dt == torch.float32 else bf16_excess
+            x = torch.randn((m, n), generator=gen, device='cuda').to(dt)
+            xs = ShardedRows.split(x, blockvec_sharding(mesh))
+            before = st.LAUNCHES['copy_lanes']
+            exts, copies = ring_extended(xs, lo, hi)
+            if st.LAUNCHES['copy_lanes'] - before != copies:
+                fail('%d copies assembled the extended operands, %d went '
+                     'through the copy kernel'
+                     % (copies, st.LAUNCHES['copy_lanes'] - before))
+            parts, worst_all, diff_all = [], 0.0, 0.0
+            for i, (v, ext) in enumerate(zip(dm.val.parts, exts)):
+                n_i = v.shape[1]
+                yk = sw.dia_matmat_rows_ext(v, ext, offs, lo, n_i,
+                                            reach=(lo, hi))
+                yp = sw.dia_matmat_rows_ext_plain(v, ext, offs, lo, n_i)
+                torch.cuda.synchronize()
+                if yk.dtype != dt or yk.shape != (m, n_i):
+                    fail('ext kernel output %s %s' % (yk.dtype,
+                                                      tuple(yk.shape)))
+                if not torch.isfinite(yk.float()).all():
+                    fail('ext kernel: non-finite output on shard %d' % i)
+                terms = sw.dia_matmat_rows_ext_plain(
+                    v.abs(), ext.float().abs(), offs, lo, n_i)
+                worst, share = excess(torch, sw, v, None, offs, yk, yp,
+                                      terms=terms)
+                if worst > 1:
+                    fail('ext kernel vs plain, %d shards, shard %d, %s: %.3e '
+                         'of the entries beyond the bound (worst %.2f times '
+                         'it)' % (shards, i, key, share, worst))
+                worst_all = max(worst_all, worst)
+                diff_all = max(diff_all,
+                               (yk.float() - yp.float()).abs().max().item())
+                if i == 0 and shards == SHARDS:
+                    for name, yc in ext_controls(torch, v, ext, offs, lo,
+                                                 n_i).items():
+                        if dt == torch.float32 and name != 'bf16 running sum':
+                            continue
+                        cworst, cshare = excess(torch, sw, v, None, offs, yc,
+                                                yp, terms=terms)
+                        print('  control (%s) vs plain, shard 0 of %d, %s: '
+                              '%.4f of the entries beyond the bound (worst '
+                              '%.1f times it)' % (name, shards, key, cshare,
+                                                  cworst))
+                        if cworst <= 1:
+                            fail('the %s bound passes the control (%s)'
+                                 % (key, name))
+                parts.append(yk)
+                del yp, terms
+            y1 = whole.matmat_rows(x)
+            if not torch.equal(torch.cat(parts, dim=1), y1):
+                fail('%d shards, %s: the shards\' results side by side '
+                     'differ from the unsharded kernel\'s' % (shards, key))
+            before = st.LAUNCHES['copy_lanes']
+            if not torch.equal(dm.matmat_rows(xs).gather(), y1):
+                fail('%d shards, %s: the sharded apply differs from the '
+                     'unsharded kernel\'s' % (shards, key))
+            copies = st.LAUNCHES['copy_lanes'] - before
+            copy_bytes = 2 * sum(e.numel() for e in exts) * x.element_size()
+            del parts, y1
+
+            # one shard (an interior one) against its plain version
+            i = shards // 2
+            v, ext, n_i = dm.val.parts[i], exts[i], dm.val.parts[i].shape[1]
+            tk, tp = in_turns(
+                lambda: sw.dia_matmat_rows_ext(v, ext, offs, lo, n_i,
+                                               reach=(lo, hi)),
+                lambda: sw.dia_matmat_rows_ext_plain(v, ext, offs, lo, n_i),
+                100)
+
+            def all_shards():
+                for vv, ee in zip(dm.val.parts, exts):
+                    sw.dia_matmat_rows_ext(vv, ee, offs, lo, vv.shape[1],
+                                           reach=(lo, hi))
+            # the launches of all shards, and the whole sharded apply with
+            # its copies, in turns with the unsharded kernel
+            t_all, t_k1 = in_turns(
+                all_shards, lambda: whole.matmat_rows(x), 50)
+            t_apply, t_k1b = in_turns(
+                lambda: dm.matmat_rows(xs), lambda: whole.matmat_rows(x), 50)
+            nbytes = (noff * n_i * 4 + noff * 4
+                      + m * ext.shape[1] * x.element_size()
+                      + m * n_i * x.element_size())
+            bound_ms, bound_by = bound(nbytes, 2 * m * noff * n_i)
+            name = 'dia_spmm_rows_ext_' + key
+            lib = k1_rows['dia_spmm_rows_f32']['library_ms'] \
+                if dt == torch.float32 else None
+            print('%s lap3d(100,100,128) in %d shards, n_local=%d m=%d: max '
+                  'abs err %.3e (worst %.3f of the bound), side by side '
+                  'equal to the unsharded kernel bit for bit; per shard '
+                  '%.4f ms (%.0f GB/s), plain %.4f ms, bound %.4f ms (%s); '
+                  'all %d shards %.4f ms; whole sharded apply %.4f ms with '
+                  '%d copy launches moving %.1f MB; unsharded kernel %.4f / '
+                  '%.4f ms; torch.sparse.mm of the whole matrix %s '
+                  '[one card: no scaling measurement]'
+                  % (name, shards, n_i, m, diff_all, worst_all, tk,
+                     nbytes / tk / 1e6, tp, bound_ms, bound_by, shards,
+                     t_all, t_apply, copies, copy_bytes / 1e6, t_k1, t_k1b,
+                     fmt_ms(lib)))
+            if shards == SHARDS:
+                rows[name] = dict(
+                    name=name, route='cuda', source=EXT[0], replaces=EXT[1],
+                    launches=0, max_abs_err=diff_all, ms=tk, plain_ms=tp,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+                    bytes=nbytes)
+            del exts, xs, x
+        del dm
+    return rows
+
+
 def phase_sweeps(mods, rows, card, wt, gs):
     """The two kernel-structure sweeps as a user runs them: ``main`` with
     no device argument, at full size.  Each call is one path: the launch
@@ -710,12 +962,32 @@ def phase_sweeps(mods, rows, card, wt, gs):
               'pipelined_depth%d' % depth,
               'stream_scale_pipelined_depth%d' % depth)
     drive(gs.main, ['grid_stride', 'torch'], st.LAUNCHES, 'float32', None)
-    try:
-        gs.main(['hbm2hbm'])
-    except NotImplementedError as e:
-        print('sweep hbm2hbm: %s' % e)
-    else:
-        fail('the copy sweep ran hbm2hbm, which has no kernel yet')
+    drive(gs.main, ['hbm2hbm'], st.LAUNCHES, 'copy_lanes',
+          'copy_lanes_hbm2hbm')
+    if 'hbm2hbm' not in gs.VARIANTS:
+        fail('the copy sweep\'s default list lacks hbm2hbm')
+
+    # the sharded SpMM bench at its default size, the host cost of a
+    # launch and the dry run of the mesh path, with no device argument
+    from raleigh_tpu_torch import graft_entry
+    from raleigh_tpu_torch.benches import (bench_launch_cost,
+                                           bench_spmm_sharded)
+    bench_launch_cost.main(['--reps', '3000'])
+    reset_counters(mods)
+    out = bench_spmm_sharded.main([])
+    if out['mode'] == 'halo' and st.LAUNCHES['copy_lanes'] <= 0:
+        fail('bench_spmm_sharded moved its halos without the copy kernel')
+    print('bench_spmm_sharded: n=%d m=%d, %s, %d copy launches [%s]'
+          % (out['n'], out['m'], out['mode'], st.LAUNCHES['copy_lanes'],
+             card))
+    reset_counters(mods)
+    graft_entry.dryrun_multichip(SHARDS)
+    if min(sw.LAUNCHES['ext_float32'], st.LAUNCHES['copy_lanes']) <= 0:
+        fail('dryrun_multichip skipped a kernel of the mesh path: %s %s'
+             % (sw.LAUNCHES, st.LAUNCHES))
+    print('dryrun_multichip(%d): %d extended-operand launches, %d copy '
+          'launches [%s]' % (SHARDS, sw.LAUNCHES['ext_float32'],
+                             st.LAUNCHES['copy_lanes'], card))
 
 
 def solve(torch, partial_hevp, a, T, which, tol, b=None):
@@ -792,6 +1064,7 @@ def phase_lap3d(torch, np, mods, rows, card, profile=False):
     from raleigh_tpu_torch import Chebyshev, partial_hevp, spectral_bounds
     from raleigh_tpu_torch.examples.laplace import lap3d, lap3d_eigenvalues
     sw = mods[0]
+    main_field = None
 
     fields = [('lap3d(100,100,128) which=4 tol=5e-5', (100, 100, 128), 4,
                12, 5e-5, 1e-3),
@@ -829,6 +1102,8 @@ def phase_lap3d(torch, np, mods, rows, card, profile=False):
                  card))
         if first:
             print('main path kernel launches: %s' % json.dumps(launches))
+            main_field = dict(lmd=np.sort(lmd)[:which], iterations=its2,
+                              warm=warm)
         if profile:
             profile_run(torch, lambda: solve(torch, partial_hevp, a, ch,
                                              which, tol), card)
@@ -841,6 +1116,112 @@ def phase_lap3d(torch, np, mods, rows, card, profile=False):
             print('%s with f32 Chebyshev iterates: %d iterations, max rel '
                   'eigenvalue error %.2e, wall %.3f s (LOBPCG %.3f s) [%s]'
                   % (name, its3, err, wall, lob, card))
+    return main_field
+
+
+def phase_sharded(torch, np, mods, rows, card, main_field, k_rel,
+                  profile=False):
+    """The sharded main path as a user writes it, no device argument: the
+    lap3d(100,100,128) field with operator and blocks split over a mesh of
+    eight shards of the one card; then ``ShardedEllMatrix`` on the same
+    mesh.  The extended-operand and copy rows' launches are this solve's."""
+    from raleigh_tpu_torch import (Chebyshev, DiaMatrix, EllMatrix,
+                                   ShardedEllMatrix, blockvec_sharding,
+                                   lobpcg, make_mesh, shard_operator,
+                                   spectral_bounds)
+    from raleigh_tpu_torch.core.device_solver import default_block
+    from raleigh_tpu_torch.examples.laplace import lap3d, lap3d_eigenvalues
+    sw, _, st = mods
+    grid, which, degree, tol = (100, 100, 128), 4, 12, 5e-5
+    name = 'sharded lap3d(100,100,128) which=4 tol=5e-5 on %d shards' % SHARDS
+    a = lap3d(*grid, 1.0, 1.0, 1.0)
+    exact = np.sort(lap3d_eigenvalues(*grid, 1.0, 1.0, 1.0))[:which]
+    lo, hi = spectral_bounds(a)
+    reset_counters(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh = make_mesh(SHARDS)
+    dm = shard_operator(DiaMatrix(a), mesh)
+    ch = Chebyshev(a, lo, hi, degree=degree, device_matrix=dm)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    if not all(p.device.type == 'cuda' for p in dm.val.parts):
+        fail('%s: the mesh with no device argument is not on the card' % name)
+    m = default_block(which, a.shape[0])
+
+    def run():
+        t0 = time.perf_counter()
+        out = lobpcg(dm, which, precond=ch.device_rows_operands(m),
+                     tol=tol, maxit=600, sharding=blockvec_sharding(mesh))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (lmd, x, _, its, status), cold = run()
+    launches = {key: sw.LAUNCHES[key] for key in ('ext_float32',
+                                                  'ext_bfloat16')}
+    launches['copy_lanes'] = st.LAUNCHES['copy_lanes']
+    if min(launches.values()) <= 0:
+        fail('%s skipped a kernel: launches %s' % (name, launches))
+    if sw.LAUNCHES['float32'] or sw.LAUNCHES['bfloat16']:
+        fail('%s launched the unsharded DIA kernel: %s' % (name, sw.LAUNCHES))
+    rows['dia_spmm_rows_ext_f32']['launches'] = launches['ext_float32']
+    rows['dia_spmm_rows_ext_bf16']['launches'] = launches['ext_bfloat16']
+    # the one counter of the copy kernel counts halo and body copies of
+    # both operand types together
+    rows['copy_lanes_halo_f32']['launches'] = launches['copy_lanes']
+    rows['copy_lanes_halo_bf16']['launches'] = launches['copy_lanes']
+    err = check_solution(np, name, lmd, x, status, exact, 1e-3)
+    agree = float(np.abs(np.sort(lmd)[:which] / main_field['lmd'] - 1).max())
+    if agree > SHARDED_AGREE:
+        fail('%s: eigenvalues differ from the unsharded field\'s by %.2e > '
+             '%.0e' % (name, agree, SHARDED_AGREE))
+    (lmd, x, _, its2, status), warm = run()
+    check_solution(np, name, lmd, x, status, exact, 1e-3)
+    applies = (launches['ext_float32'] + launches['ext_bfloat16']) // SHARDS
+    print('%s: status 0, %d iterations (warm run %d; unsharded %d), max rel '
+          'eigenvalue error %.2e, within %.2e of the unsharded field; set-up '
+          '(DIA, split, Chebyshev) %.3f s; lobpcg wall cold %.3f s, warm '
+          '%.3f s (unsharded partial_hevp warm %.3f s); launches %s = %d '
+          'applies, %.1f copies per apply [%s; the shards share the card: '
+          'no scaling measurement]'
+          % (name, its, its2, main_field['iterations'], err, agree, setup,
+             cold, warm, main_field['warm'], json.dumps(launches), applies,
+             launches['copy_lanes'] / applies, card))
+    if profile:
+        profile_run(torch, run, card)
+    del dm, ch
+    torch.cuda.empty_cache()
+
+    # ---- ShardedEll ---------------------------------------------------
+    reset_counters(mods)
+    t0 = time.perf_counter()
+    sm = ShardedEllMatrix(k_rel, mesh)
+    setup = time.perf_counter() - t0
+    n = k_rel.shape[0]
+    xt = np.random.default_rng(6).standard_normal((n, 16)).astype(np.float32)
+    y = sm.matmat_t(xt)
+    torch.cuda.synchronize()
+    copies = st.LAUNCHES['copy_lanes']
+    if y.device.type != 'cuda' or y.shape != (n, 16):
+        fail('ShardedEllMatrix product on %s, shape %s' % (y.device,
+                                                           tuple(y.shape)))
+    if sm.mode == 'halo' and copies <= 0:
+        fail('ShardedEllMatrix moved its halos without the copy kernel')
+    ref = k_rel @ xt.astype(np.float64)
+    err = float(np.abs(y.cpu().numpy() - ref).max() / np.abs(ref).max())
+    ell = EllMatrix(k_rel).matmat_t(torch.from_numpy(xt).cuda())
+    err_ell = float((y - ell).abs().max() / ell.abs().max())
+    if not (err < 1e-5 and err_ell < 1e-5):
+        fail('ShardedEllMatrix: %.2e from SciPy, %.2e from EllMatrix'
+             % (err, err_ell))
+    xd = torch.from_numpy(xt).cuda()
+    t = time_ms(lambda: sm.matmat_t(xd), 5)
+    print('ShardedEllMatrix shipsec_like() n=%d on %d shards: mode %s, halo '
+          '%s of %d rows per shard, row degree %d; m=16 product within %.2e '
+          'of SciPy and %.2e of EllMatrix, %d copy launches, %.3f ms; set-up '
+          '(RCM, ELL, upload) %.2f s [%s; one card: no scaling measurement]'
+          % (n, SHARDS, sm.mode, sm.halo, sm.chunk, sm.row_degree, err,
+             err_ell, copies, t, setup, card))
 
 
 def check_pencil(np, name, k, mass, lmd, x, status, which):
@@ -1017,6 +1398,8 @@ def main():
     card = phase_environment(torch, _build)
     rows = phase_kernels(torch, np, lap3d, DiaMatrix, sw)
     rows['stream_scale_f32'] = phase_stream(torch, st)
+    rows.update(phase_copy(torch, st))
+    rows.update(phase_ext(torch, np, lap3d, DiaMatrix, sw, st, rows))
     rows.update(phase_variants(
         torch, np, lap3d, DiaMatrix, sw, st, wt, gs,
         rows['dia_spmm_rows_f32']['library_ms']))
@@ -1027,9 +1410,11 @@ def main():
              time.perf_counter() - t0))
     rows.update(phase_bsr(torch, np, sp, BsrMatrix, EllMatrix, fe,
                           pencils[1][0], pencils[0][0]))
-    phase_lap3d(torch, np, mods, rows, card, profile)
+    main_field = phase_lap3d(torch, np, mods, rows, card, profile)
     phase_fe(torch, np, mods, rows, card, pencils, profile)
     rate = phase_stream_rate(mods, rows, card)
+    phase_sharded(torch, np, mods, rows, card, main_field, pencils[0][0],
+                  profile)
     phase_sweeps(mods, rows, card, wt, gs)
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in ('jax', 'jaxlib', 'raleigh_tpu'))

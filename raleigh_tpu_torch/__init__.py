@@ -3,13 +3,17 @@
 The preconditioned sparse symmetric eigensolve on the device:
 ``partial_hevp`` with a Chebyshev preconditioner on the LOBPCG engine, for
 stencil matrices (DIA) and finite-element matrices (ELL, BSR), every DIA
-and BSR SpMM through a CUDA kernel written for Hopper.
+and BSR SpMM through a CUDA kernel written for Hopper; and the same
+iteration with operator and blocks split over a mesh of shards.
 
   interfaces/   partial_hevp (preconditioned device path)
   core/         device LOBPCG; solver Options
   algebra/      SparseSymmetricMatrix, spectral_bounds, Chebyshev, Operator
   ops/          DIA, ELL and BSR SpMM, the layout rule, the stream-rate
-                probe: CUDA kernel wrappers, plain PyTorch versions, build
+                probe, the strided copy: CUDA kernel wrappers, plain PyTorch
+                versions, build
+  parallel/     the mesh (a list of devices, one per shard, walked by one
+                process), shardings, sharded row blocks, ShardedEllMatrix
   benches/      the kernel-structure A/B sweeps (three structures of the
                 DIA SpMM, four of the streaming copy) and the one timer
   csrc/         CUDA C++ sources (built with nvcc at first use)
@@ -33,6 +37,10 @@ _EXPORTS = {
     'BsrMatrix': 'raleigh_tpu_torch.ops.spmm',
     'device_sparse': 'raleigh_tpu_torch.ops.spmm',
     'fe_model': 'raleigh_tpu_torch.examples.fe_model',
+    'make_mesh': 'raleigh_tpu_torch.parallel.mesh',
+    'blockvec_sharding': 'raleigh_tpu_torch.parallel.mesh',
+    'shard_operator': 'raleigh_tpu_torch.core.device_solver',
+    'ShardedEllMatrix': 'raleigh_tpu_torch.parallel.spmm_sharded',
 }
 
 

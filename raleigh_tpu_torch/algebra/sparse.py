@@ -146,7 +146,9 @@ class Chebyshev:
         ``device_matrix`` (optional): a device sparse matrix built
         before (ops/spmm.py) that the recurrence uses instead of building
         its own — a ``BsrMatrix`` made by hand, say, which
-        ``device_sparse`` would not choose."""
+        ``device_sparse`` would not choose, or a matrix that
+        ``core.device_solver.shard_operator`` has split over a mesh: the
+        recurrence then runs on ``ShardedRows`` blocks, shard by shard."""
         self.matrix = matrix
         if device_matrix is not None and device is None and arch is None:
             arch = 'cpu'    # the recurrence runs on device_matrix alone

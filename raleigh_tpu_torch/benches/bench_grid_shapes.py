@@ -16,7 +16,8 @@ each structure the port has a kernel for, timed with CUDA events.
   grid_stride  the grid-stride kernel ``stream_scale``, the rate the SpMM
                kernels are judged against
   torch        ``torch.mul``, the library's copy
-  hbm2hbm      the copy with no on-chip bounce: not ported yet
+  hbm2hbm      the copy with no on-chip bounce and no arithmetic, y = x in
+               column tiles (``hbm2hbm``), per tile size in ``COPY_TILES``
 
 Usage: python -m raleigh_tpu_torch.benches.bench_grid_shapes [variant ...]
            [--tiles T ...] [--m M] [--n N] [--reps R] [--device D]
@@ -40,6 +41,8 @@ M, TILE, NSTEPS = 32, 32768, 39
 TILED_TILES = (1024, 4096, 16384)
 # elements per pipeline stage: 8 and 32 KB
 PIPELINED_TILES = (2048, 8192)
+# lanes per column tile of the plain copy: the reference's tile
+COPY_TILES = (TILE,)
 VARIANTS = ('blockspec', 'blockspec4', 'manual2', 'manual4', 'grid_stride',
             'torch', 'hbm2hbm')
 SEED = 0
@@ -64,9 +67,8 @@ def _copies(name, tiles):
     if name == 'torch':
         return [(None, 1, lambda x: torch.mul(x, a))]
     if name == 'hbm2hbm':
-        raise NotImplementedError(
-            'the copy with no on-chip bounce (build_hbm2hbm) is not ported '
-            'yet (ROADMAP queue 2, item 2.4)')
+        return [(t, t, lambda x, t=t: st.hbm2hbm(x, t))
+                for t in tiles or COPY_TILES]
     raise ValueError('unknown variant %r (one of %s)' % (name, VARIANTS))
 
 
@@ -82,7 +84,7 @@ def main(argv=None):
     ap.add_argument('--device', default=None)
     args = ap.parse_args(argv)
     device = storage_device(args.device)
-    names = args.variants or [v for v in VARIANTS if v != 'hbm2hbm']
+    names = args.variants or VARIANTS
     gen = torch.Generator(device).manual_seed(SEED)
     x = torch.randn((args.m, args.n), generator=gen, device=device)
     print('copy of (%d, %d) f32 on %s' % (

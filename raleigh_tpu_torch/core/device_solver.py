@@ -16,18 +16,76 @@ orthonormalization (X ⊥ W ⊥ P, two-pass Gram–Schmidt, eigh-whitening with
 dead-row masking), in the B-inner product for generalized problems, with
 optional deflation against ``constraints``.  f32 products run at full f32
 (TF32 stays off).
+
+With ``sharding=`` the blocks are ``ShardedRows`` (``parallel/mesh.py``),
+one (m, n_p) tensor per shard of a mesh, and the same iteration runs on
+them: the few helpers below dispatch on the block's type, a plain tensor
+takes exactly the torch calls it took before.  ``shard_operator`` splits a
+device matrix's values over the mesh to match.
 """
+
+import copy
 
 import numpy as np
 import torch
 
-from ..ops.spmm import storage_device, torch_dtype
+from ..ops.spmm import (BsrMatrix, DiaMatrix, EllMatrix, storage_device,
+                        torch_dtype)
+from ..parallel.mesh import ShardedRows, Sharding
 
 
 def _gram(a, b):
     """Xᴴ Y for row-stored blocks: contraction over the vector
     dimension."""
+    if isinstance(a, ShardedRows):
+        return a.gram(b)
     return torch.matmul(a.conj(), b.transpose(0, 1))
+
+
+def _mixed(c, block):
+    """c @ block for a small matrix c: row blocks combine from the left."""
+    if isinstance(block, ShardedRows):
+        return block.mixed(c)
+    return torch.matmul(c, block)
+
+
+def _row_dots(a, b):
+    """Real parts of the row-wise inner products of two blocks."""
+    if isinstance(a, ShardedRows):
+        return a.row_dots(b)
+    return (a.conj() * b).sum(1).real
+
+
+def _row_norms(a):
+    if isinstance(a, ShardedRows):
+        return a.row_norms()
+    return torch.linalg.vector_norm(a, dim=1)
+
+
+def _scaled(col, block):
+    """Each row of ``block`` times its entry of the (m, 1) column."""
+    if isinstance(block, ShardedRows):
+        return block * col
+    return col * block
+
+
+def _zero_rows(dead, block):
+    """``block`` with the rows flagged in the (m,) mask set to 0."""
+    if isinstance(block, ShardedRows):
+        return block.zero_rows(dead)
+    return torch.where(dead[:, None], 0.0, block)
+
+
+def _cat(blocks):
+    if isinstance(blocks[0], ShardedRows):
+        return ShardedRows.cat(blocks)
+    return torch.cat(blocks, dim=0)
+
+
+def _zeros_like(block):
+    if isinstance(block, ShardedRows):
+        return block.zeros_like()
+    return torch.zeros_like(block)
 
 
 def _eigh_small(h):
@@ -44,8 +102,7 @@ def _eigh_small(h):
 def _bnorms(block, bblock):
     """Per-row B-norms given the block and its B-image (2-norms when
     bblock is block itself)."""
-    return torch.sqrt(torch.clamp((block.conj() * bblock).sum(1).real,
-                                  min=0.0))
+    return torch.sqrt(torch.clamp(_row_dots(block, bblock), min=0.0))
 
 
 def _normalize_drop_pair(block, bblock, sqrt_eps, dead0=None):
@@ -59,9 +116,9 @@ def _normalize_drop_pair(block, bblock, sqrt_eps, dead0=None):
     if dead0 is not None:
         dead = dead | dead0
     safe = torch.where(norms == 0, 1.0, norms).to(block.real.dtype)
-    out = torch.where(dead[:, None], 0.0, block / safe[:, None])
+    out = _zero_rows(dead, block / safe[:, None])
     bout = out if bblock is block else \
-        torch.where(dead[:, None], 0.0, bblock / safe[:, None])
+        _zero_rows(dead, bblock / safe[:, None])
     return out, bout, dead
 
 
@@ -79,9 +136,8 @@ def _whiten_pair(block, bblock, eps_rel, sqrt_eps, dead0=None):
                       1.0 / torch.sqrt(torch.where(dead_g, 1.0, w)))
     mix = v * inv[None, :]
     # row blocks combine from the left: X_new = X mix  <=>  R_new = mixᵀ R
-    bw = torch.matmul(mix.transpose(0, 1), block)
-    bbw = bw if bblock is block else torch.matmul(mix.transpose(0, 1),
-                                                  bblock)
+    bw = _mixed(mix.transpose(0, 1), block)
+    bbw = bw if bblock is block else _mixed(mix.transpose(0, 1), bblock)
     # a correctly whitened row is unit up to rounding; anything that is
     # not was noise-dominated — run the scale test once more
     return _normalize_drop_pair(bw, bbw, sqrt_eps, dead0)
@@ -94,21 +150,80 @@ def _ortho_against_pair(block, basis, bbasis, *extra):
     outs = list(extra)
     for _ in range(2):
         q = _gram(bbasis, block)
-        block = block - torch.matmul(q.transpose(0, 1), basis)
+        block = block - _mixed(q.transpose(0, 1), basis)
         for i, (img, bas_img) in enumerate(outs):
-            outs[i] = (img - torch.matmul(q.transpose(0, 1), bas_img),
-                       bas_img)
+            outs[i] = (img - _mixed(q.transpose(0, 1), bas_img), bas_img)
     if not extra:
         return block
     return (block,) + tuple(img for img, _ in outs)
 
 
-def _rows_matmat(op):
+def shard_operator(dm, mesh, axis='chips'):
+    """Split a device sparse matrix's values over ``mesh`` so that the
+    LOBPCG iteration shards over the vector dimension; returns ``dm``,
+    changed in place, as the JAX package's function does.
+
+    DIA: ``val`` (noff, n) is split along the lanes, and every sharded
+    apply runs shard by shard on halos copied from the neighbours
+    (``DiaMatrix.sharded_rows_fn``).  ELL: ``idx`` and ``val`` are split by
+    rows and applied against the gathered operand.  BSR has no sharded
+    apply, here as in the JAX package: raises ``NotImplementedError``.
+
+    ``axis`` names the mesh axis (or a tuple of axes) the split follows.
+    A 1-D mesh has one axis, whatever it is called, so there the name is
+    free; on a 2-D mesh an unknown name raises."""
+    if len(mesh.axis_names) == 1:
+        axis = mesh.axis_names
+    sharding = Sharding(mesh, axis)
+    if isinstance(dm, DiaMatrix):
+        val = dm.val.gather() if dm._multi_device() else dm.val
+        # a value outside the matrix would meet a wrapped lane: the
+        # unsharded kernel skips it, so it must be 0 here
+        n = val.shape[1]
+        lane = torch.arange(n, device=val.device)[None, :] \
+            + dm.offsets_t.to(val.device)[:, None]
+        val = torch.where((lane >= 0) & (lane < n), val, 0.0)
+        dm.val = ShardedRows.split(val, sharding)
+        dm.offsets_by_device = {
+            dev: dm.offsets_t.to(dev) for dev in set(sharding.devices)}
+    elif isinstance(dm, EllMatrix):
+        if dm._multi_device():
+            dm.idx, dm.val = dm.idx.gather(), dm.val.gather()
+        dm.idx = ShardedRows.split(dm.idx, sharding, dim=0)
+        dm.val = ShardedRows.split(dm.val, sharding, dim=0)
+    elif isinstance(dm, BsrMatrix):
+        raise NotImplementedError(
+            'a BsrMatrix has no sharded apply (nor has the JAX package\'s '
+            'shard_operator a branch for it): ROADMAP queue 1, item 13')
+    else:
+        raise TypeError('unsupported device matrix %r' % type(dm).__name__)
+    return dm
+
+
+def _rows_matmat(op, sharding=None):
     """Adapt the operator form the caller gave to the row-layout
     (m, n) -> (m, n) apply the iteration uses: a device sparse matrix
-    (``matmat_rows`` or ``matmat_t``) or a bare column-layout callable."""
+    (``matmat_rows`` or ``matmat_t``) or a bare column-layout callable.
+
+    Under ``sharding`` the blocks are ``ShardedRows``.  A DIA matrix whose
+    values sit on one device is split over the mesh on entry (a copy: the
+    caller's matrix stays whole), as XLA's partitioner splits it in the JAX
+    package; any other operator that knows no shards is applied to the
+    gathered block."""
     if op is None:
         return None
+    if sharding is not None:
+        multi = getattr(op, '_multi_device', None)
+        if multi is None or not multi():
+            if isinstance(op, DiaMatrix):
+                op = shard_operator(copy.copy(op), sharding.mesh,
+                                    sharding.axes)
+            else:
+                whole = _rows_matmat(op)
+
+                def apply_rows(v):
+                    return ShardedRows.split(whole(v.gather()), sharding)
+                return apply_rows
     if hasattr(op, 'matmat_rows'):
         return op.matmat_rows
     if hasattr(op, 'matmat_t'):
@@ -162,29 +277,39 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
         iteration is deflated against their B-orthonormalized span, so it
         computes the *next* k pairs.
     dtype : iteration dtype (torch or numpy).
-    sharding : multi-device runs are not ported yet (ROADMAP queue 1,
-        item 13); anything but None raises.
+    sharding : optional ``parallel.mesh.blockvec_sharding(mesh)``: the
+        iteration blocks are split along the vector dimension over the
+        mesh (``ShardedRows``).  The start block, the constraints and the
+        random numbers are made whole, as without it, and then split; the
+        (3m x 3m) Ritz problem and the host checks are unchanged.  Pair it
+        with ``shard_operator`` (and give a Chebyshev preconditioner the
+        sharded matrix as its ``device_matrix``).
     device : device of the iteration (default: ``op.device``, else the
-        card; CUDA with no card raises).
+        card; CUDA with no card raises).  Under ``sharding`` it is the
+        first shard's device, where the small matrices live.
 
     Returns (lmd (k,), x (n, k), resid (k,), niter, status) as NumPy
     arrays, status 0 = converged, 2 = iteration limit, 3 = no search
     directions (reference core/solver.py:305-331).
     """
-    if sharding is not None:
-        raise NotImplementedError('sharded LOBPCG is not ported yet '
-                                  '(ROADMAP queue 1, item 13)')
+    if sharding is not None and not isinstance(sharding, Sharding):
+        raise TypeError('lobpcg needs a parallel.mesh.Sharding for its '
+                        'blocks (got %s); build one with '
+                        'parallel.mesh.blockvec_sharding'
+                        % type(sharding).__name__)
     if n is None:
         n = op.shape[0]
-    if device is None:
+    if sharding is not None:
+        device = sharding.devices[0]
+    elif device is None:
         device = getattr(op, 'device', None)
     device = storage_device(device)
     dtype = torch_dtype(dtype)
     m = block_size or default_block(k, n)
     if m < k:
         raise ValueError('block_size < k')
-    matmat_a = _rows_matmat(op)
-    matmat_b_rows = _rows_matmat(opB)
+    matmat_a = _rows_matmat(op, sharding)
+    matmat_b_rows = _rows_matmat(opB, sharding)
     real = torch.empty((), dtype=dtype).real.dtype
     eps = torch.finfo(real).eps
     eps_rel = 100 * eps
@@ -221,16 +346,22 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
         t = block.to(dtype=dtype, device=device)
         return t.transpose(0, 1).contiguous()
 
+    def spread(block):
+        """A whole (j, n) block as the iteration stores it."""
+        if sharding is None:
+            return block
+        return ShardedRows.split(block, sharding)
+
     # ---- constraints: B-orthonormalize once, precompute A/B-images -----
     if constraints is not None and np.size(constraints) > 0:
-        y = as_rows(constraints)
+        y = spread(as_rows(constraints))
         by0 = matmat_b(y)
         y, by0, dead_y = _normalize_drop_pair(y, by0, sqrt_eps)
         y, by0, dead_y = _whiten_pair(y, by0, eps_rel, sqrt_eps, dead_y)
         ay = matmat(y)
         by = matmat_b(y)
     else:
-        y = torch.zeros((0, n), dtype=dtype, device=device)
+        y = spread(torch.zeros((0, n), dtype=dtype, device=device))
         ay = by = y
 
     def step(x, ax, bx, p, ap, bp, anorm):
@@ -238,15 +369,15 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
         # image tracking: a leaked constraint direction with a more
         # extreme eigenvalue is amplified by the Rayleigh–Ritz step
         q = _gram(by, x)
-        x = x - torch.matmul(q.transpose(0, 1), y)
-        ax = ax - torch.matmul(q.transpose(0, 1), ay)
+        x = x - _mixed(q.transpose(0, 1), y)
+        ax = ax - _mixed(q.transpose(0, 1), ay)
         if opB is not None:
-            bx = bx - torch.matmul(q.transpose(0, 1), by)
+            bx = bx - _mixed(q.transpose(0, 1), by)
         else:
             bx = x
-        lam = (x.conj() * ax).sum(1).real
+        lam = _row_dots(x, ax)
         anorm = torch.maximum(anorm, lam.abs().max())
-        w = ax - lam[:, None].to(x.dtype) * bx
+        w = ax - _scaled(lam[:, None].to(x.dtype), bx)
         w = apply_precond(w).to(w.dtype)
         # hierarchical B-orthonormalization: X is B-orthonormal;
         # W ⊥_B Y, X; P ⊥_B Y, X, W.  Dead (noise or rank-deficient) rows
@@ -266,8 +397,8 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
         p, bp, dead_p = _normalize_drop_pair(p, bp, sqrt_eps, dead_p)
         p, bp, dead_p = _whiten_pair(p, bp, eps_rel, sqrt_eps, dead_p)
         ap = matmat(p)
-        s = torch.cat((x, w, p), dim=0)
-        a_s = torch.cat((ax, aw, ap), dim=0)
+        s = _cat((x, w, p))
+        a_s = _cat((ax, aw, ap))
         h = _gram(s, a_s)
         h = 0.5 * (h + h.conj().transpose(0, 1)) * sign
         dead = torch.cat((torch.zeros(m, dtype=torch.bool, device=device),
@@ -279,17 +410,17 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
         h = h + torch.diag(torch.where(dead, big, 0.0).to(h.dtype))
         _, c = _eigh_small(h)
         cm = c[:, :m]
-        xn = torch.matmul(cm.transpose(0, 1), s)
-        axn = torch.matmul(cm.transpose(0, 1), a_s)
+        xn = _mixed(cm.transpose(0, 1), s)
+        axn = _mixed(cm.transpose(0, 1), a_s)
         # conjugate directions: the W/P components of the update
         cwp = cm.clone()
         cwp[:m] = 0
-        pn = torch.matmul(cwp.transpose(0, 1), s)
-        apn = torch.matmul(cwp.transpose(0, 1), a_s)
+        pn = _mixed(cwp.transpose(0, 1), s)
+        apn = _mixed(cwp.transpose(0, 1), a_s)
         if opB is not None:
-            b_s = torch.cat((bx, bw, bp), dim=0)
-            bxn = torch.matmul(cm.transpose(0, 1), b_s)
-            bpn = torch.matmul(cwp.transpose(0, 1), b_s)
+            b_s = _cat((bx, bw, bp))
+            bxn = _mixed(cm.transpose(0, 1), b_s)
+            bpn = _mixed(cwp.transpose(0, 1), b_s)
         else:
             bxn, bpn = xn, pn
         return xn, axn, bxn, pn, apn, bpn, anorm
@@ -301,13 +432,12 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
         # chunk exit: re-deflate and refresh the images so the host's
         # convergence decision sees trustworthy residuals
         q = _gram(by, x)
-        x = x - torch.matmul(q.transpose(0, 1), y)
+        x = x - _mixed(q.transpose(0, 1), y)
         ax = matmat(x)
         bx = matmat_b(x)
-        lam = (x.conj() * ax).sum(1).real
+        lam = _row_dots(x, ax)
         anorm = torch.maximum(anorm, lam.abs().max())
-        resid = torch.linalg.vector_norm(ax - lam[:, None].to(x.dtype) * bx,
-                                         dim=1)
+        resid = _row_norms(ax - _scaled(lam[:, None].to(x.dtype), bx))
         order = torch.argsort(sign * lam)
         return (x[order], ax[order], bx[order], p, ap, bp, anorm), \
             lam[order], resid[order]
@@ -323,17 +453,16 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
     else:
         x = torch.randn((m, n), generator=gen, dtype=dtype, device=device)
 
-    x = _ortho_against_pair(x, y, by)
+    x = _ortho_against_pair(spread(x), y, by)
     bx = matmat_b(x)
     x, bx, dead_x = _normalize_drop_pair(x, bx, sqrt_eps)
     x, bx, _ = _whiten_pair(x, bx, eps_rel, sqrt_eps, dead_x)
     ax = matmat(x)
-    lam0 = (x.conj() * ax).sum(1).real
-    r0 = torch.linalg.vector_norm(ax - lam0[:, None].to(x.dtype) * bx,
-                                  dim=1)
-    p = torch.zeros_like(x)
-    ap = torch.zeros_like(x)
-    bp = p if opB is None else torch.zeros_like(x)
+    lam0 = _row_dots(x, ax)
+    r0 = _row_norms(ax - _scaled(lam0[:, None].to(x.dtype), bx))
+    p = _zeros_like(x)
+    ap = _zeros_like(x)
+    bp = p if opB is None else _zeros_like(x)
     anorm = torch.zeros((), dtype=real, device=device)
     lam_h, resid_h = lam0.cpu().numpy(), r0.cpu().numpy()
     anorm_h = float(np.max(np.abs(lam_h)))
@@ -357,9 +486,9 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
             # to the pre-chunk state, reset the conjugate directions, and
             # retry; give up (status 3) on repeat
             x, ax, bx, _, _, _, anorm = state
-            p = torch.zeros_like(x)
-            ap = torch.zeros_like(x)
-            bp = p if opB is None else torch.zeros_like(x)
+            p = _zeros_like(x)
+            ap = _zeros_like(x)
+            bp = p if opB is None else _zeros_like(x)
             state = (x, ax, bx, p, ap, bp, anorm)
             restarts += 1
             if verb > 0:
@@ -388,6 +517,8 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
         else:
             stall = 0
         best = min(best, rmax)
-    x = state[0]
-    return (np.asarray(lam_h[:k]), x[:k].transpose(0, 1).cpu().numpy(),
+    x = state[0][:k]
+    if sharding is not None:
+        x = x.gather()
+    return (np.asarray(lam_h[:k]), x.transpose(0, 1).cpu().numpy(),
             np.asarray(resid_h[:k]), niter, status)

@@ -41,9 +41,20 @@ _BSR_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3
 # val, x, y, host offsets; noff, m, n, tile; rows per block, device; stream
 _WINDOW_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4
                 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+# val, x_ext, y, offsets; noff, m, n, row stride of x_ext, halo_lo; device;
+# stream
+_EXT_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5
+             + [ctypes.c_int, ctypes.c_void_p])
 _SIGNATURES = {
     'dia_spmm': {'dia_spmm_rows_f32': _DIA_ARGS,
                  'dia_spmm_rows_bf16': _DIA_ARGS},
+    'dia_spmm_ext': {'dia_spmm_rows_ext_f32': _EXT_ARGS,
+                     'dia_spmm_rows_ext_bf16': _EXT_ARGS},
+    # dst, src; rows, width, tile, dst stride, src stride (bytes); element
+    # size, device; stream
+    'copy_lanes': {'copy_lanes': (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 5
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])},
     'dia_spmm_slide': {'dia_spmm_rows_slide_f32': _WINDOW_ARGS},
     'dia_spmm_tiles': {'dia_spmm_rows_tiles_f32': _WINDOW_ARGS},
     'bsr_spmm': {'bsr_spmm_rows_f32_f32': _BSR_ARGS,

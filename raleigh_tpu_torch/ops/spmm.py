@@ -17,18 +17,25 @@ goes through its hand-written kernel (``ops/spmm_window.py``,
 kernel's plain PyTorch version.  The ELL apply is plain PyTorch on either
 device, as it is plain XLA code in the JAX package.
 
+A DIA or ELL matrix whose values ``core.device_solver.shard_operator``
+has split over a mesh (``parallel/mesh.py``: a list of devices, one per
+shard, walked by one process) applies to ``ShardedRows`` blocks: DIA shard
+by shard through the extended-operand kernel on halos copied from the
+neighbouring shards (``DiaMatrix.sharded_rows_fn``), ELL row block by row
+block against the gathered operand.
+
 Left out, because they exist only for the TPU: the per-shape kernel
 caches and their shard fingerprints, the window/fused-XLA routing and its
-Mosaic alignment limits, ``window_padded_fn`` (the kernel takes unaligned
-n), and the mesh-sharded apply (``_multi_device``, ``sharded_rows_fn``),
-which returns with ``torch.distributed`` (ROADMAP queue 1, item 13).
+Mosaic alignment limits, and ``window_padded_fn`` (the kernels take
+unaligned n).
 """
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import ShardedRows, ring_extended
 from .spmm_pallas import bsr_matmat_rows
-from .spmm_window import dia_matmat_rows
+from .spmm_window import dia_matmat_rows, dia_matmat_rows_ext
 
 
 def torch_dtype(dtype):
@@ -104,7 +111,10 @@ class DiaMatrix:
     A[i, i + offsets[k]] (row-major diagonal convention); ``offsets`` is a
     tuple of ints, ``offsets_t`` the same offsets as an int32 tensor on
     ``device`` for the kernel; ``dtype`` is the values' storage dtype, as
-    on the other layouts."""
+    on the other layouts.  After ``core.device_solver.shard_operator``,
+    ``val`` is a ``ShardedRows`` of (noff, n_p) tensors, one per shard, and
+    ``offsets_by_device`` maps each shard's device to the offsets tensor
+    there."""
 
     # Working set above which the Chebyshev recurrence streams its
     # iterates in bf16 (algebra/sparse.py, auto rule).  The value is the
@@ -140,9 +150,19 @@ class DiaMatrix:
         self.offsets_t = torch.tensor(self.offsets, dtype=torch.int32,
                                       device=self.device)
 
+    def _multi_device(self):
+        """True when the diagonal values are split over a mesh
+        (``core.device_solver.shard_operator``): ``val`` is then a
+        ``ShardedRows`` of (noff, n_p) tensors."""
+        return isinstance(self.val, ShardedRows)
+
     def matmat_rows(self, x):
         """(m, n) = ((m, n) @ A) for a row-vector block, in x's dtype (A
-        symmetric, so x A = (A xᵀ)ᵀ)."""
+        symmetric, so x A = (A xᵀ)ᵀ).  With values split over a mesh, x is
+        a ``ShardedRows`` and so is the result; a plain tensor is split,
+        applied and gathered again."""
+        if self._multi_device():
+            return self.sharded_rows_fn(*x.shape, x.dtype)(x)
         return dia_matmat_rows(self.val, x, self.offsets_t)
 
     def matmat_t(self, xt):
@@ -153,10 +173,77 @@ class DiaMatrix:
         """(fn, operands) form of ``matmat_rows``: ``fn(operands, x)``
         applies A to a row block of any shape and dtype.  The JAX package
         picks a kernel by block shape and dtype here; one kernel serves
-        them all."""
+        them all, and a second one the values split over a mesh."""
+        if self._multi_device():
+            def fn(ops, x):
+                return _dia_sharded_apply(ops[0], ops[1], self.offsets, x)
+            return fn, (self.val, self.offsets_by_device)
+
         def fn(ops, x):
             return dia_matmat_rows(ops[0], x, ops[1])
         return fn, (self.val, self.offsets_t)
+
+    def sharded_rows_fn(self, m, n, dtype=torch.float32):
+        """Mesh-partitioned row-layout apply, or None when the values are
+        not split over a mesh: ``fn(x)`` takes a ``ShardedRows`` block (m, n)
+        of ``dtype`` and returns one.  Each shard computes its lane range
+        from its own diagonals and an operand extended by its neighbours'
+        edge lanes, [left halo | own lanes | right halo], through the
+        extended-operand kernel (``dia_matmat_rows_ext``) at every size
+        and in f32 and bf16.  The halos and the shard's own lanes are
+        copied into the extended operand by ``copy_lanes`` (``Tensor.copy_``
+        between different devices).
+
+        The ring of shards wraps at the global boundary; the wrapped lanes
+        meet zero out-of-range diagonal values, so no edge cases exist and
+        the result equals the unsharded apply.  Shards may be uneven, and a
+        reach wider than a shard takes lanes from as many neighbours as it
+        spans.  ``fn.operand_fn(val, x)`` is the same apply with the split
+        values as an argument.
+
+        The JAX package's ``tile=``, ``interpret=`` and ``force_window=``
+        selected between its Pallas kernel and fused XLA code; here one
+        kernel serves every shard, so they have nothing left to select and
+        are dropped."""
+        if not self._multi_device():
+            return None
+        if n != self.shape[0]:
+            raise ValueError('operand has %d lanes, the matrix %d'
+                             % (n, self.shape[0]))
+        offsets, offsets_t = self.offsets, self.offsets_by_device
+
+        def operand_fn(val, x):
+            return _dia_sharded_apply(val, offsets_t, offsets, x)
+
+        def apply(x):
+            return operand_fn(self.val, x)
+        apply.operand_fn = operand_fn
+        return apply
+
+
+def _dia_sharded_apply(val, offsets_t, offsets, x):
+    """The DIA apply with values ``val`` split along the lanes: per shard,
+    the extended operand assembled from the ring of shards, then the
+    extended-operand kernel on the shard's own values.  ``offsets_t`` maps
+    a device to the int32 offsets tensor there
+    (``DiaMatrix.offsets_by_device``)."""
+    if not isinstance(x, ShardedRows):
+        return _dia_sharded_apply(
+            val, offsets_t, offsets,
+            ShardedRows.split(x, val.sharding)).gather()
+    back = x.sharding
+    x = x.resplit(val.sharding)
+    lo = max(0, -min(offsets, default=0))
+    hi = max(0, max(offsets, default=0))
+    exts, _ = ring_extended(x, lo, hi)
+    parts = []
+    for v, ext, own in zip(val.parts, exts, x.parts):
+        if ext is None:
+            parts.append(torch.empty_like(own))
+            continue
+        parts.append(dia_matmat_rows_ext(v, ext, offsets_t[v.device], lo,
+                                         v.shape[1], reach=(lo, hi)))
+    return ShardedRows(parts, val.sharding).resplit(back)
 
 
 def _values(values, dtype, device):
@@ -213,12 +300,23 @@ class EllMatrix:
         self.nnz = int(torch.count_nonzero(self.val)) if nnz is None else nnz
         self.dtype = self.val.dtype
 
+    def _multi_device(self):
+        """True when ``idx`` and ``val`` are split by rows over a mesh
+        (``core.device_solver.shard_operator``)."""
+        return isinstance(self.val, ShardedRows)
+
     def matmat_t(self, xt):
         """(n, m) = A @ (n, m): operand and result transposed blocks."""
+        if self._multi_device():
+            return self.matmat_rows(xt.T.contiguous()).T
         return _ell_matmat(self.idx, self.val, xt)
 
     def matmat_rows(self, x):
-        """(m, n) = ((m, n) @ A) for a row-vector block, in x's dtype."""
+        """(m, n) = ((m, n) @ A) for a row-vector block, in x's dtype.
+        With rows split over a mesh, x is a ``ShardedRows`` and so is the
+        result; a plain tensor is split, applied and gathered again."""
+        if self._multi_device():
+            return _ell_sharded_apply(self.idx, self.val, x)
         return _ell_matmat(self.idx, self.val, x.T).T.contiguous()
 
 
@@ -234,6 +332,25 @@ def _ell_matmat(idx, val, xt):
     for j in range(k):
         acc.addcmul_(val[:, j, None], xt.index_select(0, idx[:, j]))
     return acc.to(xt.dtype)
+
+
+def _ell_sharded_apply(idx, val, x):
+    """The ELL apply with ``idx`` and ``val`` split by rows: every shard
+    multiplies its row block against the whole operand, gathered onto its
+    device (indices stay global; traffic grows with n, valid for any
+    pattern)."""
+    if not isinstance(x, ShardedRows):
+        return _ell_sharded_apply(
+            idx, val, ShardedRows.split(x, val.sharding)).gather()
+    back = x.sharding
+    whole = {}
+    parts = []
+    for i, v in zip(idx.parts, val.parts):
+        if v.device not in whole:
+            whole[v.device] = torch.cat(
+                [p.to(v.device) for p in x.parts], dim=1).T
+        parts.append(_ell_matmat(i, v, whole[v.device]).T.contiguous())
+    return ShardedRows(parts, val.sharding).resplit(back)
 
 
 class BsrMatrix:
@@ -312,6 +429,11 @@ def rows_matmat_operands(dm):
     if isinstance(dm, DiaMatrix):
         return dm.rows_operand_form()
     if isinstance(dm, EllMatrix):
+        if dm._multi_device():
+            def fn(ops, x):
+                return _ell_sharded_apply(ops[0], ops[1], x)
+            return fn, (dm.idx, dm.val)
+
         def fn(ops, x):
             return _ell_matmat(ops[0], ops[1], x.T).T.contiguous()
         return fn, (dm.idx, dm.val)

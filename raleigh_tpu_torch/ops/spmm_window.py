@@ -28,6 +28,14 @@ once.  They are the A/B partners of the production kernel in
 
 Their ``offsets`` are host ints (``DiaMatrix.offsets``): the launch sizes
 its shared memory from them, and the kernel takes them as an argument.
+
+``dia_matmat_rows_ext`` (``csrc/dia_spmm_ext.cu``) replaces
+``build_dia_window_ring_ext``, the per-shard kernel of the mesh-partitioned
+apply (``DiaMatrix.sharded_rows_fn``): the same sum over an operand that
+the caller has extended by its neighbours' edge lanes, with the shard's own
+values passed at run time and no range check.  Mosaic's limits
+(``n % 128``, ``m % 8``, two or more tiles, halos rounded up to 128) do
+not carry over, and bf16 operands go through the kernel too.
 """
 
 import ctypes
@@ -38,7 +46,8 @@ from . import _build
 
 # kernel launches, counted where the kernel is launched: the production
 # kernel per operand dtype, and the two staged-window kernels
-LAUNCHES = {'float32': 0, 'bfloat16': 0, 'slide': 0, 'tiles': 0}
+LAUNCHES = {'float32': 0, 'bfloat16': 0, 'slide': 0, 'tiles': 0,
+            'ext_float32': 0, 'ext_bfloat16': 0}
 
 # operand rows a block of a staged-window kernel can own, and the most
 # diagonals it takes (they travel as a kernel argument)
@@ -47,6 +56,8 @@ MAX_WINDOW_OFFSETS = 128
 
 _ENTRY = {torch.float32: ('float32', 'dia_spmm_rows_f32'),
           torch.bfloat16: ('bfloat16', 'dia_spmm_rows_bf16')}
+_EXT_ENTRY = {torch.float32: ('ext_float32', 'dia_spmm_rows_ext_f32'),
+              torch.bfloat16: ('ext_bfloat16', 'dia_spmm_rows_ext_bf16')}
 
 
 def reset_launches():
@@ -112,6 +123,86 @@ def dia_matmat_rows(val, x, offsets):
              val.shape[0], m, n, x.device.index, stream)
     if err != 0:
         raise RuntimeError('DIA kernel launch failed: CUDA error %d' % err)
+    LAUNCHES[key] += 1
+    return y
+
+
+def dia_matmat_rows_ext_plain(val, x_ext, offsets, halo_lo, n):
+    """Plain PyTorch DIA row apply over a pre-extended operand, any device
+    and dtype: ``x_ext`` carries ``halo_lo`` lanes before the ``n`` local
+    ones and at least ``max(offsets)`` after, so every diagonal is one
+    static slice.  Accumulates in the promoted type of val and x_ext,
+    adding the diagonals in order, and returns x_ext's dtype."""
+    m = x_ext.shape[0]
+    y = torch.zeros((m, n), dtype=torch.promote_types(val.dtype, x_ext.dtype),
+                    device=x_ext.device)
+    if isinstance(offsets, torch.Tensor):
+        offsets = offsets.tolist()
+    for k, off in enumerate(offsets):
+        y += val[k, :n] * x_ext[:, halo_lo + off:halo_lo + off + n]
+    return y.to(x_ext.dtype)
+
+
+def dia_matmat_rows_ext(val, x_ext, offsets, halo_lo, n, reach=None):
+    """(m, n) = the shard's DIA values ``val`` (noff, n) applied to the
+    extended row block ``x_ext`` (m, halo_lo + n + halo_hi) =
+    [left halo | local lanes | right halo], in x_ext's dtype:
+
+        y[r, i] = sum_k val[k, i] * x_ext[r, halo_lo + i + offsets[k]]
+
+    with no range check, so ``halo_lo >= -min(offsets)`` and
+    ``x_ext.shape[1] >= halo_lo + n + max(offsets)`` must hold; raises
+    otherwise.  ``reach`` = (-min(offsets, 0), max(offsets, 0)) as host
+    ints saves reading the offsets back from the device.  ``x_ext`` needs
+    unit stride along the lanes and may have any row stride.  CUDA tensors
+    go through the kernel (x_ext f32 or bf16, val f32), CPU tensors through
+    ``dia_matmat_rows_ext_plain``."""
+    halo_lo, n = int(halo_lo), int(n)
+    if not (val.device == x_ext.device == offsets.device):
+        raise ValueError('val, x_ext and offsets must share a device (got '
+                         '%s, %s, %s)'
+                         % (val.device, x_ext.device, offsets.device))
+    if x_ext.device.type not in ('cpu', 'cuda'):
+        raise ValueError('no DIA apply for device %s' % x_ext.device)
+    if (val.dim() != 2 or x_ext.dim() != 2 or offsets.dim() != 1
+            or val.shape[1] != n or offsets.shape[0] != val.shape[0]):
+        raise ValueError('shape mismatch: val %s, x_ext %s, offsets %s, '
+                         'n = %d' % (tuple(val.shape), tuple(x_ext.shape),
+                                     tuple(offsets.shape), n))
+    if reach is None:
+        host = offsets.tolist()
+        reach = (max(0, -min(host, default=0)), max(0, max(host, default=0)))
+    if halo_lo < reach[0] or x_ext.shape[1] < halo_lo + n + reach[1]:
+        raise ValueError('x_ext has %d lanes before and %d after the %d '
+                         'local ones; the offsets reach %d before and %d '
+                         'after' % (halo_lo, x_ext.shape[1] - halo_lo - n,
+                                    n, reach[0], reach[1]))
+    if x_ext.device.type == 'cpu':
+        return dia_matmat_rows_ext_plain(val, x_ext, offsets, halo_lo, n)
+    if x_ext.dtype not in _EXT_ENTRY:
+        raise TypeError('the DIA kernel takes f32 or bf16 operands, not %s'
+                        % x_ext.dtype)
+    if val.dtype != torch.float32 or offsets.dtype != torch.int32:
+        raise TypeError('the DIA kernel takes f32 values and int32 offsets '
+                        '(got %s, %s)' % (val.dtype, offsets.dtype))
+    m = x_ext.shape[0]
+    if not (val.is_contiguous() and offsets.is_contiguous()
+            and (x_ext.shape[1] <= 1 or x_ext.stride(1) == 1)):
+        raise ValueError('the DIA kernel takes contiguous values and '
+                         'offsets and an operand with unit stride along '
+                         'the lanes')
+    y = torch.empty((m, n), dtype=x_ext.dtype, device=x_ext.device)
+    if m == 0 or n == 0:
+        return y
+    key, entry = _EXT_ENTRY[x_ext.dtype]
+    stream = torch.cuda.current_stream(x_ext.device).cuda_stream
+    err = getattr(_build.library(), entry)(
+        val.data_ptr(), x_ext.data_ptr(), y.data_ptr(), offsets.data_ptr(),
+        val.shape[0], m, n, x_ext.stride(0), halo_lo, x_ext.device.index,
+        stream)
+    if err != 0:
+        raise RuntimeError('extended-operand DIA kernel launch failed: CUDA '
+                           'error %d' % err)
     LAUNCHES[key] += 1
     return y
 

@@ -12,14 +12,20 @@ build_blockspec`` and ``build_manual``: one thread block per tile with no
 grid stride, and one persistent grid whose blocks pipeline their chunks
 through 2 or 4 shared-memory stages with asynchronous copies.
 
+``copy_lanes`` and ``hbm2hbm`` (``csrc/copy_lanes.cu``) replace
+``benches/bench_grid_shapes.py::build_hbm2hbm``, the copy with no arithmetic
+and no on-chip buffer: a strided 2-D copy between two views, which carries
+every halo and body copy of the mesh-partitioned operators, and the whole
+array copied in column tiles, the sweep's ``hbm2hbm`` line.
+
 On a CUDA tensor each wrapper launches its kernel or raises; only a CPU
-tensor takes the plain version, ``torch.mul``.
+tensor takes the plain version (``torch.mul``; ``Tensor.copy_`` for the
+copies).
 """
 
 import torch
 
 from . import _build
-from ..benches.timing import time_ms
 
 # the shape the reference streams: 32 rows of 39 tiles of 32768 lanes
 REFERENCE_SHAPE = (32, 39 * 32768)
@@ -33,7 +39,11 @@ PIPELINE_DEPTHS = (2, 4)
 # kernel launches, counted where the kernel is launched: the grid-stride
 # kernel, the tiled one, and the pipelined one per depth
 LAUNCHES = {'float32': 0, 'tiled': 0, 'pipelined_depth2': 0,
-            'pipelined_depth4': 0}
+            'pipelined_depth4': 0, 'copy_lanes': 0}
+
+# element sizes the copy kernel moves one element at a time where 16-byte
+# accesses do not fit
+COPY_ELEMENT_SIZES = (1, 2, 4, 8)
 
 
 def reset_launches():
@@ -147,6 +157,101 @@ def stream_scale_pipelined(x, a, tile, depth):
     return y
 
 
+def copy_lanes_plain(dst, src):
+    """Plain PyTorch version of ``copy_lanes``: ``dst.copy_(src)``."""
+    return dst.copy_(src)
+
+
+def _check_copy(dst, src):
+    """What the copy kernel asks of its two views; raises on the CPU as on
+    the card.  Returns both as 2-D (rows, width) views."""
+    if dst.device != src.device:
+        raise ValueError('dst and src must share a device (got %s, %s); '
+                         'Tensor.copy_ moves data between devices'
+                         % (dst.device, src.device))
+    if dst.device.type not in ('cpu', 'cuda'):
+        raise ValueError('no copy kernel for device %s' % dst.device)
+    if dst.dtype != src.dtype:
+        raise TypeError('the copy kernel moves bytes and converts nothing '
+                        '(got %s into %s)' % (src.dtype, dst.dtype))
+    if dst.element_size() not in COPY_ELEMENT_SIZES:
+        raise TypeError('the copy kernel takes elements of %s bytes, not %s'
+                        % (COPY_ELEMENT_SIZES, dst.dtype))
+    if dst.shape != src.shape or dst.dim() not in (1, 2):
+        raise ValueError('dst and src must be 1-D or 2-D views of one shape '
+                         '(got %s, %s)'
+                         % (tuple(dst.shape), tuple(src.shape)))
+    if dst.dim() == 1:
+        dst, src = dst[None, :], src[None, :]
+    if dst.shape[1] > 1 and not (dst.stride(1) == src.stride(1) == 1):
+        raise ValueError('the copy kernel takes views with unit stride '
+                         'along the lanes (got strides %s, %s)'
+                         % (dst.stride(), src.stride()))
+    return dst, src
+
+
+def _launch_copy(dst, src, tile):
+    """One launch of the copy kernel on 2-D CUDA views, walking column tiles
+    of ``tile`` elements."""
+    rows, width = dst.shape
+    size = dst.element_size()
+    dst_stride, src_stride = dst.stride(0), src.stride(0)
+    if rows > 1 and dst_stride == src_stride == width and tile == width:
+        # both contiguous: one long row
+        rows, width, tile = 1, rows * width, rows * width
+    stream = torch.cuda.current_stream(dst.device).cuda_stream
+    err = _build.library().copy_lanes(
+        dst.data_ptr(), src.data_ptr(), rows, width * size, tile * size,
+        dst_stride * size, src_stride * size, size, dst.device.index, stream)
+    if err != 0:
+        raise RuntimeError('copy kernel launch failed: CUDA error %d' % err)
+    LAUNCHES['copy_lanes'] += 1
+
+
+def copy_lanes(dst, src):
+    """``dst[...] = src`` for two (m, w) views of one dtype on one device
+    with unit stride along the lanes and any row stride: a column slice of
+    a row-major block into a slot of an extended operand, say.  No
+    arithmetic and no conversion; f32, bf16 or any dtype of 1, 2, 4 or 8
+    bytes.  The kernel uses 16-byte accesses where both base addresses,
+    both row strides and the width allow, and one element per access
+    elsewhere.  Returns ``dst``."""
+    dst2, src2 = _check_copy(dst, src)
+    if dst.device.type == 'cpu':
+        copy_lanes_plain(dst, src)
+        return dst
+    if dst2.numel():
+        _launch_copy(dst2, src2, dst2.shape[1])
+    return dst
+
+
+def hbm2hbm(x, tile):
+    """A copy of the 2-D array ``x`` made in (m, ``tile``) column tiles, as
+    a new tensor; ``x.shape[1]`` must be a multiple of ``tile``.
+
+    The reference keeps four tile copies in flight on the TPU's DMA engine
+    from one grid step, with no on-chip buffer.  An H100 has no
+    device-to-device copy that a kernel can issue without passing an SM, so
+    "four in flight" becomes "enough bytes in flight per SM": one launch
+    whose blocks walk the tiles, every thread with four loads issued before
+    its first store.  A launch per tile was not chosen: the stream runs
+    launches in order, so every tile would pay a launch gap."""
+    tile = int(tile)
+    if x.dim() != 2:
+        raise ValueError('hbm2hbm takes a 2-D array, got shape %s'
+                         % (tuple(x.shape),))
+    if tile < 1 or x.shape[1] % tile:
+        raise ValueError('the row length %d is not a multiple of tile = %d'
+                         % (x.shape[1], tile))
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    y2, x2 = _check_copy(y, x)
+    if x.device.type == 'cpu':
+        copy_lanes_plain(y, x)
+    elif x.numel():
+        _launch_copy(y2, x2, tile)
+    return y
+
+
 def stream_rate(device='cuda'):
     """The card's stream rate in bytes/s, read and write together, as the
     kernel measures it: ``RATE_REPS`` launches of ``y = REFERENCE_SCALE * x`` on
@@ -156,6 +261,7 @@ def stream_rate(device='cuda'):
     if device.type != 'cuda':
         raise ValueError('the stream rate is a property of a CUDA device, '
                          'not of %s' % device)
+    from ..benches.timing import time_ms
     gen = torch.Generator(device).manual_seed(RATE_SEED)
     x = torch.randn(REFERENCE_SHAPE, generator=gen, device=device)
     ms = time_ms(lambda: stream_scale(x, REFERENCE_SCALE), RATE_REPS, device)

@@ -1,6 +1,7 @@
-"""The CUDA kernels (DIA SpMM in its three structures, BSR SpMM, stream
-scale in its three structures) against their plain PyTorch versions on the
-card.
+"""The CUDA kernels (DIA SpMM in its three structures and over an extended
+operand, BSR SpMM, stream scale in its three structures, the strided copy)
+against their plain PyTorch versions on the card, and the mesh path on a
+mesh of several shards of the one card.
 
 Marked ``gpu``: without a CUDA device every test here skips (the fixture
 decides, so every pytest-xdist worker collects the same tests).  Run on a
@@ -15,7 +16,11 @@ which a bf16 running sum or bf16 products fail.  BSR: the entrywise bound
 of ``chip_smoke.bsr_excess`` (twice the f32 summation error bound of an
 entry's terms, plus one rounding on either side for a bf16 result).  Stream
 kernels: exact equality with ``torch.mul``.  The staged-window DIA kernels
-keep the plain version's order of summation: exact equality.
+keep the plain version's order of summation: exact equality.  The copy
+kernel: exact equality with ``Tensor.copy_``.  The extended-operand DIA
+kernel: the entrywise bounds of ``chip_smoke.window_excess`` and
+``bf16_excess`` against its plain version, and exact equality with the
+unsharded kernel (it adds a zero where that one skips a term).
 """
 
 import importlib.util
@@ -308,3 +313,172 @@ def test_stream_probes_refuse_what_they_cannot_take(cuda):
                                   8, 2)
     with pytest.raises(TypeError, match='f32'):
         st.stream_scale_tiled(x.double(), 2.0, 8)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('rows,width,src_off,dst_off', [
+    (16, 10000, 150000, 0),     # a halo: both ends 16-byte aligned
+    (16, 10000, 150001, 0),     # source shifted by one element
+    (16, 10000, 150000, 3),     # destination shifted
+    (5, 1001, 7, 11),           # odd width, both shifted
+    (1, 4099, 0, 0),            # one row
+    (3, 1, 2, 2),               # one lane
+])
+def test_copy_lanes_equals_copy(cuda, rows, width, src_off, dst_off, dtype):
+    """Column slices of one row-major block into a slot of another, on the
+    16-byte path and on the element path: exact equality with ``copy_``."""
+    g = torch.Generator(cuda).manual_seed(4)
+    src = torch.randn((rows, 160016), generator=g, device=cuda).to(dtype)
+    want = torch.zeros((rows, 20000 + width), dtype=dtype, device=cuda)
+    got = torch.zeros_like(want)
+    view = src[:, src_off:src_off + width]
+    before = st.LAUNCHES['copy_lanes']
+    out = st.copy_lanes(got[:, dst_off:dst_off + width], view)
+    st.copy_lanes_plain(want[:, dst_off:dst_off + width], view)
+    torch.cuda.synchronize()
+    assert st.LAUNCHES['copy_lanes'] == before + 1
+    assert out.data_ptr() == got[:, dst_off:].data_ptr()
+    assert torch.equal(got, want)        # and nothing outside the slot
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.uint8])
+@pytest.mark.parametrize('m,n,tile', [(32, 8192, 1024), (5, 1000, 8),
+                                      (3, 2080, 52), (1, 16, 16),
+                                      (7, 999, 999), (4, 6000, 3)])
+def test_hbm2hbm_equals_copy(cuda, m, n, tile, dtype):
+    g = torch.Generator(cuda).manual_seed(5)
+    x = (torch.randn((m, n), generator=g, device=cuda) * 50).to(dtype)
+    before = st.LAUNCHES['copy_lanes']
+    y = st.hbm2hbm(x, tile)
+    torch.cuda.synchronize()
+    assert st.LAUNCHES['copy_lanes'] == before + 1
+    assert y.dtype == dtype and y.data_ptr() != x.data_ptr()
+    assert torch.equal(y, x)
+    # a contiguous copy between two whole tensors runs as one long row
+    z = torch.empty_like(x)
+    st.copy_lanes(z, x)
+    assert torch.equal(z, x)
+
+
+def test_copy_kernel_refuses_what_it_cannot_take(cuda):
+    x = torch.randn((4, 100), device=cuda)
+    with pytest.raises(ValueError, match='device'):
+        st.copy_lanes(torch.empty((4, 100)), x)
+    with pytest.raises(TypeError, match='converts nothing'):
+        st.copy_lanes(torch.empty_like(x, dtype=torch.bfloat16), x)
+    with pytest.raises(ValueError, match='one shape'):
+        st.copy_lanes(torch.empty((4, 99), device=cuda), x)
+    with pytest.raises(ValueError, match='unit stride'):
+        st.copy_lanes(torch.empty((100, 4), device=cuda).T, x)
+    with pytest.raises(ValueError, match='multiple of tile'):
+        st.hbm2hbm(x, 33)
+
+
+def _ext_case(cuda, shape, m, dtype, pad=(0, 0), seed=6):
+    """A DIA matrix, an operand and its extension by ring-wrapped halos of
+    the stencil's reach plus ``pad`` lanes on either side."""
+    dm = DiaMatrix(lap3d(*shape, 1.0, 1.0, 1.0), device=cuda)
+    n = dm.shape[0]
+    g = torch.Generator(cuda).manual_seed(seed)
+    x = torch.randn((m, n), generator=g, device=cuda).to(dtype)
+    lo = max(0, -min(dm.offsets)) + pad[0]
+    hi = max(0, max(dm.offsets)) + pad[1]
+    x_ext = torch.cat((x[:, n - lo:], x, x[:, :hi]), dim=1)
+    return dm, x, x_ext, lo
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape,m,pad', [
+    ((8, 8, 16), 8, (0, 0)),        # aligned n
+    ((5, 7, 9), 12, (0, 0)),        # n = 315, odd halos of 35
+    ((5, 7, 9), 3, (1, 2)),         # more halo than the reach asks for
+    ((30, 30, 31), 16, (0, 0)),     # two row groups
+])
+def test_ext_kernel_matches_plain_and_the_unsharded_kernel(cuda, shape, m,
+                                                           pad, dtype):
+    """The extended-operand kernel on a whole matrix with ring-wrapped
+    halos: within the entrywise bound of its plain version, and equal bit
+    for bit to the unsharded kernel (the wrapped lanes meet zero values)."""
+    dm, x, x_ext, lo = _ext_case(cuda, shape, m, dtype, pad)
+    n = dm.shape[0]
+    key = 'ext_' + str(dtype).replace('torch.', '')
+    before = sw.LAUNCHES[key]
+    y = sw.dia_matmat_rows_ext(dm.val, x_ext, dm.offsets_t, lo, n)
+    want = sw.dia_matmat_rows_ext_plain(dm.val, x_ext, dm.offsets_t, lo, n)
+    torch.cuda.synchronize()
+    assert sw.LAUNCHES[key] == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    cs = _chip_smoke()
+    excess = cs.window_excess if dtype == torch.float32 else cs.bf16_excess
+    worst, _ = excess(torch, sw, dm.val, x, dm.offsets_t, y, want)
+    assert worst <= 1
+    assert torch.equal(y, sw.dia_matmat_rows(dm.val, x, dm.offsets_t))
+    # a strided operand: the kernel takes x_ext's own row stride
+    wide = torch.zeros((m, x_ext.shape[1] + 5), dtype=dtype, device=cuda)
+    wide[:, 2:2 + x_ext.shape[1]] = x_ext
+    y2 = sw.dia_matmat_rows_ext(dm.val, wide[:, 2:2 + x_ext.shape[1]],
+                                dm.offsets_t, lo, n)
+    assert torch.equal(y2, y)
+
+
+def test_ext_kernel_refuses_what_it_cannot_take(cuda):
+    dm, x, x_ext, lo = _ext_case(cuda, (6, 6, 6), 8, torch.float32)
+    n = dm.shape[0]
+    with pytest.raises(ValueError, match='reach'):
+        sw.dia_matmat_rows_ext(dm.val, x_ext, dm.offsets_t, lo - 1, n)
+    with pytest.raises(ValueError, match='reach'):
+        sw.dia_matmat_rows_ext(dm.val, x_ext[:, :-1], dm.offsets_t, lo, n)
+    with pytest.raises(TypeError, match='f32 or bf16'):
+        sw.dia_matmat_rows_ext(dm.val, x_ext.double(), dm.offsets_t, lo, n)
+    with pytest.raises(ValueError, match='shape'):
+        sw.dia_matmat_rows_ext(dm.val, x_ext, dm.offsets_t, lo, n - 1)
+    with pytest.raises(ValueError, match='device'):
+        sw.dia_matmat_rows_ext(dm.val.cpu(), x_ext, dm.offsets_t, lo, n)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape,shards', [((8, 8, 16), 8), ((5, 7, 9), 8),
+                                          ((5, 7, 9), 3), ((30, 30, 31), 2)])
+def test_sharded_apply_on_one_card_equals_the_unsharded(cuda, shape, shards,
+                                                        dtype):
+    """A mesh of several shards of one card: even and uneven shards, odd
+    halos (both alignments of the copy kernel), a reach wider than a shard;
+    equal bit for bit to the unsharded kernel."""
+    from raleigh_tpu_torch import make_mesh, shard_operator
+    from raleigh_tpu_torch.parallel.mesh import ShardedRows, blockvec_sharding
+    a = lap3d(*shape, 1.0, 1.0, 1.0)
+    mesh = make_mesh(shards)
+    assert all(d.type == 'cuda' for d in mesh.devices.ravel())
+    dm = DiaMatrix(a)
+    sharded = shard_operator(DiaMatrix(a), mesh)
+    g = torch.Generator(cuda).manual_seed(7)
+    x = torch.randn((12, dm.shape[0]), generator=g, device=cuda).to(dtype)
+    key = 'ext_' + str(dtype).replace('torch.', '')
+    before = sw.LAUNCHES[key], st.LAUNCHES['copy_lanes']
+    y = sharded.matmat_rows(ShardedRows.split(x, blockvec_sharding(mesh)))
+    torch.cuda.synchronize()
+    assert sw.LAUNCHES[key] == before[0] + shards
+    assert st.LAUNCHES['copy_lanes'] >= before[1] + 3 * shards
+    assert torch.equal(y.gather(), dm.matmat_rows(x))
+
+
+def test_sharded_solve_with_no_device_argument_runs_on_the_card(cuda):
+    from raleigh_tpu_torch import (Chebyshev, blockvec_sharding, lobpcg,
+                                   make_mesh, shard_operator,
+                                   spectral_bounds)
+    from raleigh_tpu_torch.examples.laplace import lap3d_eigenvalues
+    a = lap3d(12, 12, 12, 1.0, 1.0, 1.0)
+    exact = np.sort(lap3d_eigenvalues(12, 12, 12, 1.0, 1.0, 1.0))[:5]
+    _, hi = spectral_bounds(a)
+    mesh = make_mesh(8)
+    dm = shard_operator(DiaMatrix(a), mesh)
+    pre = Chebyshev(a, hi * 1e-4, hi, degree=10, device_matrix=dm) \
+        .device_rows_operands(16)
+    before = sw.LAUNCHES['ext_float32'], sw.LAUNCHES['float32']
+    lam, x, _, _, status = lobpcg(dm, 5, precond=pre, tol=1e-5,
+                                  sharding=blockvec_sharding(mesh))
+    assert status == 0 and x.shape == (a.shape[0], 5)
+    assert np.abs(lam - exact).max() / exact[-1] < 1e-4
+    assert sw.LAUNCHES['ext_float32'] > before[0]
+    assert sw.LAUNCHES['float32'] == before[1]

@@ -1,7 +1,9 @@
 """The PyTorch port imports neither jax nor anything of the JAX package:
 import it and run its slices (lap3d 10^3 through DIA, a small girder pencil
-through ELL and through hand-built BSR operators, and the two A/B sweeps
-of ``raleigh_tpu_torch.benches`` at a small size) in a fresh interpreter,
+through ELL and through hand-built BSR operators, the two A/B sweeps of
+``raleigh_tpu_torch.benches`` at a small size, and the mesh path: a sharded
+solve on 8 shards of the CPU, ``ShardedEllMatrix``, the dry run and the
+sharded SpMM bench) in a fresh interpreter,
 then look at sys.modules.  The port keeps its own copies of the host code
 both packages need (``Options``, ``spectral_bounds``, ``examples.laplace``,
 ``examples.fe_model``), so no module whose top-level name is
@@ -52,11 +54,29 @@ import raleigh_tpu_torch.ops.stream
 # the kernel-structure sweeps
 from raleigh_tpu_torch.benches import bench_grid_shapes, bench_window_tiles
 small = ['--device', 'cpu', '--reps', '1', '--m', '4']
-assert len(bench_grid_shapes.main(small + ['--n', '512', '--tiles', '64'])) == 6
+assert len(bench_grid_shapes.main(small + ['--n', '512', '--tiles', '64'])) == 7
 for variant in ('ring', 'slide', 'tiles'):
     rows = bench_window_tiles.main([variant, '128'] + small
                                    + ['--grid', '8', '8', '8'])
     assert len(rows) == 2, rows
+# the mesh path: operator and blocks split over 8 shards of the CPU
+mesh = rt.make_mesh(8, ['cpu'] * 8)
+dm = rt.shard_operator(rt.DiaMatrix(a, device='cpu'), mesh)
+lo, hi = rt.spectral_bounds(a)
+T = rt.Chebyshev(a, lo, hi, degree=10, device_matrix=dm)
+lmd, x, resid, niter, status = rt.lobpcg(
+    dm, 4, precond=T.device_rows_operands(16), tol=1e-5,
+    sharding=rt.blockvec_sharding(mesh))
+assert status == 0, status
+assert np.abs(lmd - exact).max() / exact[-1] < 1e-4, lmd
+sm = rt.ShardedEllMatrix(a, mesh)
+xt = np.ones((a.shape[0], 2), dtype=np.float32)
+assert np.abs(sm.matmat_t(xt).numpy() - a @ xt).max() < 1e-2
+from raleigh_tpu_torch import graft_entry
+from raleigh_tpu_torch.benches import bench_spmm_sharded
+graft_entry.dryrun_multichip(8, device='cpu')
+graft_entry.entry(device='cpu')
+bench_spmm_sharded.main(['6', '2', '--device', 'cpu', '--reps', '1'])
 import json
 print(json.dumps({'jax': sorted(
     m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')),

@@ -152,7 +152,7 @@ def test_default_block_and_errors(lap):
     dm = device_sparse(a, device='cpu')
     with pytest.raises(ValueError):
         lobpcg(dm, 6, block_size=4)
-    with pytest.raises(NotImplementedError, match='item 13'):
+    with pytest.raises(TypeError, match='blockvec_sharding'):
         lobpcg(dm, 6, sharding=object())
 
 

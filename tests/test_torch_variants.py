@@ -195,13 +195,17 @@ def test_copy_sweep_runs_on_the_cpu_when_asked(capsys):
     assert [(r['variant'], r['tile']) for r in rows] == [
         ('blockspec', 8), ('blockspec', 64), ('blockspec4', 8),
         ('blockspec4', 64), ('manual2', 8), ('manual2', 64), ('manual4', 8),
-        ('manual4', 64), ('grid_stride', None), ('torch', None)]
+        ('manual4', 64), ('grid_stride', None), ('torch', None),
+        ('hbm2hbm', 8), ('hbm2hbm', 64)]
     assert out.count('GB/s') == len(rows)
     # n is trimmed to whole blocks, as the reference trims it for blockspec4
     assert [r['n'] for r in rows] == [1000, 960, 992, 768, 1000, 960, 1000,
-                                      960, 1000, 1000]
-    with pytest.raises(NotImplementedError, match='2.4'):
-        grid_shapes.main(['hbm2hbm'] + small)
+                                      960, 1000, 1000, 1000, 960]
+    # the copy with no on-chip bounce runs, alone too
+    alone = grid_shapes.main(['hbm2hbm'] + small)
+    assert [(r['variant'], r['tile']) for r in alone] == [('hbm2hbm', 8),
+                                                          ('hbm2hbm', 64)]
+    capsys.readouterr()
     with pytest.raises(ValueError, match='unknown variant'):
         grid_shapes.main(['blockspec8'] + small)
     if not torch.cuda.is_available():
