@@ -94,7 +94,9 @@ carries on, and no wrapper gives way to its plain version on the card.
 5. No module of jax or of the JAX package was loaded.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-each kernel's launches on its path, error against plain, times and bound.
+each kernel's launches on its path, error against plain, times and bound
+(the extended-operand rows also the time of all shards' launches and of a
+whole sharded apply, and the copy launches and bytes of one apply).
 
     python3 chip_smoke.py --profile
 
@@ -922,7 +924,9 @@ def phase_ext(torch, np, lap3d, DiaMatrix, sw, st, k1_rows):
                     name=name, route='cuda', source=EXT[0], replaces=EXT[1],
                     launches=0, max_abs_err=diff_all, ms=tk, plain_ms=tp,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
-                    bytes=nbytes)
+                    bytes=nbytes, shards=shards, all_shards_ms=t_all,
+                    apply_ms=t_apply, copies_per_apply=copies,
+                    copy_bytes_per_apply=copy_bytes)
             del exts, xs, x
         del dm
     return rows
