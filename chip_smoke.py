@@ -46,18 +46,23 @@ carries on, and no wrapper gives way to its plain version on the card.
      kernels on 32 x 1,277,952 f32 at every tile size the copy sweep runs,
      against ``torch.mul``: exact equality.
    * The copy kernel: ``hbm2hbm`` on 32 x 1,277,952 f32 at tile 32,768 and
-     as one tile, and ``copy_lanes`` of a shard's halo (16 x 10,000 lanes
-     out of 16 x 160,000) and of its body into the slots of an extended
-     operand, 16-byte aligned and shifted by one element, f32 and bf16,
-     against ``Tensor.copy_`` (its plain version and the library's call):
-     exact equality.
-   * The extended-operand DIA kernel on lap3d(100,100,128) cut in 8 and in
-     2 shards, m = 16, f32 and bf16: every shard against its plain version
-     (``window_excess`` / ``bf16_excess``; the controls must fail), and the
-     shards' results side by side equal to the unsharded kernel's apply,
-     bit for bit.  Times per shard, per eight launches, and per whole
-     sharded apply (halo and body copies included) beside the unsharded
-     kernel's.  The shards share the one card: no scaling measurement.
+     as one tile, ``copy_lanes`` of a shard's halo (16 x 10,000 lanes out of
+     16 x 160,000) and of its body into the slots of an extended operand,
+     16-byte aligned and shifted by one element, and ``copy_lanes_many`` of
+     all 24 copies that assemble 8 shards' extended operands in one launch
+     (against the 24 ``copy_`` calls of its plain version and
+     ``torch._foreach_copy_``), f32 and bf16: exact equality.
+   * The mesh DIA kernel on lap3d(100,100,128) cut in 8 and in 2 shards,
+     m = 16, f32 and bf16: one sharded apply as a user makes it is one
+     launch and no copy; every shard, through the mesh entry and through
+     the one-piece entry (the per-shard route over copied extended
+     operands), against the plain version over the piece table
+     (``window_excess`` / ``bf16_excess``; the controls must fail), and
+     equal to the unsharded kernel's apply, bit for bit.  Times of the
+     kernel's wrapper, of the whole sharded apply, of the unsharded kernel
+     and of the per-shard route (one copy launch per run, as the previous
+     design made them, and one batched copy launch), in turns.  The shards
+     share the one card: no scaling measurement.
 3. The main paths as a user calls them, with no device argument, each
    driven with every launch counter set to 0 just before it and read just
    after.
@@ -80,23 +85,27 @@ carries on, and no wrapper gives way to its plain version on the card.
    * The sharded main path: lap3d(100,100,128) with operator and blocks
      split over ``make_mesh(8)`` (eight shards of the one card), the
      preconditioner on the sharded matrix, through ``lobpcg(sharding=)``:
-     status 0, eigenvalues within 1e-3 of the analytic ones and 1e-5 of
-     the unsharded field's, extended-operand and copy launches > 0, none
-     of the unsharded DIA kernel.
+     status 0, the unsharded field's iterations, eigenvalues within 1e-3
+     of the analytic ones and 1e-5 of the unsharded field's, exactly one
+     mesh kernel launch per device per sharded apply, no copy launch, none
+     of the one-piece entry or of the unsharded DIA kernel.
    * ``ShardedEllMatrix`` of ``shipsec_like()``'s stiffness matrix on the
-     same mesh, m = 16: within 1e-5 of SciPy and of ``EllMatrix``.
+     same mesh, m = 16: halo mode, one copy launch per product, within
+     1e-5 of SciPy and of ``EllMatrix``.
 4. The two kernel-structure sweeps through their ``main``:
    ``benches.bench_window_tiles`` (ring, slide, tiles; m = 32, and m = 16
    for the staged kernels) and ``benches.bench_grid_shapes`` (blockspec,
    blockspec4, manual2, manual4, grid_stride, torch, hbm2hbm) at full size;
    then ``benches.bench_spmm_sharded`` at its default size,
-   ``benches.bench_launch_cost`` and ``graft_entry.dryrun_multichip(8)``.
+   ``benches.bench_launch_cost`` and ``graft_entry.dryrun_multichip(8)``
+   (one mesh kernel launch per device per sharded apply, no copy launch).
 5. No module of jax or of the JAX package was loaded.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel's launches on its path, error against plain, times and bound
-(the extended-operand rows also the time of all shards' launches and of a
-whole sharded apply, and the copy launches and bytes of one apply).
+(the mesh rows also the time of a whole sharded apply, of the unsharded
+kernel and of the per-shard route beside it; a case of the copy kernel
+that no path runs keeps 0 launches, with ``off_path`` saying why).
 
     python3 chip_smoke.py --profile
 
@@ -106,6 +115,7 @@ solve with f32 Chebyshev iterates.
 """
 
 import contextlib
+import ctypes
 import io
 import json
 import re
@@ -783,8 +793,84 @@ def phase_copy(torch, st):
                     name=row, route='cuda', source=COPY[0],
                     replaces=COPY[1], launches=0, max_abs_err=0.0, ms=tk,
                     plain_ms=tp, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=tp, bytes=cbytes)
+                    library_ms=tp, bytes=cbytes,
+                    off_path='no solver path makes a single halo copy: '
+                             'ShardedEll batches its copies')
+        del src, got, want
+        rows.update(assembly_copies(torch, st, gen, dt))
     return rows
+
+
+def assembly_copies(torch, st, gen, dt):
+    """The extended operands of all 8 shards of a lap3d(100,100,128) block
+    (m = 16, halos of 10,000 lanes): 24 copies through one
+    ``copy_lanes_many`` launch against the plain version's 24 ``copy_``
+    calls (exact equality) and ``torch._foreach_copy_``.  Returns its row."""
+    from raleigh_tpu_torch.parallel.mesh import ring_runs
+    m, n_local, halo = 16, 160000, 10000
+    key = 'f32' if dt == torch.float32 else 'bf16'
+    parts = [torch.randn((m, n_local), generator=gen, device='cuda').to(dt)
+             for _ in range(SHARDS)]
+    got, want, pairs, plain = [], [], [], []
+    for runs in ring_runs([n_local] * SHARDS, halo, halo):
+        got.append(torch.zeros((m, n_local + 2 * halo), dtype=dt,
+                               device='cuda'))
+        want.append(torch.zeros_like(got[-1]))
+        for pos, take, j, at in runs:
+            src = parts[j][:, at:at + take]
+            pairs.append((got[-1][:, pos:pos + take], src))
+            plain.append((want[-1][:, pos:pos + take], src))
+    before = st.LAUNCHES['copy_lanes']
+    st.copy_lanes_many(pairs)
+    st.copy_lanes_many_plain(plain)
+    torch.cuda.synchronize()
+    if st.LAUNCHES['copy_lanes'] - before != 1:
+        fail('the %d copies of an 8-shard assembly took %d launches'
+             % (len(pairs), st.LAUNCHES['copy_lanes'] - before))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail('copy_lanes_many of an 8-shard assembly %s differs from copy_'
+             % key)
+    # all three as a caller makes them, one Python call each: the wrapper
+    # (its checks of 24 pairs included), 24 copy_, one _foreach_copy_; and
+    # the kernel alone, its parameter block built once and launched directly
+    from raleigh_tpu_torch.ops import _build
+    block = st._COPY_BLOCK()
+    block[0] = len(pairs)
+    block[2:2 + len(pairs) * st._COPY_SLOTS] = [
+        v for d, c in pairs for v in st._copy_slots(d, c)]
+    lib, index = _build.library(), torch.cuda.current_device()
+
+    def launch():
+        if lib.copy_lanes_many(ctypes.addressof(block), ctypes.sizeof(block),
+                               index, _build.current_stream(index)):
+            fail('copy_lanes_many launch failed')
+    tk, tp = in_turns(lambda: st.copy_lanes_many(pairs),
+                      lambda: st.copy_lanes_many_plain(plain), 100)
+    t_launch = time_ms(launch, 100)
+    dsts, srcs = [d for d, _ in plain], [s for _, s in plain]
+    try:
+        lib_ms = time_ms(lambda: torch._foreach_copy_(dsts, srcs), 100)
+    except (AttributeError, RuntimeError, NotImplementedError) as e:
+        print('  torch._foreach_copy_ is not available: %s'
+              % str(e).splitlines()[0])
+        lib_ms = None
+    nbytes = 2 * sum(g.numel() for g in got) * got[0].element_size()
+    b_ms, b_by = bound(nbytes, 0)
+    name = 'copy_lanes_many_' + key
+    print('%s: the %d copies of an 8-shard assembly (%d x (%d, %d) %s) in '
+          'one launch, equal to copy_; through the wrapper %.4f ms (%.0f '
+          'GB/s), %d copy_ calls %.4f ms, torch._foreach_copy_ %s, the '
+          'kernel launched directly %.4f ms (%.0f GB/s), bound %.4f ms (%s)'
+          % (name, len(pairs), SHARDS, m, n_local + 2 * halo, key, tk,
+             nbytes / tk / 1e6, len(pairs), tp, fmt_ms(lib_ms), t_launch,
+             nbytes / t_launch / 1e6, b_ms, b_by))
+    row = dict(name=name, route='cuda', source=COPY[0], replaces=COPY[1],
+               launches=0, max_abs_err=0.0, ms=tk, plain_ms=tp,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, bytes=nbytes,
+               launch_ms=t_launch)
+    if dt != torch.float32:
+        row['off_path'] = 'no solver path copies bf16 lanes'
+    return {name: row}
 
 
 def ext_controls(torch, val, x_ext, offsets, halo_lo, n):
@@ -801,14 +887,67 @@ def ext_controls(torch, val, x_ext, offsets, halo_lo, n):
     return {'bf16 running sum': run, 'bf16 products': prod.to(torch.bfloat16)}
 
 
+def per_shard_route(torch, sw, st, val, plan, xs, batched):
+    """The sharded apply as the previous design made it, rebuilt from the
+    mesh kernel's one-piece entry: an extended operand per shard assembled
+    by ``copy_lanes`` one run at a time (``batched``: all runs in one
+    ``copy_lanes_many`` launch), then one launch per shard.  Returns the
+    shards' results and their extended operands."""
+    from raleigh_tpu_torch.parallel.mesh import ring_runs
+    lo, hi = plan.lo, plan.hi
+    widths = [p.shape[1] for p in xs.parts]
+    exts, pairs = [], []
+    for part, runs in zip(xs.parts, ring_runs(widths, lo, hi)):
+        if runs is None:
+            exts.append(None)
+            continue
+        ext = torch.empty((part.shape[0], lo + part.shape[1] + hi),
+                          dtype=part.dtype, device=part.device)
+        for pos, take, j, at in runs:
+            pairs.append((ext[:, pos:pos + take],
+                          xs.parts[j][:, at:at + take]))
+        exts.append(ext)
+    if batched:
+        st.copy_lanes_many(pairs)
+    else:
+        for dst, src in pairs:
+            st.copy_lanes(dst, src)
+    return [torch.empty_like(own) if ext is None else
+            sw.dia_matmat_rows_ext(v, ext, plan.offsets_on(v.device), lo,
+                                   v.shape[1], reach=(lo, hi))
+            for v, ext, own in zip(val.parts, exts, xs.parts)], exts
+
+
+@contextlib.contextmanager
+def previous_design(torch, sw, st):
+    """Inside the block every sharded DIA apply takes the per-shard route
+    with one copy launch per run (``per_shard_route``), as the previous
+    design did."""
+    from raleigh_tpu_torch.ops import spmm
+    from raleigh_tpu_torch.parallel.mesh import ShardedRows
+    inner = spmm._dia_sharded_apply
+
+    def route(val, plan, x):
+        back = x.sharding
+        parts, _ = per_shard_route(torch, sw, st, val, plan,
+                                   x.resplit(val.sharding), False)
+        return ShardedRows(parts, val.sharding).resplit(back)
+    spmm._dia_sharded_apply = route
+    try:
+        yield
+    finally:
+        spmm._dia_sharded_apply = inner
+
+
 def phase_ext(torch, np, lap3d, DiaMatrix, sw, st, k1_rows):
-    """The extended-operand DIA kernel at the sharded main path's shapes:
-    lap3d(100,100,128) cut in 8 and in 2 shards of the one card.  Returns
-    its rows (times per shard of the cut in 8)."""
+    """The mesh DIA kernel at the sharded main path's shapes:
+    lap3d(100,100,128) cut in 8 and in 2 shards of the one card, through
+    the mesh entry (one launch for all shards) and the one-piece entry
+    (the per-shard route over copied extended operands).  Returns its rows
+    (the cut in 8)."""
     from raleigh_tpu_torch.core.device_solver import shard_operator
     from raleigh_tpu_torch.parallel.mesh import (ShardedRows,
-                                                 blockvec_sharding, make_mesh,
-                                                 ring_extended)
+                                                 blockvec_sharding, make_mesh)
     rows = {}
     gen = torch.Generator('cuda').manual_seed(5)
     a = lap3d(100, 100, 128, 1.0, 1.0, 1.0)
@@ -818,48 +957,63 @@ def phase_ext(torch, np, lap3d, DiaMatrix, sw, st, k1_rows):
     for shards in (SHARDS, 2):
         mesh = make_mesh(shards)
         dm = shard_operator(DiaMatrix(a, dtype=np.float32), mesh)
-        offs = dm.offsets_by_device[dm.val.parts[0].device]
+        plan = dm._mesh_plan(dm.val.sharding)
+        offs = plan.offsets_on(dm.val.parts[0].device)
+        vals = dm.val.parts
         for dt in (torch.float32, torch.bfloat16):
             key = 'f32' if dt == torch.float32 else 'bf16'
             excess = window_excess if dt == torch.float32 else bf16_excess
             x = torch.randn((m, n), generator=gen, device='cuda').to(dt)
             xs = ShardedRows.split(x, blockvec_sharding(mesh))
-            before = st.LAUNCHES['copy_lanes']
-            exts, copies = ring_extended(xs, lo, hi)
-            if st.LAUNCHES['copy_lanes'] - before != copies:
-                fail('%d copies assembled the extended operands, %d went '
-                     'through the copy kernel'
-                     % (copies, st.LAUNCHES['copy_lanes'] - before))
-            parts, worst_all, diff_all = [], 0.0, 0.0
-            for i, (v, ext) in enumerate(zip(dm.val.parts, exts)):
+            y1 = whole.matmat_rows(x)
+            # one apply as a user makes it: one launch, nothing copied
+            before = dict(sw.LAUNCHES), dict(st.LAUNCHES)
+            ym = dm.matmat_rows(xs)
+            torch.cuda.synchronize()
+            moved = {k: v - before[0][k] for k, v in sw.LAUNCHES.items()
+                     if v != before[0][k]}
+            moved.update({k: v - before[1][k] for k, v in st.LAUNCHES.items()
+                          if v != before[1][k]})
+            if moved != {'mesh_' + str(dt)[6:]: 1}:
+                fail('%d shards, %s: one sharded apply launched %s, not one '
+                     'mesh kernel' % (shards, key, moved))
+            if not torch.equal(ym.gather(), y1):
+                fail('%d shards, %s: the mesh apply differs from the '
+                     'unsharded kernel\'s' % (shards, key))
+            # the mesh kernel against its plain version, shard by shard
+            yp = sw.dia_matmat_rows_mesh_plain(vals, xs.parts, plan)
+            route, exts = per_shard_route(torch, sw, st, dm.val, plan, xs,
+                                          batched=True)
+            worst_all, diff_all = 0.0, 0.0
+            for i, (v, ext) in enumerate(zip(vals, exts)):
                 n_i = v.shape[1]
-                yk = sw.dia_matmat_rows_ext(v, ext, offs, lo, n_i,
-                                            reach=(lo, hi))
-                yp = sw.dia_matmat_rows_ext_plain(v, ext, offs, lo, n_i)
-                torch.cuda.synchronize()
-                if yk.dtype != dt or yk.shape != (m, n_i):
-                    fail('ext kernel output %s %s' % (yk.dtype,
-                                                      tuple(yk.shape)))
-                if not torch.isfinite(yk.float()).all():
-                    fail('ext kernel: non-finite output on shard %d' % i)
                 terms = sw.dia_matmat_rows_ext_plain(
                     v.abs(), ext.float().abs(), offs, lo, n_i)
-                worst, share = excess(torch, sw, v, None, offs, yk, yp,
-                                      terms=terms)
-                if worst > 1:
-                    fail('ext kernel vs plain, %d shards, shard %d, %s: %.3e '
-                         'of the entries beyond the bound (worst %.2f times '
-                         'it)' % (shards, i, key, share, worst))
-                worst_all = max(worst_all, worst)
-                diff_all = max(diff_all,
-                               (yk.float() - yp.float()).abs().max().item())
+                for what, got in (('mesh', ym.parts[i]),
+                                  ('one-piece', route[i])):
+                    if got.dtype != dt or got.shape != (m, n_i):
+                        fail('%s entry output %s %s'
+                             % (what, got.dtype, tuple(got.shape)))
+                    if not torch.isfinite(got.float()).all():
+                        fail('%s entry: non-finite output on shard %d'
+                             % (what, i))
+                    worst, share = excess(torch, sw, v, None, offs, got,
+                                          yp[i], terms=terms)
+                    if worst > 1:
+                        fail('%s entry vs plain, %d shards, shard %d, %s: '
+                             '%.3e of the entries beyond the bound (worst '
+                             '%.2f times it)' % (what, shards, i, key, share,
+                                                 worst))
+                    worst_all = max(worst_all, worst)
+                    diff_all = max(diff_all, (got.float() - yp[i].float())
+                                   .abs().max().item())
                 if i == 0 and shards == SHARDS:
                     for name, yc in ext_controls(torch, v, ext, offs, lo,
                                                  n_i).items():
                         if dt == torch.float32 and name != 'bf16 running sum':
                             continue
                         cworst, cshare = excess(torch, sw, v, None, offs, yc,
-                                                yp, terms=terms)
+                                                yp[i], terms=terms)
                         print('  control (%s) vs plain, shard 0 of %d, %s: '
                               '%.4f of the entries beyond the bound (worst '
                               '%.1f times it)' % (name, shards, key, cshare,
@@ -867,68 +1021,58 @@ def phase_ext(torch, np, lap3d, DiaMatrix, sw, st, k1_rows):
                         if cworst <= 1:
                             fail('the %s bound passes the control (%s)'
                                  % (key, name))
-                parts.append(yk)
-                del yp, terms
-            y1 = whole.matmat_rows(x)
-            if not torch.equal(torch.cat(parts, dim=1), y1):
-                fail('%d shards, %s: the shards\' results side by side '
-                     'differ from the unsharded kernel\'s' % (shards, key))
-            before = st.LAUNCHES['copy_lanes']
-            if not torch.equal(dm.matmat_rows(xs).gather(), y1):
-                fail('%d shards, %s: the sharded apply differs from the '
+                del terms
+            if not torch.equal(torch.cat(route, dim=1), y1):
+                fail('%d shards, %s: the per-shard route differs from the '
                      'unsharded kernel\'s' % (shards, key))
-            copies = st.LAUNCHES['copy_lanes'] - before
-            copy_bytes = 2 * sum(e.numel() for e in exts) * x.element_size()
-            del parts, y1
+            del ym, yp, route, exts, y1
 
-            # one shard (an interior one) against its plain version
-            i = shards // 2
-            v, ext, n_i = dm.val.parts[i], exts[i], dm.val.parts[i].shape[1]
+            # in turns: the mesh kernel's wrapper against its plain
+            # version; the whole sharded apply against K1, against the
+            # per-shard route with its 24 copy launches (the previous
+            # design) and with one batched copy launch
             tk, tp = in_turns(
-                lambda: sw.dia_matmat_rows_ext(v, ext, offs, lo, n_i,
-                                               reach=(lo, hi)),
-                lambda: sw.dia_matmat_rows_ext_plain(v, ext, offs, lo, n_i),
-                100)
-
-            def all_shards():
-                for vv, ee in zip(dm.val.parts, exts):
-                    sw.dia_matmat_rows_ext(vv, ee, offs, lo, vv.shape[1],
-                                           reach=(lo, hi))
-            # the launches of all shards, and the whole sharded apply with
-            # its copies, in turns with the unsharded kernel
-            t_all, t_k1 = in_turns(
-                all_shards, lambda: whole.matmat_rows(x), 50)
-            t_apply, t_k1b = in_turns(
-                lambda: dm.matmat_rows(xs), lambda: whole.matmat_rows(x), 50)
-            nbytes = (noff * n_i * 4 + noff * 4
-                      + m * ext.shape[1] * x.element_size()
-                      + m * n_i * x.element_size())
-            bound_ms, bound_by = bound(nbytes, 2 * m * noff * n_i)
-            name = 'dia_spmm_rows_ext_' + key
+                lambda: sw.dia_matmat_rows_mesh(vals, xs.parts, plan),
+                lambda: sw.dia_matmat_rows_mesh_plain(vals, xs.parts, plan),
+                20)
+            t_apply, t_k1 = in_turns(lambda: dm.matmat_rows(xs),
+                                     lambda: whole.matmat_rows(x), 100)
+            t_route, t_apply2 = in_turns(
+                lambda: per_shard_route(torch, sw, st, dm.val, plan, xs,
+                                        False),
+                lambda: dm.matmat_rows(xs), 50)
+            t_batched = time_ms(lambda: per_shard_route(
+                torch, sw, st, dm.val, plan, xs, True), 50)
+            # K1's work: a shard's halo lanes are its neighbours' own lanes,
+            # read once as a whole-matrix apply reads them
+            nbytes = noff * n * 4 + noff * 4 + 2 * m * n * x.element_size()
+            bound_ms, bound_by = bound(
+                nbytes, 2 * m * sum(n - abs(o) for o in whole.offsets))
+            name = 'dia_spmm_rows_mesh_' + key
             lib = k1_rows['dia_spmm_rows_f32']['library_ms'] \
                 if dt == torch.float32 else None
-            print('%s lap3d(100,100,128) in %d shards, n_local=%d m=%d: max '
-                  'abs err %.3e (worst %.3f of the bound), side by side '
-                  'equal to the unsharded kernel bit for bit; per shard '
-                  '%.4f ms (%.0f GB/s), plain %.4f ms, bound %.4f ms (%s); '
-                  'all %d shards %.4f ms; whole sharded apply %.4f ms with '
-                  '%d copy launches moving %.1f MB; unsharded kernel %.4f / '
-                  '%.4f ms; torch.sparse.mm of the whole matrix %s '
-                  '[one card: no scaling measurement]'
-                  % (name, shards, n_i, m, diff_all, worst_all, tk,
-                     nbytes / tk / 1e6, tp, bound_ms, bound_by, shards,
-                     t_all, t_apply, copies, copy_bytes / 1e6, t_k1, t_k1b,
+            print('%s lap3d(100,100,128) in %d shards, m=%d: one launch, '
+                  'max abs err %.3e (worst %.3f of the bound; the one-piece '
+                  'entry too), equal to the unsharded kernel bit for bit; '
+                  'kernel %.4f ms (%.0f GB/s), plain %.4f ms, bound %.4f ms '
+                  '(%s); whole sharded apply %.4f / %.4f ms, unsharded kernel '
+                  '%.4f ms; per-shard route with %d copy launches %.4f ms, '
+                  'with one batched copy launch %.4f ms; torch.sparse.mm of '
+                  'the whole matrix %s [one card: no scaling measurement]'
+                  % (name, shards, m, diff_all, worst_all, tk,
+                     nbytes / tk / 1e6, tp, bound_ms, bound_by, t_apply,
+                     t_apply2, t_k1, 3 * shards, t_route, t_batched,
                      fmt_ms(lib)))
             if shards == SHARDS:
                 rows[name] = dict(
                     name=name, route='cuda', source=EXT[0], replaces=EXT[1],
                     launches=0, max_abs_err=diff_all, ms=tk, plain_ms=tp,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
-                    bytes=nbytes, shards=shards, all_shards_ms=t_all,
-                    apply_ms=t_apply, copies_per_apply=copies,
-                    copy_bytes_per_apply=copy_bytes)
-            del exts, xs, x
-        del dm
+                    bytes=nbytes, shards=shards, apply_ms=t_apply,
+                    k1_ms=t_k1, per_shard_route_ms=t_route,
+                    per_shard_batched_ms=t_batched)
+            del xs, x
+        del dm, plan, vals
     return rows
 
 
@@ -985,13 +1129,14 @@ def phase_sweeps(mods, rows, card, wt, gs):
           % (out['n'], out['m'], out['mode'], st.LAUNCHES['copy_lanes'],
              card))
     reset_counters(mods)
-    graft_entry.dryrun_multichip(SHARDS)
-    if min(sw.LAUNCHES['ext_float32'], st.LAUNCHES['copy_lanes']) <= 0:
-        fail('dryrun_multichip skipped a kernel of the mesh path: %s %s'
-             % (sw.LAUNCHES, st.LAUNCHES))
-    print('dryrun_multichip(%d): %d extended-operand launches, %d copy '
-          'launches [%s]' % (SHARDS, sw.LAUNCHES['ext_float32'],
-                             st.LAUNCHES['copy_lanes'], card))
+    with counting_sharded_applies() as applies:
+        graft_entry.dryrun_multichip(SHARDS)
+    if sw.LAUNCHES['mesh_float32'] <= 0:
+        fail('dryrun_multichip skipped the mesh kernel: %s' % sw.LAUNCHES)
+    check_one_launch_per_device(sw, st, 'dryrun_multichip', applies)
+    print('dryrun_multichip(%d): %d mesh kernel launches for %d sharded '
+          'applies, no copy launch [%s]'
+          % (SHARDS, sw.LAUNCHES['mesh_float32'], len(applies), card))
 
 
 def solve(torch, partial_hevp, a, T, which, tol, b=None):
@@ -1057,6 +1202,39 @@ def check_solution(np, name, lmd, x, status, exact, limit):
     return err
 
 
+@contextlib.contextmanager
+def counting_sharded_applies():
+    """Counts the mesh-partitioned DIA applies made inside the block (the
+    calls of ``ops.spmm._dia_sharded_apply``) and the devices each one
+    spans: yields a list of the device counts."""
+    from raleigh_tpu_torch.ops import spmm
+    applies, inner = [], spmm._dia_sharded_apply
+
+    def counted(val, plan, x):
+        applies.append(len({launch.device for launch in plan.launches}))
+        return inner(val, plan, x)
+    spmm._dia_sharded_apply = counted
+    try:
+        yield applies
+    finally:
+        spmm._dia_sharded_apply = inner
+
+
+def check_one_launch_per_device(sw, st, what, applies):
+    """Fails unless the mesh kernel ran once per device per sharded apply,
+    and neither the copy kernel nor the one-piece entry ran."""
+    launches = sw.LAUNCHES['mesh_float32'] + sw.LAUNCHES['mesh_bfloat16']
+    if not applies or launches != sum(applies):
+        fail('%s: %d mesh kernel launches for %d sharded applies over %d '
+             'device launches' % (what, launches, len(applies),
+                                  sum(applies)))
+    stray = (st.LAUNCHES['copy_lanes'], sw.LAUNCHES['ext_float32'],
+             sw.LAUNCHES['ext_bfloat16'])
+    if any(stray):
+        fail('%s: copy and one-piece launches %s on the mesh DIA path'
+             % (what, stray))
+
+
 def reset_counters(mods):
     for mod in mods:
         mod.reset_launches()
@@ -1107,7 +1285,7 @@ def phase_lap3d(torch, np, mods, rows, card, profile=False):
         if first:
             print('main path kernel launches: %s' % json.dumps(launches))
             main_field = dict(lmd=np.sort(lmd)[:which], iterations=its2,
-                              warm=warm)
+                              warm=warm, launches=launches)
         if profile:
             profile_run(torch, lambda: solve(torch, partial_hevp, a, ch,
                                              which, tol), card)
@@ -1160,39 +1338,55 @@ def phase_sharded(torch, np, mods, rows, card, main_field, k_rel,
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    (lmd, x, _, its, status), cold = run()
-    launches = {key: sw.LAUNCHES[key] for key in ('ext_float32',
-                                                  'ext_bfloat16')}
-    launches['copy_lanes'] = st.LAUNCHES['copy_lanes']
+    with counting_sharded_applies() as applies:
+        (lmd, x, _, its, status), cold = run()
+    launches = {key: sw.LAUNCHES[key] for key in ('mesh_float32',
+                                                  'mesh_bfloat16')}
     if min(launches.values()) <= 0:
         fail('%s skipped a kernel: launches %s' % (name, launches))
+    check_one_launch_per_device(sw, st, name, applies)
     if sw.LAUNCHES['float32'] or sw.LAUNCHES['bfloat16']:
         fail('%s launched the unsharded DIA kernel: %s' % (name, sw.LAUNCHES))
-    rows['dia_spmm_rows_ext_f32']['launches'] = launches['ext_float32']
-    rows['dia_spmm_rows_ext_bf16']['launches'] = launches['ext_bfloat16']
-    # the one counter of the copy kernel counts halo and body copies of
-    # both operand types together
-    rows['copy_lanes_halo_f32']['launches'] = launches['copy_lanes']
-    rows['copy_lanes_halo_bf16']['launches'] = launches['copy_lanes']
+    rows['dia_spmm_rows_mesh_f32']['launches'] = launches['mesh_float32']
+    rows['dia_spmm_rows_mesh_bf16']['launches'] = launches['mesh_bfloat16']
     err = check_solution(np, name, lmd, x, status, exact, 1e-3)
     agree = float(np.abs(np.sort(lmd)[:which] / main_field['lmd'] - 1).max())
     if agree > SHARDED_AGREE:
         fail('%s: eigenvalues differ from the unsharded field\'s by %.2e > '
              '%.0e' % (name, agree, SHARDED_AGREE))
+    if its != main_field['iterations']:
+        fail('%s: %d iterations, the unsharded field %d'
+             % (name, its, main_field['iterations']))
     (lmd, x, _, its2, status), warm = run()
     check_solution(np, name, lmd, x, status, exact, 1e-3)
-    applies = (launches['ext_float32'] + launches['ext_bfloat16']) // SHARDS
+    # the previous design's warm solve in turns with this one's
+    walls = {'mesh': [warm], 'per-shard': []}
+    for design in ('per-shard', 'per-shard', 'mesh'):
+        with contextlib.ExitStack() as stack:
+            if design == 'per-shard':
+                stack.enter_context(previous_design(torch, sw, st))
+            (lmd2, x2, _, its3, status), wall = run()
+        check_solution(np, name + ' (%s design)' % design, lmd2, x2, status,
+                       exact, 1e-3)
+        walls[design].append(wall)
+    print('%s: warm lobpcg wall in turns, mesh design %s s, per-shard design '
+          '(24 copy and 8 one-piece launches per apply) %s s [%s]'
+          % (name, ' / '.join('%.3f' % t for t in walls['mesh']),
+             ' / '.join('%.3f' % t for t in walls['per-shard']), card))
     print('%s: status 0, %d iterations (warm run %d; unsharded %d), max rel '
           'eigenvalue error %.2e, within %.2e of the unsharded field; set-up '
           '(DIA, split, Chebyshev) %.3f s; lobpcg wall cold %.3f s, warm '
-          '%.3f s (unsharded partial_hevp warm %.3f s); launches %s = %d '
-          'applies, %.1f copies per apply [%s; the shards share the card: '
-          'no scaling measurement]'
+          '%.3f s (unsharded partial_hevp warm %.3f s); launches %s for %d '
+          'sharded applies (unsharded K1: %s), no copy launch [%s; the shards '
+          'share the card: no scaling measurement]'
           % (name, its, its2, main_field['iterations'], err, agree, setup,
-             cold, warm, main_field['warm'], json.dumps(launches), applies,
-             launches['copy_lanes'] / applies, card))
+             cold, warm, main_field['warm'], json.dumps(launches),
+             len(applies), json.dumps(main_field['launches']), card))
     if profile:
         profile_run(torch, run, card)
+        print('the same solve, per-shard design:')
+        with previous_design(torch, sw, st):
+            profile_run(torch, run, card)
     del dm, ch
     torch.cuda.empty_cache()
 
@@ -1209,8 +1403,12 @@ def phase_sharded(torch, np, mods, rows, card, main_field, k_rel,
     if y.device.type != 'cuda' or y.shape != (n, 16):
         fail('ShardedEllMatrix product on %s, shape %s' % (y.device,
                                                            tuple(y.shape)))
-    if sm.mode == 'halo' and copies <= 0:
-        fail('ShardedEllMatrix moved its halos without the copy kernel')
+    if sm.mode != 'halo' or copies != 1:
+        fail('ShardedEllMatrix in mode %s made %d copy launches in one '
+             'product, not one' % (sm.mode, copies))
+    # the f32 batch is the copy kernel's case on this path; its halo and
+    # bf16 rows are on none and keep 0
+    rows['copy_lanes_many_f32']['launches'] = copies
     ref = k_rel @ xt.astype(np.float64)
     err = float(np.abs(y.cpu().numpy() - ref).max() / np.abs(ref).max())
     ell = EllMatrix(k_rel).matmat_t(torch.from_numpy(xt).cuda())
@@ -1426,7 +1624,7 @@ def main():
         fail('modules of jax or of the JAX package were imported: %s'
              % loaded)
     for row in rows.values():
-        if row['launches'] <= 0:
+        if row['launches'] <= 0 and 'off_path' not in row:
             fail('%s was launched no time on its path' % row['name'])
         nbytes = row.pop('bytes')
         print('%s: %.4f ms (%.0f GB/s effective) on %d launches; bound '

@@ -164,9 +164,9 @@ def shard_operator(dm, mesh, axis='chips'):
     changed in place, as the JAX package's function does.
 
     DIA: ``val`` (noff, n) is split along the lanes, and every sharded
-    apply runs shard by shard on halos copied from the neighbours
-    (``DiaMatrix.sharded_rows_fn``).  ELL: ``idx`` and ``val`` are split by
-    rows and applied against the gathered operand.  BSR has no sharded
+    apply is one launch per device that reads the neighbours' halo lanes
+    where they lie (``DiaMatrix.sharded_rows_fn``).  ELL: ``idx`` and
+    ``val`` are split by rows and applied against the gathered operand.  BSR has no sharded
     apply, here as in the JAX package: raises ``NotImplementedError``.
 
     ``axis`` names the mesh axis (or a tuple of axes) the split follows.
@@ -184,8 +184,6 @@ def shard_operator(dm, mesh, axis='chips'):
             + dm.offsets_t.to(val.device)[:, None]
         val = torch.where((lane >= 0) & (lane < n), val, 0.0)
         dm.val = ShardedRows.split(val, sharding)
-        dm.offsets_by_device = {
-            dev: dm.offsets_t.to(dev) for dev in set(sharding.devices)}
     elif isinstance(dm, EllMatrix):
         if dm._multi_device():
             dm.idx, dm.val = dm.idx.gather(), dm.val.gather()

@@ -102,8 +102,8 @@ def dryrun_multichip(n_devices, device=None):
         assert st in (0, 2) and lam.shape == (2,), (st, lam.shape)
         assert np.all(np.isfinite(lam)) and xx.shape == (n, 2)
 
-        # explicit halo-exchange SpMM: per-shard compute on an operand
-        # extended by the neighbours' edge lanes
+        # explicit halo-exchange SpMM: each shard's own lanes and its
+        # neighbours' edge lanes, read where they lie
         n_sp = 128 * n_devices
         a_big = lap1d(n_sp, 1.0)
         dm2 = shard_operator(device_sparse(a_big, dtype=np.float32,

@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
@@ -45,16 +47,17 @@ _WINDOW_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4
 # stream
 _EXT_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5
              + [ctypes.c_int, ctypes.c_void_p])
+# a host parameter block and its size in bytes; device; stream
+_TABLE_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+               ctypes.c_void_p]
 _SIGNATURES = {
     'dia_spmm': {'dia_spmm_rows_f32': _DIA_ARGS,
                  'dia_spmm_rows_bf16': _DIA_ARGS},
     'dia_spmm_ext': {'dia_spmm_rows_ext_f32': _EXT_ARGS,
-                     'dia_spmm_rows_ext_bf16': _EXT_ARGS},
-    # dst, src; rows, width, tile, dst stride, src stride (bytes); element
-    # size, device; stream
-    'copy_lanes': {'copy_lanes': (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 5
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])},
+                     'dia_spmm_rows_ext_bf16': _EXT_ARGS,
+                     'dia_spmm_mesh_f32': _TABLE_ARGS,
+                     'dia_spmm_mesh_bf16': _TABLE_ARGS},
+    'copy_lanes': {'copy_lanes_many': _TABLE_ARGS},
     'dia_spmm_slide': {'dia_spmm_rows_slide_f32': _WINDOW_ARGS},
     'dia_spmm_tiles': {'dia_spmm_rows_tiles_f32': _WINDOW_ARGS},
     'bsr_spmm': {'bsr_spmm_rows_f32_f32': _BSR_ARGS,
@@ -76,6 +79,14 @@ _SIGNATURES = {
 }
 
 _loaded = {}
+
+
+def current_stream(index):
+    """The raw ``cudaStream_t`` (an int) of the current stream of CUDA
+    device ``index``, the stream every kernel launches on, read as torch's
+    own generated code reads it: ``torch._C._cuda_getCurrentRawStream``
+    builds no ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _nvcc():

@@ -19,10 +19,10 @@ device, as it is plain XLA code in the JAX package.
 
 A DIA or ELL matrix whose values ``core.device_solver.shard_operator``
 has split over a mesh (``parallel/mesh.py``: a list of devices, one per
-shard, walked by one process) applies to ``ShardedRows`` blocks: DIA shard
-by shard through the extended-operand kernel on halos copied from the
-neighbouring shards (``DiaMatrix.sharded_rows_fn``), ELL row block by row
-block against the gathered operand.
+shard, walked by one process) applies to ``ShardedRows`` blocks: DIA
+through the mesh kernel, one launch per device that reads each shard's
+halo lanes where they lie (``DiaMatrix.sharded_rows_fn``), ELL row block
+by row block against the gathered operand.
 
 Left out, because they exist only for the TPU: the per-shape kernel
 caches and their shard fingerprints, the window/fused-XLA routing and its
@@ -33,9 +33,9 @@ unaligned n).
 import numpy as np
 import torch
 
-from ..parallel.mesh import ShardedRows, ring_extended
+from ..parallel.mesh import ShardedRows
 from .spmm_pallas import bsr_matmat_rows
-from .spmm_window import dia_matmat_rows, dia_matmat_rows_ext
+from .spmm_window import DiaMeshPlan, dia_matmat_rows, dia_matmat_rows_mesh
 
 
 def torch_dtype(dtype):
@@ -112,9 +112,7 @@ class DiaMatrix:
     tuple of ints, ``offsets_t`` the same offsets as an int32 tensor on
     ``device`` for the kernel; ``dtype`` is the values' storage dtype, as
     on the other layouts.  After ``core.device_solver.shard_operator``,
-    ``val`` is a ``ShardedRows`` of (noff, n_p) tensors, one per shard, and
-    ``offsets_by_device`` maps each shard's device to the offsets tensor
-    there."""
+    ``val`` is a ``ShardedRows`` of (noff, n_p) tensors, one per shard."""
 
     # Working set above which the Chebyshev recurrence streams its
     # iterates in bf16 (algebra/sparse.py, auto rule).  The value is the
@@ -149,6 +147,7 @@ class DiaMatrix:
         self.dtype = self.val.dtype
         self.offsets_t = torch.tensor(self.offsets, dtype=torch.int32,
                                       device=self.device)
+        self._plans = {}
 
     def _multi_device(self):
         """True when the diagonal values are split over a mesh
@@ -156,13 +155,24 @@ class DiaMatrix:
         ``ShardedRows`` of (noff, n_p) tensors."""
         return isinstance(self.val, ShardedRows)
 
+    def _mesh_plan(self, sharding):
+        """The piece table of the mesh apply for values split by
+        ``sharding``, built at its first apply and kept."""
+        plan = self._plans.get(sharding)
+        if plan is None:
+            widths = [e - s for s, e in sharding.bounds(self.shape[0])]
+            plan = self._plans[sharding] = DiaMeshPlan(
+                widths, sharding.devices, self.offsets)
+        return plan
+
     def matmat_rows(self, x):
         """(m, n) = ((m, n) @ A) for a row-vector block, in x's dtype (A
         symmetric, so x A = (A xᵀ)ᵀ).  With values split over a mesh, x is
         a ``ShardedRows`` and so is the result; a plain tensor is split,
         applied and gathered again."""
         if self._multi_device():
-            return self.sharded_rows_fn(*x.shape, x.dtype)(x)
+            return _dia_sharded_apply(
+                self.val, self._mesh_plan(self.val.sharding), x)
         return dia_matmat_rows(self.val, x, self.offsets_t)
 
     def matmat_t(self, xt):
@@ -176,8 +186,9 @@ class DiaMatrix:
         them all, and a second one the values split over a mesh."""
         if self._multi_device():
             def fn(ops, x):
-                return _dia_sharded_apply(ops[0], ops[1], self.offsets, x)
-            return fn, (self.val, self.offsets_by_device)
+                return _dia_sharded_apply(
+                    ops[0], self._mesh_plan(ops[0].sharding), x)
+            return fn, (self.val,)
 
         def fn(ops, x):
             return dia_matmat_rows(ops[0], x, ops[1])
@@ -187,12 +198,13 @@ class DiaMatrix:
         """Mesh-partitioned row-layout apply, or None when the values are
         not split over a mesh: ``fn(x)`` takes a ``ShardedRows`` block (m, n)
         of ``dtype`` and returns one.  Each shard computes its lane range
-        from its own diagonals and an operand extended by its neighbours'
-        edge lanes, [left halo | own lanes | right halo], through the
-        extended-operand kernel (``dia_matmat_rows_ext``) at every size
-        and in f32 and bf16.  The halos and the shard's own lanes are
-        copied into the extended operand by ``copy_lanes`` (``Tensor.copy_``
-        between different devices).
+        from its own diagonals and its own lanes extended by its
+        neighbours' edge lanes, which the mesh kernel
+        (``dia_matmat_rows_mesh``) reads where they lie: one launch per
+        device for all of its shards, at every size and in f32 and bf16,
+        through a piece table built once per partition
+        (``DiaMeshPlan``).  Nothing is copied on one device; lanes on
+        another device move by ``Tensor.copy_``.
 
         The ring of shards wraps at the global boundary; the wrapped lanes
         meet zero out-of-range diagonal values, so no edge cases exist and
@@ -210,10 +222,10 @@ class DiaMatrix:
         if n != self.shape[0]:
             raise ValueError('operand has %d lanes, the matrix %d'
                              % (n, self.shape[0]))
-        offsets, offsets_t = self.offsets, self.offsets_by_device
+        self._mesh_plan(self.val.sharding)
 
         def operand_fn(val, x):
-            return _dia_sharded_apply(val, offsets_t, offsets, x)
+            return _dia_sharded_apply(val, self._mesh_plan(val.sharding), x)
 
         def apply(x):
             return operand_fn(self.val, x)
@@ -221,29 +233,19 @@ class DiaMatrix:
         return apply
 
 
-def _dia_sharded_apply(val, offsets_t, offsets, x):
-    """The DIA apply with values ``val`` split along the lanes: per shard,
-    the extended operand assembled from the ring of shards, then the
-    extended-operand kernel on the shard's own values.  ``offsets_t`` maps
-    a device to the int32 offsets tensor there
-    (``DiaMatrix.offsets_by_device``)."""
-    if not isinstance(x, ShardedRows):
-        return _dia_sharded_apply(
-            val, offsets_t, offsets,
-            ShardedRows.split(x, val.sharding)).gather()
-    back = x.sharding
-    x = x.resplit(val.sharding)
-    lo = max(0, -min(offsets, default=0))
-    hi = max(0, max(offsets, default=0))
-    exts, _ = ring_extended(x, lo, hi)
-    parts = []
-    for v, ext, own in zip(val.parts, exts, x.parts):
-        if ext is None:
-            parts.append(torch.empty_like(own))
-            continue
-        parts.append(dia_matmat_rows_ext(v, ext, offsets_t[v.device], lo,
-                                         v.shape[1], reach=(lo, hi)))
-    return ShardedRows(parts, val.sharding).resplit(back)
+def _dia_sharded_apply(val, plan, x):
+    """The DIA apply with values ``val`` split along the lanes, through the
+    mesh kernel on the partition's piece table ``plan``.  A plain tensor
+    ``x`` is split, applied and gathered again."""
+    if isinstance(x, ShardedRows):
+        back = x.sharding
+        x = x.resplit(val.sharding)
+    else:
+        back = None
+        x = ShardedRows.split(x, val.sharding)
+    y = ShardedRows(dia_matmat_rows_mesh(val.parts, x.parts, plan),
+                    val.sharding)
+    return y.gather() if back is None else y.resplit(back)
 
 
 def _values(values, dtype, device):

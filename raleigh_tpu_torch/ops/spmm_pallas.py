@@ -102,10 +102,10 @@ def bsr_matmat_rows(blocks, block_indptr, block_cols, x, n):
         return y
     key = (_NAMES[blocks.dtype], _NAMES[x.dtype])
     fn = getattr(_build.library(), 'bsr_spmm_rows_%s_%s' % key)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    index = x.get_device()
     err = fn(blocks.data_ptr(), block_indptr.data_ptr(),
              block_cols.data_ptr(), x.data_ptr(), y.data_ptr(),
-             blocks.shape[1], m, n, x.device.index, stream)
+             blocks.shape[1], m, n, index, _build.current_stream(index))
     if err != 0:
         raise RuntimeError('BSR kernel launch failed: CUDA error %d' % err)
     LAUNCHES[key] += 1

@@ -29,13 +29,17 @@ once.  They are the A/B partners of the production kernel in
 Their ``offsets`` are host ints (``DiaMatrix.offsets``): the launch sizes
 its shared memory from them, and the kernel takes them as an argument.
 
-``dia_matmat_rows_ext`` (``csrc/dia_spmm_ext.cu``) replaces
+``dia_matmat_rows_mesh`` (``csrc/dia_spmm_ext.cu``) replaces
 ``build_dia_window_ring_ext``, the per-shard kernel of the mesh-partitioned
-apply (``DiaMatrix.sharded_rows_fn``): the same sum over an operand that
-the caller has extended by its neighbours' edge lanes, with the shard's own
-values passed at run time and no range check.  Mosaic's limits
-(``n % 128``, ``m % 8``, two or more tiles, halos rounded up to 128) do
-not carry over, and bf16 operands go through the kernel too.
+apply (``DiaMatrix.sharded_rows_fn``): the same sum, for every shard of a
+device in one launch, over each shard's lanes and its neighbours' edge
+lanes read where they lie through a piece table (``DiaMeshPlan``), with the
+shards' own values and no range check.  ``dia_matmat_rows_ext`` is the
+kernel's one-piece case, one shard over an operand that the caller has
+extended by its neighbours' edge lanes: the counterpart of the reference's
+kernel as it is called.  Mosaic's limits (``n % 128``, ``m % 8``, two or
+more tiles, halos rounded up to 128) do not carry over, and bf16 operands
+go through the kernel too.
 """
 
 import ctypes
@@ -45,9 +49,11 @@ import torch
 from . import _build
 
 # kernel launches, counted where the kernel is launched: the production
-# kernel per operand dtype, and the two staged-window kernels
+# kernel per operand dtype, the two staged-window kernels, and the mesh
+# kernel per operand dtype through its one-piece entry and its mesh entry
 LAUNCHES = {'float32': 0, 'bfloat16': 0, 'slide': 0, 'tiles': 0,
-            'ext_float32': 0, 'ext_bfloat16': 0}
+            'ext_float32': 0, 'ext_bfloat16': 0, 'mesh_float32': 0,
+            'mesh_bfloat16': 0}
 
 # operand rows a block of a staged-window kernel can own, and the most
 # diagonals it takes (they travel as a kernel argument)
@@ -58,6 +64,8 @@ _ENTRY = {torch.float32: ('float32', 'dia_spmm_rows_f32'),
           torch.bfloat16: ('bfloat16', 'dia_spmm_rows_bf16')}
 _EXT_ENTRY = {torch.float32: ('ext_float32', 'dia_spmm_rows_ext_f32'),
               torch.bfloat16: ('ext_bfloat16', 'dia_spmm_rows_ext_bf16')}
+_MESH_ENTRY = {torch.float32: ('mesh_float32', 'dia_spmm_mesh_f32'),
+               torch.bfloat16: ('mesh_bfloat16', 'dia_spmm_mesh_bf16')}
 
 
 def reset_launches():
@@ -118,9 +126,9 @@ def dia_matmat_rows(val, x, offsets):
         return y
     key, entry = _ENTRY[x.dtype]
     fn = getattr(_build.library(), entry)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    index = x.get_device()
     err = fn(val.data_ptr(), x.data_ptr(), y.data_ptr(), offsets.data_ptr(),
-             val.shape[0], m, n, x.device.index, stream)
+             val.shape[0], m, n, index, _build.current_stream(index))
     if err != 0:
         raise RuntimeError('DIA kernel launch failed: CUDA error %d' % err)
     LAUNCHES[key] += 1
@@ -155,8 +163,8 @@ def dia_matmat_rows_ext(val, x_ext, offsets, halo_lo, n, reach=None):
     otherwise.  ``reach`` = (-min(offsets, 0), max(offsets, 0)) as host
     ints saves reading the offsets back from the device.  ``x_ext`` needs
     unit stride along the lanes and may have any row stride.  CUDA tensors
-    go through the kernel (x_ext f32 or bf16, val f32), CPU tensors through
-    ``dia_matmat_rows_ext_plain``."""
+    go through the mesh kernel as one shard with one piece (x_ext f32 or
+    bf16, val f32), CPU tensors through ``dia_matmat_rows_ext_plain``."""
     halo_lo, n = int(halo_lo), int(n)
     if not (val.device == x_ext.device == offsets.device):
         raise ValueError('val, x_ext and offsets must share a device (got '
@@ -195,16 +203,298 @@ def dia_matmat_rows_ext(val, x_ext, offsets, halo_lo, n, reach=None):
     if m == 0 or n == 0:
         return y
     key, entry = _EXT_ENTRY[x_ext.dtype]
-    stream = torch.cuda.current_stream(x_ext.device).cuda_stream
+    index = x_ext.get_device()
     err = getattr(_build.library(), entry)(
         val.data_ptr(), x_ext.data_ptr(), y.data_ptr(), offsets.data_ptr(),
-        val.shape[0], m, n, x_ext.stride(0), halo_lo, x_ext.device.index,
-        stream)
+        val.shape[0], m, n, x_ext.stride(0), halo_lo, index,
+        _build.current_stream(index))
     if err != 0:
-        raise RuntimeError('extended-operand DIA kernel launch failed: CUDA '
+        raise RuntimeError('one-piece mesh DIA kernel launch failed: CUDA '
                            'error %d' % err)
     LAUNCHES[key] += 1
     return y
+
+
+# layout of the mesh kernel's parameter block (csrc/dia_spmm_ext.cu::Params)
+# in int64 slots: a header, then MESH_MAX_SHARDS shards, MESH_MAX_SOURCES
+# sources and MESH_MAX_PIECES pieces
+MESH_MAX_SHARDS, MESH_MAX_SOURCES, MESH_MAX_PIECES = 16, 32, 96
+_M, _NOFF, _OFFSETS, _Y, _NSHARDS = range(5)    # header slots; 8 in all
+_SHARD = 7      # val, n, col0, a slot the entry point fills, first piece,
+#                 end of its pieces, lane of its own lane 0 in its source
+_SOURCE = 2     # base, row stride
+_PIECE = 3      # first relative lane, shift to the source lane, source
+_SHARDS_AT = 8
+_SOURCES_AT = _SHARDS_AT + MESH_MAX_SHARDS * _SHARD
+_PIECES_AT = _SOURCES_AT + MESH_MAX_SOURCES * _SOURCE
+_MESH_PARAMS = _PIECES_AT + MESH_MAX_PIECES * _PIECE
+
+
+class _MeshLaunch:
+    """One launch of the mesh kernel: shards of one device and their
+    parameter block, whose static part is filled here.  ``sources``: what
+    each source slot reads, ('part', j) for shard j's operand part on this
+    device, or ('stage', j, lane, lanes) for lanes of a part on another
+    device, copied here per apply.  Source i is the operand part of the
+    launch's shard i: the kernel reads a shard's own lanes from it without
+    a look-up."""
+
+    def __init__(self, plan, device, shards):
+        self.device = device
+        self.shards = shards
+        self.widths = [plan.widths[s] for s in shards]
+        self.lanes = sum(self.widths)
+        self.sources = [('part', s) for s in shards]
+        slot = {key: i for i, key in enumerate(self.sources)}
+        params = (ctypes.c_int64 * _MESH_PARAMS)()
+        params[_NOFF] = len(plan.offsets)
+        if device.type == 'cuda':
+            params[_OFFSETS] = plan.offsets_on(device).data_ptr()
+        params[_NSHARDS] = len(shards)
+        col0, piece = 0, 0
+        for i, s in enumerate(shards):
+            at = _SHARDS_AT + i * _SHARD
+            params[at + 1], params[at + 2] = plan.widths[s], col0
+            params[at + 4] = piece
+            for start, length, j, lane in plan.pieces[s]:
+                if plan.devices[j] == device:
+                    key, shift = ('part', j), lane - start
+                else:
+                    key, shift = ('stage', j, lane, length), -start
+                if key not in slot:
+                    slot[key] = len(self.sources)
+                    self.sources.append(key)
+                at_piece = _PIECES_AT + piece * _PIECE
+                params[at_piece:at_piece + _PIECE] = [start, shift, slot[key]]
+                piece += 1
+            params[at + 5] = piece
+            col0 += plan.widths[s]
+        self.params = params
+        self.address = ctypes.addressof(params)
+        self.nbytes = ctypes.sizeof(params)
+        # (slot, shard) of the sources that are operand parts on this device
+        self.part_slots = [(_SOURCES_AT + i * _SOURCE, key[1])
+                           for i, key in enumerate(self.sources)
+                           if key[0] == 'part']
+        self.stage_slots = [(_SOURCES_AT + i * _SOURCE, key[1:])
+                            for i, key in enumerate(self.sources)
+                            if key[0] == 'stage']
+        self.vals = ()      # the value parts whose pointers the block holds
+
+    @staticmethod
+    def fits(plan, shards):
+        sources = {('part', j) if plan.devices[j] == plan.devices[s]
+                   else ('stage', j, lane, length)
+                   for s in shards for _, length, j, lane in plan.pieces[s]}
+        return (len(shards) <= MESH_MAX_SHARDS
+                and sum(len(plan.pieces[s]) for s in shards)
+                <= MESH_MAX_PIECES
+                and len(sources) <= MESH_MAX_SOURCES)
+
+    def outputs(self, m, dtype):
+        """The shards' (m, n_s) results, contiguous, side by side in one
+        allocation; and its address."""
+        flat = torch.empty(m * self.lanes, dtype=dtype, device=self.device)
+        return ([y.view(m, w) for y, w in
+                 zip(flat.split([m * w for w in self.widths]), self.widths)],
+                flat.data_ptr())
+
+
+class DiaMeshPlan:
+    """The piece table of a mesh-partitioned DIA apply, for shards of
+    ``widths`` lanes on ``devices`` (one per shard, repeats allowed) and the
+    diagonals ``offsets`` (host ints): built once per partition, filled with
+    the parts' pointers per apply by ``dia_matmat_rows_mesh``.
+
+    Shard s reads the shard-relative lanes [-lo, n_s + hi) of the ring of
+    shards (lo, hi: the offsets' reach), cut into pieces by
+    ``parallel.mesh.ring_runs``: ``pieces[s]`` lists (first relative lane,
+    lanes, shard they lie in, their first lane there); None for an empty
+    shard.  ``launches``: the non-empty shards grouped by device, one
+    launch per device unless a device holds more shards, pieces or sources
+    than one parameter block takes."""
+
+    def __init__(self, widths, devices, offsets):
+        from ..parallel.mesh import _indexed, ring_runs
+        self.widths = [int(w) for w in widths]
+        self.devices = [_indexed(torch.device(d)) for d in devices]
+        self.indices = [d.index if d.type == 'cuda' else -1
+                        for d in self.devices]
+        self.offsets = tuple(int(o) for o in offsets)
+        self.lo = max(0, -min(self.offsets, default=0))
+        self.hi = max(0, max(self.offsets, default=0))
+        self.pieces = [
+            None if runs is None else [(pos - self.lo, take, j, at)
+                                       for pos, take, j, at in runs]
+            for runs in ring_runs(self.widths, self.lo, self.hi)]
+        self._offsets_on = {}
+        self._vals_checked = ()
+        by_device = {}
+        for s, dev in enumerate(self.devices):
+            if self.pieces[s] is not None:
+                by_device.setdefault(dev, []).append(s)
+        self.launches = []
+        for dev, shards in by_device.items():
+            batch = []
+            for s in shards:
+                if not _MeshLaunch.fits(self, [s]):
+                    raise ValueError(
+                        'shard %d reads %d pieces of the ring; one launch '
+                        'takes %d' % (s, len(self.pieces[s]),
+                                      MESH_MAX_PIECES))
+                if not _MeshLaunch.fits(self, batch + [s]):
+                    self.launches.append(_MeshLaunch(self, dev, batch))
+                    batch = []
+                batch.append(s)
+            self.launches.append(_MeshLaunch(self, dev, batch))
+
+    def offsets_on(self, device):
+        """The offsets as an int32 tensor on ``device``, for the kernel."""
+        if device not in self._offsets_on:
+            self._offsets_on[device] = torch.tensor(
+                self.offsets, dtype=torch.int32, device=device)
+        return self._offsets_on[device]
+
+
+def _mesh_lanes(xs, pieces, first, count, device):
+    """The relative lanes [first, first + count) of a shard's operand,
+    assembled from its pieces, on ``device``."""
+    segments = []
+    for start, length, j, lane in pieces:
+        a, b = max(first, start), min(first + count, start + length)
+        if a < b:
+            segments.append(
+                xs[j][:, lane + a - start:lane + b - start].to(device))
+    return segments[0] if len(segments) == 1 else torch.cat(segments, dim=1)
+
+
+def _mesh_shard_plain(val, xs, plan, s):
+    """Shard s of ``dia_matmat_rows_mesh_plain``."""
+    m, dtype, width, dev = xs[0].shape[0], xs[0].dtype, plan.widths[s], \
+        plan.devices[s]
+    if width == 0:
+        return torch.empty((m, 0), dtype=dtype, device=dev)
+    y = torch.zeros((m, width), dtype=torch.promote_types(val.dtype, dtype),
+                    device=dev)
+    for k, off in enumerate(plan.offsets):
+        y += val[k] * _mesh_lanes(xs, plan.pieces[s], off, width, dev)
+    return y.to(dtype)
+
+
+def dia_matmat_rows_mesh_plain(vals, xs, plan):
+    """Plain PyTorch version of ``dia_matmat_rows_mesh`` over the same piece
+    table, any device and dtype: per shard, each diagonal's source lanes
+    gathered from the pieces as one slice, the diagonals added in order in
+    the promoted type of val and x, the result in x's dtype."""
+    return [_mesh_shard_plain(v, xs, plan, s) for s, v in enumerate(vals)]
+
+
+def _check_mesh(vals, xs, plan):
+    """What the mesh kernel asks of the shards' values and operand parts;
+    raises.  Returns the parts' row strides.  The values are checked when
+    they change."""
+    if not (len(vals) == len(xs) == len(plan.widths)):
+        raise ValueError('%d value parts and %d operand parts for %d shards'
+                         % (len(vals), len(xs), len(plan.widths)))
+    m, dtype = xs[0].shape[0], xs[0].dtype
+    strides = []
+    for p, width, index in zip(xs, plan.widths, plan.indices):
+        if p.dtype is not dtype or p.shape != (m, width):
+            raise ValueError('operand parts of %s %s lanes (%d rows of %s) '
+                             'for shards of %s lanes'
+                             % ([q.dtype for q in xs],
+                                [tuple(q.shape) for q in xs], m, dtype,
+                                plan.widths))
+        if p.get_device() != index:
+            raise ValueError('an operand part on %s for a shard on %s'
+                             % (p.device, plan.devices[len(strides)]))
+        if p.is_contiguous():
+            strides.append(width)
+            continue
+        stride = p.stride()
+        if width > 1 and stride[1] != 1:
+            raise ValueError('the mesh kernel takes operand parts with unit '
+                             'stride along the lanes')
+        strides.append(stride[0])
+    if len(vals) == len(plan._vals_checked) and all(
+            v is w for v, w in zip(vals, plan._vals_checked)):
+        return strides
+    noff = len(plan.offsets)
+    for v, width, dev in zip(vals, plan.widths, plan.devices):
+        if v.shape != (noff, width) or v.device != dev:
+            raise ValueError('a value part %s on %s for a shard of %d lanes '
+                             'and %d diagonals on %s'
+                             % (tuple(v.shape), v.device, width, noff, dev))
+        if dev.type == 'cuda' and not (v.dtype == torch.float32
+                                       and v.is_contiguous()):
+            raise TypeError('the mesh kernel takes contiguous f32 values, '
+                            'not %s' % v.dtype)
+    plan._vals_checked = tuple(vals)
+    return strides
+
+
+def dia_matmat_rows_mesh(vals, xs, plan):
+    """The mesh-partitioned DIA apply: per shard s, its values ``vals[s]``
+    (noff, n_s) applied to its operand part ``xs[s]`` (m, n_s) extended by
+    the ring's halo lanes, which are read where they lie (``plan``, a
+    ``DiaMeshPlan`` of the partition), in x's dtype:
+
+        y_s[r, i] = sum_k vals[s][k, i] * X_s[r, i + offsets[k]]
+
+    Returns the (m, n_s) results, one per shard.  On the card one kernel
+    launch per device covers all of its shards (x f32 or bf16, values f32);
+    lanes that lie on another device are first copied to a staging tensor
+    there by ``Tensor.copy_``.  CPU tensors go through
+    ``dia_matmat_rows_mesh_plain``.  Values outside the global matrix must
+    be zero (``shard_operator`` zeroes them): the wrapped lanes meet them."""
+    strides = _check_mesh(vals, xs, plan)
+    m, dtype = xs[0].shape[0], xs[0].dtype
+    out = [None] * len(xs)
+    for s, width in enumerate(plan.widths):
+        if width == 0:
+            out[s] = torch.empty((m, 0), dtype=dtype, device=plan.devices[s])
+    for launch in plan.launches:
+        dev = launch.device
+        if dev.type == 'cpu':
+            for s in launch.shards:
+                out[s] = _mesh_shard_plain(vals[s], xs, plan, s)
+            continue
+        if dev.type != 'cuda':
+            raise ValueError('no DIA apply for device %s' % dev)
+        if dtype not in _MESH_ENTRY:
+            raise TypeError('the mesh kernel takes f32 or bf16 operands, not '
+                            '%s' % dtype)
+        ys, y = launch.outputs(m, dtype)
+        for s, ys_s in zip(launch.shards, ys):
+            out[s] = ys_s
+        if m == 0:
+            continue
+        params = launch.params
+        params[_M] = m
+        params[_Y] = y
+        if not (len(launch.vals) == len(launch.shards) and all(
+                vals[s] is v for s, v in zip(launch.shards, launch.vals))):
+            launch.vals = tuple(vals[s] for s in launch.shards)
+            for i, v in enumerate(launch.vals):
+                params[_SHARDS_AT + i * _SHARD] = v.data_ptr()
+        for at, j in launch.part_slots:
+            params[at] = xs[j].data_ptr()
+            params[at + 1] = strides[j]
+        staged = []
+        for at, (j, lane, lanes) in launch.stage_slots:
+            src = xs[j][:, lane:lane + lanes].to(dev)
+            staged.append(src)
+            params[at] = src.data_ptr()
+            params[at + 1] = src.stride(0)
+        key, entry = _MESH_ENTRY[dtype]
+        err = getattr(_build.library(), entry)(
+            launch.address, launch.nbytes, dev.index,
+            _build.current_stream(dev.index))
+        if err != 0:
+            raise RuntimeError('mesh DIA kernel launch failed: CUDA error %d'
+                               % err)
+        LAUNCHES[key] += 1
+    return out
 
 
 def _rows_per_block(m, lanes, what):
@@ -251,10 +541,10 @@ def _staged(entry, key, val, x, offsets, tile, lanes):
     if m == 0 or n == 0:
         return y
     host_offsets = (ctypes.c_int * len(offsets))(*offsets)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    index = x.get_device()
     err = getattr(_build.library(), entry)(
         val.data_ptr(), x.data_ptr(), y.data_ptr(), host_offsets,
-        len(offsets), m, n, tile, rows, x.device.index, stream)
+        len(offsets), m, n, tile, rows, index, _build.current_stream(index))
     if err != 0:
         raise RuntimeError('%s DIA kernel launch failed: CUDA error %d'
                            % (key, err))

@@ -12,16 +12,20 @@ build_blockspec`` and ``build_manual``: one thread block per tile with no
 grid stride, and one persistent grid whose blocks pipeline their chunks
 through 2 or 4 shared-memory stages with asynchronous copies.
 
-``copy_lanes`` and ``hbm2hbm`` (``csrc/copy_lanes.cu``) replace
-``benches/bench_grid_shapes.py::build_hbm2hbm``, the copy with no arithmetic
-and no on-chip buffer: a strided 2-D copy between two views, which carries
-every halo and body copy of the mesh-partitioned operators, and the whole
-array copied in column tiles, the sweep's ``hbm2hbm`` line.
+``copy_lanes_many``, ``copy_lanes`` and ``hbm2hbm`` (``csrc/copy_lanes.cu``)
+replace ``benches/bench_grid_shapes.py::build_hbm2hbm``, the copy with no
+arithmetic and no on-chip buffer: a batch of strided 2-D copies between
+pairs of views in one launch, which assembles the extended operands of the
+row-partitioned ELL product (``parallel.mesh.ring_extended``); its one-copy
+case; and the whole array copied in column tiles, the sweep's ``hbm2hbm``
+line.
 
 On a CUDA tensor each wrapper launches its kernel or raises; only a CPU
 tensor takes the plain version (``torch.mul``; ``Tensor.copy_`` for the
 copies).
 """
+
+import ctypes
 
 import torch
 
@@ -69,9 +73,9 @@ def stream_scale(x, a):
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _build.current_stream(x.get_device())
     err = _build.library().stream_scale_f32(
-        x.data_ptr(), y.data_ptr(), float(a), x.numel(), x.device.index,
+        x.data_ptr(), y.data_ptr(), float(a), x.numel(), x.get_device(),
         stream)
     if err != 0:
         raise RuntimeError('stream kernel launch failed: CUDA error %d'
@@ -114,10 +118,10 @@ def stream_scale_tiled(x, a, tile, per_step=1):
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _build.current_stream(x.get_device())
     err = _build.library().stream_scale_tiled_f32(
         x.data_ptr(), y.data_ptr(), float(a), x.numel(), tile * per_step,
-        x.device.index, stream)
+        x.get_device(), stream)
     if err != 0:
         raise RuntimeError('tiled stream kernel launch failed: CUDA error %d'
                            % err)
@@ -146,10 +150,10 @@ def stream_scale_pipelined(x, a, tile, depth):
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _build.current_stream(x.get_device())
     err = _build.library().stream_scale_pipelined_f32(
         x.data_ptr(), y.data_ptr(), float(a), x.numel(), tile, depth,
-        x.device.index, stream)
+        x.get_device(), stream)
     if err != 0:
         raise RuntimeError('pipelined stream kernel launch failed: CUDA '
                            'error %d' % err)
@@ -162,50 +166,114 @@ def copy_lanes_plain(dst, src):
     return dst.copy_(src)
 
 
-def _check_copy(dst, src):
-    """What the copy kernel asks of its two views; raises on the CPU as on
-    the card.  Returns both as 2-D (rows, width) views."""
-    if dst.device != src.device:
-        raise ValueError('dst and src must share a device (got %s, %s); '
-                         'Tensor.copy_ moves data between devices'
-                         % (dst.device, src.device))
-    if dst.device.type not in ('cpu', 'cuda'):
-        raise ValueError('no copy kernel for device %s' % dst.device)
-    if dst.dtype != src.dtype:
+def copy_lanes_many_plain(pairs):
+    """Plain PyTorch version of ``copy_lanes_many``: ``dst.copy_(src)`` for
+    every pair, in order."""
+    for dst, src in pairs:
+        dst.copy_(src)
+
+
+def _copy_device(x):
+    """The device of ``x``, where the copy kernel or its plain version
+    runs; raises for any other."""
+    device = x.device
+    if device.type not in ('cpu', 'cuda'):
+        raise ValueError('no copy kernel for device %s' % device)
+    return device
+
+
+def _copy_slots(dst, src, tile=0):
+    """What the copy kernel asks of two views on one device (the callers
+    check the device), checked (raises on the CPU as on the card), and the
+    copy of ``src`` into ``dst`` as the kernel's slots, walked in column
+    tiles of ``tile`` elements (0: whole rows); None for an empty copy.
+    ``copy_lanes_many`` calls it for every pair of every call, so it reads
+    each attribute of a view once."""
+    dtype, shape = dst.dtype, dst.shape
+    if dtype != src.dtype:
         raise TypeError('the copy kernel moves bytes and converts nothing '
-                        '(got %s into %s)' % (src.dtype, dst.dtype))
-    if dst.element_size() not in COPY_ELEMENT_SIZES:
+                        '(got %s into %s)' % (src.dtype, dtype))
+    size = dst.element_size()
+    if size not in COPY_ELEMENT_SIZES:
         raise TypeError('the copy kernel takes elements of %s bytes, not %s'
-                        % (COPY_ELEMENT_SIZES, dst.dtype))
-    if dst.shape != src.shape or dst.dim() not in (1, 2):
+                        % (COPY_ELEMENT_SIZES, dtype))
+    if shape != src.shape or len(shape) not in (1, 2):
         raise ValueError('dst and src must be 1-D or 2-D views of one shape '
-                         '(got %s, %s)'
-                         % (tuple(dst.shape), tuple(src.shape)))
-    if dst.dim() == 1:
-        dst, src = dst[None, :], src[None, :]
-    if dst.shape[1] > 1 and not (dst.stride(1) == src.stride(1) == 1):
+                         '(got %s, %s)' % (tuple(shape), tuple(src.shape)))
+    if len(shape) == 1:
+        rows, width = 1, shape[0]
+        (dst_lane,), (src_lane,) = dst.stride(), src.stride()
+        dst_row = src_row = width
+    else:
+        rows, width = shape
+        dst_row, dst_lane = dst.stride()
+        src_row, src_lane = src.stride()
+    if width > 1 and not (dst_lane == src_lane == 1):
         raise ValueError('the copy kernel takes views with unit stride '
                          'along the lanes (got strides %s, %s)'
                          % (dst.stride(), src.stride()))
-    return dst, src
-
-
-def _launch_copy(dst, src, tile):
-    """One launch of the copy kernel on 2-D CUDA views, walking column tiles
-    of ``tile`` elements."""
-    rows, width = dst.shape
-    size = dst.element_size()
-    dst_stride, src_stride = dst.stride(0), src.stride(0)
-    if rows > 1 and dst_stride == src_stride == width and tile == width:
+    if rows * width == 0:
+        return None
+    tile = tile or width
+    if rows > 1 and dst_row == src_row == width and tile == width:
         # both contiguous: one long row
         rows, width, tile = 1, rows * width, rows * width
-    stream = torch.cuda.current_stream(dst.device).cuda_stream
-    err = _build.library().copy_lanes(
-        dst.data_ptr(), src.data_ptr(), rows, width * size, tile * size,
-        dst_stride * size, src_stride * size, size, dst.device.index, stream)
-    if err != 0:
-        raise RuntimeError('copy kernel launch failed: CUDA error %d' % err)
-    LAUNCHES['copy_lanes'] += 1
+    return (dst.data_ptr(), src.data_ptr(), rows, width * size, tile * size,
+            dst_row * size, src_row * size, size, 0)
+
+
+# layout of the copy kernel's parameter block (csrc/copy_lanes.cu::Params),
+# in int64 slots: the number of copies and a slot the kernel's entry point
+# fills, then COPY_MAX copies of _COPY_SLOTS slots each
+COPY_MAX = 56
+_COPY_SLOTS = 9     # dst, src, rows, width, tile, dst stride, src stride
+#                     (bytes), element size, a slot the entry point fills
+_COPY_PARAMS = 2 + COPY_MAX * _COPY_SLOTS
+_COPY_BLOCK = ctypes.c_int64 * _COPY_PARAMS
+
+
+def _launch_copies(copies, index):
+    """The copies (``_copy_slots``) on CUDA device ``index``, ``COPY_MAX``
+    to a launch."""
+    lib = _build.library()
+    stream = _build.current_stream(index)
+    for at in range(0, len(copies), COPY_MAX):
+        batch = copies[at:at + COPY_MAX]
+        params = _COPY_BLOCK()
+        params[0] = len(batch)
+        params[2:2 + len(batch) * _COPY_SLOTS] = [v for d in batch for v in d]
+        err = lib.copy_lanes_many(ctypes.addressof(params),
+                                  ctypes.sizeof(params), index, stream)
+        if err != 0:
+            raise RuntimeError('copy kernel launch failed: CUDA error %d'
+                               % err)
+        LAUNCHES['copy_lanes'] += 1
+
+
+def copy_lanes_many(pairs):
+    """``dst[...] = src`` for every (dst, src) pair of views in ``pairs``,
+    all on one device: each pair as ``copy_lanes`` takes it (one dtype, 1-D
+    or 2-D, unit stride along the lanes, any row stride).  On the card one
+    launch moves them all (a launch per ``COPY_MAX`` copies), each copy
+    with 16-byte accesses where its pointers, strides and width allow.  The
+    destinations must not overlap any source."""
+    if not pairs:
+        return
+    device = _copy_device(pairs[0][0])
+    copies = []
+    for dst, src in pairs:
+        if dst.device != device or src.device != device:
+            raise ValueError(
+                'the copies must lie on one device, dst and src alike (got '
+                '%s, %s and %s); Tensor.copy_ moves data between devices'
+                % (device, dst.device, src.device))
+        slots = _copy_slots(dst, src)
+        if slots is not None:
+            copies.append(slots)
+    if device.type == 'cpu':
+        copy_lanes_many_plain(pairs)
+    elif copies:
+        _launch_copies(copies, device.index)
 
 
 def copy_lanes(dst, src):
@@ -215,13 +283,9 @@ def copy_lanes(dst, src):
     arithmetic and no conversion; f32, bf16 or any dtype of 1, 2, 4 or 8
     bytes.  The kernel uses 16-byte accesses where both base addresses,
     both row strides and the width allow, and one element per access
-    elsewhere.  Returns ``dst``."""
-    dst2, src2 = _check_copy(dst, src)
-    if dst.device.type == 'cpu':
-        copy_lanes_plain(dst, src)
-        return dst
-    if dst2.numel():
-        _launch_copy(dst2, src2, dst2.shape[1])
+    elsewhere.  The one-copy case of ``copy_lanes_many``.  Returns
+    ``dst``."""
+    copy_lanes_many([(dst, src)])
     return dst
 
 
@@ -243,12 +307,13 @@ def hbm2hbm(x, tile):
     if tile < 1 or x.shape[1] % tile:
         raise ValueError('the row length %d is not a multiple of tile = %d'
                          % (x.shape[1], tile))
+    _copy_device(x)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    y2, x2 = _check_copy(y, x)
+    slots = _copy_slots(y, x, tile)
     if x.device.type == 'cpu':
         copy_lanes_plain(y, x)
-    elif x.numel():
-        _launch_copy(y2, x2, tile)
+    elif slots is not None:
+        _launch_copies([slots], x.get_device())
     return y
 
 

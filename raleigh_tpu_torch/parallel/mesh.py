@@ -27,7 +27,7 @@ import bisect
 import numpy as np
 import torch
 
-from ..ops.stream import copy_lanes
+from ..ops.stream import copy_lanes_many
 
 AXIS = 'shards'
 HOST_AXIS = 'hosts'
@@ -328,40 +328,63 @@ class ShardedRows:
         return self._map(lambda p: torch.matmul(_to(c, p.device), p))
 
 
-def ring_extended(x, before, after):
-    """Per shard, its own entries along ``x.dim`` with the ``before``
-    entries that precede them and the ``after`` that follow, taken from as
-    many neighbouring shards as they span and wrapped around the ring at
-    the global ends: [before | own | after], one new tensor per shard on
-    the shard's device (None for an empty shard).  Returns (tensors, number
-    of copies).  Copies within one device go through ``copy_lanes``, copies
-    between devices through ``Tensor.copy_``."""
-    dim = x.dim
-    bounds = x.bounds()
-    n = bounds[-1][1]
-    starts = [s for s, _ in bounds]
-    out, copies = [], 0
-    for (start, end), part in zip(bounds, x.parts):
+def ring_runs(widths, before, after):
+    """The halo walk round the ring of shards whose lane counts are
+    ``widths``: per shard, the runs that make up its lanes with the
+    ``before`` lanes that precede them and the ``after`` that follow, taken
+    from as many neighbouring shards as they span and wrapped around the
+    ring at the global ends (None for an empty shard).  A run is
+    (position in [before | own | after], lanes, shard it lies in, its first
+    lane there)."""
+    ends = np.cumsum(widths).tolist()
+    starts = [0] + ends[:-1]
+    n = ends[-1] if ends else 0
+    out = []
+    for start, end in zip(starts, ends):
         if end == start:
             out.append(None)
             continue
-        shape = list(part.shape)
-        shape[dim] = before + end - start + after
-        ext = torch.empty(shape, dtype=part.dtype, device=part.device)
-        pos, g = 0, start - before
-        while pos < shape[dim]:
+        length = before + end - start + after
+        runs, pos, g = [], 0, start - before
+        while pos < length:
             at = g % n
             # the last shard that starts at or before ``at`` is not empty
             j = bisect.bisect_right(starts, at) - 1
-            take = min(shape[dim] - pos, bounds[j][1] - at)
-            src = x.parts[j].narrow(dim, at - starts[j], take)
+            take = min(length - pos, ends[j] - at)
+            runs.append((pos, take, j, at - starts[j]))
+            pos += take
+            g += take
+        out.append(runs)
+    return out
+
+
+def ring_extended(x, before, after):
+    """Per shard, its own entries along ``x.dim`` with the ``before``
+    entries that precede them and the ``after`` that follow
+    (``ring_runs``): [before | own | after], one new tensor per shard on
+    the shard's device (None for an empty shard).  Returns (tensors, number
+    of runs copied).  The runs within one device move in one
+    ``copy_lanes_many`` launch, runs between devices by ``Tensor.copy_``."""
+    dim = x.dim
+    widths = [p.shape[dim] for p in x.parts]
+    out, copies, local = [], 0, {}
+    for part, width, runs in zip(x.parts, widths,
+                                 ring_runs(widths, before, after)):
+        if runs is None:
+            out.append(None)
+            continue
+        shape = list(part.shape)
+        shape[dim] = before + width + after
+        ext = torch.empty(shape, dtype=part.dtype, device=part.device)
+        for pos, take, j, at in runs:
+            src = x.parts[j].narrow(dim, at, take)
             dst = ext.narrow(dim, pos, take)
             if src.device == dst.device:
-                copy_lanes(dst, src)
+                local.setdefault(dst.device, []).append((dst, src))
             else:
                 dst.copy_(src)
             copies += 1
-            pos += take
-            g += take
         out.append(ext)
+    for pairs in local.values():
+        copy_lanes_many(pairs)
     return out, copies

@@ -19,9 +19,10 @@ Three regimes, chosen from the reordered pattern:
 
 The mesh is a list of devices walked by one process (``parallel/mesh.py``).
 The product itself is plain PyTorch, as it is plain XLA in the JAX package;
-the halo and body copies that assemble a shard's extended operand go
-through the hand-written copy kernel (``ops.stream.copy_lanes``) within a
-device and through ``Tensor.copy_`` between devices.
+the halo and body copies that assemble the shards' extended operands go
+through the hand-written copy kernel, one ``ops.stream.copy_lanes_many``
+launch for all copies within a device, and through ``Tensor.copy_``
+between devices.
 """
 
 import numpy as np

@@ -17,10 +17,11 @@ of ``chip_smoke.bsr_excess`` (twice the f32 summation error bound of an
 entry's terms, plus one rounding on either side for a bf16 result).  Stream
 kernels: exact equality with ``torch.mul``.  The staged-window DIA kernels
 keep the plain version's order of summation: exact equality.  The copy
-kernel: exact equality with ``Tensor.copy_``.  The extended-operand DIA
-kernel: the entrywise bounds of ``chip_smoke.window_excess`` and
-``bf16_excess`` against its plain version, and exact equality with the
-unsharded kernel (it adds a zero where that one skips a term).
+kernel, one copy or a batch: exact equality with ``Tensor.copy_``.  The mesh
+DIA kernel, through its one-piece entry and its mesh entry: the entrywise
+bounds of ``chip_smoke.window_excess`` and ``bf16_excess`` against its
+plain version, and exact equality with the unsharded kernel (it adds a
+zero where that one skips a term).
 """
 
 import importlib.util
@@ -439,11 +440,16 @@ def test_ext_kernel_refuses_what_it_cannot_take(cuda):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('shape,shards', [((8, 8, 16), 8), ((5, 7, 9), 8),
-                                          ((5, 7, 9), 3), ((30, 30, 31), 2)])
+                                          ((5, 7, 9), 3), ((30, 30, 31), 2),
+                                          ((6, 6, 6), 8), ((8, 8, 16), 1),
+                                          ((8, 8, 16), 20)])
 def test_sharded_apply_on_one_card_equals_the_unsharded(cuda, shape, shards,
                                                         dtype):
     """A mesh of several shards of one card: even and uneven shards, odd
-    halos (both alignments of the copy kernel), a reach wider than a shard;
+    halos, a reach wider than a shard (6^3 on 8), one shard, and more shards
+    than one parameter block takes (20: two launches).  One mesh-kernel
+    launch per table, no copy and no per-shard launch; within the
+    entrywise bound of the plain version over the same piece table, and
     equal bit for bit to the unsharded kernel."""
     from raleigh_tpu_torch import make_mesh, shard_operator
     from raleigh_tpu_torch.parallel.mesh import ShardedRows, blockvec_sharding
@@ -454,13 +460,92 @@ def test_sharded_apply_on_one_card_equals_the_unsharded(cuda, shape, shards,
     sharded = shard_operator(DiaMatrix(a), mesh)
     g = torch.Generator(cuda).manual_seed(7)
     x = torch.randn((12, dm.shape[0]), generator=g, device=cuda).to(dtype)
-    key = 'ext_' + str(dtype).replace('torch.', '')
-    before = sw.LAUNCHES[key], st.LAUNCHES['copy_lanes']
-    y = sharded.matmat_rows(ShardedRows.split(x, blockvec_sharding(mesh)))
+    xs = ShardedRows.split(x, blockvec_sharding(mesh))
+    plan = sharded._mesh_plan(sharded.val.sharding)
+    assert len(plan.launches) == (1 if shards <= sw.MESH_MAX_SHARDS else 2)
+    key = 'mesh_' + str(dtype).replace('torch.', '')
+    before = dict(sw.LAUNCHES), dict(st.LAUNCHES)
+    y = sharded.matmat_rows(xs)
     torch.cuda.synchronize()
-    assert sw.LAUNCHES[key] == before[0] + shards
-    assert st.LAUNCHES['copy_lanes'] >= before[1] + 3 * shards
+    moved = {k: v - before[0][k] for k, v in sw.LAUNCHES.items()
+             if v != before[0][k]}
+    assert moved == {key: len(plan.launches)}
+    assert dict(st.LAUNCHES) == before[1]
     assert torch.equal(y.gather(), dm.matmat_rows(x))
+    want = sw.dia_matmat_rows_mesh_plain(sharded.val.parts, xs.parts, plan)
+    cs = _chip_smoke()
+    excess = cs.window_excess if dtype == torch.float32 else cs.bf16_excess
+    whole = torch.cat(want, dim=1)
+    worst, _ = excess(torch, sw, dm.val, x, dm.offsets_t, y.gather(), whole)
+    assert worst <= 1
+
+
+def test_mesh_kernel_refuses_what_it_cannot_take(cuda):
+    from raleigh_tpu_torch import make_mesh, shard_operator
+    from raleigh_tpu_torch.parallel.mesh import ShardedRows, blockvec_sharding
+    sharded = shard_operator(DiaMatrix(lap3d(6, 6, 8, 1.0, 1.0, 1.0)),
+                             make_mesh(4))
+    plan = sharded._mesh_plan(sharded.val.sharding)
+    x = torch.randn((5, 288), device=cuda)
+    xs = ShardedRows.split(x, sharded.val.sharding).parts
+    with pytest.raises(TypeError, match='f32 or bf16'):
+        sw.dia_matmat_rows_mesh(sharded.val.parts, [p.double() for p in xs],
+                                plan)
+    with pytest.raises(ValueError, match='operand parts'):
+        sw.dia_matmat_rows_mesh(sharded.val.parts,
+                                [p[:, 1:] for p in xs], plan)
+    with pytest.raises(ValueError, match='operand part on'):
+        sw.dia_matmat_rows_mesh(sharded.val.parts, [p.cpu() for p in xs],
+                                plan)
+    with pytest.raises(ValueError, match='unit stride'):
+        sw.dia_matmat_rows_mesh(sharded.val.parts,
+                                [p.T.contiguous().T for p in xs], plan)
+
+
+def test_copy_lanes_many_is_one_launch(cuda):
+    """Copies of mixed dtypes and alignments (16-byte and element paths)
+    in one call: one launch for up to ``COPY_MAX`` copies, exact equality
+    with ``copy_`` and nothing written outside the slots."""
+    g = torch.Generator(cuda).manual_seed(8)
+    for count in (24, st.COPY_MAX + 3):
+        pairs, plain, gots, wants = [], [], [], []
+        for i in range(count):
+            dtype = (torch.float32, torch.bfloat16, torch.uint8,
+                     torch.float64)[i % 4]
+            rows, width, s0, d0 = 1 + i % 5, 1000 + 37 * i, i % 3, i % 7
+            src = (torch.randn((rows, width + 8), generator=g, device=cuda)
+                   * 50).to(dtype)
+            got = torch.zeros((rows, width + 16), dtype=dtype, device=cuda)
+            want = torch.zeros_like(got)
+            pairs.append((got[:, d0:d0 + width], src[:, s0:s0 + width]))
+            plain.append((want[:, d0:d0 + width], src[:, s0:s0 + width]))
+            gots.append(got)
+            wants.append(want)
+        before = st.LAUNCHES['copy_lanes']
+        st.copy_lanes_many(pairs)
+        st.copy_lanes_many_plain(plain)
+        torch.cuda.synchronize()
+        assert st.LAUNCHES['copy_lanes'] == before + -(-count // st.COPY_MAX)
+        for got, want in zip(gots, wants):
+            assert torch.equal(got, want)
+
+
+def test_sharded_ell_halo_is_one_copy_launch(cuda):
+    """``ShardedEllMatrix`` in halo mode on eight shards of the card: every
+    product assembles all shards' extended operands in one copy launch,
+    within 1e-5 of SciPy."""
+    from raleigh_tpu_torch import ShardedEllMatrix, make_mesh
+    a = lap3d(12, 12, 12, 1.0, 1.0, 1.0)
+    sm = ShardedEllMatrix(a, make_mesh(8))
+    assert sm.mode == 'halo'
+    x = np.random.default_rng(5).standard_normal((a.shape[0], 8)) \
+        .astype(np.float32)
+    before = st.LAUNCHES['copy_lanes']
+    y = sm.matmat_t(x)
+    torch.cuda.synchronize()
+    assert st.LAUNCHES['copy_lanes'] == before + 1
+    ref = a @ x
+    assert np.abs(y.cpu().numpy() - ref).max() / np.abs(ref).max() < 1e-5
 
 
 def test_sharded_solve_with_no_device_argument_runs_on_the_card(cuda):
@@ -475,10 +560,12 @@ def test_sharded_solve_with_no_device_argument_runs_on_the_card(cuda):
     dm = shard_operator(DiaMatrix(a), mesh)
     pre = Chebyshev(a, hi * 1e-4, hi, degree=10, device_matrix=dm) \
         .device_rows_operands(16)
-    before = sw.LAUNCHES['ext_float32'], sw.LAUNCHES['float32']
+    before = (sw.LAUNCHES['mesh_float32'], sw.LAUNCHES['float32'],
+              st.LAUNCHES['copy_lanes'])
     lam, x, _, _, status = lobpcg(dm, 5, precond=pre, tol=1e-5,
                                   sharding=blockvec_sharding(mesh))
     assert status == 0 and x.shape == (a.shape[0], 5)
     assert np.abs(lam - exact).max() / exact[-1] < 1e-4
-    assert sw.LAUNCHES['ext_float32'] > before[0]
+    assert sw.LAUNCHES['mesh_float32'] > before[0]
     assert sw.LAUNCHES['float32'] == before[1]
+    assert st.LAUNCHES['copy_lanes'] == before[2]

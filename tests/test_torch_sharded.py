@@ -1,8 +1,9 @@
 """The mesh path of the PyTorch port against the JAX package, on the CPU:
-the extended-operand DIA apply, the strided copy, the mesh and its sharded
-row blocks, ``shard_operator``, the sharded ``lobpcg`` with a sharded
-Chebyshev preconditioner, ``ShardedEllMatrix``, the dry run and the sharded
-SpMM bench.
+the extended-operand DIA apply, the strided copy and its batched form, the
+mesh and its sharded row blocks, ``shard_operator``, the mesh DIA apply and
+its piece table, the sharded ``lobpcg`` with a sharded Chebyshev
+preconditioner, ``ShardedEllMatrix``, the dry run and the sharded SpMM
+bench.
 
 Inputs are seeded NumPy arrays at small sizes.  The JAX side runs on the 8
 virtual CPU devices ``tests/conftest.py`` provides, its Pallas kernels in
@@ -12,8 +13,10 @@ plain version.
 
 Tolerances.  f32 DIA applies: 1e-6 of the largest |entry| (f32 sums of 5
 terms, the packages round in different orders); f64: 1e-12 to 1e-13.  The
-port's sharded apply against its own unsharded one: exact equality (a term
-outside the matrix adds 0 instead of being skipped).  Copies: exact.
+port's sharded apply (the mesh apply's plain version over the piece table,
+and the per-shard route over copied extended operands) against its own
+unsharded one: exact equality (a term outside the matrix adds 0
+instead of being skipped).  Copies: exact.
 Eigenvalues of both packages from one start block in f64: 1e-8 relative,
 iteration counts equal (whole chunks of 16).
 """
@@ -163,6 +166,36 @@ def test_copy_lanes_matches_numpy(rows, width, src_off, dst_off, dtype):
     assert np.array_equal(one.numpy(), src[0, src_off:src_off + width])
 
 
+@pytest.mark.parametrize('count', [24, st.COPY_MAX + 4])
+def test_copy_lanes_many_matches_numpy(count):
+    """A batch of copies of mixed dtypes, widths, row counts and alignments
+    (1-D and 2-D views, source and slot shifted by odd element counts) in
+    one call, more copies than one launch takes among them: the plain
+    version equals NumPy, and nothing outside the slots is written."""
+    rng = np.random.RandomState(count)
+    dtypes = [np.float32, np.float64, np.int32, np.uint8, np.int16]
+    pairs, wants, gots = [], [], []
+    for i in range(count):
+        dtype = dtypes[i % len(dtypes)]
+        rows, width = 1 + i % 4, 1 + rng.randint(300)
+        src_off, dst_off = rng.randint(17), rng.randint(13)
+        src = (rng.standard_normal((rows, 400)) * 50).astype(dtype)
+        want = np.zeros((rows, 350), dtype)
+        want[:, dst_off:dst_off + width] = src[:, src_off:src_off + width]
+        got = torch.zeros((rows, 350), dtype=torch.from_numpy(want).dtype)
+        dst, view = (got[:, dst_off:dst_off + width],
+                     torch.from_numpy(src)[:, src_off:src_off + width])
+        if rows == 1 and i % 2:
+            dst, view = dst[0], view[0]
+        pairs.append((dst, view))
+        wants.append(want)
+        gots.append(got)
+    st.copy_lanes_many(pairs)
+    for got, want in zip(gots, wants):
+        assert np.array_equal(got.numpy(), want)
+    assert st.LAUNCHES['copy_lanes'] == 0       # no kernel on the CPU
+
+
 @pytest.mark.parametrize('m,n,tile', [(8, 1024, 128), (5, 1000, 8),
                                       (3, 999, 999), (1, 16, 4)])
 def test_hbm2hbm_matches_jax(m, n, tile):
@@ -209,6 +242,14 @@ def test_copy_checks_run_on_the_cpu():
         st.hbm2hbm(x, 33)
     with pytest.raises(ValueError, match='2-D'):
         st.hbm2hbm(x[0], 10)
+    with pytest.raises(ValueError, match='one device'):
+        st.copy_lanes_many([(torch.zeros(3), torch.ones(3)),
+                            (torch.zeros(3, device='meta'),
+                             torch.ones(3, device='meta'))])
+    with pytest.raises(TypeError, match='converts nothing'):
+        st.copy_lanes_many([(torch.zeros(3), torch.ones(3)),
+                            (torch.zeros(3), torch.ones(3).double())])
+    st.copy_lanes_many([])
     assert st.LAUNCHES['copy_lanes'] == 0       # no kernel on the CPU
 
 
@@ -363,6 +404,15 @@ def test_sharded_dia_apply_matches_jax(mesh, f64_default, dtype, tol):
                        .gather(), got)
     opfn, ops = dm.rows_operand_form()
     assert torch.equal(opfn(ops, ShardedRows.split(tx, sh)).gather(), got)
+    # the mesh apply's plain version over the partition's piece table: one
+    # launch group, three pieces a shard, the same floats
+    plan = dm._mesh_plan(dm.val.sharding)
+    assert len(plan.launches) == 1 and [len(p) for p in plan.pieces] == [3] * 8
+    parts = sw.dia_matmat_rows_mesh_plain(
+        dm.val.parts, ShardedRows.split(tx, sh).parts, plan)
+    for want in wants:
+        assert _rel(torch.cat(parts, dim=1).numpy(), want) <= tol
+    assert torch.equal(torch.cat(parts, dim=1), got)
 
 
 @pytest.mark.parametrize('case', ['uneven', 'wide reach', 'one shard',
@@ -401,11 +451,27 @@ def test_sharded_dia_apply_takes_any_partition(case):
                          .astype(np.float32)).to(dtype)
     want = whole.matmat_rows(x)
     sh = blockvec_sharding(mesh)
+    before = dict(sw.LAUNCHES), dict(st.LAUNCHES)
     got = dm.matmat_rows(ShardedRows.split(x, sh))
+    assert (dict(sw.LAUNCHES), dict(st.LAUNCHES)) == before
     assert got.sharding is sh and got.dtype == dtype
     assert torch.equal(got.gather(), want)
     if dtype == torch.float32:
         assert _rel(want.numpy(), (a @ x.numpy().T).T) < 1e-6
+    # the mesh apply's plain version over the piece table and the per-shard
+    # route over copied extended operands give the same floats
+    xs = ShardedRows.split(x, dm.val.sharding)
+    plan = dm._mesh_plan(dm.val.sharding)
+    parts = sw.dia_matmat_rows_mesh_plain(dm.val.parts, xs.parts, plan)
+    assert torch.equal(torch.cat(parts, dim=1), want)
+    assert torch.equal(torch.cat(_per_shard_route(dm, xs), dim=1), want)
+    # and agree with the JAX package's apply of the same matrix (its
+    # explicit sharded path takes none of these partitions)
+    jd = jax_spmm.DiaMatrix(a)
+    ref = np.asarray(jax_spmm._dia_matmat_rows(
+        jd.val, jnp.asarray(x.float().numpy()), jd.offsets))
+    assert _rel(torch.cat(parts, dim=1).float().numpy(), ref) <= (
+        1e-6 if dtype == torch.float32 else 2.0 ** -8)
     if case == '2 x 4 mesh':
         # values split over one axis only: the block is re-split to match
         half = shard_operator(DiaMatrix(a, device='cpu'), mesh, axis=AXIS)
@@ -420,6 +486,87 @@ def test_sharded_dia_apply_takes_any_partition(case):
         jmesh = jax_mesh.make_mesh(8)
         jdm = jax_shard(jax_spmm.DiaMatrix(a), jmesh, axis=jax_mesh.AXIS)
         assert jdm.sharded_rows_fn(5, n) is None
+
+
+def _per_shard_route(dm, xs):
+    """The sharded apply shard by shard over extended operands assembled by
+    ``ring_extended``, each through the one-piece apply's plain version."""
+    lo = max(0, -min(dm.offsets))
+    exts, _ = ring_extended(xs, lo, max(0, max(dm.offsets)))
+    return [torch.empty_like(own) if ext is None else
+            sw.dia_matmat_rows_ext_plain(v, ext, dm.offsets, lo, v.shape[1])
+            for v, ext, own in zip(dm.val.parts, exts, xs.parts)]
+
+
+@pytest.mark.parametrize('case,widths,offsets,devices,launches', [
+    ('one device', [512] * 8, (-64, -1, 0, 1, 64), CPUS, 1),
+    ('more shards than a table', [10] * 20, (-1, 0, 1), ['cpu'] * 20, 2),
+    ('two devices', [64] * 8, (-3, 0, 5), ['cpu'] * 4 + ['meta'] * 4, 2),
+    ('wide reach', [40] * 8, (-64, -5, 0, 5, 64), CPUS, 1),
+    ('empty shards', [2, 2, 2, 2, 1, 0, 0, 0], (-1, 0, 1), CPUS, 1),
+])
+def test_mesh_plan_covers_the_ring(case, widths, offsets, devices,
+                                   launches):
+    """The piece table: every shard's relative lanes [-lo, n_s + hi) are
+    covered by its pieces in order, each relative lane read from the global
+    lane (start_s + p) mod n; shards are grouped by device, a device's
+    shards split over launches only past the table's limits, and lanes on
+    another device are staged."""
+    plan = sw.DiaMeshPlan(widths, devices, offsets)
+    lo, hi = max(0, -min(offsets)), max(0, max(offsets))
+    assert (plan.lo, plan.hi) == (lo, hi)
+    assert len(plan.launches) == launches
+    starts = np.cumsum([0] + widths[:-1])
+    n = sum(widths)
+    grouped = []
+    for launch in plan.launches:
+        assert {plan.devices[s] for s in launch.shards} == {launch.device}
+        assert len(launch.shards) <= sw.MESH_MAX_SHARDS
+        assert len(launch.sources) <= sw.MESH_MAX_SOURCES
+        # source i is the operand part of the launch's shard i
+        assert launch.sources[:len(launch.shards)] == [
+            ('part', s) for s in launch.shards]
+        grouped += launch.shards
+        for key in launch.sources:
+            assert (key[0] == 'part') == (plan.devices[key[1]]
+                                           == launch.device)
+    assert grouped == [s for s, w in enumerate(widths) if w]
+    for s, w in enumerate(widths):
+        if w == 0:
+            assert plan.pieces[s] is None
+            continue
+        pos = -lo
+        for start, length, j, lane in plan.pieces[s]:
+            assert start == pos and length > 0
+            p = np.arange(start, start + length)
+            want = (starts[s] + p) % n
+            assert np.array_equal(starts[j] + lane + p - start, want)
+            pos += length
+        assert pos == w + hi
+    if case == 'two devices':
+        stages = [k for lch in plan.launches for k in lch.sources
+                  if k[0] == 'stage']
+        assert len(stages) == 4        # each group's two outer halos
+    if case == 'wide reach':
+        assert min(len(p) for p in plan.pieces) == 5
+
+
+def test_mesh_plan_checks_run_on_the_cpu():
+    with pytest.raises(ValueError, match='pieces'):
+        sw.DiaMeshPlan([1] * 200, ['cpu'] * 200, (-150, 0, 150))
+    plan = sw.DiaMeshPlan([4, 4], ['cpu'] * 2, (-1, 0, 1))
+    vals = [torch.zeros((3, 4))] * 2
+    with pytest.raises(ValueError, match='operand parts'):
+        sw.dia_matmat_rows_mesh(vals, [torch.zeros((2, 4)),
+                                       torch.zeros((2, 5))], plan)
+    with pytest.raises(ValueError, match='value part'):
+        sw.dia_matmat_rows_mesh([torch.zeros((2, 4))] * 2,
+                                [torch.zeros((2, 4))] * 2, plan)
+    with pytest.raises(ValueError, match='3 operand parts'):
+        sw.dia_matmat_rows_mesh(vals, [torch.zeros((2, 4))] * 3, plan)
+    y = sw.dia_matmat_rows_mesh(vals, [torch.ones((2, 4))] * 2, plan)
+    assert [tuple(p.shape) for p in y] == [(2, 4)] * 2
+    assert sw.LAUNCHES['mesh_float32'] == sw.LAUNCHES['mesh_bfloat16'] == 0
 
 
 def test_shard_operator_on_ell_and_bsr(mesh):
