@@ -17,19 +17,24 @@ carries on, and no wrapper gives way to its plain version on the card.
    product of its tiles as a ``torch.sparse_bsr_tensor``) and the least
    time the card could take (``bound``).
    * DIA SpMM of lap3d(100,100,128) (n = 1,280,000) with m = 16 in f32 and
-     bf16 operands, and lap3d 50^3 (n = 125,000) with m = 24.  Tolerances:
-     f32, 1e-6 of the largest |entry| of the plain result; bf16, entrywise,
-     one bf16 rounding on either side plus the f32 summation error bound
-     (``bf16_excess``).  Two controls, the plain version with a bf16
-     running sum and with each product rounded to bf16, must fail it.
+     bf16 operands, and lap3d 50^3 (n = 125,000) with m = 24, through the
+     kernel and through its previous design (``dia_matmat_rows_prev``, in
+     the same source): both equal to the plain version bit for bit, and
+     timed in turns with it and the library call.  Two controls, the
+     plain version with a bf16 running sum and with each product rounded
+     to bf16, must fail the entrywise bf16 bound (one bf16 rounding on
+     either side plus the f32 summation error bound, ``bf16_excess``).
    * The stream kernel ``y = a x`` on 32 x 1,277,952 f32 against
      ``torch.mul``: exact equality.  Its rate is the card's stream rate as
      the port measures it.
    * BSR SpMM of the finite-element flagship in the mesher's order
-     (``shipsec_like(relabel=False)``, n = 139,179, bs = 128, m = 16) in
-     the four instantiations (f32 or bf16 tiles, f32 or bf16 operand), and
-     of a small girder with n not a multiple of bs = 64, m = 24 and one
-     block row emptied.  Tolerance entrywise (``bsr_excess``): twice the
+     (``shipsec_like(relabel=False)``, n = 139,179, bs = 128, m = 16 and
+     24) in the four instantiations (f32 or bf16 tiles, f32 or bf16
+     operand), through the kernel and its previous design
+     (``bsr_matmat_rows_prev``), timed in turns with the plain version and
+     the library calls; and of a small girder with n not a multiple of
+     bs = 64 (the 16-byte path) or bs = 5 (the general path), m = 24 and
+     one block row emptied.  Tolerance entrywise (``bsr_excess``): twice the
      f32 summation error bound of the entry's L terms, plus one rounding
      on either side for a bf16 result.  Two controls, a bf16 running sum
      over the tiles and bf16 products, must fail it.
@@ -66,6 +71,8 @@ carries on, and no wrapper gives way to its plain version on the card.
 3. The main paths as a user calls them, with no device argument, each
    driven with every launch counter set to 0 just before it and read just
    after.
+   Each solver field must take the iterations of the records
+   (``ITERATIONS``), and no previous design may launch on any path.
    * ``partial_hevp`` with a degree-12 Chebyshev preconditioner on
      lap3d(100,100,128), 4 smallest to 5e-5, checked against the analytic
      eigenvalues (1e-3 relative) with both DIA launch counters > 0; then
@@ -141,6 +148,15 @@ COPY = ('raleigh_tpu_torch/csrc/copy_lanes.cu',
         'benches/bench_grid_shapes.py:119')
 EXT = ('raleigh_tpu_torch/csrc/dia_spmm_ext.cu',
        'raleigh_tpu/ops/spmm_window.py:527')
+# iterations of each solver field as the records have them (whole chunks
+# of 16 between host checks)
+ITERATIONS = {(100, 100, 128): 32, (50, 50, 50): 16, 'FE-BSR': 16,
+              'sharded': 32}
+# sources whose kernel was redesigned, the previous design kept beside it
+# (its ``_prev`` entries run in phase 2 only, timed in turns with the new)
+REDESIGNED = ('dia_spmm', 'bsr_spmm')
+OFF_PATH_PREV = ('the previous design, kept to be timed in turns with the '
+                 'kernel on the path; no solver path launches it')
 # the sharded main path: shards of the one card, and its field
 SHARDS = 8
 SHARDED_AGREE = 1e-5
@@ -198,9 +214,22 @@ def bound(nbytes, flops):
     return (tb, 'bytes') if tb >= tf else (tf, 'operations')
 
 
-def library_spmm_ms(torch, csr, x, reps):
-    """Milliseconds of ``torch.sparse.mm`` of the f32 CSR tensor of the
-    scipy matrix ``csr`` with the (n, m) operand ``x.T``: the one PyTorch
+def turns(fns, reps):
+    """{name: ms} for a dict of callables, each timed twice, in turns: in
+    the dict's order, then in the reverse order (plain, kernel, previous,
+    previous, kernel, plain, ...); the best of the two.  An entry that is
+    None stays None."""
+    names = [k for k, fn in fns.items() if fn is not None]
+    best = {k: None for k in fns}
+    for k in names + names[::-1]:
+        t = time_ms(fns[k], reps)
+        best[k] = t if best[k] is None else min(best[k], t)
+    return best
+
+
+def library_spmm_fn(torch, csr, x):
+    """``torch.sparse.mm`` of the f32 CSR tensor of the scipy matrix
+    ``csr`` with the (n, m) operand ``x.T``, as a callable: the one PyTorch
     call that computes an SpMM kernel's function.  None (with a note) if
     this torch cannot do it: a measurement, not a gate."""
     try:
@@ -210,26 +239,34 @@ def library_spmm_ms(torch, csr, x, reps):
             torch.from_numpy(csr.data.astype('float32')),
             size=csr.shape, device='cuda')
         xt = x.float().T.contiguous()
-        return time_ms(lambda: torch.sparse.mm(a, xt), reps)
+        torch.sparse.mm(a, xt)
+        return lambda: torch.sparse.mm(a, xt)
     except (RuntimeError, NotImplementedError) as e:
         print('  torch.sparse.mm on a CSR tensor is not available: %s'
               % str(e).splitlines()[0])
         return None
 
 
-def library_bsr_ms(torch, bm, x, reps):
-    """Milliseconds of one PyTorch product of ``bm``'s own tiles as a
+def library_spmm_ms(torch, csr, x, reps):
+    """Milliseconds of ``library_spmm_fn``'s call, or None."""
+    fn = library_spmm_fn(torch, csr, x)
+    return None if fn is None else time_ms(fn, reps)
+
+
+def library_bsr_fn(torch, bm, x):
+    """One PyTorch product of ``bm``'s own tiles as a
     ``torch.sparse_bsr_tensor`` (padded to whole tiles) with the padded
-    (n_padded, m) operand, both in ``x``'s dtype: the BSR kernel's function
-    on the same tiles.  None (with a note) if this torch cannot do it: a
-    measurement, not a gate."""
+    (n_padded, m) operand, both in ``x``'s dtype, as a callable: the BSR
+    kernel's function on the same tiles.  None (with a note) if this torch
+    cannot do it: a measurement, not a gate."""
     try:
         a = torch.sparse_bsr_tensor(
             bm.block_indptr_t.long(), bm.block_cols.long(),
             bm.blocks.to(x.dtype), size=(bm.n_padded, bm.n_padded))
         xt = torch.nn.functional.pad(
             x, (0, bm.n_padded - x.shape[1])).T.contiguous()
-        return time_ms(lambda: a @ xt, reps)
+        a @ xt
+        return lambda: a @ xt
     except (RuntimeError, NotImplementedError) as e:
         print('  a torch.sparse_bsr_tensor product in %s is not available: '
               '%s' % (x.dtype, str(e).splitlines()[0]))
@@ -255,7 +292,47 @@ def phase_environment(torch, build):
     for line in rep['log'].splitlines():
         if 'ptxas' in line:
             print('  ' + line.strip())
+    for stem in REDESIGNED:
+        for fn, res in ptxas_resources(rep['logs'][stem]).items():
+            print('  %s %s: %s registers, %s bytes static shared memory, '
+                  'spill stores %s / loads %s bytes' % (
+                      stem, fn, res.get('registers', '?'),
+                      res.get('smem', 0), res.get('spill_stores', '?'),
+                      res.get('spill_loads', '?')))
     return card
+
+
+def ptxas_resources(log):
+    """{kernel: {'registers', 'smem', 'spill_stores', 'spill_loads'}} from
+    one source's ``-Xptxas -v`` output, kernels by their demangled name
+    (``c++filt`` where it exists; the mangled one otherwise)."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m and fn:
+            out[fn].update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and fn:
+            out[fn]['registers'] = int(m.group(1))
+            sm = re.search(r'(\d+) bytes smem', line)
+            out[fn]['smem'] = int(sm.group(1)) if sm else 0
+    try:
+        names = subprocess.run(['c++filt'], input='\n'.join(out),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.split('\n')
+    except (OSError, subprocess.SubprocessError):
+        return out
+    short = [re.sub(r'^void |\(.*', '',
+                    name.replace('(anonymous namespace)::', ''))
+             for name in names]
+    return dict(zip(short, out.values()))
 
 
 def bf16_excess(torch, sw, val, x, offsets, got, want, terms=None):
@@ -292,8 +369,10 @@ def bf16_controls(torch, val, x, offsets):
 
 
 def phase_kernels(torch, np, lap3d, DiaMatrix, sw):
-    """DIA kernel vs plain at the main path's shapes; returns the f32 and
-    bf16 rows at the lap3d(100,100,128) shape."""
+    """The DIA kernel, its previous design and the plain version at the
+    main path's shapes, equal bit for bit, timed in turns with the library
+    call; returns the rows of both designs at the lap3d(100,100,128)
+    shape, the lap3d 50^3 m = 24 times as extra keys."""
     rows = {}
     gen = torch.Generator('cuda').manual_seed(0)
     cases = [((100, 100, 128), 16, torch.float32),
@@ -310,26 +389,26 @@ def phase_kernels(torch, np, lap3d, DiaMatrix, sw):
         n = dm.shape[0]
         x = torch.randn((m, n), generator=gen, device='cuda').to(dt)
         yk = sw.dia_matmat_rows(dm.val, x, dm.offsets_t)
+        yprev = sw.dia_matmat_rows_prev(dm.val, x, dm.offsets_t)
         yp = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
         torch.cuda.synchronize()
-        if yk.dtype != dt or yk.shape != (m, n):
-            fail('kernel output %s %s' % (yk.dtype, tuple(yk.shape)))
-        diff = (yk.float() - yp.float()).abs().max().item()
-        rel = diff / yp.float().abs().max().item()
         key = str(dt).replace('torch.', '')
-        if not np.isfinite(rel):
-            fail('kernel vs plain %s %s m=%d: non-finite' % (grid, key, m))
-        if dt == torch.float32 and rel > F32_TOL:
-            fail('kernel vs plain %s f32 m=%d: rel err %.3e > %.0e'
-                 % (grid, m, rel, F32_TOL))
+        for what, y in (('kernel', yk), ('previous design', yprev)):
+            if y.dtype != dt or y.shape != (m, n):
+                fail('%s output %s %s' % (what, y.dtype, tuple(y.shape)))
+            if not torch.isfinite(y.float()).all():
+                fail('%s vs plain %s %s m=%d: non-finite' % (what, grid, key,
+                                                             m))
+        # the kernels keep the plain version's products and order of sums
+        if not torch.equal(yk, yp):
+            fail('kernel vs plain %s %s m=%d: not equal bit for bit (max '
+                 'abs %.3e)' % (grid, key, m,
+                                (yk.float() - yp.float()).abs().max()))
+        if not torch.equal(yk, yprev):
+            fail('kernel vs its previous design %s %s m=%d: not equal bit '
+                 'for bit' % (grid, key, m))
+        diff = 0.0
         if dt == torch.bfloat16:
-            worst, share = bf16_excess(torch, sw, dm.val, x, dm.offsets_t,
-                                       yk, yp)
-            if worst > 1:
-                fail('kernel vs plain %s bf16 m=%d: %.3e of the entries '
-                     'more than one bf16 rounding apart (worst %.2f times '
-                     'the bound)'
-                     % (grid, m, share, worst))
             for name, yc in bf16_controls(torch, dm.val, x,
                                           dm.offsets_t).items():
                 cworst, cshare = bf16_excess(torch, sw, dm.val, x,
@@ -342,33 +421,43 @@ def phase_kernels(torch, np, lap3d, DiaMatrix, sw):
                                                      cworst, crel))
                 if cworst <= 1:
                     fail('the bf16 bound passes the control (%s)' % name)
-        reps = 50
-
-        def kern():
-            sw.dia_matmat_rows(dm.val, x, dm.offsets_t)
-
-        def plain():
-            sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
-        tk, tp = in_turns(kern, plain, reps)
+        del yk, yprev, yp
+        fns = {'plain': lambda: sw.dia_matmat_rows_plain(dm.val, x,
+                                                         dm.offsets_t),
+               'kernel': lambda: sw.dia_matmat_rows(dm.val, x, dm.offsets_t),
+               'prev': lambda: sw.dia_matmat_rows_prev(dm.val, x,
+                                                       dm.offsets_t),
+               'library': (library_spmm_fn(torch, csrs[grid], x)
+                           if dt == torch.float32 else None)}
+        t = turns(fns, 50)
         noff = len(dm.offsets)
         nbytes = noff * n * 4 + noff * 4 + 2 * m * n * x.element_size()
         flops = 2 * m * sum(n - abs(o) for o in dm.offsets)
         bound_ms, bound_by = bound(nbytes, flops)
-        lib = None
-        if dt == torch.float32:
-            lib = library_spmm_ms(torch, csrs[grid], x, 10)
-        print('dia_spmm lap3d%s n=%d m=%d %s: rel err %.2e (max abs %.3e), '
-              'kernel %.4f ms (%.0f GB/s), plain %.4f ms (%.0f GB/s), '
-              'torch.sparse.mm %s, bound %.4f ms (%s)'
-              % (grid, n, m, key, rel, diff, tk, nbytes / tk / 1e6, tp,
-                 nbytes / tp / 1e6, fmt_ms(lib), bound_ms, bound_by))
+        print('dia_spmm lap3d%s n=%d m=%d %s: equal to plain and to the '
+              'previous design bit for bit; kernel %.4f ms (%.0f GB/s), '
+              'previous design %.4f ms (%.0f GB/s), %.2fx; plain %.4f ms, '
+              'torch.sparse.mm %s, bound %.4f ms (%s), in turns'
+              % (grid, n, m, key, t['kernel'], nbytes / t['kernel'] / 1e6,
+                 t['prev'], nbytes / t['prev'] / 1e6,
+                 t['prev'] / t['kernel'], t['plain'], fmt_ms(t['library']),
+                 bound_ms, bound_by))
+        tag = 'f32' if key == 'float32' else 'bf16'
         if grid == (100, 100, 128):
-            name = 'dia_spmm_rows_' + ('f32' if key == 'float32' else 'bf16')
-            rows[name] = dict(
-                name=name, route='cuda', source=DIA[0], replaces=DIA[1],
-                launches=0, max_abs_err=diff, ms=tk, plain_ms=tp,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
-                bytes=nbytes)
+            for name, ms in (('dia_spmm_rows_' + tag, t['kernel']),
+                             ('dia_spmm_rows_prev_' + tag, t['prev'])):
+                rows[name] = dict(
+                    name=name, route='cuda', source=DIA[0], replaces=DIA[1],
+                    launches=0, max_abs_err=diff, ms=ms,
+                    plain_ms=t['plain'], bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=t['library'],
+                    bytes=nbytes)
+            rows['dia_spmm_rows_' + tag]['prev_ms'] = t['prev']
+            rows['dia_spmm_rows_prev_' + tag]['off_path'] = OFF_PATH_PREV
+        else:
+            for name in ('dia_spmm_rows_' + tag, 'dia_spmm_rows_prev_' + tag):
+                rows[name]['lap3d50_m24_ms'] = (
+                    t['kernel'] if 'prev' not in name else t['prev'])
     return rows
 
 
@@ -461,11 +550,16 @@ def bsr_controls(torch, bm, x):
     return {'bf16 running sum': out(run), 'bf16 products': out(prod)}
 
 
-def check_bsr(torch, sp, bm, x, name):
-    """One BSR kernel apply against the plain version: dtype, shape,
-    finiteness and the entrywise bound; returns (max abs error, worst
-    ratio to the bound, the plain version's result)."""
-    yk = bm.matmat_rows(x)
+def check_bsr(torch, sp, bm, x, name, prev=False):
+    """One BSR kernel apply (``prev``: through the previous design)
+    against the plain version: dtype, shape, finiteness and the entrywise
+    bound; returns (max abs error, worst ratio to the bound, the plain
+    version's result)."""
+    if prev:
+        yk = sp.bsr_matmat_rows_prev(bm.blocks, bm.block_indptr_t,
+                                     bm.block_cols, x, bm.shape[0])
+    else:
+        yk = bm.matmat_rows(x)
     yp = sp.bsr_matmat_rows_plain(bm.blocks, bm.block_indptr_t,
                                   bm.block_cols, x, bm.shape[0])
     torch.cuda.synchronize()
@@ -481,15 +575,17 @@ def check_bsr(torch, sp, bm, x, name):
 
 
 def phase_bsr(torch, np, sp, BsrMatrix, EllMatrix, fe, k_nat, k_rel):
-    """The BSR kernel against its plain version: the flagship in the
-    mesher's order in the four instantiations, with controls and times,
-    and an awkward small shape; then the ELL apply's time on the same
-    flagship in both orderings.  Returns the kernel rows."""
+    """The BSR kernel and its previous design against the plain version:
+    the flagship in the mesher's order in the four instantiations at m = 16
+    and m = 24, with controls and times in turns, and awkward small shapes
+    (the 16-byte path and the general path); then the ELL apply's time on
+    the same flagship in both orderings.  Returns the rows of both
+    designs."""
     rows = {}
     gen = torch.Generator('cuda').manual_seed(2)
-    m = 16
     n = k_nat.shape[0]
-    x32 = torch.randn((m, n), generator=gen, device='cuda')
+    xs = {m: torch.randn((m, n), generator=gen, device='cuda')
+          for m in (16, 24)}
     mats = {'f32': BsrMatrix(k_nat, bs=128, device='cuda')}
     mats['bf16'] = BsrMatrix.from_arrays(
         mats['f32'].blocks.to(torch.bfloat16), mats['f32'].block_cols.cpu(),
@@ -502,94 +598,114 @@ def phase_bsr(torch, np, sp, BsrMatrix, EllMatrix, fe, k_nat, k_rel):
              bm.nnz / (bm.blocks.shape[0] * bm.bs ** 2),
              bm.blocks.numel() * 4 / 1e6, counts.mean(), counts.max(),
              bm.nb))
-    lib = library_spmm_ms(torch, k_nat, x32, 10)
     for bkey in ('f32', 'bf16'):
-        for xkey, x in (('f32', x32), ('bf16', x32.to(torch.bfloat16))):
+        for xkey in ('f32', 'bf16'):
             bm = mats[bkey]
             name = 'bsr_spmm_rows_%s_%s' % (bkey, xkey)
-            diff, worst, yp = check_bsr(torch, sp, bm, x, name)
-            if bkey == 'f32':
-                for cname, yc in bsr_controls(torch, bm, x).items():
-                    cworst, cshare = bsr_excess(torch, sp, bm, x, yc, yp)
-                    print('  control (%s) vs plain, %s: %.4f of the entries '
-                          'beyond the bound (worst %.1f times it)'
-                          % (cname, name, cshare, cworst))
-                    if cworst <= 1:
-                        fail('the BSR bound passes the control (%s)' % cname)
-            del yp
+            for m in (16, 24):
+                x = xs[m] if xkey == 'f32' else xs[m].to(torch.bfloat16)
+                label = '%s m=%d' % (name, m)
+                diff, worst, yp = check_bsr(torch, sp, bm, x, label)
+                pdiff, pworst, _ = check_bsr(torch, sp, bm, x,
+                                             label + ' (previous design)',
+                                             prev=True)
+                if bkey == 'f32' and m == 16:
+                    for cname, yc in bsr_controls(torch, bm, x).items():
+                        cworst, cshare = bsr_excess(torch, sp, bm, x, yc, yp)
+                        print('  control (%s) vs plain, %s: %.4f of the '
+                              'entries beyond the bound (worst %.1f times '
+                              'it)' % (cname, label, cshare, cworst))
+                        if cworst <= 1:
+                            fail('the BSR bound passes the control (%s)'
+                                 % cname)
+                del yp
+                # the library calls: the f32 CSR product, and the product
+                # of the same tiles as a sparse BSR tensor, which torch
+                # takes in one type for tiles and operand, not a mixed pair
+                fns = {
+                    'plain': lambda: sp.bsr_matmat_rows_plain(
+                        bm.blocks, bm.block_indptr_t, bm.block_cols, x, n),
+                    'kernel': lambda: bm.matmat_rows(x),
+                    'prev': lambda: sp.bsr_matmat_rows_prev(
+                        bm.blocks, bm.block_indptr_t, bm.block_cols, x, n),
+                    'csr': (library_spmm_fn(torch, k_nat, x)
+                            if (bkey, xkey) == ('f32', 'f32') else None),
+                    'bsr_tensor': (library_bsr_fn(torch, bm, x)
+                                   if bkey == xkey else None)}
+                t = turns(fns, 20)
+                del fns
+                nbytes = (bm.blocks.numel() * bm.blocks.element_size()
+                          + 4 * (bm.block_cols.numel() + bm.nb + 1)
+                          + 2 * m * n * x.element_size())
+                flops = 2 * bm.blocks.numel() * m
+                bound_ms, bound_by = bound(nbytes, flops)
+                lib = min((v for v in (t['csr'], t['bsr_tensor'])
+                           if v is not None), default=None)
+                print('%s n=%d: max abs err %.3e (worst %.3f of the bound; '
+                      'previous design %.3e, %.3f), kernel %.4f ms (%.0f '
+                      'GB/s, %.2f Gnnz/s), previous design %.4f ms (%.0f '
+                      'GB/s), %.2fx; plain %.4f ms, torch.sparse.mm on CSR '
+                      '%s, sparse_bsr_tensor product %s, bound %.4f ms (%s), '
+                      'in turns'
+                      % (label, n, diff, worst, pdiff, pworst, t['kernel'],
+                         nbytes / t['kernel'] / 1e6, bm.nnz / t['kernel'] / 1e6,
+                         t['prev'], nbytes / t['prev'] / 1e6,
+                         t['prev'] / t['kernel'], t['plain'],
+                         fmt_ms(t['csr']), fmt_ms(t['bsr_tensor']), bound_ms,
+                         bound_by))
+                if m == 16:
+                    for rname, ms, err in ((name, t['kernel'], diff),
+                                           (name.replace('rows_',
+                                                         'rows_prev_'),
+                                            t['prev'], pdiff)):
+                        rows[rname] = dict(
+                            name=rname, route='cuda', source=BSR[0],
+                            replaces=BSR[1], launches=0, max_abs_err=err,
+                            ms=ms, plain_ms=t['plain'], bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=lib, bytes=nbytes)
+                    rows[name]['prev_ms'] = t['prev']
+                    rows[name.replace('rows_', 'rows_prev_')]['off_path'] = \
+                        OFF_PATH_PREV
+                else:
+                    rows[name]['m24_ms'] = t['kernel']
+                    rows[name.replace('rows_', 'rows_prev_')]['m24_ms'] = \
+                        t['prev']
+    del mats, bm, xs
 
-            def kern():
-                bm.matmat_rows(x)
-
-            def plain():
-                sp.bsr_matmat_rows_plain(bm.blocks, bm.block_indptr_t,
-                                         bm.block_cols, x, n)
-            tk, tp = in_turns(kern, plain, 20)
-            nbytes = (bm.blocks.numel() * bm.blocks.element_size()
-                      + 4 * (bm.block_cols.numel() + bm.nb + 1)
-                      + 2 * m * n * x.element_size())
-            flops = 2 * bm.blocks.numel() * m
-            bound_ms, bound_by = bound(nbytes, flops)
-            # the library call: the faster of the f32 CSR product and the
-            # product of the same tiles as a sparse BSR tensor, which torch
-            # takes in one type for tiles and operand, not in a mixed pair
-            csr_here = lib if (bkey, xkey) == ('f32', 'f32') else None
-            bsr_here = (library_bsr_ms(torch, bm, x, 10) if bkey == xkey
-                        else None)
-            lib_here = min((t for t in (csr_here, bsr_here)
-                            if t is not None), default=None)
-            print('%s n=%d m=%d: max abs err %.3e (worst %.3f of the bound), '
-                  'kernel %.4f ms (%.0f GB/s, %.2f Gnnz/s), plain %.4f ms, '
-                  'torch.sparse.mm on CSR %s, sparse_bsr_tensor product %s, '
-                  'bound %.4f ms (%s)'
-                  % (name, n, m, diff, worst, tk, nbytes / tk / 1e6,
-                     bm.nnz / tk / 1e6, tp, fmt_ms(csr_here),
-                     fmt_ms(bsr_here), bound_ms, bound_by))
-            rows[name] = dict(
-                name=name, route='cuda', source=BSR[0], replaces=BSR[1],
-                launches=0, max_abs_err=diff, ms=tk, plain_ms=tp,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_here,
-                bytes=nbytes)
-    # m = 24 is two groups of 16 operand rows, the second half empty: a
-    # kernel limited by the tile bytes would take m = 16's time
-    x24 = torch.randn((24, n), generator=gen, device='cuda')
-    bm = mats['f32']
-    check_bsr(torch, sp, bm, x24, 'bsr_spmm_rows_f32_f32 m=24')
-    print('bsr_spmm_rows_f32_f32 n=%d m=24: kernel %.4f ms'
-          % (n, time_ms(lambda: bm.matmat_rows(x24), 20)))
-    del mats, bm, x24
-
-    # awkward shape: n not a multiple of bs, m past one row group, one
-    # block row emptied
+    # awkward shapes: n not a multiple of bs, m past one row group, one
+    # block row emptied; bs = 64 takes the 16-byte path, bs = 5 the
+    # general one
     import scipy.sparse as scs
-    small = fe.fe_pencil(10, 3, 0.15, seed=5, which='k')
-    ns, bs = small.shape[0], 64
-    keep = np.ones(ns)
-    keep[3 * bs:4 * bs] = 0.0
-    small = scs.csr_matrix(scs.diags(keep) @ small @ scs.diags(keep))
-    small.eliminate_zeros()
-    if ns % bs == 0:
-        fail('the awkward BSR shape has n %% bs == 0')
-    x = torch.randn((24, ns), generator=gen, device='cuda')
-    for dt in (torch.float32, torch.bfloat16):
-        bm = BsrMatrix(small, bs=bs, dtype=dt, device='cuda')
-        if np.diff(bm.block_indptr).min() != 0:
-            fail('the awkward BSR shape has no empty block row')
-        for xx in (x, x.to(torch.bfloat16)):
-            name = 'bsr_spmm girder n=%d bs=%d m=24 %s tiles %s operand' % (
-                ns, bs, dt, xx.dtype)
-            diff, worst, _ = check_bsr(torch, sp, bm, xx, name)
-            print('%s: max abs err %.3e (worst %.3f of the bound)'
-                  % (name, diff, worst))
+    for bs in (64, 5):
+        small = fe.fe_pencil(10, 3, 0.15, seed=5, which='k')
+        ns = small.shape[0]
+        keep = np.ones(ns)
+        keep[3 * bs:4 * bs] = 0.0
+        small = scs.csr_matrix(scs.diags(keep) @ small @ scs.diags(keep))
+        small.eliminate_zeros()
+        if ns % bs == 0:
+            fail('the awkward BSR shape has n %% bs == 0')
+        x = torch.randn((24, ns), generator=gen, device='cuda')
+        for dt in (torch.float32, torch.bfloat16):
+            bm = BsrMatrix(small, bs=bs, dtype=dt, device='cuda')
+            if np.diff(bm.block_indptr).min() != 0:
+                fail('the awkward BSR shape has no empty block row')
+            for xx in (x, x.to(torch.bfloat16)):
+                name = 'bsr_spmm girder n=%d bs=%d m=24 %s tiles %s operand' % (
+                    ns, bs, dt, xx.dtype)
+                diff, worst, _ = check_bsr(torch, sp, bm, xx, name)
+                print('%s: max abs err %.3e (worst %.3f of the bound)'
+                      % (name, diff, worst))
 
     # the ELL apply (plain PyTorch) on the flagship, both orderings
+    x32 = torch.randn((16, n), generator=gen, device='cuda')
     for label, k in (('relabelled', k_rel), ("mesher's order", k_nat)):
         em = EllMatrix(k, device='cuda')
         t = time_ms(lambda: em.matmat_rows(x32), 5)
         ell_bytes = em.idx.numel() * 4 + em.val.numel() * 4
         print('ell apply (plain PyTorch) flagship %s: row degree %d, %.1f MB '
-              'of idx + val, m=%d: %.4f ms (%.2f Gnnz/s)'
-              % (label, em.row_degree, ell_bytes / 1e6, m, t,
+              'of idx + val, m=16: %.4f ms (%.2f Gnnz/s)'
+              % (label, em.row_degree, ell_bytes / 1e6, t,
                  em.nnz / t / 1e6))
         del em
     return rows
@@ -1235,6 +1351,14 @@ def check_one_launch_per_device(sw, st, what, applies):
              % (what, stray))
 
 
+def check_iterations(name, field, counts):
+    """Fails unless every solve of ``field`` took the iterations of the
+    records (``ITERATIONS``)."""
+    if set(counts) != {ITERATIONS[field]}:
+        fail('%s: %s iterations, not %d' % (name, counts,
+                                            ITERATIONS[field]))
+
+
 def reset_counters(mods):
     for mod in mods:
         mod.reset_launches()
@@ -1273,10 +1397,15 @@ def phase_lap3d(torch, np, mods, rows, card, profile=False):
                 fail('main path skipped a kernel: launches %s' % launches)
             rows['dia_spmm_rows_f32']['launches'] = launches['float32']
             rows['dia_spmm_rows_bf16']['launches'] = launches['bfloat16']
+            rows['dia_spmm_rows_prev_f32']['launches'] = \
+                sw.LAUNCHES['prev_float32']
+            rows['dia_spmm_rows_prev_bf16']['launches'] = \
+                sw.LAUNCHES['prev_bfloat16']
         err = check_solution(np, name, lmd, x, st, exact, limit)
         lmd, x, st, its2, warm, lob = solve(torch, partial_hevp, a, ch,
                                             which, tol)
         check_solution(np, name, lmd, x, st, exact, limit)
+        check_iterations(name, grid, (its, its2))
         print('%s: status 0, %d iterations (warm run %d), max rel eigenvalue '
               'error %.2e; Chebyshev set-up %.3f s; partial_hevp wall cold '
               '%.3f s, warm %.3f s (LOBPCG %.3f s, rest %.3f s) [%s]'
@@ -1359,6 +1488,7 @@ def phase_sharded(torch, np, mods, rows, card, main_field, k_rel,
              % (name, its, main_field['iterations']))
     (lmd, x, _, its2, status), warm = run()
     check_solution(np, name, lmd, x, status, exact, 1e-3)
+    check_iterations(name, 'sharded', (its, its2))
     # the previous design's warm solve in turns with this one's
     walls = {'mesh': [warm], 'per-shard': []}
     for design in ('per-shard', 'per-shard', 'mesh'):
@@ -1536,6 +1666,8 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
         # path: f32 tiles and operands of the field itself, the others of
         # the variant built to drive them
         rows['bsr_spmm_rows_%s_%s' % key]['launches'] = launches[key]
+        rows['bsr_spmm_rows_prev_%s_%s' % key]['launches'] = \
+            sp.PREV_LAUNCHES[key]
         bsr_lmd, rel = check_pencil(np, label, k_nat, m_nat, lmd, x, st,
                                     which)
         agree = float(np.abs(bsr_lmd / ell_lmd - 1).max())
@@ -1548,6 +1680,7 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
             torch.cuda.synchronize()
             warm = time.perf_counter() - t0
             check_pencil(np, label, k_nat, m_nat, lmd, x, st, which)
+            check_iterations(label, 'FE-BSR', (its, its2))
             print('%s: status 0, %d iterations (warm run %d), relative '
                   'residual %.2e, eigenvalues within %.2e of FE-ELL; BSR '
                   'set-up (K and M, build and upload) %.3f s; lobpcg wall '
@@ -1626,6 +1759,9 @@ def main():
     for row in rows.values():
         if row['launches'] <= 0 and 'off_path' not in row:
             fail('%s was launched no time on its path' % row['name'])
+        if row['launches'] and 'off_path' in row:
+            fail('%s is on no path but was launched %d times there'
+                 % (row['name'], row['launches']))
         nbytes = row.pop('bytes')
         print('%s: %.4f ms (%.0f GB/s effective) on %d launches; bound '
               '%.4f ms by %s at the data sheet, %.4f ms at the measured '

@@ -21,6 +21,7 @@ import torch
 
 from ..ops.spmm import (_device_layout, _to_full_csr, rows_matmat_operands,
                         storage_device, torch_dtype)
+from ..parallel.mesh import ShardedRows
 
 
 def resolve_device(arch=None, device=None):
@@ -186,12 +187,19 @@ class Chebyshev:
             stream_bf16 = (noff > 0 and dtype == torch.float32
                            and ws > dev.WINDOW_HBM_BYTES)
         mat_fn, ops = rows_matmat_operands(dev)
+        multi = getattr(dev, '_multi_device', None)
+        sharded_apply = multi is not None and multi()
         theta = 0.5 * (self.hi + self.lo)
         delta = 0.5 * (self.hi - self.lo)
         sigma1 = theta / delta
         degree = self.degree
 
         def fn(ops, x):
+            if isinstance(x, ShardedRows) and not sharded_apply:
+                # a matrix that knows no shards runs the recurrence on the
+                # gathered block, as core.device_solver._rows_matmat
+                # applies such an operator
+                return ShardedRows.split(fn(ops, x.gather()), x.sharding)
             x_in = x
             x = x.contiguous()
             if stream_bf16:

@@ -29,7 +29,7 @@ import copy
 import numpy as np
 import torch
 
-from ..ops.spmm import (BsrMatrix, DiaMatrix, EllMatrix, storage_device,
+from ..ops.spmm import (DiaMatrix, EllMatrix, storage_device,
                         torch_dtype)
 from ..parallel.mesh import ShardedRows, Sharding
 
@@ -166,8 +166,10 @@ def shard_operator(dm, mesh, axis='chips'):
     DIA: ``val`` (noff, n) is split along the lanes, and every sharded
     apply is one launch per device that reads the neighbours' halo lanes
     where they lie (``DiaMatrix.sharded_rows_fn``).  ELL: ``idx`` and
-    ``val`` are split by rows and applied against the gathered operand.  BSR has no sharded
-    apply, here as in the JAX package: raises ``NotImplementedError``.
+    ``val`` are split by rows and applied against the gathered operand.  Any
+    other matrix (a ``BsrMatrix``, which has neither DIA values nor ELL
+    indices) is returned unchanged, as the JAX package's function returns
+    it: a sharded ``lobpcg`` applies it to the gathered block.
 
     ``axis`` names the mesh axis (or a tuple of axes) the split follows.
     A 1-D mesh has one axis, whatever it is called, so there the name is
@@ -189,12 +191,6 @@ def shard_operator(dm, mesh, axis='chips'):
             dm.idx, dm.val = dm.idx.gather(), dm.val.gather()
         dm.idx = ShardedRows.split(dm.idx, sharding, dim=0)
         dm.val = ShardedRows.split(dm.val, sharding, dim=0)
-    elif isinstance(dm, BsrMatrix):
-        raise NotImplementedError(
-            'a BsrMatrix has no sharded apply (nor has the JAX package\'s '
-            'shard_operator a branch for it): ROADMAP queue 1, item 13')
-    else:
-        raise TypeError('unsupported device matrix %r' % type(dm).__name__)
     return dm
 
 

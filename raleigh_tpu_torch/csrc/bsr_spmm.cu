@@ -9,43 +9,57 @@
 //
 // with blocks (nblocks, bs, bs) in f32 or bf16, x and y (m, n) contiguous in
 // f32 or bf16, n unpadded: rows i*bs + p >= n are not written and columns
-// cols[t]*bs + q >= n are read as zero.  Every product and sum is an f32
-// fused multiply-add on the CUDA cores (no TF32, no tensor cores: the
-// reference runs this product at full f32 precision); the result is rounded
-// to the operand type once, on store.
+// cols[t]*bs + q >= n are read as zero; a block row with no tile writes
+// zeros.  Every product and sum is an f32 fused multiply-add on the CUDA
+// cores (no TF32, no tensor cores: the reference runs this product at full
+// f32 precision); the result is rounded to the operand type once, on store.
 //
-// What bounds it: memory, by the count of bytes.  The tiles are read once
-// (nblocks*bs*bs*b bytes) for 2*nblocks*bs*bs*m flops, so at m = 16 and f32
-// tiles it does 8 flops per byte of tile: under the card's f32 balance, but
-// near enough to it that a kernel must keep its multiply-add pipes and its
-// shared-memory reads lean to stay on the memory side.  This one does not
-// yet: on an H100 (80GB HBM3, 700 W) bf16 tiles, half the bytes, take the
-// same time as f32 tiles, and 24 operand rows take 1.8 times as long as 16,
-// so its own arithmetic and shared-memory work limit it, not the device
-// memory (PERF.md has the times).
+// What bounds it, as measured.  The tiles are read once
+// (nblocks*bs*bs*b bytes) for 2*nblocks*bs*bs*m flops.  At the FE-BSR shape
+// (10,602 tiles of 128^2, m = 16) that is 0.213 ms of f32 tiles or 0.109 ms
+// of bf16 tiles at 3.35 TB/s, and 0.083 ms of f32 FMA at 67 TFLOP/s.  The
+// previous design (kept below as bsr_spmm_rows_prev_*) took 0.378 ms for
+// either tile type on an H100, and 1.8 times as long at m = 24: its own
+// instructions bounded it, not memory.  Each of its threads owned one tile
+// row, staged every chunk through registers (a scalar load and a
+// st.shared per value) and fed 16 FMA with 5 shared-memory reads.
 //
-// What the design does about it:
-//   * One thread block per (block row, slab of 128 tile rows, group of 16
-//     operand rows).  The Pallas grid is sequential and keeps the output
-//     tile in VMEM across a tile list padded to the longest block row; here
-//     each thread block loops over its own block row's tiles as the
-//     block-CSR arrays give them, and block rows run in parallel.
-//   * Thread p owns tile row p and keeps 16 f32 accumulators, one per
-//     operand row: one shared-memory read of blocks[t][p, q] and four
-//     16-byte broadcast reads of the operand slab feed 16 multiply-adds.
-//   * Tiles pass through shared memory in chunks of 32 columns.  A warp
-//     reads one tile row's 32 consecutive values at a time (coalesced along
-//     q), and the chunk is stored with a row stride of 33 words so that the
-//     threads' reads of column q fall in 32 different banks.
-//   * The next chunk's global loads are started into registers before the
-//     current chunk is contracted, so a block overlaps its own loads with
-//     its arithmetic; several blocks per SM overlap the rest.
-//   * The groups of operand rows of one block row are neighbouring thread
-//     blocks, so when m > 16 the tiles' second reads find them in L2.
-//   * x is re-read once per tile from L2 (it is m*n*b bytes, a few MB).
-//   * Index arithmetic is 64-bit; bs, m and n have no alignment limits, and
-//     a block row with no tile writes zeros.
-// The kernel allocates nothing and does not synchronise.  Each entry point
+// What this design does about it:
+//   * A warp owns the block row's 128-row slab and 16 operand rows; each
+//     lane a register tile of 4 tile rows x 16 operand rows (64 f32
+//     accumulators).  One 16-byte shared read brings 4 f32 or 8 bf16 tile
+//     values of a row, one broadcast 16-byte read 4 values of an operand
+//     row: 64 FMA for every 5 shared reads in f32, 128 for every 6 in bf16.
+//   * Tiles reach shared memory by 16-byte cp.async, 64 bytes of every row
+//     of the slab per chunk (16 f32 or 32 bf16 columns), in a ring of two
+//     stages per warp: no registers, no st.shared, and the next chunk is
+//     in flight while this one is contracted.  bf16 tiles stay bf16 in
+//     shared memory, half the bytes from device memory, and become f32 on
+//     the shared read.  A row of a stage is 80 bytes apart from the next,
+//     so the 8 lanes of a 16-byte read phase hit 32 distinct banks.
+//   * The warps of a block (8 for f32 tiles, 4 for bf16 tiles: eight warps
+//     an SM either way, 180 or 96 KB of shared memory a block) share the
+//     block row's chunks, chunk c to warp c % warps, and add their partial
+//     sums once, at the end, through shared memory.  Each warp waits only
+//     for its own copies: no block barrier inside the loop.  A warp walks
+//     its chunks with a cursor (tile, column chunk), and a lane's copy and
+//     load addresses are fixed for the block but for the chunk: no
+//     division and little address arithmetic in the loop.
+//   * The operand slab (16 rows x the chunk's columns, a few MB in all and
+//     L2-resident) is loaded a chunk ahead into registers and stored to
+//     shared memory as f32; x rows need no alignment.
+//   * Operand-row groups of one block row are neighbouring blocks, so when
+//     m > 16 the second group finds the tiles in L2; a group of 8 or fewer
+//     rows takes a half-width register tile.
+//   * The 16-byte path needs bs * sizeof(tile) % 16 == 0 and a 16-byte
+//     aligned tile base.  Any other shape (bs = 3, 5, ...) takes the
+//     previous design below, which has no alignment limit.
+//   * Index arithmetic is 64-bit; bs, m and n have no size limits (bs over
+//     128 takes several row slabs).
+// What is left, as measured (PERF.md): f32 FMA are about half of the
+// loop's instructions; the rest are the copies' predicates and addresses,
+// the operand slab's loads and register moves.
+// The kernels allocate nothing and do not synchronise.  Each entry point
 // returns cudaGetLastError() after its launch.
 
 #include <cstdint>
@@ -54,18 +68,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kThreads = 128;   // tile rows per thread block (one a thread)
-constexpr int kRows = 16;       // operand rows per thread block
-constexpr int kChunk = 32;      // tile columns staged at a time
-constexpr int kTileStride = kChunk + 1;
-constexpr int kSlabStride = kRows + 4;   // 16-byte aligned, spreads banks
-constexpr int kWarps = kThreads / 32;
-// blocks per SM the register count is held to (102 registers a thread):
-// five resident blocks hide one another's loads and barriers
-constexpr int kMinBlocks = 5;
-constexpr int kTileLoads = kThreads / kWarps;        // rows a warp loads
-constexpr int kSlabLoads = kChunk * kRows / kThreads;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -85,6 +87,353 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
     *p = __float2bfloat16(v);
 }
+
+// ---- the kernel on the path ---------------------------------------------
+
+constexpr int kSlab = 128;                 // tile rows a block: 4 a lane
+constexpr int kRowsPerLane = kSlab / 32;
+constexpr int kGroup = 16;                 // operand rows a block
+constexpr int kChunkBytes = 64;            // bytes of every tile row a chunk
+constexpr int kRowBytes = kChunkBytes + 16;   // stage row stride
+constexpr int kUnits = kChunkBytes / 16;   // cp.async of one row's chunk
+constexpr int kStageBytes = kSlab * kRowBytes;
+constexpr int kStages = 2;                 // chunks in a warp's ring
+
+// warps a block (they split a block row's chunks) and blocks an SM the
+// registers are held to, by tile type
+template <typename TB>
+struct Occupancy;
+template <>
+struct Occupancy<float> {
+    static constexpr int kWarps = 8;
+    static constexpr int kMinBlocks = 1;
+};
+template <>
+struct Occupancy<__nv_bfloat16> {
+    static constexpr int kWarps = 4;
+    static constexpr int kMinBlocks = 2;
+};
+
+// 16-byte copy to the shared-memory address dst; src_bytes = 0 fills
+// zeros and reads nothing
+__device__ __forceinline__ void cp_async16(unsigned int dst,
+                                           const void* src, int src_bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// tile values a 16-byte read brings, converted to f32
+__device__ __forceinline__ void unpack16(const float* s, float* f) {
+    const float4 v = *reinterpret_cast<const float4*>(s);
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+}
+__device__ __forceinline__ void unpack16(const __nv_bfloat16* s, float* f) {
+    const uint4 v = *reinterpret_cast<const uint4*>(s);
+    const unsigned int w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        f[2 * k] = __uint_as_float(w[k] << 16);
+        f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+}
+
+template <typename TB, typename TX>
+struct Layout {
+    static constexpr int kWarps = Occupancy<TB>::kWarps;
+    static constexpr int kThreads = 32 * kWarps;
+    static constexpr int kMinBlocks = Occupancy<TB>::kMinBlocks;
+    static_assert(kThreads >= kSlab, "a block stores a slab row a thread");
+    static constexpr int kCols = kChunkBytes / sizeof(TB);  // per chunk
+    static constexpr int kPerRead = 16 / sizeof(TB);        // per LDS.128
+    static constexpr int kXBytes = kGroup * kCols * 4;      // f32 slab
+    static constexpr int kWarpBytes = kStages * kStageBytes + 2 * kXBytes;
+    static constexpr int kReduceBytes = kWarps * kGroup * kSlab * 4;
+    static constexpr int kSmem = kWarps * kWarpBytes > kReduceBytes
+        ? kWarps * kWarpBytes : kReduceBytes;
+};
+
+// Block b covers operand-row group b % groups, tile-row slab
+// (b / groups) % slabs and block row b / (groups * slabs).  kC operand
+// rows of the group are computed (16, or 8 when 8 or fewer are left).
+template <typename TB, typename TX, int kC>
+__device__ __forceinline__ void bsr_block(
+        unsigned char* smem, const TB* __restrict__ blocks,
+        const int* __restrict__ indptr, const int* __restrict__ cols,
+        const TX* __restrict__ x, TX* __restrict__ y, int64_t bs, int64_t m,
+        int64_t n, int64_t r0, int64_t p0, int64_t brow) {
+    using L = Layout<TB, TX>;
+    constexpr int kWarps = L::kWarps;
+    constexpr int kCols = L::kCols;
+    constexpr int kPerRead = L::kPerRead;
+    constexpr int kXLoads = kC * kCols / 32;   // operand values a lane
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+
+    unsigned char* wbase = smem + warp * L::kWarpBytes;
+    float* xbuf = reinterpret_cast<float*>(wbase + kStages * kStageBytes);
+
+    const int64_t t0 = indptr[brow];
+    const int nq = static_cast<int>((bs + kCols - 1) / kCols);  // per tile
+    const int64_t nch = (indptr[brow + 1] - t0) * nq;
+    // this warp's chunks: warp, warp + kWarps, ...
+    const int mine = nch > warp
+        ? static_cast<int>((nch - warp + kWarps - 1) / kWarps) : 0;
+    // cursors (tile, column chunk) of the next chunk to copy and of the
+    // next operand slab to load: no division in the loop
+    int64_t ct = t0 + warp / nq, xt = ct;
+    int cq = warp % nq, xq = cq;
+    auto advance = [nq](int64_t& t, int& q) {
+        q += kWarps;
+        while (q >= nq) {
+            q -= nq;
+            ++t;
+        }
+    };
+
+    // this lane's 16-byte copies: slab rows prow, prow + kRowStep, ...,
+    // part `part` of each row's chunk; fixed for the block but the chunk
+    constexpr int kCopies = kSlab * kUnits / 32;
+    constexpr int kRowStep = 32 / kUnits;
+    const int prow = lane / kUnits;
+    const int part = lane % kUnits;
+    const unsigned int sdst =
+        static_cast<unsigned int>(__cvta_generic_to_shared(wbase))
+        + prow * kRowBytes + part * 16;
+    const int64_t src_lane = (p0 + prow) * bs + part * kPerRead;
+    const int64_t src_step = kRowStep * bs;
+    const int64_t tile_elems = bs * bs;
+    unsigned int rows_ok = 0;
+#pragma unroll
+    for (int k = 0; k < kCopies; ++k) {
+        if (p0 + prow + k * kRowStep < bs) rows_ok |= 1u << k;
+    }
+    // the tile chunk of this warp's c-th chunk into stage c % kStages
+    auto copy_tile = [&](int c) {
+        if (c < mine) {
+            const int64_t q0 = static_cast<int64_t>(cq) * kCols;
+            const bool col_ok = q0 + part * kPerRead < bs;
+            const TB* src = blocks + ct * tile_elems + src_lane + q0;
+            const unsigned int dst = sdst + (c % kStages) * kStageBytes;
+#pragma unroll
+            for (int k = 0; k < kCopies; ++k) {
+                const bool ok = col_ok && ((rows_ok >> k) & 1u);
+                cp_async16(dst + k * kRowStep * kRowBytes,
+                           ok ? src + k * src_step : blocks, ok ? 16 : 0);
+            }
+            advance(ct, cq);
+        }
+        cp_async_commit();   // an empty group keeps the count in step
+    };
+
+    // this lane's operand values: rows xrow, xrow + kXStep, ... of the
+    // group, column xcol of the chunk (zero past m, bs, n)
+    constexpr int kXStep = 32 / kCols;
+    const int xrow = lane / kCols;
+    const int xcol = lane % kCols;
+    const int64_t x_lane = (r0 + xrow) * n + xcol;
+    const int64_t x_step = kXStep * n;
+    unsigned int xrows_ok = 0;
+#pragma unroll
+    for (int k = 0; k < kXLoads; ++k) {
+        if (r0 + xrow + k * kXStep < m) xrows_ok |= 1u << k;
+    }
+    TX xg[kXLoads];
+    auto load_x = [&]() {
+        const int64_t q0 = static_cast<int64_t>(xq) * kCols;
+        const int64_t j0 = static_cast<int64_t>(cols[xt]) * bs + q0;
+        const bool col_ok = q0 + xcol < bs && j0 + xcol < n;
+        const TX* src = x + x_lane + j0;
+#pragma unroll
+        for (int k = 0; k < kXLoads; ++k) {
+            const bool ok = col_ok && ((xrows_ok >> k) & 1u);
+            xg[k] = ok ? src[k * x_step] : zero<TX>();
+        }
+        advance(xt, xq);
+    };
+    auto store_x = [&](int c) {
+        float* xs = xbuf + (c & 1) * (kGroup * kCols);
+#pragma unroll
+        for (int k = 0; k < kXLoads; ++k) xs[lane + 32 * k] = to_f32(xg[k]);
+    };
+
+    float acc[kRowsPerLane][kC];
+#pragma unroll
+    for (int j = 0; j < kRowsPerLane; ++j) {
+#pragma unroll
+        for (int r = 0; r < kC; ++r) acc[j][r] = 0.0f;
+    }
+
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) copy_tile(s);
+    if (mine > 0) {
+        load_x();
+        store_x(0);
+    }
+    for (int c = 0; c < mine; ++c) {
+        copy_tile(c + kStages - 1);
+        if (c + 1 < mine) load_x();
+        cp_async_wait<kStages - 1>();
+        __syncwarp();
+        const TB* st = reinterpret_cast<const TB*>(
+            wbase + (c % kStages) * kStageBytes);
+        const float* xs = xbuf + (c & 1) * (kGroup * kCols);
+#pragma unroll 1
+        for (int qg = 0; qg < kCols / kPerRead; ++qg) {
+            float a[kRowsPerLane][kPerRead];
+#pragma unroll
+            for (int j = 0; j < kRowsPerLane; ++j) {
+                unpack16(st + (lane + 32 * j) * (kRowBytes / sizeof(TB))
+                             + qg * kPerRead,
+                         a[j]);
+            }
+#pragma unroll
+            for (int r = 0; r < kC; ++r) {
+#pragma unroll
+                for (int h = 0; h < kPerRead / 4; ++h) {
+                    const float4 v = *reinterpret_cast<const float4*>(
+                        xs + r * kCols + qg * kPerRead + 4 * h);
+                    const float xv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+                        for (int j = 0; j < kRowsPerLane; ++j) {
+                            acc[j][r] = fmaf(a[j][4 * h + e], xv[e],
+                                             acc[j][r]);
+                        }
+                    }
+                }
+            }
+        }
+        __syncwarp();   // every lane is done with this stage and slab
+        if (c + 1 < mine) store_x(c + 1);
+    }
+    cp_async_wait<0>();
+
+    // the warps' partial sums, added in warp order
+    __syncthreads();
+    float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int j = 0; j < kRowsPerLane; ++j) {
+#pragma unroll
+        for (int r = 0; r < kC; ++r) {
+            red[(warp * kGroup + r) * kSlab + lane + 32 * j] = acc[j][r];
+        }
+    }
+    __syncthreads();
+    const int64_t p = p0 + threadIdx.x;
+    const int64_t i = brow * bs + p;
+    if (threadIdx.x < kSlab && p < bs && i < n) {
+#pragma unroll
+        for (int r = 0; r < kC; ++r) {
+            if (r0 + r < m) {
+                float s = red[r * kSlab + threadIdx.x];
+#pragma unroll
+                for (int w = 1; w < kWarps; ++w) {
+                    s += red[(w * kGroup + r) * kSlab + threadIdx.x];
+                }
+                store(y + (r0 + r) * n + i, s);
+            }
+        }
+    }
+}
+
+template <typename TB, typename TX>
+__global__ void __launch_bounds__(Layout<TB, TX>::kThreads,
+                                  Layout<TB, TX>::kMinBlocks)
+bsr_rows_kernel(const TB* __restrict__ blocks, const int* __restrict__ indptr,
+                const int* __restrict__ cols, const TX* __restrict__ x,
+                TX* __restrict__ y, int64_t bs, int64_t m, int64_t n,
+                int64_t groups, int64_t slabs) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int64_t b = blockIdx.x;
+    const int64_t r0 = (b % groups) * kGroup;
+    const int64_t p0 = ((b / groups) % slabs) * kSlab;
+    const int64_t brow = b / (groups * slabs);
+    if (m - r0 > 8) {
+        bsr_block<TB, TX, 16>(smem, blocks, indptr, cols, x, y, bs, m, n, r0,
+                              p0, brow);
+    } else {
+        bsr_block<TB, TX, 8>(smem, blocks, indptr, cols, x, y, bs, m, n, r0,
+                             p0, brow);
+    }
+}
+
+template <typename TB, typename TX>
+int launch_prev(const void* blocks, const void* indptr, const void* cols,
+                const void* x, void* y, int64_t bs, int64_t m, int64_t n,
+                int device, void* stream);
+
+template <typename TB, typename TX>
+int launch(const void* blocks, const void* indptr, const void* cols,
+           const void* x, void* y, int64_t bs, int64_t m, int64_t n,
+           int device, void* stream) {
+    if (bs <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    if ((bs * static_cast<int64_t>(sizeof(TB))) % 16 != 0
+            || reinterpret_cast<uintptr_t>(blocks) % 16 != 0) {
+        // the general path: no 16-byte rows to copy
+        return launch_prev<TB, TX>(blocks, indptr, cols, x, y, bs, m, n,
+                                   device, stream);
+    }
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int64_t nb = (n + bs - 1) / bs;
+    const int64_t groups = (m + kGroup - 1) / kGroup;
+    const int64_t slabs = (bs + kSlab - 1) / kSlab;
+    const int64_t grid = nb * groups * slabs;
+    if (grid <= 0 || grid > 0x7fffffffLL) {
+        return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    constexpr int smem = Layout<TB, TX>::kSmem;
+    // past 48 KB a kernel must ask for its dynamic shared memory, once on
+    // each device
+    static bool ready[64] = {};
+    if (device >= 64 || !ready[device]) {
+        err = cudaFuncSetAttribute(bsr_rows_kernel<TB, TX>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (device < 64) ready[device] = true;
+    }
+    bsr_rows_kernel<TB, TX><<<static_cast<unsigned int>(grid),
+                              Layout<TB, TX>::kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const TB*>(blocks), static_cast<const int*>(indptr),
+        static_cast<const int*>(cols), static_cast<const TX*>(x),
+        static_cast<TX*>(y), bs, m, n, groups, slabs);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the previous design, timed beside the kernel above -----------------
+//
+// One thread a tile row, 16 operand rows a block, chunks of 32 columns
+// staged through registers into shared memory.  It takes any bs and any
+// alignment, so it is also the general path of the kernel above; its own
+// entry points (bsr_spmm_rows_prev_*) are launched only by chip_smoke.py,
+// through ops/spmm_pallas.py::bsr_matmat_rows_prev.
+
+namespace prev {
+
+constexpr int kThreads = 128;   // tile rows per thread block (one a thread)
+constexpr int kRows = 16;       // operand rows per thread block
+constexpr int kChunk = 32;      // tile columns staged at a time
+constexpr int kTileStride = kChunk + 1;
+constexpr int kSlabStride = kRows + 4;   // 16-byte aligned, spreads banks
+constexpr int kWarps = kThreads / 32;
+// blocks per SM the register count is held to (102 registers a thread):
+// five resident blocks hide one another's loads and barriers
+constexpr int kMinBlocks = 5;
+constexpr int kTileLoads = kThreads / kWarps;        // rows a warp loads
+constexpr int kSlabLoads = kChunk * kRows / kThreads;
 
 // Global loads of chunk c of a block row (tile t0 + c / nq, columns
 // (c % nq) * kChunk ...) into registers: this thread's share of the tile
@@ -218,19 +567,35 @@ int launch(const void* blocks, const void* indptr, const void* cols,
     return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace prev
+
+template <typename TB, typename TX>
+int launch_prev(const void* blocks, const void* indptr, const void* cols,
+                const void* x, void* y, int64_t bs, int64_t m, int64_t n,
+                int device, void* stream) {
+    return prev::launch<TB, TX>(blocks, indptr, cols, x, y, bs, m, n,
+                                device, stream);
+}
+
 }  // namespace
 
-#define BSR_ENTRY(name, TB, TX)                                             \
+#define BSR_ENTRY(name, impl, TB, TX)                                       \
     extern "C" int name(const void* blocks, const void* indptr,             \
                         const void* cols, const void* x, void* y,           \
                         int64_t bs, int64_t m, int64_t n, int device,       \
                         void* stream) {                                     \
-        return launch<TB, TX>(blocks, indptr, cols, x, y, bs, m, n, device, \
-                              stream);                                      \
+        return impl<TB, TX>(blocks, indptr, cols, x, y, bs, m, n, device,   \
+                            stream);                                        \
     }
 
-// entry points: bsr_spmm_rows_<block type>_<operand type>
-BSR_ENTRY(bsr_spmm_rows_f32_f32, float, float)
-BSR_ENTRY(bsr_spmm_rows_f32_bf16, float, __nv_bfloat16)
-BSR_ENTRY(bsr_spmm_rows_bf16_f32, __nv_bfloat16, float)
-BSR_ENTRY(bsr_spmm_rows_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
+// entry points: bsr_spmm_rows_<block type>_<operand type>, and the
+// previous design's bsr_spmm_rows_prev_<block type>_<operand type>
+BSR_ENTRY(bsr_spmm_rows_f32_f32, launch, float, float)
+BSR_ENTRY(bsr_spmm_rows_f32_bf16, launch, float, __nv_bfloat16)
+BSR_ENTRY(bsr_spmm_rows_bf16_f32, launch, __nv_bfloat16, float)
+BSR_ENTRY(bsr_spmm_rows_bf16_bf16, launch, __nv_bfloat16, __nv_bfloat16)
+BSR_ENTRY(bsr_spmm_rows_prev_f32_f32, launch_prev, float, float)
+BSR_ENTRY(bsr_spmm_rows_prev_f32_bf16, launch_prev, float, __nv_bfloat16)
+BSR_ENTRY(bsr_spmm_rows_prev_bf16_f32, launch_prev, __nv_bfloat16, float)
+BSR_ENTRY(bsr_spmm_rows_prev_bf16_bf16, launch_prev, __nv_bfloat16,
+          __nv_bfloat16)

@@ -52,7 +52,9 @@ _TABLE_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                ctypes.c_void_p]
 _SIGNATURES = {
     'dia_spmm': {'dia_spmm_rows_f32': _DIA_ARGS,
-                 'dia_spmm_rows_bf16': _DIA_ARGS},
+                 'dia_spmm_rows_bf16': _DIA_ARGS,
+                 'dia_spmm_rows_prev_f32': _DIA_ARGS,
+                 'dia_spmm_rows_prev_bf16': _DIA_ARGS},
     'dia_spmm_ext': {'dia_spmm_rows_ext_f32': _EXT_ARGS,
                      'dia_spmm_rows_ext_bf16': _EXT_ARGS,
                      'dia_spmm_mesh_f32': _TABLE_ARGS,
@@ -60,10 +62,9 @@ _SIGNATURES = {
     'copy_lanes': {'copy_lanes_many': _TABLE_ARGS},
     'dia_spmm_slide': {'dia_spmm_rows_slide_f32': _WINDOW_ARGS},
     'dia_spmm_tiles': {'dia_spmm_rows_tiles_f32': _WINDOW_ARGS},
-    'bsr_spmm': {'bsr_spmm_rows_f32_f32': _BSR_ARGS,
-                 'bsr_spmm_rows_f32_bf16': _BSR_ARGS,
-                 'bsr_spmm_rows_bf16_f32': _BSR_ARGS,
-                 'bsr_spmm_rows_bf16_bf16': _BSR_ARGS},
+    'bsr_spmm': {'bsr_spmm_rows_%s%s_%s' % (prev, b, x): _BSR_ARGS
+                 for prev in ('', 'prev_') for b in ('f32', 'bf16')
+                 for x in ('f32', 'bf16')},
     'stream_scale': {'stream_scale_f32': [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int64,
         ctypes.c_int, ctypes.c_void_p]},
@@ -146,7 +147,7 @@ def library():
         raise RuntimeError('\n'.join(failed))
     seconds = time.perf_counter() - t0 if procs else 0.0
     lib = SimpleNamespace()
-    logs = []
+    logs = {}
     for src, out in targets.items():
         cdll = ctypes.CDLL(str(out))
         for name, args in _SIGNATURES.get(src.stem, {}).items():
@@ -155,17 +156,17 @@ def library():
             fn.restype = ctypes.c_int
             setattr(lib, name, fn)
         log = out.with_suffix('.log')
-        logs.append(log.read_text() if log.exists() else '')
+        logs[src.stem] = log.read_text() if log.exists() else ''
     _loaded['lib'] = lib
     _loaded['report'] = {'path': str(BUILD_DIR), 'seconds': seconds,
-                         'log': ''.join(logs)}
+                         'log': ''.join(logs.values()), 'logs': logs}
     return lib
 
 
 def build_report():
-    """{'path', 'seconds', 'log'} of the loaded kernels: the build
+    """{'path', 'seconds', 'log', 'logs'} of the loaded kernels: the build
     directory, the wall time of the parallel ``nvcc`` runs (0.0 when every
     build was reused) and nvcc's output (the ``-Xptxas -v`` register and
-    spill lines)."""
+    spill lines), all of it and by source name."""
     library()
     return dict(_loaded['report'])

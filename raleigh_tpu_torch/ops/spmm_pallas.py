@@ -17,6 +17,8 @@ longest one.
 (``nb = ceil(n / bs)``; rows and columns past n are masked).  Sums are
 taken in f32 and the result has x's dtype.  On a CUDA tensor the wrapper
 launches the kernel or raises; only a CPU tensor takes the plain version.
+``bsr_matmat_rows_prev`` launches the kernel's previous design from the
+same source, to be timed beside it.
 """
 
 import torch
@@ -26,13 +28,15 @@ from . import _build
 _NAMES = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 
 # kernel launches per (block dtype, operand dtype), counted where the
-# kernel is launched
+# kernel is launched; PREV_LAUNCHES the same for the previous design
 LAUNCHES = {(b, x): 0 for b in _NAMES.values() for x in _NAMES.values()}
+PREV_LAUNCHES = dict(LAUNCHES)
 
 
 def reset_launches():
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, PREV_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def bsr_matmat_rows_plain(blocks, block_indptr, block_cols, x, n):
@@ -91,6 +95,20 @@ def bsr_matmat_rows(blocks, block_indptr, block_cols, x, n):
     """(m, n) = BSR matrix applied to the (m, n) row block ``x``, in x's
     dtype.  CUDA tensors go through the kernel, CPU tensors through
     ``bsr_matmat_rows_plain``."""
+    return _bsr_rows('bsr_spmm_rows_%s_%s', LAUNCHES, blocks, block_indptr,
+                     block_cols, x, n)
+
+
+def bsr_matmat_rows_prev(blocks, block_indptr, block_cols, x, n):
+    """``bsr_matmat_rows`` through the kernel's previous design (one
+    thread a tile row, chunks staged through registers), kept in the same
+    source so that the two can be timed in turns on one card; no solver
+    path calls it."""
+    return _bsr_rows('bsr_spmm_rows_prev_%s_%s', PREV_LAUNCHES, blocks,
+                     block_indptr, block_cols, x, n)
+
+
+def _bsr_rows(entry, counts, blocks, block_indptr, block_cols, x, n):
     if x.device.type == 'cpu':
         return bsr_matmat_rows_plain(blocks, block_indptr, block_cols, x, n)
     if x.device.type != 'cuda':
@@ -101,12 +119,12 @@ def bsr_matmat_rows(blocks, block_indptr, block_cols, x, n):
     if m == 0 or n == 0:
         return y
     key = (_NAMES[blocks.dtype], _NAMES[x.dtype])
-    fn = getattr(_build.library(), 'bsr_spmm_rows_%s_%s' % key)
+    fn = getattr(_build.library(), entry % key)
     index = x.get_device()
     err = fn(blocks.data_ptr(), block_indptr.data_ptr(),
              block_cols.data_ptr(), x.data_ptr(), y.data_ptr(),
              blocks.shape[1], m, n, index, _build.current_stream(index))
     if err != 0:
         raise RuntimeError('BSR kernel launch failed: CUDA error %d' % err)
-    LAUNCHES[key] += 1
+    counts[key] += 1
     return y

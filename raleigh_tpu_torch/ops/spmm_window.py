@@ -13,6 +13,9 @@ takes any shape.
 ``val`` (noff, n), ``x`` (m, n), ``offsets`` an int32 (noff,) tensor on
 the same device.  On a CUDA tensor the wrapper launches the kernel (x f32
 or bf16, val f32) or raises; only a CPU tensor takes the plain version.
+The kernel keeps the plain version's products and order of sums, so the
+two are equal bit for bit.  ``dia_matmat_rows_prev`` launches the
+kernel's previous design from the same source, to be timed beside it.
 
 Two more kernels compute the same function for f32 operands, each through
 an explicitly staged shared-memory window that reads x from device memory
@@ -49,11 +52,12 @@ import torch
 from . import _build
 
 # kernel launches, counted where the kernel is launched: the production
-# kernel per operand dtype, the two staged-window kernels, and the mesh
-# kernel per operand dtype through its one-piece entry and its mesh entry
+# kernel per operand dtype, the two staged-window kernels, the mesh
+# kernel per operand dtype through its one-piece entry and its mesh entry,
+# and the production kernel's previous design per operand dtype
 LAUNCHES = {'float32': 0, 'bfloat16': 0, 'slide': 0, 'tiles': 0,
             'ext_float32': 0, 'ext_bfloat16': 0, 'mesh_float32': 0,
-            'mesh_bfloat16': 0}
+            'mesh_bfloat16': 0, 'prev_float32': 0, 'prev_bfloat16': 0}
 
 # operand rows a block of a staged-window kernel can own, and the most
 # diagonals it takes (they travel as a kernel argument)
@@ -62,6 +66,8 @@ MAX_WINDOW_OFFSETS = 128
 
 _ENTRY = {torch.float32: ('float32', 'dia_spmm_rows_f32'),
           torch.bfloat16: ('bfloat16', 'dia_spmm_rows_bf16')}
+_PREV_ENTRY = {torch.float32: ('prev_float32', 'dia_spmm_rows_prev_f32'),
+               torch.bfloat16: ('prev_bfloat16', 'dia_spmm_rows_prev_bf16')}
 _EXT_ENTRY = {torch.float32: ('ext_float32', 'dia_spmm_rows_ext_f32'),
               torch.bfloat16: ('ext_bfloat16', 'dia_spmm_rows_ext_bf16')}
 _MESH_ENTRY = {torch.float32: ('mesh_float32', 'dia_spmm_mesh_f32'),
@@ -115,6 +121,18 @@ def dia_matmat_rows(val, x, offsets):
     """(m, n) = DIA matrix applied to the (m, n) row block ``x``, in x's
     dtype.  CUDA tensors go through the kernel, CPU tensors through
     ``dia_matmat_rows_plain``."""
+    return _dia_rows(_ENTRY, val, x, offsets)
+
+
+def dia_matmat_rows_prev(val, x, offsets):
+    """``dia_matmat_rows`` through the kernel's previous design (one lane
+    a thread, a run-time loop over the diagonals), kept in the same source
+    so that the two can be timed in turns on one card; no solver path
+    calls it.  Equal to ``dia_matmat_rows`` bit for bit."""
+    return _dia_rows(_PREV_ENTRY, val, x, offsets)
+
+
+def _dia_rows(entries, val, x, offsets):
     if x.device.type == 'cpu':
         return dia_matmat_rows_plain(val, x, offsets)
     if x.device.type != 'cuda':
@@ -124,7 +142,7 @@ def dia_matmat_rows(val, x, offsets):
     m, n = x.shape
     if m == 0 or n == 0:
         return y
-    key, entry = _ENTRY[x.dtype]
+    key, entry = entries[x.dtype]
     fn = getattr(_build.library(), entry)
     index = x.get_device()
     err = fn(val.data_ptr(), x.data_ptr(), y.data_ptr(), offsets.data_ptr(),

@@ -238,6 +238,29 @@ def test_wrapper_uses_plain_version_only_on_cpu(pencil):
                   x, n)
 
 
+def test_previous_design_wrapper_on_cpu(pencil):
+    """The previous K5 design's wrapper, kept to be timed beside the
+    kernel: on a CPU tensor the plain version (within 1e-6 of SciPy), no
+    launch counted; ``reset_launches`` zeroes both designs' counters;
+    another device refused."""
+    k, _ = pencil
+    n = k.shape[0]
+    bm = BsrMatrix(k, bs=64, device='cpu')
+    x = _block(n, 8, 6, np.float32)
+    args = (bm.blocks, bm.block_indptr_t, bm.block_cols)
+    y = sp.bsr_matmat_rows_prev(*args, torch.from_numpy(x), n)
+    assert torch.equal(y, sp.bsr_matmat_rows_plain(*args,
+                                                   torch.from_numpy(x), n))
+    assert _rel(y.numpy(), (k @ x.T.astype(np.float64)).T) < 1e-6
+    assert sorted(sp.PREV_LAUNCHES) == sorted(sp.LAUNCHES)
+    sp.PREV_LAUNCHES[('f32', 'f32')] = 3
+    sp.reset_launches()
+    assert not any(sp.PREV_LAUNCHES.values())
+    assert not any(sp.LAUNCHES.values())
+    with pytest.raises(ValueError, match='device'):
+        sp.bsr_matmat_rows_prev(*args, torch.from_numpy(x).to('meta'), n)
+
+
 def test_chebyshev_over_bsr_matches_jax(pencil, f64_default):
     """Chebyshev.device_rows_operands over a hand-built BsrMatrix
     (``device_matrix=``) against the JAX package's, f64, 1e-10."""

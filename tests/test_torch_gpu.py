@@ -9,12 +9,16 @@ machine with a card:  python -m pytest tests/test_torch_gpu.py
 (add --noconftest where jax is not installed: tests/conftest.py imports
 it).
 
-Tolerances: f32, 1e-6 of the largest |entry| of the plain result (both
+Tolerances: the DIA kernel and its previous design keep the plain
+version's products and order of sums: exact equality.  Older DIA cases:
+f32, 1e-6 of the largest |entry| of the plain result (both
 accumulate in f32); bf16, the entrywise bound of ``chip_smoke.bf16_excess``
 (one bf16 rounding on either side plus the f32 summation error bound),
 which a bf16 running sum or bf16 products fail.  BSR: the entrywise bound
 of ``chip_smoke.bsr_excess`` (twice the f32 summation error bound of an
-entry's terms, plus one rounding on either side for a bf16 result).  Stream
+entry's terms, plus one rounding on either side for a bf16 result), for
+the kernel on its 16-byte and its general path and for its previous
+design.  Stream
 kernels: exact equality with ``torch.mul``.  The staged-window DIA kernels
 keep the plain version's order of summation: exact equality.  The copy
 kernel, one copy or a batch: exact equality with ``Tensor.copy_``.  The mesh
@@ -96,6 +100,57 @@ def test_kernel_matches_plain(cuda, shape, dtype):
     assert sw.LAUNCHES[str(dtype).replace('torch.', '')] == before + 1
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n,offsets', [
+    # aligned n: interior tiles, shifts 0 to 3 mod 4 both ways
+    (4096, [-1024, -101, -6, -3, -1, 0, 1, 2, 7, 100, 1024]),
+    # n not a multiple of the 4 lanes a thread: the checked path only
+    (4099, [-1024, -101, -6, -3, -1, 0, 1, 2, 7, 100, 1024]),
+    # |offset| >= n, one diagonal, one batch of eight exactly
+    (1000, [-1500, -1000, -999, 0, 999, 1000, 1500]),
+    (1000, [0]),
+    (2048, [-9, -5, -2, -1, 0, 1, 2, 3]),
+    # lap3d's stencil at an aligned size
+    (8 * 8 * 16, [-64, -8, -1, 0, 1, 8, 64]),
+])
+def test_kernel_equals_plain_and_its_previous_design(cuda, n, offsets,
+                                                     dtype):
+    """Random diagonals: the kernel equals its plain version and its
+    previous design bit for bit (both keep the plain version's products
+    and order of sums), for m = 1, 5, 16, 24 and 40; one launch each."""
+    offs, val = _banded(n, offsets, 3)
+    dm = DiaMatrix.from_arrays(offs, val, device=cuda)
+    key = str(dtype).replace('torch.', '')
+    g = torch.Generator(cuda).manual_seed(n)
+    for m in (1, 5, 16, 24, 40):
+        x = torch.randn((m, n), generator=g, device=cuda).to(dtype)
+        before = sw.LAUNCHES[key], sw.LAUNCHES['prev_' + key]
+        y = sw.dia_matmat_rows(dm.val, x, dm.offsets_t)
+        yprev = sw.dia_matmat_rows_prev(dm.val, x, dm.offsets_t)
+        want = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
+        torch.cuda.synchronize()
+        assert (sw.LAUNCHES[key], sw.LAUNCHES['prev_' + key]) == \
+            (before[0] + 1, before[1] + 1)
+        assert y.dtype == dtype and y.shape == x.shape
+        assert torch.equal(y, want), m
+        assert torch.equal(yprev, want), m
+
+
+def test_kernel_on_unaligned_views_equals_plain(cuda):
+    """Operands one element into their storage (no 16-byte base): the
+    checked path, still equal to the plain version bit for bit."""
+    n = 4096
+    offs, val = _banded(n, [-64, -1, 0, 1, 64], 4)
+    dm = DiaMatrix.from_arrays(offs, val, device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = torch.randn(16 * n + 1, device=cuda).to(dtype)
+        x = buf[1:].view(16, n)
+        assert x.data_ptr() % 16
+        y = sw.dia_matmat_rows(dm.val, x, dm.offsets_t)
+        assert torch.equal(y, sw.dia_matmat_rows_plain(dm.val, x,
+                                                       dm.offsets_t))
+
+
 def test_kernel_many_offsets(cuda):
     """96 diagonals (device_sparse's DIA limit), offsets past either end
     of a short vector."""
@@ -159,6 +214,47 @@ def test_bsr_kernel_matches_plain(cuda, bs, m, tiles, operand):
         exact = (k @ x.double().cpu().numpy().T).T
         err = np.abs(y.cpu().numpy() - exact).max() / np.abs(exact).max()
         assert err < 1e-6
+
+
+@pytest.mark.parametrize('operand', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('tiles', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('bs', [3, 5, 48, 64, 128, 160])
+def test_bsr_kernel_and_its_previous_design_on_both_paths(cuda, bs, tiles,
+                                                          operand):
+    """The girder cut to n = 2,794, a multiple of no block size here, with
+    one block row emptied: bs = 3 and 5 take the general path (a row of
+    tiles is no multiple of 16 bytes), 48 to 160 the 16-byte path; m = 1,
+    5, 16, 24 and 40 (a half row group, one, one and a half, two and a
+    half).  The kernel and its previous design within the entrywise bound
+    of the plain version, the empty block row zero, one launch each."""
+    import scipy.sparse as scs
+    k = fe_pencil(9, 3, 0.1, seed=2, which='k')[:2794, :2794]
+    n = k.shape[0]
+    keep = np.ones(n)
+    keep[2 * bs:3 * bs] = 0.0
+    k = scs.csr_matrix(scs.diags(keep) @ k @ scs.diags(keep))
+    k.eliminate_zeros()
+    bm = BsrMatrix(k, bs=bs, dtype=tiles, device=cuda)
+    assert n % bs and np.diff(bm.block_indptr).min() == 0
+    assert ((bs * bm.blocks.element_size()) % 16 == 0) == (bs >= 48)
+    cs = _chip_smoke()
+    key = (sp._NAMES[tiles], sp._NAMES[operand])
+    g = torch.Generator(cuda).manual_seed(bs)
+    args = (bm.blocks, bm.block_indptr_t, bm.block_cols)
+    for m in (1, 5, 16, 24, 40):
+        x = torch.randn((m, n), generator=g, device=cuda).to(operand)
+        want = sp.bsr_matmat_rows_plain(*args, x, n)
+        for apply, counts in ((sp.bsr_matmat_rows, sp.LAUNCHES),
+                              (sp.bsr_matmat_rows_prev, sp.PREV_LAUNCHES)):
+            before = counts[key]
+            y = apply(*args, x, n)
+            torch.cuda.synchronize()
+            assert counts[key] == before + 1
+            assert y.dtype == operand and y.shape == x.shape
+            assert torch.isfinite(y.float()).all()
+            worst, _ = cs.bsr_excess(torch, sp, bm, x, y, want)
+            assert worst <= 1, (apply.__name__, m)
+            assert torch.all(y[:, 2 * bs:3 * bs] == 0)
 
 
 def test_bsr_kernel_refuses_what_it_cannot_take(cuda):

@@ -45,6 +45,7 @@ from raleigh_tpu_torch.algebra.sparse import Chebyshev
 from raleigh_tpu_torch.benches import (bench_grid_shapes, bench_launch_cost,
                                        bench_spmm_sharded)
 from raleigh_tpu_torch.core.device_solver import lobpcg, shard_operator
+from raleigh_tpu_torch.examples import fe_model as fe
 from raleigh_tpu_torch.ops import spmm_window as sw
 from raleigh_tpu_torch.ops import stream as st
 from raleigh_tpu_torch.ops.spmm import (BsrMatrix, DiaMatrix, EllMatrix,
@@ -571,7 +572,9 @@ def test_mesh_plan_checks_run_on_the_cpu():
 
 def test_shard_operator_on_ell_and_bsr(mesh):
     """ELL: rows split, applied against the gathered operand, within 1e-6
-    of SciPy and of the JAX package's sharded matrix; BSR raises."""
+    of SciPy and of the JAX package's sharded matrix; a BsrMatrix and an
+    unknown object are returned unchanged, as the JAX package returns
+    its BsrMatrix."""
     n = 400
     a = scs.random(n, n, density=0.02, random_state=3, format='csr')
     a = scs.csr_matrix(a + a.T + scs.eye(n))
@@ -591,10 +594,17 @@ def test_shard_operator_on_ell_and_bsr(mesh):
     assert _rel(em.matmat_rows(torch.from_numpy(x)).numpy(), ref) < 1e-6
     assert _rel(em.matmat_t(torch.from_numpy(x.T.copy())).numpy(),
                 ref.T) < 1e-6
-    with pytest.raises(NotImplementedError, match='BsrMatrix'):
-        shard_operator(BsrMatrix(a, bs=16, device='cpu'), mesh)
-    with pytest.raises(TypeError, match='unsupported'):
-        shard_operator(object(), mesh)
+    # a BsrMatrix and any object with neither DIA values nor ELL indices
+    # come back unchanged, as from the JAX package's shard_operator
+    bm = BsrMatrix(a, bs=16, device='cpu')
+    blocks = bm.blocks
+    assert shard_operator(bm, mesh) is bm and bm.blocks is blocks
+    other = object()
+    assert shard_operator(other, mesh) is other
+    jbm = jax_spmm.BsrMatrix(a, bs=16)
+    jblocks = jbm.blocks
+    assert jax_shard(jbm, jmesh, axis=jax_mesh.AXIS) is jbm
+    assert jbm.blocks is jblocks
 
 
 # ---- the sharded LOBPCG -------------------------------------------------
@@ -704,6 +714,72 @@ def test_sharded_lobpcg_on_device_sparse_operators(mesh, f64_default):
     assert st_ == st_s == 0 and it == it_s
     assert _rel(lam_s, lam) < 1e-10
     assert np.abs(xc.T @ (b @ x_s)).max() < 1e-8
+
+
+@pytest.fixture(scope='module')
+def bsr_girder(mesh):
+    """A small FE girder (fe_pencil(5, 2, 0.1, seed=2), n = 648) as
+    ``BsrMatrix(bs=16)`` in f64, solved by the port's ``lobpcg`` for 4
+    pairs with a Chebyshev preconditioner over the same matrix, from one
+    start block: the matrices, the solve's arguments and the unsharded and
+    the sharded result.  ``shard_operator`` passes the matrix through, so
+    under ``sharding=`` the operator and the recurrence apply to the
+    gathered block."""
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        k, mass = fe.fe_pencil(5, 2, 0.1, seed=2)
+        n = k.shape[0]
+        hi = spectral_bounds(k)[1]
+        x0 = np.random.RandomState(8).standard_normal((n, 8))
+        kw = dict(tol=1e-8, maxit=200, x0=x0, dtype=np.float64,
+                  block_size=8)
+        runs = []
+        for sharded in (False, True):
+            tk = BsrMatrix(k, dtype=np.float64, bs=16, device='cpu')
+            tm = BsrMatrix(mass, dtype=np.float64, bs=16, device='cpu')
+            extra = {}
+            if sharded:
+                assert shard_operator(tk, mesh) is tk
+                extra['sharding'] = blockvec_sharding(mesh)
+            pre = Chebyshev(k, hi * 1e-4, hi, degree=16, device_matrix=tk) \
+                .device_rows_operands(8, n, dtype=torch.float64)
+            runs.append(lobpcg(tk, 4, opB=tm, precond=pre, **kw, **extra))
+    finally:
+        torch.set_default_dtype(old)
+    return k, mass, hi, kw, runs
+
+
+def test_sharded_lobpcg_on_bsr_matches_unsharded(bsr_girder):
+    """The girder's sharded solve takes the unsharded one's iterations and
+    eigenvalues to 1e-10 relative, with B-orthonormal vectors."""
+    _, mass, _, _, runs = bsr_girder
+    (lam, _, _, it, st0), (lam_s, x_s, _, it_s, st1) = runs
+    assert st0 == st1 == 0 and it == it_s
+    assert _rel(lam_s, lam) < 1e-10
+    assert np.abs(x_s.T @ (mass @ x_s) - np.eye(4)).max() < 1e-8
+
+
+def test_sharded_lobpcg_on_bsr_matches_jax(bsr_girder):
+    """The girder's sharded solve against the JAX package's: the same
+    ``BsrMatrix(bs=16)`` passed through its ``shard_operator``, its
+    Chebyshev operand form and ``lobpcg`` under its blockvec sharding on
+    conftest's 8 virtual devices, from the same start block.  Equal
+    iterations, eigenvalues to 1e-10 relative."""
+    k, mass, hi, kw, runs = bsr_girder
+    n = k.shape[0]
+    jmesh = jax_mesh.make_mesh(8)
+    jk = jax_spmm.BsrMatrix(k, dtype=np.float64, bs=16)
+    jm = jax_spmm.BsrMatrix(mass, dtype=np.float64, bs=16)
+    assert jax_shard(jk, jmesh, axis=jax_mesh.AXIS) is jk
+    jpre = JaxChebyshev(k, hi * 1e-4, hi, degree=16, device_matrix=jk) \
+        .device_rows_operands(8, n, dtype=jnp.float64)
+    lam_j, _, _, it_j, st_j = jax_lobpcg(
+        jk, 4, opB=jm, precond=jpre,
+        sharding=NamedSharding(jmesh, P(jax_mesh.AXIS, None)), **kw)
+    lam_s, _, _, it_s, st_s = runs[1]
+    assert st_j == st_s == 0 and it_j == it_s
+    assert _rel(lam_s, lam_j) < 1e-10
 
 
 def test_sharded_chebyshev_streams_bf16(mesh):

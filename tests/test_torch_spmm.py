@@ -150,6 +150,25 @@ def test_wrapper_uses_plain_version_only_on_cpu(lap):
         sw.dia_matmat_rows(dm.val, xt.to('meta'), dm.offsets_t)
 
 
+def test_previous_design_wrapper_on_cpu(lap):
+    """The previous K1 design's wrapper, kept to be timed beside the
+    kernel: on a CPU tensor the plain version (within 1e-6 of the JAX
+    package's DIA apply), no launch counted, another device refused."""
+    a, x = lap
+    dm = DiaMatrix(a, device='cpu')
+    before = dict(sw.LAUNCHES)
+    xt = torch.from_numpy(x)
+    y = sw.dia_matmat_rows_prev(dm.val, xt, dm.offsets_t)
+    assert torch.equal(y, sw.dia_matmat_rows_plain(dm.val, xt,
+                                                    dm.offsets_t))
+    jd = JaxDia(a)
+    want = np.asarray(_dia_matmat_rows(jd.val, jnp.asarray(x), jd.offsets))
+    assert _rel(y.numpy(), want) < 1e-6
+    assert sw.LAUNCHES == before
+    with pytest.raises(ValueError, match='device'):
+        sw.dia_matmat_rows_prev(dm.val, xt.to('meta'), dm.offsets_t)
+
+
 def test_sparse_symmetric_matrix_and_operator(lap):
     """SparseSymmetricMatrix applies a tensor on its device matrix and an
     ndarray on the host CSR; Operator lets an ndarray-level operator take
