@@ -24,9 +24,10 @@ carries on, and no wrapper gives way to its plain version on the card.
      plain version with a bf16 running sum and with each product rounded
      to bf16, must fail the entrywise bf16 bound (one bf16 rounding on
      either side plus the f32 summation error bound, ``bf16_excess``).
-   * The stream kernel ``y = a x`` on 32 x 1,277,952 f32 against
-     ``torch.mul``: exact equality.  Its rate is the card's stream rate as
-     the port measures it.
+   * The stream kernel ``y = a x`` on 32 x 1,277,952 f32, on an unaligned
+     view and on a tail, and its previous design (``stream_scale_prev``)
+     against ``torch.mul``: exact equality; both timed in turns with it.
+     The kernel's rate is the card's stream rate as the port measures it.
    * BSR SpMM of the finite-element flagship in the mesher's order
      (``shipsec_like(relabel=False)``, n = 139,179, bs = 128, m = 16 and
      24) in the four instantiations (f32 or bf16 tiles, f32 or bf16
@@ -49,7 +50,10 @@ carries on, and no wrapper gives way to its plain version on the card.
      reported as well.
    * The tiled (per_step 1 and 4) and pipelined (depth 2 and 4) stream
      kernels on 32 x 1,277,952 f32 at every tile size the copy sweep runs,
-     against ``torch.mul``: exact equality.
+     and the pipelined kernel's previous design
+     (``stream_scale_pipelined_prev``), against ``torch.mul``: exact
+     equality; the pipelined kernel timed in turns with its previous
+     design and ``torch.mul``.
    * The copy kernel: ``hbm2hbm`` on 32 x 1,277,952 f32 at tile 32,768 and
      as one tile, ``copy_lanes`` of a shard's halo (16 x 10,000 lanes out of
      16 x 160,000) and of its body into the slots of an extended operand,
@@ -102,7 +106,7 @@ carries on, and no wrapper gives way to its plain version on the card.
 4. The two kernel-structure sweeps through their ``main``:
    ``benches.bench_window_tiles`` (ring, slide, tiles; m = 32, and m = 16
    for the staged kernels) and ``benches.bench_grid_shapes`` (blockspec,
-   blockspec4, manual2, manual4, grid_stride, torch, hbm2hbm) at full size;
+   blockspec4, manual2, manual4, spans, torch, hbm2hbm) at full size;
    then ``benches.bench_spmm_sharded`` at its default size,
    ``benches.bench_launch_cost`` and ``graft_entry.dryrun_multichip(8)``
    (one mesh kernel launch per device per sharded apply, no copy launch).
@@ -154,7 +158,7 @@ ITERATIONS = {(100, 100, 128): 32, (50, 50, 50): 16, 'FE-BSR': 16,
               'sharded': 32}
 # sources whose kernel was redesigned, the previous design kept beside it
 # (its ``_prev`` entries run in phase 2 only, timed in turns with the new)
-REDESIGNED = ('dia_spmm', 'bsr_spmm')
+REDESIGNED = ('dia_spmm', 'bsr_spmm', 'stream_scale', 'stream_probes')
 OFF_PATH_PREV = ('the previous design, kept to be timed in turns with the '
                  'kernel on the path; no solver path launches it')
 # the sharded main path: shards of the one card, and its field
@@ -462,36 +466,53 @@ def phase_kernels(torch, np, lap3d, DiaMatrix, sw):
 
 
 def phase_stream(torch, st):
-    """The stream kernel against ``torch.mul`` (exact equality) at the
-    reference's shape; returns its row, whose rate is the card's stream
-    rate as the port measures it."""
+    """The stream kernel and its previous design against ``torch.mul``
+    (exact equality) at the reference's shape, on an unaligned view and on
+    a tail, timed in turns with ``torch.mul``; returns the rows of both
+    designs.  The kernel's rate is the card's stream rate as the port
+    measures it."""
     gen = torch.Generator('cuda').manual_seed(1)
     x = torch.randn(st.REFERENCE_SHAPE, generator=gen, device='cuda')
     a = st.REFERENCE_SCALE
-    yk = st.stream_scale(x, a)
-    yp = st.stream_scale_plain(x, a)
-    torch.cuda.synchronize()
-    diff = (yk - yp).abs().max().item()
-    if not torch.equal(yk, yp):
-        fail('stream kernel differs from torch.mul (max abs %.3e)' % diff)
     # an unaligned view takes the 4-byte path and the scalar tail
     odd = x.reshape(-1)[1:1000004]
-    if not torch.equal(st.stream_scale(odd.clone(), a),
-                       st.stream_scale_plain(odd, a)):
-        fail('stream kernel differs from torch.mul on an odd length')
-    del yk, yp
-    tk, tp = in_turns(lambda: st.stream_scale(x, a),
-                      lambda: st.stream_scale_plain(x, a), 50)
+    yp = st.stream_scale_plain(x, a)
+    diffs = {}
+    for label, fn in (('stream kernel', st.stream_scale),
+                      ('its previous design', st.stream_scale_prev)):
+        yk = fn(x, a)
+        torch.cuda.synchronize()
+        diff = diffs[fn] = (yk - yp).abs().max().item()
+        if not torch.equal(yk, yp):
+            fail('%s differs from torch.mul (max abs %.3e)' % (label, diff))
+        if not torch.equal(fn(odd.clone(), a), st.stream_scale_plain(odd, a)):
+            fail('%s differs from torch.mul on an odd length' % label)
+        del yk
+    del yp
+    t = turns({'plain': lambda: st.stream_scale_plain(x, a),
+               'kernel': lambda: st.stream_scale(x, a),
+               'prev': lambda: st.stream_scale_prev(x, a)}, 50)
     nbytes = 2 * x.numel() * 4
     bound_ms, bound_by = bound(nbytes, x.numel())
-    print('stream_scale %s f32: equal to torch.mul, kernel %.4f ms '
-          '(%.0f GB/s), torch.mul %.4f ms (%.0f GB/s), bound %.4f ms (%s)'
-          % (tuple(x.shape), tk, nbytes / tk / 1e6, tp, nbytes / tp / 1e6,
-             bound_ms, bound_by))
-    return dict(name='stream_scale_f32', route='cuda', source=STREAM[0],
-                replaces=STREAM[1], launches=0, max_abs_err=diff, ms=tk,
-                plain_ms=tp, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=tp, bytes=nbytes)
+    print('stream_scale %s f32: kernel and previous design equal to '
+          'torch.mul; kernel %.4f ms (%.0f GB/s), previous design %.4f ms '
+          '(%.0f GB/s), %.3fx; torch.mul %.4f ms (%.0f GB/s), bound %.4f ms '
+          '(%s), in turns'
+          % (tuple(x.shape), t['kernel'], nbytes / t['kernel'] / 1e6,
+             t['prev'], nbytes / t['prev'] / 1e6, t['prev'] / t['kernel'],
+             t['plain'], nbytes / t['plain'] / 1e6, bound_ms, bound_by))
+    rows = {}
+    for name, ms, fn in (
+            ('stream_scale_f32', t['kernel'], st.stream_scale),
+            ('stream_scale_prev_f32', t['prev'], st.stream_scale_prev)):
+        rows[name] = dict(name=name, route='cuda', source=STREAM[0],
+                          replaces=STREAM[1], launches=0,
+                          max_abs_err=diffs[fn], ms=ms, plain_ms=t['plain'], bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=t['plain'],
+                          bytes=nbytes)
+    rows['stream_scale_f32']['prev_ms'] = t['prev']
+    rows['stream_scale_prev_f32']['off_path'] = OFF_PATH_PREV
+    return rows
 
 
 def bsr_excess(torch, sp, bm, x, got, want):
@@ -798,44 +819,70 @@ def phase_variants(torch, np, lap3d, DiaMatrix, sw, st, wt, gs, lib16):
 
     x = torch.randn(st.REFERENCE_SHAPE, generator=gen, device='cuda')
     a = st.REFERENCE_SCALE
+    # (row name, source, tiles, row tile, per_step, kernel, previous design)
     probes = [('stream_scale_tiled_per_step%d' % ps, TILED, gs.TILED_TILES,
                ROW_TILE['tiled'], ps,
-               lambda xs, t, ps=ps: st.stream_scale_tiled(xs, a, t, ps))
+               lambda xs, t, ps=ps: st.stream_scale_tiled(xs, a, t, ps), None)
               for ps in (1, 4)]
     probes += [('stream_scale_pipelined_depth%d' % d, PIPELINED,
                 gs.PIPELINED_TILES, ROW_TILE['pipelined'], 1,
-                lambda xs, t, d=d: st.stream_scale_pipelined(xs, a, t, d))
+                lambda xs, t, d=d: st.stream_scale_pipelined(xs, a, t, d),
+                lambda xs, t, d=d: st.stream_scale_pipelined_prev(xs, a, t,
+                                                                  d))
                for d in st.PIPELINE_DEPTHS]
-    for key, src, tiles, row_tile, per_step, fn in probes:
+    for key, src, tiles, row_tile, per_step, fn, prev in probes:
+        designs = {'kernel': fn, 'prev': prev}
         for tile in tiles:
             # whole blocks only: the copy sweep trims n the same way
             cut = x.shape[1] - x.shape[1] % (tile * per_step)
             xs = x if cut == x.shape[1] else x[:, :cut].contiguous()
-            yk = fn(xs, tile)
             yp = st.stream_scale_plain(xs, a)
-            torch.cuda.synchronize()
-            diff = (yk - yp).abs().max().item()
-            if not torch.equal(yk, yp):
-                fail('%s tile %d differs from torch.mul (max abs %.3e)'
-                     % (key, tile, diff))
-            del yk, yp
+            diffs = {}
+            for design, f in designs.items():
+                if f is None:
+                    continue
+                yk = f(xs, tile)
+                torch.cuda.synchronize()
+                diffs[design] = (yk - yp).abs().max().item()
+                if not torch.equal(yk, yp):
+                    fail('%s%s tile %d differs from torch.mul (max abs '
+                         '%.3e)' % (key, ' (previous design)'
+                                    if design == 'prev' else '', tile,
+                                    diffs[design]))
+                del yk
+            del yp
             if tile != row_tile:
                 continue
-            tk, tp = in_turns(lambda: fn(xs, tile),
-                              lambda: st.stream_scale_plain(xs, a), 50)
+            t = turns({'plain': lambda: st.stream_scale_plain(xs, a),
+                       'kernel': lambda: fn(xs, tile),
+                       'prev': None if prev is None
+                       else lambda: prev(xs, tile)}, 50)
             nbytes = 2 * xs.numel() * 4
             bound_ms, bound_by = bound(nbytes, xs.numel())
             print('%s tile %d %s f32: equal to torch.mul at every tile of '
-                  '%s, kernel %.4f ms (%.0f GB/s), torch.mul %.4f ms '
-                  '(%.0f GB/s), bound %.4f ms (%s)'
-                  % (key, tile, tuple(xs.shape), tiles, tk,
-                     nbytes / tk / 1e6, tp, nbytes / tp / 1e6, bound_ms,
+                  '%s%s, kernel %.4f ms (%.0f GB/s)%s, torch.mul %.4f ms '
+                  '(%.0f GB/s), bound %.4f ms (%s), in turns'
+                  % (key, tile, tuple(xs.shape), tiles,
+                     '' if prev is None else ', so is the previous design',
+                     t['kernel'], nbytes / t['kernel'] / 1e6,
+                     '' if prev is None else
+                     ', previous design %.4f ms (%.0f GB/s), %.3fx'
+                     % (t['prev'], nbytes / t['prev'] / 1e6,
+                        t['prev'] / t['kernel']),
+                     t['plain'], nbytes / t['plain'] / 1e6, bound_ms,
                      bound_by))
-            rows[key] = dict(
-                name=key, route='cuda', source=src[0], replaces=src[1],
-                launches=0, max_abs_err=diff, ms=tk, plain_ms=tp,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=tp,
-                bytes=nbytes)
+            for design in diffs:
+                name = key if design == 'kernel' else key.replace(
+                    'pipelined_', 'pipelined_prev_')
+                rows[name] = dict(
+                    name=name, route='cuda', source=src[0], replaces=src[1],
+                    launches=0, max_abs_err=diffs[design], ms=t[design],
+                    plain_ms=t['plain'], bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=t['plain'], bytes=nbytes)
+            if prev is not None:
+                rows[key]['prev_ms'] = t['prev']
+                rows[key.replace('pipelined_', 'pipelined_prev_')][
+                    'off_path'] = OFF_PATH_PREV
     return rows
 
 
@@ -1225,7 +1272,9 @@ def phase_sweeps(mods, rows, card, wt, gs):
         drive(gs.main, ['manual%d' % depth], st.LAUNCHES,
               'pipelined_depth%d' % depth,
               'stream_scale_pipelined_depth%d' % depth)
-    drive(gs.main, ['grid_stride', 'torch'], st.LAUNCHES, 'float32', None)
+        rows['stream_scale_pipelined_prev_depth%d' % depth]['launches'] = \
+            st.LAUNCHES['pipelined_prev_depth%d' % depth]
+    drive(gs.main, ['spans', 'torch'], st.LAUNCHES, 'float32', None)
     drive(gs.main, ['hbm2hbm'], st.LAUNCHES, 'copy_lanes',
           'copy_lanes_hbm2hbm')
     if 'hbm2hbm' not in gs.VARIANTS:
@@ -1706,6 +1755,7 @@ def phase_stream_rate(mods, rows, card):
     if launches <= 0:
         fail('stream_rate skipped the stream kernel')
     rows['stream_scale_f32']['launches'] = launches
+    rows['stream_scale_prev_f32']['launches'] = st.LAUNCHES['prev_float32']
     print('stream_rate(): %.0f GB/s read + write over %d launches [%s]'
           % (rate / 1e9, launches, card))
     return rate
@@ -1732,7 +1782,7 @@ def main():
     mods = (sw, sp, st)
     card = phase_environment(torch, _build)
     rows = phase_kernels(torch, np, lap3d, DiaMatrix, sw)
-    rows['stream_scale_f32'] = phase_stream(torch, st)
+    rows.update(phase_stream(torch, st))
     rows.update(phase_copy(torch, st))
     rows.update(phase_ext(torch, np, lap3d, DiaMatrix, sw, st, rows))
     rows.update(phase_variants(

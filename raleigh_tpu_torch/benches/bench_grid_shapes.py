@@ -9,12 +9,12 @@ each structure the port has a kernel for, timed with CUDA events.
   blockspec4   the same with four tiles per block; n is trimmed to a
                multiple of 4 * tile, as the reference trims it
   manual2      one persistent grid, each block pipelining chunks through 2
-               shared-memory stages with asynchronous copies
+               shared-memory stages filled and drained by bulk copies
                (``stream_scale_pipelined``), per chunk size in
                ``PIPELINED_TILES``
   manual4      the same through 4 stages
-  grid_stride  the grid-stride kernel ``stream_scale``, the rate the SpMM
-               kernels are judged against
+  spans        the stream kernel ``stream_scale``, one contiguous span per
+               thread block, the rate the SpMM kernels are judged against
   torch        ``torch.mul``, the library's copy
   hbm2hbm      the copy with no on-chip bounce and no arithmetic, y = x in
                column tiles (``hbm2hbm``), per tile size in ``COPY_TILES``
@@ -43,7 +43,7 @@ TILED_TILES = (1024, 4096, 16384)
 PIPELINED_TILES = (2048, 8192)
 # lanes per column tile of the plain copy: the reference's tile
 COPY_TILES = (TILE,)
-VARIANTS = ('blockspec', 'blockspec4', 'manual2', 'manual4', 'grid_stride',
+VARIANTS = ('blockspec', 'blockspec4', 'manual2', 'manual4', 'spans',
             'torch', 'hbm2hbm')
 SEED = 0
 
@@ -62,7 +62,7 @@ def _copies(name, tiles):
         return [(t, t,
                  lambda x, t=t: st.stream_scale_pipelined(x, a, t, depth))
                 for t in tiles or PIPELINED_TILES]
-    if name == 'grid_stride':
+    if name == 'spans':
         return [(None, 1, lambda x: st.stream_scale(x, a))]
     if name == 'torch':
         return [(None, 1, lambda x: torch.mul(x, a))]

@@ -7,23 +7,54 @@
 // build_blockspec, the Pallas grid pipeline with one (or per_step) tile(s)
 // per grid step.  Here: a NON-persistent grid, one thread block per chunk of
 // tile * per_step contiguous elements, 16-byte loads and stores, four
-// independent loads in flight per thread, no grid stride.  The opposite
-// launch shape to stream_scale.cu, whose fixed grid strides over the array.
+// independent loads in flight per thread, no grid stride.
 //
 // stream_scale_pipelined_f32 replaces benches/bench_grid_shapes.py::
 // build_manual, the single grid step that pipelines every chunk by hand
-// through `depth` rotating on-chip buffers.  Here: ONE launch of a
-// persistent grid, as many blocks per SM as their shared memory allows; each
-// block streams its chunks (block b takes chunks b, b + grid, ...) through
-// `depth` rotating shared-memory stages filled by 16-byte cp.async copies.
-// The copy of chunk k + depth - 1 is in flight while chunk k is scaled out of
-// shared memory and stored: the data make the on-chip round trip, as the
-// reference insists.  depth is a template parameter because
-// cp.async.wait_group takes a compile-time count.
+// through `depth` rotating on-chip buffers with DMAs and DMA semaphores:
+// in-DMA chunk k into a buffer, scale it there, out-DMA it, and wait for
+// that out-DMA before the next in-DMA reuses the buffer.  Here the same
+// steps with the H100's own DMA engine, the Tensor Memory Accelerator: ONE
+// launch of a persistent grid, as many blocks per SM as their shared memory
+// allows.  Each block keeps `depth` stages of `tile` elements in dynamic
+// shared memory and, behind them, an mbarrier and a chunk index per stage.
+//   load   one elected thread draws the next chunk from a counter in global
+//          memory, arms the stage's mbarrier with the chunk's bytes
+//          (arrive.expect_tx) and starts a bulk copy global -> shared
+//          (cp.async.bulk ... mbarrier::complete_tx); the threads wait on
+//          the barrier's phase parity, with no block barrier;
+//   scale  the threads scale the stage in place in shared memory, the
+//          on-chip round trip the reference makes;
+//   store  after fence.proxy.async (the threads' writes made visible to the
+//          copy engine) and one block barrier, the elected thread starts a
+//          bulk copy shared -> global of the stage (bulk_group) and commits
+//          it;
+//   reuse  before it refills the stage, the elected thread waits until
+//          that store has read the stage (cp.async.bulk.wait_group.read),
+//          the reference's out-DMA wait.
+// The prologue fills every stage, so while one stage is scaled the loads of
+// the next depth - 1 chunks are in flight.  No thread spends a register or
+// an instruction on an address of the copies.  Both copies carry an L2
+// evict-first policy, as the stream kernel's loads and stores carry
+// streaming hints: the stream reuses no line.  Chunks are drawn, not dealt:
+// with a fixed share per block (b, b + grid, ...) the blocks whose SMs
+// stream slower set the end and the kernel ran 5% behind torch.mul; drawn
+// from one counter, a block that is ahead takes more.  A stage whose draw
+// finds no chunk left gets the index -1 and a plain arrival, which ends
+// the block's loop once the chunks before it are done.  The last block to
+// finish sets the counter back to 0 for the next launch.
 //
-// What bounds both: memory, 8 bytes per element.  The kernels allocate
-// nothing and do not synchronise the device.  Each entry point returns
-// cudaGetLastError() after its launch.
+// stream_scale_pipelined_prev_f32 keeps the previous design of the same
+// probe, to be timed in turns with the new one; no path launches it: block
+// b takes chunks b, b + grid, ..., every thread copies its share of a chunk
+// with 16-byte cp.async into `depth` rotating stages, two block barriers a
+// chunk, and stores the scaled values from registers.  depth is a template
+// parameter of both (the previous design's cp.async.wait_group takes a
+// compile-time count).
+//
+// What bounds all of them: memory, 8 bytes per element.  The kernels
+// allocate nothing and do not synchronise the device.  Each entry point
+// returns cudaGetLastError() after its launch.
 
 #include <cstdint>
 
@@ -58,12 +89,152 @@ tiled_kernel(const float4* __restrict__ x, float4* __restrict__ y, float a,
     for (; i < chunk4; i += kThreads) yb[i] = scaled(xb[i], a);
 }
 
+// ---- the pipelined probe: bulk copies through an mbarrier ring ----------
+
+// bytes behind each stage in dynamic shared memory: its mbarrier and the
+// index of the chunk it holds (ops/stream.py counts them in its
+// shared-memory check); a stage of tile * 4 bytes, tile a multiple of 4,
+// keeps both 8-byte aligned
+constexpr int kStageExtraBytes = 16;
+// clock cycles a barrier wait may spin (about 10 s at the H100's clocks)
+constexpr long long kHangCycles = 20000000000LL;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void barrier_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void barrier_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(bar) : "memory");
+}
+
+// Spins until the phase of `bar` with this parity has completed; traps
+// (the launch fails) rather than hang the card if it has not after about
+// ten seconds.
+__device__ __forceinline__ void barrier_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done = 0;
+    const long long t0 = clock64();
+    do {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n"
+            "}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+        if (!done && clock64() - t0 > kHangCycles) __trap();
+    } while (!done);
+}
+
+// An L2 policy that evicts the lines a copy touches first: the stream
+// reads nothing twice and nobody reads what it writes.
+__device__ __forceinline__ uint64_t evict_first_policy() {
+    uint64_t policy;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+                 : "=l"(policy));
+    return policy;
+}
+
+// One thread: arms `bar` for `bytes` and starts their bulk copy from
+// global `src` into shared `dst` under the L2 `policy`; the barrier's
+// phase completes when they have landed.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const float* src,
+                                          uint32_t bytes, uint32_t bar,
+                                          uint64_t policy) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::"
+                 "complete_tx::bytes.L2::cache_hint [%0], [%1], %2, [%3], "
+                 "%4;\n"
+                 :: "r"(dst), "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+                 : "memory");
+}
+
+// One thread: starts the bulk copy of `bytes` from shared `src` to global
+// `dst` under the L2 `policy`, as a bulk group of its own.
+__device__ __forceinline__ void bulk_store(float* dst, uint32_t src,
+                                           uint32_t bytes, uint64_t policy) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group"
+                 ".L2::cache_hint [%0], [%1], %2, %3;\n"
+                 :: "l"(dst), "r"(src), "r"(bytes), "l"(policy) : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The chunks are the tile elements at c * tile, c < nchunks, drawn from
+// counter[0]; counter[1] counts the blocks that have finished.  Both are 0
+// at launch, and the last block leaves them 0.
+template <int kDepth>
+__global__ void __launch_bounds__(kThreads)
+pipelined_kernel(const float* __restrict__ x, float* __restrict__ y,
+                 float a, int64_t nchunks, int tile,
+                 unsigned long long* counter) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const uint32_t bytes = static_cast<uint32_t>(tile) * 4;
+    const uint32_t stage0 = smem_addr(smem);
+    const uint32_t bar0 = stage0 + kDepth * bytes;
+    volatile int64_t* held =
+        reinterpret_cast<int64_t*>(smem + kDepth * (bytes + 8));
+    const bool issuer = threadIdx.x == 0;
+    const uint64_t policy = issuer ? evict_first_policy() : 0;
+    // issuer only: draws the next chunk into stage s, or marks it the end
+    auto fill = [&](int s) {
+        const unsigned long long c = atomicAdd(counter, 1ULL);
+        const uint32_t bar = bar0 + s * 8;
+        if (c < static_cast<unsigned long long>(nchunks)) {
+            held[s] = static_cast<int64_t>(c);
+            bulk_load(stage0 + s * bytes, x + c * tile, bytes, bar, policy);
+        } else {
+            held[s] = -1;
+            barrier_arrive(bar);
+        }
+    };
+    if (issuer) {
+        for (int s = 0; s < kDepth; ++s) barrier_init(bar0 + s * 8, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        for (int s = 0; s < kDepth; ++s) fill(s);
+    }
+    __syncthreads();
+    const int tile4 = tile / 4;
+    for (int64_t k = 0;; ++k) {
+        const int s = static_cast<int>(k % kDepth);
+        barrier_wait(bar0 + s * 8, static_cast<uint32_t>(k / kDepth) & 1);
+        const int64_t c = held[s];
+        if (c < 0) break;   // every stage after it is past the end too
+        float4* stage = reinterpret_cast<float4*>(smem + s * bytes);
+        for (int i = threadIdx.x; i < tile4; i += kThreads) {
+            stage[i] = scaled(stage[i], a);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();
+        if (issuer) {
+            bulk_store(y + c * tile, stage0 + s * bytes, bytes, policy);
+            // the stage is free once its store has read it
+            asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+            fill(s);
+        }
+    }
+    if (issuer) {
+        // the stages must outlive the stores that read them
+        asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+        __threadfence();   // this block's draws before its count
+        if (atomicAdd(counter + 1, 1ULL) == gridDim.x - 1) {
+            counter[0] = 0;
+            counter[1] = 0;
+        }
+    }
+}
+
+// ---- the previous design of the pipelined probe -------------------------
+
 __device__ __forceinline__ void cp_async16(float4* smem_dst,
                                            const float4* src) {
-    const uint32_t dst =
-        static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(dst), "l"(src) : "memory");
+                 :: "r"(smem_addr(smem_dst)), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -91,8 +262,8 @@ __device__ __forceinline__ void start_chunk(const float4* __restrict__ x,
 // chunk, so that wait_group<kDepth - 1> always means "chunk k has landed".
 template <int kDepth>
 __global__ void __launch_bounds__(kThreads)
-pipelined_kernel(const float4* __restrict__ x, float4* __restrict__ y,
-                 float a, int64_t nchunks, int tile4) {
+pipelined_prev_kernel(const float4* __restrict__ x, float4* __restrict__ y,
+                      float a, int64_t nchunks, int tile4) {
     extern __shared__ __align__(16) float4 stages[];
     const int64_t first = blockIdx.x;
     if (first >= nchunks) return;
@@ -118,30 +289,82 @@ pipelined_kernel(const float4* __restrict__ x, float4* __restrict__ y,
     }
 }
 
-template <int kDepth>
-cudaError_t launch_pipelined(const float4* x, float4* y, float a,
-                             int64_t nchunks, int64_t tile4, int sms,
-                             cudaStream_t stream) {
-    const size_t smem = static_cast<size_t>(kDepth) * tile4 * sizeof(float4);
+// Launches `kernel` on a persistent grid of as many blocks as fit the SMs
+// with `smem` bytes of dynamic shared memory each, at most nchunks.
+template <typename Kernel, typename... Args>
+cudaError_t launch_persistent(Kernel kernel, size_t smem, int64_t nchunks,
+                              int sms, cudaStream_t stream, Args... args) {
     cudaError_t err = cudaFuncSetAttribute(
-        pipelined_kernel<kDepth>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, pipelined_kernel<kDepth>, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     int64_t blocks = static_cast<int64_t>(sms) * per_sm;
     if (blocks > nchunks) blocks = nchunks;
-    pipelined_kernel<kDepth><<<static_cast<unsigned int>(blocks), kThreads,
-                               smem, stream>>>(x, y, a, nchunks,
-                                               static_cast<int>(tile4));
+    kernel<<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
+        args...);
     return cudaGetLastError();
+}
+
+template <int kDepth>
+cudaError_t launch_pipelined(const float* x, float* y, float a,
+                             int64_t nchunks, int64_t tile,
+                             unsigned long long* counter, int sms,
+                             cudaStream_t stream) {
+    const size_t smem = static_cast<size_t>(kDepth)
+                        * (tile * sizeof(float) + kStageExtraBytes);
+    return launch_persistent(pipelined_kernel<kDepth>, smem, nchunks, sms,
+                             stream, x, y, a, nchunks,
+                             static_cast<int>(tile), counter);
+}
+
+template <int kDepth>
+cudaError_t launch_pipelined_prev(const float* x, float* y, float a,
+                                  int64_t nchunks, int64_t tile,
+                                  unsigned long long*, int sms,
+                                  cudaStream_t stream) {
+    const size_t smem = static_cast<size_t>(kDepth) * tile * sizeof(float);
+    return launch_persistent(pipelined_prev_kernel<kDepth>, smem, nchunks,
+                             sms, stream, reinterpret_cast<const float4*>(x),
+                             reinterpret_cast<float4*>(y), a, nchunks,
+                             static_cast<int>(tile / 4));
 }
 
 bool aligned16(const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+using PipelinedLaunch = cudaError_t (*)(const float*, float*, float, int64_t,
+                                        int64_t, unsigned long long*, int,
+                                        cudaStream_t);
+
+// The checks both pipelined entry points make, then launch2 or launch4 by
+// depth.
+int pipelined(const void* x, void* y, float a, int64_t count, int64_t tile,
+              int depth, void* counter, int device, void* stream,
+              PipelinedLaunch launch2, PipelinedLaunch launch4) {
+    if (count <= 0) return static_cast<int>(cudaSuccess);
+    if (tile <= 0 || tile % 4 != 0 || count % tile != 0 || !aligned16(x)
+            || !aligned16(y) || tile > 0x7fffffffLL / 4) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const PipelinedLaunch launch = depth == 2 ? launch2
+                                   : depth == 4 ? launch4 : nullptr;
+    if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(launch(
+        static_cast<const float*>(x), static_cast<float*>(y), a,
+        count / tile, tile, static_cast<unsigned long long*>(counter), sms,
+        static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -167,32 +390,26 @@ extern "C" int stream_scale_tiled_f32(const void* x, void* y, float a,
 }
 
 // y = a * x over count f32 elements in chunks of tile elements through depth
-// (2 or 4) shared-memory stages.  Needs tile % 4 == 0, count % tile == 0,
-// 16-byte aligned pointers and depth * tile * 4 bytes of shared memory.
+// (2 or 4) shared-memory stages filled and drained by bulk copies.  Needs
+// tile % 4 == 0, count % tile == 0, 16-byte aligned pointers,
+// depth * (tile * 4 + 16) bytes of shared memory, and `counter`: two
+// unsigned 64-bit ints on the device, 0 at launch (the kernel leaves them
+// 0), used by no other launch in flight.
 extern "C" int stream_scale_pipelined_f32(const void* x, void* y, float a,
                                           int64_t count, int64_t tile,
-                                          int depth, int device,
-                                          void* stream) {
-    if (count <= 0) return static_cast<int>(cudaSuccess);
-    if (tile <= 0 || tile % 4 != 0 || count % tile != 0 || !aligned16(x)
-            || !aligned16(y) || tile / 4 > 0x7fffffffLL) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int sms = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const float4* xv = static_cast<const float4*>(x);
-    float4* yv = static_cast<float4*>(y);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (depth == 2) {
-        err = launch_pipelined<2>(xv, yv, a, count / tile, tile / 4, sms, s);
-    } else if (depth == 4) {
-        err = launch_pipelined<4>(xv, yv, a, count / tile, tile / 4, sms, s);
-    } else {
-        err = cudaErrorInvalidValue;
-    }
-    return static_cast<int>(err);
+                                          int depth, void* counter,
+                                          int device, void* stream) {
+    if (counter == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return pipelined(x, y, a, count, tile, depth, counter, device, stream,
+                     launch_pipelined<2>, launch_pipelined<4>);
+}
+
+// The same through the previous design, each block taking chunks b,
+// b + grid, ...; needs depth * tile * 4 bytes of shared memory.
+extern "C" int stream_scale_pipelined_prev_f32(const void* x, void* y,
+                                               float a, int64_t count,
+                                               int64_t tile, int depth,
+                                               int device, void* stream) {
+    return pipelined(x, y, a, count, tile, depth, nullptr, device, stream,
+                     launch_pipelined_prev<2>, launch_pipelined_prev<4>);
 }

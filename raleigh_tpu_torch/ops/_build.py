@@ -50,6 +50,15 @@ _EXT_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5
 # a host parameter block and its size in bytes; device; stream
 _TABLE_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                ctypes.c_void_p]
+# x, y, a, count; device; stream
+_STREAM_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+# x, y, a, count, tile, depth, device, stream
+_PIPELINED_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+# the same with the chunk counter before the device
+_DRAWN_ARGS = _PIPELINED_ARGS[:6] + [ctypes.c_void_p] + _PIPELINED_ARGS[6:]
 _SIGNATURES = {
     'dia_spmm': {'dia_spmm_rows_f32': _DIA_ARGS,
                  'dia_spmm_rows_bf16': _DIA_ARGS,
@@ -65,18 +74,15 @@ _SIGNATURES = {
     'bsr_spmm': {'bsr_spmm_rows_%s%s_%s' % (prev, b, x): _BSR_ARGS
                  for prev in ('', 'prev_') for b in ('f32', 'bf16')
                  for x in ('f32', 'bf16')},
-    'stream_scale': {'stream_scale_f32': [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_void_p]},
+    'stream_scale': {'stream_scale_f32': _STREAM_ARGS,
+                     'stream_scale_prev_f32': _STREAM_ARGS},
     'stream_probes': {
         # x, y, a, count, chunk, device, stream
         'stream_scale_tiled_f32': [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int64,
             ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
-        # x, y, a, count, tile, depth, device, stream
-        'stream_scale_pipelined_f32': [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]},
+        'stream_scale_pipelined_f32': _DRAWN_ARGS,
+        'stream_scale_pipelined_prev_f32': _PIPELINED_ARGS},
 }
 
 _loaded = {}

@@ -1,16 +1,23 @@
 """Streaming scale ``y = a * x``: the card's stream rate as the port
 measures it, and two other launch and pipeline structures of the same copy.
 
-``stream_scale`` (``csrc/stream_scale.cu``, a grid-stride kernel) replaces
-the Pallas copy kernel ``bench.py::_extra_pallas_copy_roofline``, which
-reads an f32 array once and writes it once.  ``2 * x.numel() * 4 / t`` is
-the rate the memory-bound SpMM kernels are judged against.
+``stream_scale`` (``csrc/stream_scale.cu``, one contiguous span per thread
+block) replaces the Pallas copy kernel
+``bench.py::_extra_pallas_copy_roofline``, which reads an f32 array once
+and writes it once.  ``2 * x.numel() * 4 / t`` is the rate the
+memory-bound SpMM kernels are judged against.
 
 ``stream_scale_tiled`` and ``stream_scale_pipelined``
 (``csrc/stream_probes.cu``) replace ``benches/bench_grid_shapes.py::
 build_blockspec`` and ``build_manual``: one thread block per tile with no
 grid stride, and one persistent grid whose blocks pipeline their chunks
-through 2 or 4 shared-memory stages with asynchronous copies.
+through 2 or 4 shared-memory stages with bulk copies of the Tensor Memory
+Accelerator.
+
+``stream_scale_prev`` and ``stream_scale_pipelined_prev`` launch the
+previous designs of the stream kernel (a fixed grid-stride loop) and of the
+pipelined probe (per-thread ``cp.async``), kept in the same sources to be
+timed in turns with the new ones; no path calls them.
 
 ``copy_lanes_many``, ``copy_lanes`` and ``hbm2hbm`` (``csrc/copy_lanes.cu``)
 replace ``benches/bench_grid_shapes.py::build_hbm2hbm``, the copy with no
@@ -39,11 +46,18 @@ RATE_REPS = 50
 RATE_SEED = 0
 
 PIPELINE_DEPTHS = (2, 4)
+# bytes behind each stage of the pipelined kernel, its mbarrier and the
+# index of its chunk (csrc/stream_probes.cu::kStageExtraBytes); a stage of
+# tile * 4 bytes, tile a multiple of 4, keeps both 8-byte aligned
+PIPELINE_STAGE_EXTRA_BYTES = 16
 
-# kernel launches, counted where the kernel is launched: the grid-stride
-# kernel, the tiled one, and the pipelined one per depth
-LAUNCHES = {'float32': 0, 'tiled': 0, 'pipelined_depth2': 0,
-            'pipelined_depth4': 0, 'copy_lanes': 0}
+# kernel launches, counted where the kernel is launched: the stream kernel
+# and its previous design, the tiled one, the pipelined one and its
+# previous design per depth, and the copy kernel
+LAUNCHES = {'float32': 0, 'prev_float32': 0, 'tiled': 0,
+            'pipelined_depth2': 0, 'pipelined_depth4': 0,
+            'pipelined_prev_depth2': 0, 'pipelined_prev_depth4': 0,
+            'copy_lanes': 0}
 
 # element sizes the copy kernel moves one element at a time where 16-byte
 # accesses do not fit
@@ -60,8 +74,7 @@ def stream_scale_plain(x, a):
     return torch.mul(x, a)
 
 
-def stream_scale(x, a):
-    """``a * x`` for a contiguous f32 tensor, as a new tensor."""
+def _stream_scale(x, a, entry, key):
     if x.device.type == 'cpu':
         return stream_scale_plain(x, a)
     if x.device.type != 'cuda':
@@ -74,14 +87,25 @@ def stream_scale(x, a):
     if x.numel() == 0:
         return y
     stream = _build.current_stream(x.get_device())
-    err = _build.library().stream_scale_f32(
+    err = getattr(_build.library(), entry)(
         x.data_ptr(), y.data_ptr(), float(a), x.numel(), x.get_device(),
         stream)
     if err != 0:
         raise RuntimeError('stream kernel launch failed: CUDA error %d'
                            % err)
-    LAUNCHES['float32'] += 1
+    LAUNCHES[key] += 1
     return y
+
+
+def stream_scale(x, a):
+    """``a * x`` for a contiguous f32 tensor, as a new tensor."""
+    return _stream_scale(x, a, 'stream_scale_f32', 'float32')
+
+
+def stream_scale_prev(x, a):
+    """``stream_scale`` through the kernel's previous design (a fixed grid
+    of 16 blocks an SM striding over the array), to be timed beside it."""
+    return _stream_scale(x, a, 'stream_scale_prev_f32', 'prev_float32')
 
 
 def _check_probe(x, chunk, what):
@@ -129,36 +153,76 @@ def stream_scale_tiled(x, a, tile, per_step=1):
     return y
 
 
-def stream_scale_pipelined(x, a, tile, depth):
-    """``a * x`` for a contiguous f32 tensor, as a new tensor, by one
-    persistent grid whose blocks stream chunks of ``tile`` elements through
-    ``depth`` (2 or 4) rotating shared-memory stages.  The row length must
-    be a multiple of ``tile``, and ``depth`` stages must fit a block's
-    shared memory."""
+def pipeline_smem_bytes(tile, depth):
+    """Bytes of dynamic shared memory a block of the pipelined kernel takes:
+    ``depth`` stages of ``tile`` f32 elements, and a barrier and a chunk
+    index per stage."""
+    return depth * (tile * 4 + PIPELINE_STAGE_EXTRA_BYTES)
+
+
+# the pipelined kernel's chunk counters (two uint64, zero between launches:
+# the kernel's last block zeroes them), one per device and stream, so that
+# no two launches in flight share one
+_COUNTERS = {}
+
+
+def _chunk_counter(device, stream):
+    key = (device.index, stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _COUNTERS[key].data_ptr()
+
+
+def _pipelined(x, a, tile, depth, entry, key, drawn):
+    """``entry`` launched for ``depth`` stages of ``tile`` elements, with a
+    chunk counter if the design draws its chunks (``drawn``)."""
     tile, depth = int(tile), int(depth)
     if depth not in PIPELINE_DEPTHS:
         raise ValueError('depth must be one of %s, got %d'
                          % (PIPELINE_DEPTHS, depth))
     _check_probe(x, tile, 'tile')
-    if depth * tile * 4 > _build.SMEM_PER_BLOCK:
-        raise ValueError('%d stages of %d f32 elements take %d bytes of '
-                         'shared memory; a block has %d'
-                         % (depth, tile, depth * tile * 4,
-                            _build.SMEM_PER_BLOCK))
+    smem = pipeline_smem_bytes(tile, depth)
+    if smem > _build.SMEM_PER_BLOCK:
+        raise ValueError('%d stages of %d f32 elements, with a barrier and '
+                         'a chunk index each, take %d bytes of shared '
+                         'memory; a block has %d'
+                         % (depth, tile, smem, _build.SMEM_PER_BLOCK))
     if x.device.type == 'cpu':
         return stream_scale_plain(x, a)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
     stream = _build.current_stream(x.get_device())
-    err = _build.library().stream_scale_pipelined_f32(
+    counter = (_chunk_counter(x.device, stream),) if drawn else ()
+    err = getattr(_build.library(), entry)(
         x.data_ptr(), y.data_ptr(), float(a), x.numel(), tile, depth,
-        x.get_device(), stream)
+        *counter, x.get_device(), stream)
     if err != 0:
         raise RuntimeError('pipelined stream kernel launch failed: CUDA '
                            'error %d' % err)
-    LAUNCHES['pipelined_depth%d' % depth] += 1
+    LAUNCHES[key % depth] += 1
     return y
+
+
+def stream_scale_pipelined(x, a, tile, depth):
+    """``a * x`` for a contiguous f32 tensor, as a new tensor, by one
+    persistent grid whose blocks draw chunks of ``tile`` elements from a
+    counter and stream them through ``depth`` (2 or 4) rotating
+    shared-memory stages, each filled and drained by a bulk copy.  The row
+    length must be a multiple of ``tile``, and
+    ``pipeline_smem_bytes(tile, depth)`` must fit a block's shared
+    memory."""
+    return _pipelined(x, a, tile, depth, 'stream_scale_pipelined_f32',
+                      'pipelined_depth%d', True)
+
+
+def stream_scale_pipelined_prev(x, a, tile, depth):
+    """``stream_scale_pipelined`` through the probe's previous design
+    (block b takes chunks b, b + grid, ...; every thread copies its share
+    of a chunk with 16-byte ``cp.async``), to be timed beside it; the same
+    checks."""
+    return _pipelined(x, a, tile, depth, 'stream_scale_pipelined_prev_f32',
+                      'pipelined_prev_depth%d', False)
 
 
 def copy_lanes_plain(dst, src):

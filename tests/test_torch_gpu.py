@@ -1,5 +1,6 @@
 """The CUDA kernels (DIA SpMM in its three structures and over an extended
-operand, BSR SpMM, stream scale in its three structures, the strided copy)
+operand, BSR SpMM, stream scale in its three structures and the previous
+designs of two of them, the strided copy)
 against their plain PyTorch versions on the card, and the mesh path on a
 mesh of several shards of the one card.
 
@@ -37,6 +38,7 @@ import torch
 
 from raleigh_tpu_torch.examples.fe_model import fe_pencil
 from raleigh_tpu_torch.examples.laplace import lap3d
+from raleigh_tpu_torch.ops import _build
 from raleigh_tpu_torch.ops import spmm_pallas as sp
 from raleigh_tpu_torch.ops import spmm_window as sw
 from raleigh_tpu_torch.ops import stream as st
@@ -392,6 +394,61 @@ def test_pipelined_stream_kernel_equals_torch_mul(cuda, m, n, tile, depth):
     torch.cuda.synchronize()
     assert torch.equal(y, torch.mul(x, st.REFERENCE_SCALE))
     assert st.LAUNCHES[key] == before + 1
+
+
+# the largest tile whose stages and barriers fit a block, per depth
+_EDGE_TILE = {2: 29052, 4: 14524}
+
+
+@pytest.mark.parametrize('design', ['kernel', 'previous'])
+@pytest.mark.parametrize('depth', [2, 4])
+@pytest.mark.parametrize('m,n,tile', [
+    (5, 4000, 4),               # 5,000 chunks of 16 bytes, the bulk minimum
+    (7, 1024 * 1000, 1024),     # 7,000 chunks: many a block, shared unevenly
+    (3, 40 * 52, 52),           # fewer chunks than blocks
+    (2, None, None),            # depth * tile at the shared-memory edge
+])
+def test_pipelined_stream_designs_at_their_edges(cuda, m, n, tile, depth,
+                                                 design):
+    """The pipelined kernel and its previous design equal ``torch.mul`` on
+    the bulk copy's smallest chunk, on many chunks per block with an
+    uneven share, and at the largest tile whose ``depth`` stages and their
+    barriers fit a block's shared memory (four tiles a row); one tile more
+    is refused before any launch."""
+    if tile is None:
+        tile = _EDGE_TILE[depth]
+        n = 4 * tile
+        assert (st.pipeline_smem_bytes(tile, depth) <= _build.SMEM_PER_BLOCK
+                < st.pipeline_smem_bytes(tile + 4, depth))
+    fn, key = {'kernel': (st.stream_scale_pipelined, 'pipelined_depth%d'),
+               'previous': (st.stream_scale_pipelined_prev,
+                            'pipelined_prev_depth%d')}[design]
+    key %= depth
+    g = torch.Generator(cuda).manual_seed(depth)
+    x = torch.randn((m, n), generator=g, device=cuda)
+    before = st.LAUNCHES[key]
+    y = fn(x, st.REFERENCE_SCALE, tile, depth)
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.mul(x, st.REFERENCE_SCALE))
+    assert st.LAUNCHES[key] == before + 1
+    if tile == _EDGE_TILE[depth]:
+        wider = torch.zeros((1, 2 * (tile + 4)), device=cuda)
+        with pytest.raises(ValueError, match='shared memory'):
+            fn(wider, 2.0, tile + 4, depth)
+
+
+@pytest.mark.parametrize('count,offset', [(1 << 20, 0), (1000003, 0),
+                                          (1000003, 1), (3, 0)])
+def test_previous_stream_design_equals_torch_mul(cuda, count, offset):
+    """The stream kernel's previous design, on the cases of the kernel's
+    own test: 16-byte aligned and not, with and without a tail."""
+    g = torch.Generator(cuda).manual_seed(1)
+    x = torch.randn(count + offset, generator=g, device=cuda)[offset:]
+    before = st.LAUNCHES['prev_float32']
+    y = st.stream_scale_prev(x, st.REFERENCE_SCALE)
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.mul(x, st.REFERENCE_SCALE))
+    assert st.LAUNCHES['prev_float32'] == before + 1
 
 
 def test_stream_probes_refuse_what_they_cannot_take(cuda):

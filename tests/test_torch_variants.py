@@ -30,6 +30,7 @@ from raleigh_tpu.ops.spmm import DiaMatrix as JaxDiaMatrix
 from raleigh_tpu_torch.benches import bench_grid_shapes as grid_shapes
 from raleigh_tpu_torch.benches import bench_window_tiles as window_tiles
 from raleigh_tpu_torch.benches.timing import time_ms
+from raleigh_tpu_torch.ops import _build
 from raleigh_tpu_torch.ops import spmm_window as sw
 from raleigh_tpu_torch.ops import stream as st
 
@@ -160,10 +161,41 @@ def test_stream_probe_checks_run_on_the_cpu():
         st.stream_scale_pipelined(x, 2.0, 8, 3)
     with pytest.raises(ValueError, match='shared memory'):
         st.stream_scale_pipelined(torch.zeros((1, 1 << 17)), 2.0, 1 << 16, 4)
+    # the stages' barriers count: depth * tile * 4 bytes alone would fit
+    # these tiles, the stages and their barriers do not; 4 elements less do
+    for depth, edge in ((2, 29052), (4, 14524)):
+        assert depth * (edge + 4) * 4 <= _build.SMEM_PER_BLOCK
+        for fn in (st.stream_scale_pipelined, st.stream_scale_pipelined_prev):
+            with pytest.raises(ValueError, match='shared memory'):
+                fn(torch.zeros((1, 2 * (edge + 4))), 2.0, edge + 4, depth)
+            xe = torch.ones((1, 2 * edge))
+            assert torch.equal(fn(xe, 2.0, edge, depth), 2 * xe)
     with pytest.raises(ValueError, match='contiguous'):
         st.stream_scale_pipelined(x[:, :500], 2.0, 4, 2)
     with pytest.raises(TypeError, match='f32'):
         st.stream_scale_tiled(x.double(), 2.0, 8)
+
+
+@pytest.mark.parametrize('design', ['stream', 'pipelined'])
+def test_previous_stream_designs_run_their_plain_version_on_the_cpu(design):
+    """The wrappers of the previous designs take the plain version on the
+    CPU, count no launch, and raise where their new design's wrapper
+    raises."""
+    x = torch.from_numpy(
+        np.random.RandomState(5).standard_normal((M, N)).astype(np.float32))
+    before = dict(st.LAUNCHES)
+    if design == 'stream':
+        got = st.stream_scale_prev(x, st.REFERENCE_SCALE)
+        with pytest.raises(ValueError, match='device'):
+            st.stream_scale_prev(x.to('meta'), 2.0)
+    else:
+        got = st.stream_scale_pipelined_prev(x, st.REFERENCE_SCALE, 128, 4)
+        with pytest.raises(ValueError, match='depth'):
+            st.stream_scale_pipelined_prev(x, 2.0, 128, 3)
+        with pytest.raises(ValueError, match='multiple of tile'):
+            st.stream_scale_pipelined_prev(x, 2.0, 100, 2)
+    assert torch.equal(got, torch.mul(x, st.REFERENCE_SCALE))
+    assert st.LAUNCHES == before
 
 
 def test_window_sweep_runs_on_the_cpu_when_asked(capsys):
@@ -195,7 +227,7 @@ def test_copy_sweep_runs_on_the_cpu_when_asked(capsys):
     assert [(r['variant'], r['tile']) for r in rows] == [
         ('blockspec', 8), ('blockspec', 64), ('blockspec4', 8),
         ('blockspec4', 64), ('manual2', 8), ('manual2', 64), ('manual4', 8),
-        ('manual4', 64), ('grid_stride', None), ('torch', None),
+        ('manual4', 64), ('spans', None), ('torch', None),
         ('hbm2hbm', 8), ('hbm2hbm', 64)]
     assert out.count('GB/s') == len(rows)
     # n is trimmed to whole blocks, as the reference trims it for blockspec4
