@@ -41,13 +41,18 @@ carries on, and no wrapper gives way to its plain version on the card.
      over the tiles and bf16 products, must fail it.
    * The ELL apply (plain PyTorch, no kernel) on the same flagship in both
      orderings, timed, for the layout rule's constants.
-   * The two staged-window DIA kernels (sliding window, tile ring) at the
-     tile sweep's shape, lap3d(100,100,128) * 0.125 with m = 32 and m = 16
-     f32 rows, at every tile size the sweep runs.  Tolerance entrywise
+   * The two staged-window DIA kernels (sliding window, tile ring) and
+     their previous designs (``dia_matmat_rows_slide_prev``,
+     ``dia_matmat_rows_tiles_prev``, in the same sources) at the tile
+     sweep's shape, lap3d(100,100,128) * 0.125 with m = 32 and m = 16 f32
+     rows, at every tile size the sweep runs.  Tolerance entrywise
      (``window_excess``): twice the f32 summation error bound of the
-     entry's terms; the control, a bf16 running sum, must fail it.  Both
-     keep the plain version's order of summation, so exact equality is
-     reported as well.
+     entry's terms; the control, a bf16 running sum, must fail it.  All
+     four keep the plain version's order of summation, so exact equality
+     is reported as well, with the launch plan of each new kernel (cluster
+     size, clusters that fit the card at once, rows per block, val chunk).
+     At the row tile the kernel, its previous design, the plain version
+     and K1 are timed in turns.
    * The tiled (per_step 1 and 4) and pipelined (depth 2 and 4) stream
      kernels on 32 x 1,277,952 f32 at every tile size the copy sweep runs,
      and the pipelined kernel's previous design
@@ -158,9 +163,13 @@ ITERATIONS = {(100, 100, 128): 32, (50, 50, 50): 16, 'FE-BSR': 16,
               'sharded': 32}
 # sources whose kernel was redesigned, the previous design kept beside it
 # (its ``_prev`` entries run in phase 2 only, timed in turns with the new)
-REDESIGNED = ('dia_spmm', 'bsr_spmm', 'stream_scale', 'stream_probes')
+REDESIGNED = ('dia_spmm', 'bsr_spmm', 'stream_scale', 'stream_probes',
+              'dia_spmm_slide', 'dia_spmm_tiles')
 OFF_PATH_PREV = ('the previous design, kept to be timed in turns with the '
                  'kernel on the path; no solver path launches it')
+# the previous designs of the staged-window kernels, by sweep variant
+PREVIOUS_WINDOW = {'slide': lambda sw: sw.dia_matmat_rows_slide_prev,
+                   'tiles': lambda sw: sw.dia_matmat_rows_tiles_prev}
 # the sharded main path: shards of the one card, and its field
 SHARDS = 8
 SHARDED_AGREE = 1e-5
@@ -249,12 +258,6 @@ def library_spmm_fn(torch, csr, x):
         print('  torch.sparse.mm on a CSR tensor is not available: %s'
               % str(e).splitlines()[0])
         return None
-
-
-def library_spmm_ms(torch, csr, x, reps):
-    """Milliseconds of ``library_spmm_fn``'s call, or None."""
-    fn = library_spmm_fn(torch, csr, x)
-    return None if fn is None else time_ms(fn, reps)
 
 
 def library_bsr_fn(torch, bm, x):
@@ -745,17 +748,20 @@ def window_excess(torch, sw, val, x, offsets, got, want, terms=None):
     return ratio.max().item(), (ratio > 1).float().mean().item()
 
 
-def phase_variants(torch, np, lap3d, DiaMatrix, sw, st, wt, gs, lib16):
+def phase_variants(torch, np, lap3d, DiaMatrix, sw, st, wt, gs):
     """The staged-window DIA kernels against the plain version at the tile
-    sweep's shape, and the tiled and pipelined stream kernels against
-    ``torch.mul`` at the copy sweep's, at every tile the sweeps run.
-    ``lib16`` is ``torch.sparse.mm``'s time at m = 16, taken before.
-    Returns the kernel rows."""
+    sweep's shape, each timed in turns with its previous design and
+    ``torch.sparse.mm`` at every tile the sweep runs, and the tiled and
+    pipelined stream kernels against ``torch.mul`` at the copy sweep's, at
+    every tile the sweeps run.  Returns the kernel rows."""
     rows = {}
     gen = torch.Generator('cuda').manual_seed(3)
     csr = (lap3d(*wt.GRID, 1.0, 1.0, 1.0) * wt.SCALE).tocsr()
     dm = DiaMatrix(csr, dtype=np.float32, device='cuda')
     n, noff = dm.shape[0], len(dm.offsets)
+    from raleigh_tpu_torch.benches.timing import WARMUP
+    # the sweep's launches of a tile (warm-up and reps of its timer)
+    per_tile = wt.REPS + WARMUP
     for m in (wt.M, 16):
         x = torch.randn((m, n), generator=gen, device='cuda')
         yp = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
@@ -769,51 +775,107 @@ def phase_variants(torch, np, lap3d, DiaMatrix, sw, st, wt, gs, lib16):
         if cworst <= 1:
             fail('the f32 window bound passes the bf16 running sum')
         del control
-        lib = lib16 if m == 16 else library_spmm_ms(torch, csr, x, 10)
+        library = library_spmm_fn(torch, csr, x)
         nbytes = noff * n * 4 + noff * 4 + 2 * m * n * 4
         flops = 2 * m * sum(n - abs(o) for o in dm.offsets)
         bound_ms, bound_by = bound(nbytes, flops)
         for name, src in (('slide', SLIDE), ('tiles', TILES)):
-            fn = sw.VARIANTS[name]
+            designs = {'kernel': sw.VARIANTS[name],
+                       'prev': PREVIOUS_WINDOW[name](sw)}
+            sweep = {'kernel': 0.0, 'prev': 0.0, 'library': 0.0}
             for tile in wt.DEFAULT_TILES[name]:
-                yk = fn(dm.val, x, dm.offsets, tile)
-                torch.cuda.synchronize()
-                if yk.dtype != torch.float32 or yk.shape != (m, n):
-                    fail('%s output %s %s' % (name, yk.dtype,
-                                              tuple(yk.shape)))
-                if not torch.isfinite(yk).all():
-                    fail('%s tile %d m=%d: non-finite output'
-                         % (name, tile, m))
-                worst, share = window_excess(torch, sw, dm.val, x,
-                                             dm.offsets_t, yk, yp)
-                if worst > 1:
-                    fail('%s tile %d m=%d: %.3e of the entries beyond the '
-                         'bound (worst %.2f times it)'
-                         % (name, tile, m, share, worst))
-                diff = (yk - yp).abs().max().item()
-                print('dia_spmm %s tile %d n=%d m=%d: max abs err %.3e '
-                      '(worst %.3f of the bound)%s'
-                      % (name, tile, n, m, diff, worst,
-                         ', equal to plain bit for bit'
-                         if torch.equal(yk, yp) else ''))
-                del yk
-                if tile != ROW_TILE[name]:
+                diffs, equal = {}, {}
+                for design, fn in designs.items():
+                    yk = fn(dm.val, x, dm.offsets, tile)
+                    torch.cuda.synchronize()
+                    what = '%s%s tile %d m=%d' % (
+                        name, ' (previous design)' if design == 'prev'
+                        else '', tile, m)
+                    if yk.dtype != torch.float32 or yk.shape != (m, n):
+                        fail('%s output %s %s' % (what, yk.dtype,
+                                                  tuple(yk.shape)))
+                    if not torch.isfinite(yk).all():
+                        fail('%s: non-finite output' % what)
+                    worst, share = window_excess(torch, sw, dm.val, x,
+                                                 dm.offsets_t, yk, yp)
+                    if worst > 1:
+                        fail('%s: %.3e of the entries beyond the bound '
+                             '(worst %.2f times it)' % (what, share, worst))
+                    diffs[design] = (yk - yp).abs().max().item()
+                    equal[design] = torch.equal(yk, yp)
+                    del yk
+                plan = sw.window_launch_plan(name, dm.val, x, dm.offsets,
+                                             tile)
+                row_tile = tile == ROW_TILE[name]
+                t = turns({
+                    'plain': (lambda: sw.dia_matmat_rows_plain(
+                        dm.val, x, dm.offsets_t)) if row_tile else None,
+                    'kernel': lambda: designs['kernel'](dm.val, x,
+                                                        dm.offsets, tile),
+                    'prev': lambda: designs['prev'](dm.val, x, dm.offsets,
+                                                    tile),
+                    'k1': (lambda: sw.dia_matmat_rows(
+                        dm.val, x, dm.offsets_t)) if row_tile else None,
+                    'library': library}, 50)
+                for k in sweep:
+                    sweep[k] += per_tile * (t[k] or float('nan'))
+                print('dia_spmm %s tile %d n=%d m=%d: kernel %.4f ms, '
+                      'previous design %.4f ms (%.3fx), torch.sparse.mm '
+                      '%s, in turns; max abs err %.3e%s, previous '
+                      'design %.3e%s; launch: clusters of %d blocks (%d '
+                      'fit the card at once), %d per segment, %d '
+                      'segments, %d blocks of %d rows, %s, %s%s' % (
+                          name, tile, n, m, t['kernel'], t['prev'],
+                          t['prev'] / t['kernel'], fmt_ms(t['library']),
+                          diffs['kernel'],
+                          ' (equal to plain bit for bit)'
+                          if equal['kernel'] else '', diffs['prev'],
+                          ' (equal to plain bit for bit)'
+                          if equal['prev'] else '', plan['cluster'],
+                          plan['active_clusters'],
+                          plan['clusters_per_segment'], plan['segments'],
+                          plan['blocks'], plan['rows'],
+                          'val chunks of %d lanes multicast' % plan['chunk']
+                          if plan['chunk'] else 'val from device memory',
+                          'bulk copies' if plan['bulk'] else
+                          'per-thread copies',
+                          '' if t['kernel'] <= t['prev'] else
+                          '; SLOWER than the previous design'))
+                if not row_tile:
                     continue
-                tk, tp = in_turns(
-                    lambda: fn(dm.val, x, dm.offsets, tile),
-                    lambda: sw.dia_matmat_rows_plain(dm.val, x,
-                                                     dm.offsets_t), 50)
                 key = 'dia_spmm_rows_%s_f32' % name + (
                     '' if m == wt.M else '_m%d' % m)
                 print('%s tile %d n=%d m=%d: kernel %.4f ms (%.0f GB/s), '
-                      'plain %.4f ms, torch.sparse.mm %s, bound %.4f ms (%s)'
-                      % (key, tile, n, m, tk, nbytes / tk / 1e6, tp,
-                         fmt_ms(lib), bound_ms, bound_by))
-                rows[key] = dict(
-                    name=key, route='cuda', source=src[0], replaces=src[1],
-                    launches=0, max_abs_err=diff, ms=tk, plain_ms=tp,
-                    bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
-                    bytes=nbytes)
+                      'previous design %.4f ms (%.0f GB/s), %.3fx; K1 %.4f '
+                      'ms; plain %.4f ms, torch.sparse.mm %s, bound %.4f ms '
+                      '(%s), in turns'
+                      % (key, tile, n, m, t['kernel'],
+                         nbytes / t['kernel'] / 1e6, t['prev'],
+                         nbytes / t['prev'] / 1e6, t['prev'] / t['kernel'],
+                         t['k1'], t['plain'], fmt_ms(t['library']),
+                         bound_ms, bound_by))
+                for design in designs:
+                    row = key if design == 'kernel' else key.replace(
+                        '_f32', '_prev_f32', 1)
+                    rows[row] = dict(
+                        name=row, route='cuda', source=src[0],
+                        replaces=src[1], launches=0,
+                        max_abs_err=diffs[design], ms=t[design],
+                        plain_ms=t['plain'], bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=t['library'],
+                        bytes=nbytes, k1_ms=t['k1'])
+                rows[key]['prev_ms'] = t['prev']
+                rows[key].update({k: plan[k] for k in (
+                    'cluster', 'active_clusters', 'rows', 'chunk')})
+                rows[key.replace('_f32', '_prev_f32', 1)]['off_path'] = \
+                    OFF_PATH_PREV
+            tiles = wt.DEFAULT_TILES[name]
+            print('%s sweep at m=%d (tiles %s, %d launches each): kernel '
+                  '%.2f ms, previous design %.2f ms, torch.sparse.mm %.2f '
+                  'ms; the kernel loses %.2f ms to its bound'
+                  % (name, m, ', '.join(map(str, tiles)), per_tile,
+                     sweep['kernel'], sweep['prev'], sweep['library'],
+                     sweep['kernel'] - per_tile * len(tiles) * bound_ms))
         del x, yp
     del dm
 
@@ -1260,10 +1322,12 @@ def phase_sweeps(mods, rows, card, wt, gs):
 
     drive(wt.main, ['ring'], sw.LAUNCHES, 'float32', None)
     for name in ('slide', 'tiles'):
-        drive(wt.main, [name], sw.LAUNCHES, name,
-              'dia_spmm_rows_%s_f32' % name)
-        drive(wt.main, [name, '--m', '16'], sw.LAUNCHES, name,
-              'dia_spmm_rows_%s_f32_m16' % name)
+        for argv, row in (([name], 'dia_spmm_rows_%s_f32' % name),
+                          ([name, '--m', '16'],
+                           'dia_spmm_rows_%s_f32_m16' % name)):
+            drive(wt.main, argv, sw.LAUNCHES, name, row)
+            rows[row.replace('_f32', '_prev_f32', 1)]['launches'] = \
+                sw.LAUNCHES['prev_' + name]
     drive(gs.main, ['blockspec'], st.LAUNCHES, 'tiled',
           'stream_scale_tiled_per_step1')
     drive(gs.main, ['blockspec4'], st.LAUNCHES, 'tiled',
@@ -1785,9 +1849,7 @@ def main():
     rows.update(phase_stream(torch, st))
     rows.update(phase_copy(torch, st))
     rows.update(phase_ext(torch, np, lap3d, DiaMatrix, sw, st, rows))
-    rows.update(phase_variants(
-        torch, np, lap3d, DiaMatrix, sw, st, wt, gs,
-        rows['dia_spmm_rows_f32']['library_ms']))
+    rows.update(phase_variants(torch, np, lap3d, DiaMatrix, sw, st, wt, gs))
     t0 = time.perf_counter()
     pencils = (fe.shipsec_like(), fe.shipsec_like(relabel=False))
     print('shipsec_like() in both orderings: n=%d, nnz=%d, built in %.1f s'

@@ -36,12 +36,14 @@ M = 32
 GRID = (100, 100, 128)
 SCALE = 0.125
 # lanes per step.  At the default matrix the reach is 20,000 lanes, 80 KB of
-# a block's 227 KB per row: the sliding window takes two rows per block up to
-# 4,528 lanes and one up to 19,056; the tile ring needs 10,000 <= tile <=
-# 14,528.
+# a block's 227 KB per row, and the kernels keep two stages of val beside
+# the windows (chunks of up to 2,048 lanes, narrower where less room is
+# left): the sliding window takes two rows per block up to 3,616 lanes and
+# one up to 18,996; the tile ring needs 10,000 <= tile <= 14,496.
 DEFAULT_TILES = {'ring': (None,), 'slide': (2048, 4096, 8192, 16384),
                  'tiles': (10240, 12288, 14336)}
 SEED = 1
+REPS = 50
 
 
 def main(argv=None):
@@ -53,7 +55,7 @@ def main(argv=None):
     ap.add_argument('tiles', type=int, nargs='*', metavar='tile')
     ap.add_argument('--m', type=int, default=M)
     ap.add_argument('--grid', type=int, nargs=3, default=GRID)
-    ap.add_argument('--reps', type=int, default=50)
+    ap.add_argument('--reps', type=int, default=REPS)
     ap.add_argument('--device', default=None)
     args = ap.parse_args(argv)
     device = storage_device(args.device)

@@ -60,6 +60,8 @@
 
 #include <cuda_runtime.h>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -96,41 +98,6 @@ tiled_kernel(const float4* __restrict__ x, float4* __restrict__ y, float a,
 // shared-memory check); a stage of tile * 4 bytes, tile a multiple of 4,
 // keeps both 8-byte aligned
 constexpr int kStageExtraBytes = 16;
-// clock cycles a barrier wait may spin (about 10 s at the H100's clocks)
-constexpr long long kHangCycles = 20000000000LL;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void barrier_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                 :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void barrier_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-                 :: "r"(bar) : "memory");
-}
-
-// Spins until the phase of `bar` with this parity has completed; traps
-// (the launch fails) rather than hang the card if it has not after about
-// ten seconds.
-__device__ __forceinline__ void barrier_wait(uint32_t bar, uint32_t parity) {
-    uint32_t done = 0;
-    const long long t0 = clock64();
-    do {
-        asm volatile(
-            "{\n"
-            ".reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n"
-            "}\n"
-            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-        if (!done && clock64() - t0 > kHangCycles) __trap();
-    } while (!done);
-}
-
 // An L2 policy that evicts the lines a copy touches first: the stream
 // reads nothing twice and nobody reads what it writes.
 __device__ __forceinline__ uint64_t evict_first_policy() {
@@ -138,21 +105,6 @@ __device__ __forceinline__ uint64_t evict_first_policy() {
     asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
                  : "=l"(policy));
     return policy;
-}
-
-// One thread: arms `bar` for `bytes` and starts their bulk copy from
-// global `src` into shared `dst` under the L2 `policy`; the barrier's
-// phase completes when they have landed.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const float* src,
-                                          uint32_t bytes, uint32_t bar,
-                                          uint64_t policy) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(bar), "r"(bytes) : "memory");
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::"
-                 "complete_tx::bytes.L2::cache_hint [%0], [%1], %2, [%3], "
-                 "%4;\n"
-                 :: "r"(dst), "l"(src), "r"(bytes), "r"(bar), "l"(policy)
-                 : "memory");
 }
 
 // One thread: starts the bulk copy of `bytes` from shared `src` to global
@@ -187,6 +139,7 @@ pipelined_kernel(const float* __restrict__ x, float* __restrict__ y,
         const uint32_t bar = bar0 + s * 8;
         if (c < static_cast<unsigned long long>(nchunks)) {
             held[s] = static_cast<int64_t>(c);
+            expect_bytes(bar, bytes);
             bulk_load(stage0 + s * bytes, x + c * tile, bytes, bar, policy);
         } else {
             held[s] = -1;

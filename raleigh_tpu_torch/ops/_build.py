@@ -5,7 +5,8 @@ At first use, ``nvcc`` compiles every ``raleigh_tpu_torch/csrc/*.cu`` for
 PyTorch headers, so a build takes seconds), all sources at once in
 parallel, and ``ctypes`` loads them.  The libraries are kept under
 ``raleigh_tpu_torch/_build/`` (ignored by git), each keyed by a hash of
-its source and the flags, so an edit to a source rebuilds it.
+its source, the shared headers (``csrc/*.cuh``) and the flags, so an edit
+to a source or a header rebuilds it.
 
 Nothing here runs at import: the CPU-only test environment has no
 ``nvcc`` and imports every module.
@@ -43,6 +44,14 @@ _BSR_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3
 # val, x, y, host offsets; noff, m, n, tile; rows per block, device; stream
 _WINDOW_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4
                 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+# the clustered ones: val, x, y, host offsets; noff, m, n, tile, chunk; rows
+# per block, device; stream
+_CLUSTER_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5
+                 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+# and their launch plans: host offsets; noff, m, n, tile, chunk; rows per
+# block, bulk-copy branch, device; host plan
+_PLAN_ARGS = ([ctypes.c_void_p] + [ctypes.c_int64] * 5
+              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 # val, x_ext, y, offsets; noff, m, n, row stride of x_ext, halo_lo; device;
 # stream
 _EXT_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5
@@ -69,8 +78,12 @@ _SIGNATURES = {
                      'dia_spmm_mesh_f32': _TABLE_ARGS,
                      'dia_spmm_mesh_bf16': _TABLE_ARGS},
     'copy_lanes': {'copy_lanes_many': _TABLE_ARGS},
-    'dia_spmm_slide': {'dia_spmm_rows_slide_f32': _WINDOW_ARGS},
-    'dia_spmm_tiles': {'dia_spmm_rows_tiles_f32': _WINDOW_ARGS},
+    'dia_spmm_slide': {'dia_spmm_rows_slide_f32': _CLUSTER_ARGS,
+                       'dia_spmm_rows_slide_plan': _PLAN_ARGS,
+                       'dia_spmm_rows_slide_prev_f32': _WINDOW_ARGS},
+    'dia_spmm_tiles': {'dia_spmm_rows_tiles_f32': _CLUSTER_ARGS,
+                       'dia_spmm_rows_tiles_plan': _PLAN_ARGS,
+                       'dia_spmm_rows_tiles_prev_f32': _WINDOW_ARGS},
     'bsr_spmm': {'bsr_spmm_rows_%s%s_%s' % (prev, b, x): _BSR_ARGS
                  for prev in ('', 'prev_') for b in ('f32', 'bf16')
                  for x in ('f32', 'bf16')},
@@ -120,6 +133,8 @@ def _sources():
 def _target(src):
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
     h.update(src.read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):   # the headers sources share
+        h.update(header.read_bytes())
     return BUILD_DIR / ('lib%s_%s.so' % (src.stem, h.hexdigest()[:16]))
 
 

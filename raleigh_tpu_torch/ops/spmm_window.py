@@ -31,6 +31,16 @@ once.  They are the A/B partners of the production kernel in
 
 Their ``offsets`` are host ints (``DiaMatrix.offsets``): the launch sizes
 its shared memory from them, and the kernel takes them as an argument.
+Both launch as thread-block clusters: the blocks of one run of lanes share
+each chunk of val through one multicast bulk copy, and x arrives by bulk
+copies; where a stage of val of ``MIN_CHUNK_LANES`` does not fit beside the
+windows, or a bulk copy cannot take the shape, val comes from device
+memory instead.  ``window_launch_plan`` says which branch and plan a call
+takes (cluster size, clusters that fit the card at once, rows per block,
+val chunk).
+``dia_matmat_rows_slide_prev`` and ``dia_matmat_rows_tiles_prev`` launch
+their previous designs from the same sources, to be timed beside them; no
+path calls them.
 
 ``dia_matmat_rows_mesh`` (``csrc/dia_spmm_ext.cu``) replaces
 ``build_dia_window_ring_ext``, the per-shard kernel of the mesh-partitioned
@@ -54,15 +64,29 @@ from . import _build
 # kernel launches, counted where the kernel is launched: the production
 # kernel per operand dtype, the two staged-window kernels, the mesh
 # kernel per operand dtype through its one-piece entry and its mesh entry,
-# and the production kernel's previous design per operand dtype
+# and the previous designs of the production kernel per operand dtype and
+# of the two staged-window kernels
 LAUNCHES = {'float32': 0, 'bfloat16': 0, 'slide': 0, 'tiles': 0,
             'ext_float32': 0, 'ext_bfloat16': 0, 'mesh_float32': 0,
-            'mesh_bfloat16': 0, 'prev_float32': 0, 'prev_bfloat16': 0}
+            'mesh_bfloat16': 0, 'prev_float32': 0, 'prev_bfloat16': 0,
+            'prev_slide': 0, 'prev_tiles': 0}
 
 # operand rows a block of a staged-window kernel can own, and the most
 # diagonals it takes (they travel as a kernel argument)
 ROWS_PER_BLOCK = (8, 4, 2, 1)
 MAX_WINDOW_OFFSETS = 128
+# the clustered staged-window kernels: bytes of barriers before the
+# windows, the widest chunk of val lanes a stage holds, and the narrowest
+# worth a stage (below it the kernels read val from device memory; on the
+# H100 at the tile sweep's shape a stage of 816 lanes beat that and one of
+# 780 lost, and two rows a block with chunks of 704 lost to one row with
+# 2,048)
+WINDOW_BARRIER_BYTES = 256
+CHUNK_LANES = 2048
+MIN_CHUNK_LANES = 800
+# the slots of a clustered kernel's launch plan (``window_launch_plan``)
+PLAN_KEYS = ('cluster', 'active_clusters', 'clusters_per_segment',
+             'segments', 'blocks')
 
 _ENTRY = {torch.float32: ('float32', 'dia_spmm_rows_f32'),
           torch.bfloat16: ('bfloat16', 'dia_spmm_rows_bf16')}
@@ -518,7 +542,8 @@ def dia_matmat_rows_mesh(vals, xs, plan):
 def _rows_per_block(m, lanes, what):
     """The most operand rows (of ``ROWS_PER_BLOCK``, no more than m needs)
     whose windows of ``lanes`` f32 lanes each fit one block's shared
-    memory; raises when one row does not fit."""
+    memory; raises when one row does not fit.  The previous designs'
+    rule: they keep no stage of val."""
     for rows in ROWS_PER_BLOCK:
         fits = rows * lanes * 4 <= _build.SMEM_PER_BLOCK
         if fits and (rows == 1 or rows < 2 * m):
@@ -529,10 +554,47 @@ def _rows_per_block(m, lanes, what):
                         _build.SMEM_PER_BLOCK))
 
 
-def _staged(entry, key, val, x, offsets, tile, lanes):
-    """Checks, then the staged-window kernel ``entry`` with as many rows
-    per block as ``lanes`` window lanes per row allow, or the plain version
-    for CPU tensors."""
+def _bulk(val, x, tile):
+    """Whether a clustered staged-window kernel takes its bulk-copy branch
+    for these operands (the C entry decides the same): n and ``tile``
+    multiples of 4, val and x on 16 bytes (the result, a fresh tensor, is)."""
+    return (x.shape[1] % 4 == 0 and tile % 4 == 0
+            and val.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
+
+
+def _window_plan(m, lanes, noff, bulk, what):
+    """(rows per block, val chunk lanes) of a clustered staged-window
+    kernel.  On the bulk-copy branch: the most rows (of
+    ``ROWS_PER_BLOCK``, no more than m needs) whose windows of ``lanes``
+    f32 lanes each, the barriers and two stages of ``noff`` val rows of at
+    least ``MIN_CHUNK_LANES`` lanes fit one block's shared memory, the
+    chunk as wide as the rest allows up to ``CHUNK_LANES``.  Where no such
+    stage fits, and on the per-thread branch, no stage (chunk 0: val from
+    device memory) and the most rows whose windows and barriers fit.
+    Raises when one row's do not."""
+    def fit(rows, stage_bytes):
+        return (_build.SMEM_PER_BLOCK - WINDOW_BARRIER_BYTES
+                - rows * lanes * 4 - stage_bytes)
+
+    wanted = [rows for rows in ROWS_PER_BLOCK if rows == 1 or rows < 2 * m]
+    if bulk:
+        for rows in wanted:
+            w = min(CHUNK_LANES,
+                    max(fit(rows, 0), 0) // (8 * max(noff, 1))) // 4 * 4
+            if w >= MIN_CHUNK_LANES:
+                return rows, w
+    for rows in wanted:
+        if fit(rows, 0) >= 0:
+            return rows, 0
+    raise ValueError('%s: one row\'s window of %d lanes and %d bytes of '
+                     'barriers take %d bytes of shared memory; a block has '
+                     '%d' % (what, lanes, WINDOW_BARRIER_BYTES,
+                             WINDOW_BARRIER_BYTES + lanes * 4,
+                             _build.SMEM_PER_BLOCK))
+
+
+def _check_staged(val, x, offsets):
+    """The staged-window kernels' checks on their operands."""
     if not val.device == x.device:
         raise ValueError('val and x must share a device (got %s, %s)'
                          % (val.device, x.device))
@@ -551,8 +613,20 @@ def _staged(entry, key, val, x, offsets, tile, lanes):
         raise ValueError('the staged-window DIA kernels take at most %d '
                          'diagonals, got %d'
                          % (MAX_WINDOW_OFFSETS, len(offsets)))
+
+
+def _staged(entry, key, val, x, offsets, tile, lanes, prev=False):
+    """Checks, then the staged-window kernel ``entry`` with as many rows
+    per block as ``lanes`` window lanes per row allow (``prev``: the
+    previous design, without a stage of val), or the plain version for CPU
+    tensors."""
+    _check_staged(val, x, offsets)
     m, n = x.shape
-    rows = _rows_per_block(m, lanes, key)
+    if prev:
+        rows = _rows_per_block(m, lanes, key)
+    else:
+        rows, chunk = _window_plan(m, lanes, len(offsets),
+                                   _bulk(val, x, tile), key)
     if x.device.type == 'cpu':
         return dia_matmat_rows_plain(val, x, offsets)
     y = torch.empty_like(x)
@@ -560,9 +634,12 @@ def _staged(entry, key, val, x, offsets, tile, lanes):
         return y
     host_offsets = (ctypes.c_int * len(offsets))(*offsets)
     index = x.get_device()
+    args = [val.data_ptr(), x.data_ptr(), y.data_ptr(), host_offsets,
+            len(offsets), m, n, tile]
+    if not prev:
+        args.append(chunk)
     err = getattr(_build.library(), entry)(
-        val.data_ptr(), x.data_ptr(), y.data_ptr(), host_offsets,
-        len(offsets), m, n, tile, rows, index, _build.current_stream(index))
+        *args, rows, index, _build.current_stream(index))
     if err != 0:
         raise RuntimeError('%s DIA kernel launch failed: CUDA error %d'
                            % (key, err))
@@ -578,31 +655,90 @@ def _host_offsets(offsets, tile):
     return tuple(int(o) for o in offsets), tile
 
 
+def _reach(offsets, round_to):
+    """The offsets' extent to the left plus to the right, each rounded up
+    to a multiple of ``round_to``."""
+    lo = max(0, -min(offsets, default=0))
+    hi = max(0, max(offsets, default=0))
+    return -(-lo // round_to) * round_to + -(-hi // round_to) * round_to
+
+
 def dia_matmat_rows_slide(val, x, offsets, tile):
     """(m, n) = DIA matrix applied to the f32 (m, n) row block ``x`` through
     one sliding shared-memory window per row, ``tile`` lanes per step.
     ``offsets``: the diagonals as host ints.  A row's window holds
     reach + 2 * tile lanes (reach = the offsets' extent to the left plus to
-    the right); if that does not fit a block's shared memory, raises
-    ``ValueError``."""
+    the right, each rounded up to 4 lanes); if that and two stages of val
+    do not fit a block's shared memory, raises ``ValueError``."""
     offsets, tile = _host_offsets(offsets, tile)
-    reach = max(0, -min(offsets, default=0)) + max(0, max(offsets, default=0))
     return _staged('dia_spmm_rows_slide_f32', 'slide', val, x, offsets, tile,
-                   reach + 2 * tile)
+                   _reach(offsets, 4) + 2 * tile)
+
+
+def dia_matmat_rows_slide_prev(val, x, offsets, tile):
+    """``dia_matmat_rows_slide`` through the kernel's previous design (a
+    block per row group and segment, per-thread copies, val read by every
+    row group), kept in the same source so that the two can be timed in
+    turns on one card; no path calls it.  Its window holds reach + 2 * tile
+    lanes, the reach not rounded."""
+    offsets, tile = _host_offsets(offsets, tile)
+    return _staged('dia_spmm_rows_slide_prev_f32', 'prev_slide', val, x,
+                   offsets, tile, _reach(offsets, 1) + 2 * tile, prev=True)
+
+
+def _tile_ring_offsets(offsets, tile):
+    offsets, tile = _host_offsets(offsets, tile)
+    if max((abs(o) for o in offsets), default=0) > tile:
+        raise ValueError('tile-ring kernel needs max|offset| <= tile (got '
+                         '%d > %d)' % (max(abs(o) for o in offsets), tile))
+    return offsets, tile
 
 
 def dia_matmat_rows_tiles(val, x, offsets, tile):
     """(m, n) = DIA matrix applied to the f32 (m, n) row block ``x`` through
     a shared-memory ring of four whole tiles of ``tile`` lanes per row, with
     no halo.  ``offsets``: the diagonals as host ints, none larger than
-    ``tile`` in size.  If four tiles do not fit a block's shared memory,
-    raises ``ValueError``."""
-    offsets, tile = _host_offsets(offsets, tile)
-    if max((abs(o) for o in offsets), default=0) > tile:
-        raise ValueError('tile-ring kernel needs max|offset| <= tile (got '
-                         '%d > %d)' % (max(abs(o) for o in offsets), tile))
+    ``tile`` in size.  If four tiles and two stages of val do not fit a
+    block's shared memory, raises ``ValueError``."""
+    offsets, tile = _tile_ring_offsets(offsets, tile)
     return _staged('dia_spmm_rows_tiles_f32', 'tiles', val, x, offsets, tile,
                    4 * tile)
+
+
+def dia_matmat_rows_tiles_prev(val, x, offsets, tile):
+    """``dia_matmat_rows_tiles`` through the kernel's previous design (a
+    block per row group and run of tiles, per-thread copies, val read by
+    every row group), kept in the same source so that the two can be timed
+    in turns on one card; no path calls it."""
+    offsets, tile = _tile_ring_offsets(offsets, tile)
+    return _staged('dia_spmm_rows_tiles_prev_f32', 'prev_tiles', val, x,
+                   offsets, tile, 4 * tile, prev=True)
+
+
+def window_launch_plan(variant, val, x, offsets, tile):
+    """The launch ``VARIANTS[variant]`` ('slide' or 'tiles') takes for these
+    operands on the card, asked of its C entry without a launch: a dict of
+    ``PLAN_KEYS`` (cluster size, clusters that fit the card at once,
+    clusters per segment, segments, blocks) and ``rows`` per block, val
+    ``chunk`` lanes (0: val from device memory) and ``bulk`` (the
+    bulk-copy branch)."""
+    offsets, tile = (_tile_ring_offsets(offsets, tile) if variant == 'tiles'
+                     else _host_offsets(offsets, tile))
+    _check_staged(val, x, offsets)
+    if x.device.type != 'cuda':
+        raise ValueError('a launch plan is a card\'s, not %s' % x.device)
+    lanes = 4 * tile if variant == 'tiles' else _reach(offsets, 4) + 2 * tile
+    bulk = _bulk(val, x, tile)
+    rows, chunk = _window_plan(x.shape[0], lanes, len(offsets), bulk,
+                               variant)
+    plan = (ctypes.c_int64 * len(PLAN_KEYS))()
+    err = getattr(_build.library(), 'dia_spmm_rows_%s_plan' % variant)(
+        (ctypes.c_int * len(offsets))(*offsets), len(offsets), x.shape[0],
+        x.shape[1], tile, chunk, rows, int(bulk), x.get_device(), plan)
+    if err != 0:
+        raise RuntimeError('%s launch plan failed: CUDA error %d'
+                           % (variant, err))
+    return dict(zip(PLAN_KEYS, plan), rows=rows, chunk=chunk, bulk=bulk)
 
 
 def _ring(val, x, offsets, tile=None):

@@ -1,6 +1,6 @@
 """The CUDA kernels (DIA SpMM in its three structures and over an extended
-operand, BSR SpMM, stream scale in its three structures and the previous
-designs of two of them, the strided copy)
+operand, BSR SpMM, stream scale in its three structures, the previous
+designs of six of them, the strided copy)
 against their plain PyTorch versions on the card, and the mesh path on a
 mesh of several shards of the one card.
 
@@ -21,7 +21,9 @@ entry's terms, plus one rounding on either side for a bf16 result), for
 the kernel on its 16-byte and its general path and for its previous
 design.  Stream
 kernels: exact equality with ``torch.mul``.  The staged-window DIA kernels
-keep the plain version's order of summation: exact equality.  The copy
+and their previous designs keep the plain version's order of summation:
+exact equality, on the bulk-copy path and on the per-thread copy branch.
+The copy
 kernel, one copy or a batch: exact equality with ``Tensor.copy_``.  The mesh
 DIA kernel, through its one-piece entry and its mesh entry: the entrywise
 bounds of ``chip_smoke.window_excess`` and ``bf16_excess`` against its
@@ -308,6 +310,23 @@ def test_stream_kernel_equals_torch_mul(cuda, count, offset):
         st.stream_scale(x.double(), 2.0)
 
 
+def _staged_design(variant, design):
+    """(wrapper, launch key) of a staged-window kernel or of its previous
+    design."""
+    if design == 'kernel':
+        return sw.VARIANTS[variant], variant
+    return ({'slide': sw.dia_matmat_rows_slide_prev,
+             'tiles': sw.dia_matmat_rows_tiles_prev}[variant],
+            'prev_' + variant)
+
+
+def _launched(before):
+    """{launch key: launches since ``before``} of the keys that moved."""
+    return {k: v - before[k] for k, v in sw.LAUNCHES.items()
+            if v != before[k]}
+
+
+@pytest.mark.parametrize('design', ['kernel', 'previous'])
 @pytest.mark.parametrize('variant', ['slide', 'tiles'])
 @pytest.mark.parametrize('shape,m,tile', [
     ((8, 8, 16), 8, 256),       # aligned n, two rows of tiles
@@ -317,19 +336,169 @@ def test_stream_kernel_equals_torch_mul(cuda, count, offset):
     ((30, 30, 31), 16, 4096),   # two row groups
     ((6, 6, 6), 1, 5000),       # one tile wider than the vector
 ])
-def test_staged_window_kernels_equal_plain(cuda, variant, shape, m, tile):
-    """The sliding-window and tile-ring kernels against the plain version
-    at odd shapes: they sum the diagonals in its order, so they are equal
-    bit for bit."""
+def test_staged_window_kernels_equal_plain(cuda, variant, shape, m, tile,
+                                           design):
+    """The sliding-window and tile-ring kernels and their previous designs
+    against the plain version at odd shapes: they sum the diagonals in its
+    order, so they are equal bit for bit; one launch, under the design's
+    own key."""
+    fn, key = _staged_design(variant, design)
     dm = DiaMatrix(lap3d(*shape, 1.0, 1.0, 1.0), device=cuda)
     g = torch.Generator(cuda).manual_seed(3)
     x = torch.randn((m, dm.shape[0]), generator=g, device=cuda)
-    before = sw.LAUNCHES[variant]
-    y = sw.VARIANTS[variant](dm.val, x, dm.offsets, tile)
+    before = dict(sw.LAUNCHES)
+    y = fn(dm.val, x, dm.offsets, tile)
     want = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
     torch.cuda.synchronize()
-    assert sw.LAUNCHES[variant] == before + 1
+    assert _launched(before) == {key: 1}
     assert y.dtype == torch.float32 and y.shape == x.shape
+    assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize('variant,tile', [('slide', 16384), ('tiles', 8192)])
+@pytest.mark.parametrize('m', [1, 5, 33])
+def test_staged_window_kernels_fill_ragged_clusters(cuda, variant, tile, m):
+    """Tiles wide enough that a block holds one row, so a cluster holds
+    one row group a block: m = 1 (a cluster of one block), 5 and 33 (rows
+    that fill no whole cluster; the blocks past m read every val chunk and
+    compute nothing), on the bulk-copy path with a stage of val: equal to
+    the plain version and to the previous design bit for bit."""
+    dm = DiaMatrix(lap3d(30, 30, 31, 1.0, 1.0, 1.0), device=cuda)
+    g = torch.Generator(cuda).manual_seed(m)
+    x = torch.randn((m, dm.shape[0]), generator=g, device=cuda)
+    y = sw.VARIANTS[variant](dm.val, x, dm.offsets, tile)
+    plan = sw.window_launch_plan(variant, dm.val, x, dm.offsets, tile)
+    yprev = _staged_design(variant, 'previous')[0](dm.val, x, dm.offsets,
+                                                   tile)
+    want = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
+    torch.cuda.synchronize()
+    assert plan['rows'] == 1 and plan['bulk'], plan
+    assert plan['chunk'] >= sw.MIN_CHUNK_LANES, plan
+    assert plan['cluster'] == (1 if m == 1 else 2), plan
+    assert plan['cluster'] * plan['clusters_per_segment'] >= m, plan
+    assert plan['blocks'] == (plan['segments'] * plan['clusters_per_segment']
+                              * plan['cluster']), plan
+    assert torch.equal(y, want)
+    assert torch.equal(yprev, want)
+
+
+def _largest_tile(variant, design, offsets, m, bulk, staged=None):
+    """The widest tile whose windows (and, for the kernel on the bulk-copy
+    branch, the val stages it keeps) fit a block's shared memory, of those
+    where the kernel keeps a stage of val (``staged``), keeps none, or
+    either (None)."""
+    def fits(tile):
+        if variant == 'tiles':
+            lanes = 4 * tile
+        else:
+            lanes = sw._reach(offsets, 4 if design == 'kernel' else 1) \
+                + 2 * tile
+        try:
+            if design == 'kernel':
+                chunk = sw._window_plan(m, lanes, len(offsets), bulk,
+                                        variant)[1]
+                return staged is None or (chunk > 0) == staged
+            sw._rows_per_block(m, lanes, variant)
+        except ValueError:
+            return False
+        return True
+
+    lo, hi = 1, 1 << 16
+    while lo + 1 < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+@pytest.mark.parametrize('design', ['kernel', 'previous'])
+@pytest.mark.parametrize('variant', ['slide', 'tiles'])
+@pytest.mark.parametrize('case,shape,m,tile', [
+    ('n % 4', (7, 9, 11), 5, None),       # n = 693
+    ('n % 4', (9, 9, 9), 3, 100),         # n = 729, many tiles
+    ('view', (30, 30, 31), 16, None),     # x 4 bytes into its storage
+    ('view', (30, 30, 31), 16, 1000),
+])
+def test_staged_window_kernels_per_thread_copy_branch(cuda, variant, design,
+                                                      case, shape, m, tile):
+    """Shapes a bulk copy cannot take, n not a multiple of 4 and an operand
+    one element into its storage, go through the kernels' per-thread copy
+    branch (a cluster of one block, no stage of val), at a tile of many and
+    at the widest tile whose windows fit: equal to the plain version bit
+    for bit.  One lane wider is refused before any launch."""
+    fn, key = _staged_design(variant, design)
+    dm = DiaMatrix(lap3d(*shape, 1.0, 1.0, 1.0), device=cuda)
+    n = dm.shape[0]
+    g = torch.Generator(cuda).manual_seed(5)
+    if case == 'view':
+        x = torch.randn(m * n + 1, generator=g, device=cuda)[1:].view(m, n)
+        assert x.data_ptr() % 16 == 4
+    else:
+        x = torch.randn((m, n), generator=g, device=cuda)
+        assert n % 4
+    widest = tile is None
+    if widest:
+        tile = _largest_tile(variant, design, dm.offsets, m, bulk=False)
+    before = dict(sw.LAUNCHES)
+    y = fn(dm.val, x, dm.offsets, tile)
+    want = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
+    torch.cuda.synchronize()
+    assert _launched(before) == {key: 1}
+    if design == 'kernel':
+        plan = sw.window_launch_plan(variant, dm.val, x, dm.offsets, tile)
+        assert not plan['bulk'] and plan['chunk'] == 0, plan
+        assert plan['cluster'] == 1, plan
+    assert torch.equal(y, want)
+    if widest:
+        with pytest.raises(ValueError, match='shared memory'):
+            fn(dm.val, x, dm.offsets, tile + 1)
+        assert _launched(before) == {key: 1}
+
+
+@pytest.mark.parametrize('variant', ['slide', 'tiles'])
+def test_staged_window_kernels_at_the_widest_bulk_tile(cuda, variant):
+    """The bulk-copy branch at the widest tile that keeps a stage of val
+    (the narrowest chunk), at the widest tile that fits at all (val from
+    device memory, no stage) and at the sweep's widest tile: equal to the
+    plain version bit for bit; one lane a tile wider is refused."""
+    dm = DiaMatrix(lap3d(30, 30, 32, 1.0, 1.0, 1.0), device=cuda)
+    g = torch.Generator(cuda).manual_seed(7)
+    x = torch.randn((16, dm.shape[0]), generator=g, device=cuda)
+    want = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
+    staged = _largest_tile(variant, 'kernel', dm.offsets, 16, True, True)
+    widest = _largest_tile(variant, 'kernel', dm.offsets, 16, True)
+    assert staged < widest
+    for tile, stage in ((staged - staged % 4, True),
+                        (widest - widest % 4, False),
+                        ({'slide': 16384, 'tiles': 14336}[variant], None)):
+        y = sw.VARIANTS[variant](dm.val, x, dm.offsets, tile)
+        plan = sw.window_launch_plan(variant, dm.val, x, dm.offsets, tile)
+        torch.cuda.synchronize()
+        assert plan['bulk'], plan
+        if stage is not None:
+            assert (plan['chunk'] >= sw.MIN_CHUNK_LANES) == stage, plan
+            assert plan['cluster'] == (2 if stage else 1), plan
+        assert torch.equal(y, want), tile
+    with pytest.raises(ValueError, match='shared memory'):
+        sw.VARIANTS[variant](dm.val, x, dm.offsets, widest + 1)
+
+
+@pytest.mark.parametrize('variant', ['slide', 'tiles'])
+def test_staged_window_kernels_many_diagonals_no_stage(cuda, variant):
+    """128 diagonals, the most the kernels take: no stage of val of
+    ``MIN_CHUNK_LANES`` fits beside eight rows' windows, so the bulk-copy
+    branch reads val from device memory with eight rows a block: equal to
+    the plain version bit for bit."""
+    n = 4000
+    offs, val = _banded(n, list(range(-64, 64)), 11)
+    dm = DiaMatrix.from_arrays(offs, val, device=cuda)
+    x = torch.randn((16, n), generator=torch.Generator(cuda).manual_seed(11),
+                    device=cuda)
+    y = sw.VARIANTS[variant](dm.val, x, dm.offsets, 512)
+    plan = sw.window_launch_plan(variant, dm.val, x, dm.offsets, 512)
+    want = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
+    torch.cuda.synchronize()
+    assert plan['bulk'] and plan['chunk'] == 0 and plan['rows'] == 8, plan
+    assert plan['cluster'] == 1, plan
     assert torch.equal(y, want)
 
 

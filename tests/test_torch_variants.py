@@ -198,6 +198,85 @@ def test_previous_stream_designs_run_their_plain_version_on_the_cpu(design):
     assert st.LAUNCHES == before
 
 
+@pytest.mark.parametrize('variant', ['slide', 'tiles'])
+def test_previous_staged_window_designs_run_their_plain_version_on_the_cpu(
+        variant):
+    """The wrappers of the staged-window kernels' previous designs take the
+    plain version on the CPU, equal to the new designs' wrappers there,
+    count no launch, and raise where the new wrappers raise."""
+    offsets, val = _stencil('lap3d')
+    tv = torch.from_numpy(val)
+    x = torch.from_numpy(
+        np.random.RandomState(5).standard_normal((M, N)).astype(np.float32))
+    prev = {'slide': sw.dia_matmat_rows_slide_prev,
+            'tiles': sw.dia_matmat_rows_tiles_prev}[variant]
+    before = dict(sw.LAUNCHES)
+    got = prev(tv, x, offsets, TILE)
+    assert torch.equal(got, sw.VARIANTS[variant](tv, x, offsets, TILE))
+    assert torch.equal(got, sw.dia_matmat_rows_plain(tv, x, offsets))
+    with pytest.raises(ValueError, match='shared memory'):
+        prev(tv, x, offsets, 40000)
+    with pytest.raises(ValueError, match='at least 1'):
+        prev(tv, x, offsets, 0)
+    with pytest.raises(TypeError, match='f32'):
+        prev(tv, x.bfloat16(), offsets, TILE)
+    with pytest.raises(ValueError, match='contiguous'):
+        prev(tv, torch.zeros((N, M)).T, offsets, TILE)
+    if variant == 'tiles':
+        with pytest.raises(ValueError, match='<= tile'):
+            prev(tv, x, offsets, 32)
+    assert sw.LAUNCHES == before
+
+
+def test_clustered_window_plan_on_the_cpu():
+    """Rows per block and val chunk lanes of the clustered kernels at the
+    tile sweep's shape (reach 20,000 lanes, 7 diagonals): on the bulk-copy
+    branch, two rows a block only where a chunk of at least 800 lanes still
+    fits beside them, else one row with the widest chunk that fits, up to
+    2,048 lanes; where no chunk of 800 lanes fits (the sliding window's
+    16,384, the tile ring's 12,288 and 14,336), no stage (chunk 0, val from
+    device memory) and the most rows whose windows fit; the per-thread
+    branch keeps
+    no stage and sizes its rows by the windows alone.  The shared-memory
+    edge raises."""
+    def plan(variant, tile, m=32, noff=7, bulk=True):
+        lanes = 4 * tile if variant == 'tiles' else 20000 + 2 * tile
+        return sw._window_plan(m, lanes, noff, bulk, variant)
+
+    assert plan('slide', 2048) == (1, 2048)
+    assert plan('slide', 4096) == (1, 2048)
+    assert plan('slide', 8192) == (1, 1544)
+    assert plan('slide', 16384) == (1, 0)
+    assert plan('tiles', 10240) == (1, 1220)
+    assert plan('tiles', 12288) == (1, 0)
+    assert plan('tiles', 14336) == (1, 0)
+    assert plan('slide', 2048, m=1) == (1, 2048)
+    assert sw._window_plan(5, 1000, 7, True, 'slide') == (8, 2048)
+    # without room for a stage of 800 lanes beside a row, no stage
+    assert plan('tiles', 11696) == (1, 804)
+    assert plan('tiles', 11712) == (1, 800)
+    assert plan('tiles', 11716) == (1, 0)
+    # 128 diagonals: no stage of 800 lanes fits beside 8 rows' windows
+    assert sw._window_plan(16, 1152, 128, True, 'slide') == (8, 0)
+    # where no stage fits, two rows share the val they read
+    assert plan('slide', 4096, bulk=True, noff=40) == (2, 0)
+    # the per-thread branch keeps no stage: two rows at tile 4,096, as the
+    # previous designs
+    assert plan('slide', 4096, bulk=False) == (2, 0)
+    assert plan('tiles', 10240, bulk=False) == (1, 0)
+    assert sw._rows_per_block(32, 20000 + 2 * 4096, 'slide') == 2
+    # 14,512 lanes a tile and the barriers fill a block; 14,513 do not
+    assert plan('tiles', 14512) == (1, 0)
+    for bulk in (True, False):
+        with pytest.raises(ValueError, match='shared memory'):
+            plan('tiles', 14513, bulk=bulk)
+    # the slide kernel rounds the reach to 4 lanes a side, its previous
+    # design does not
+    assert sw._reach((-10000, -1, 0, 1, 10000), 4) == 20000
+    assert sw._reach((-3, 0, 5), 4) == 12
+    assert sw._reach((-3, 0, 5), 1) == 8
+
+
 def test_window_sweep_runs_on_the_cpu_when_asked(capsys):
     small = ['--device', 'cpu', '--m', '8', '--grid', '8', '8', '16',
              '--reps', '1']
