@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Five phases; any failure exits non-zero.  No phase catches a failure and
+Six phases; any failure exits non-zero.  No phase catches a failure and
 carries on, and no wrapper gives way to its plain version on the card.
 
 1. Environment: the card's name and power limit, torch's CUDA version,
@@ -41,6 +41,14 @@ carries on, and no wrapper gives way to its plain version on the card.
      over the tiles and bf16 products, must fail it.
    * The ELL apply (plain PyTorch, no kernel) on the same flagship in both
      orderings, timed, for the layout rule's constants.
+   * The f64 instantiations of the DIA kernel (f64 operand, f32 or f64
+     values) on lap3d(100,100,128), equal to the plain version bit for
+     bit, and of the BSR kernel (f64 operand, f32 or f64 tiles) on the FE
+     flagship in the mesher's order, within ``F64_SUM_TOL`` of the
+     largest |entry| (f64 sums in another order), at the core fields'
+     block size and at m = 16, timed in turns with the plain version and
+     ``torch.sparse.mm`` on the f64 CSR tensor (the BSR kernel also with
+     an f64 ``torch.sparse_bsr_tensor``).
    * The two staged-window DIA kernels (sliding window, tile ring) and
      their previous designs (``dia_matmat_rows_slide_prev``,
      ``dia_matmat_rows_tiles_prev``, in the same sources) at the tile
@@ -115,7 +123,27 @@ carries on, and no wrapper gives way to its plain version on the card.
    then ``benches.bench_spmm_sharded`` at its default size,
    ``benches.bench_launch_cost`` and ``graft_entry.dryrun_multichip(8)``
    (one mesh kernel launch per device per sharded apply, no copy launch).
-5. No module of jax or of the JAX package was loaded.
+5. The core phase: the block Jacobi-CG Solver under ``partial_hevp`` at
+   the JAX package's f64 flagship sizes, on the card, with every launch
+   counter set to 0 before each field and no plain version of a kernel
+   run anywhere in the phase:
+   * lap3d 50^3 shift-invert (sigma 0, 10 smallest; ``bench.py:146-182``):
+     within 1e-6 of the analytic eigenvalues; set-up, solve, iterations,
+     the link probe's orchestration (it must be 'device') and the host
+     transfers;
+   * the FE flagship ``shipsec_like()`` shift-invert (6 nearest 0, tol
+     1e-6; ``bench.py:460-488``): max|K x - x lambda| / 0.25 <= 1e-5;
+   * buckling ``buckling_64k()`` (sigma -0.08, 3 load factors, tol 1e-5;
+     ``bench.py:498-530``): within 1e-8 of the same call with
+     ``arch='cpu'`` (the host algebra) in the same run;
+   * ``engine='core'`` on lap3d(100,100,128), 4 smallest, tol 5e-5,
+     Chebyshev of degree 12 (``bench.py:581-611``), cold and warm: error
+     <= 1e-3, f64 DIA kernel launches (f32 and f64 values) > 0 per solve,
+     host transfers per iteration;
+   * ``engine='core'`` on the FE flagship in the mesher's order, 6
+     smallest, tol 1e-4, with a degree-32 Chebyshev on a ``BsrMatrix``:
+     the residual limit of the FE fields, f64 BSR kernel launches > 0.
+6. No module of jax or of the JAX package was loaded.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel's launches on its path, error against plain, times and bound
@@ -180,6 +208,20 @@ ROW_TILE = {'slide': 4096, 'tiles': 10240, 'tiled': 1024, 'pipelined': 8192}
 # tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# and f64 outside the tensor cores (the f64 instantiations' operations)
+PEAK_F64 = 34e12
+# the core Solver's block size on the core fields (which = 4 and 6: the
+# Solver's default block size policy, a multiple of 8)
+CORE_BLOCK = 8
+# the f64 BSR kernel sums in another order than its plain version: at most
+# this share of the largest |entry| apart (f64 sums of ~3,000 terms)
+F64_SUM_TOL = 1e-12
+# core fields: the FE flagship's residual limit (bench.py:475-478), the
+# buckling load factors' agreement with the host run, the shift-invert
+# eigenvalue limit (bench.py:146-182)
+FE_SHIFT_INVERT_LIMIT = 1e-5
+BUCKLING_AGREE = 1e-8
+SHIFT_INVERT_LIMIT = 1e-6
 F32_TOL = 1e-6
 # FE fields: limit on max_j |K x - lambda M x| / (|K|_inf |x|).  The solves
 # read 1.9e-7 (f32 preconditioner) to 1.3e-6 (bf16 iterates) on an H100, so
@@ -219,11 +261,11 @@ def in_turns(kern, plain, reps):
     return min(tk1, tk2), min(tp1, tp2)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=PEAK_F32):
     """(ms, 'bytes' or 'operations'): the least time the card could take
-    to move ``nbytes`` or to do ``flops`` f32 operations, whichever is
-    larger, at the data-sheet peaks."""
-    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    to move ``nbytes`` or to do ``flops`` operations (f32 unless ``peak``
+    says otherwise), whichever is larger, at the data-sheet peaks."""
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (tb, 'bytes') if tb >= tf else (tf, 'operations')
 
 
@@ -240,18 +282,19 @@ def turns(fns, reps):
     return best
 
 
-def library_spmm_fn(torch, csr, x):
-    """``torch.sparse.mm`` of the f32 CSR tensor of the scipy matrix
-    ``csr`` with the (n, m) operand ``x.T``, as a callable: the one PyTorch
-    call that computes an SpMM kernel's function.  None (with a note) if
-    this torch cannot do it: a measurement, not a gate."""
+def library_spmm_fn(torch, csr, x, dtype='float32'):
+    """``torch.sparse.mm`` of the CSR tensor (values in ``dtype``, f32
+    unless the kernel's operand is f64) of the scipy matrix ``csr`` with
+    the (n, m) operand ``x.T``, as a callable: the one PyTorch call that
+    computes an SpMM kernel's function.  None (with a note) if this torch
+    cannot do it: a measurement, not a gate."""
     try:
         a = torch.sparse_csr_tensor(
             torch.from_numpy(csr.indptr.astype('int64')),
             torch.from_numpy(csr.indices.astype('int64')),
-            torch.from_numpy(csr.data.astype('float32')),
+            torch.from_numpy(csr.data.astype(dtype)),
             size=csr.shape, device='cuda')
-        xt = x.float().T.contiguous()
+        xt = x.to(a.dtype).T.contiguous()
         torch.sparse.mm(a, xt)
         return lambda: torch.sparse.mm(a, xt)
     except (RuntimeError, NotImplementedError) as e:
@@ -1368,25 +1411,26 @@ def phase_sweeps(mods, rows, card, wt, gs):
           % (SHARDS, sw.LAUNCHES['mesh_float32'], len(applies), card))
 
 
-def solve(torch, partial_hevp, a, T, which, tol, b=None):
-    """One partial_hevp call with no device argument, so on the card:
-    (lmd, x, status, iterations,
-    wall seconds, LOBPCG seconds).  The difference of the two times is
-    partial_hevp's own set-up; A's device matrix is the preconditioner's,
-    built before."""
+def hevp_call(torch, partial_hevp, *args, **kw):
+    """One partial_hevp call (verb=0, output captured; with no device
+    argument, so on the card): (lmd, x, status, iterations, wall s, solve
+    s, set-up s or None).  The wall less the solve is partial_hevp's own
+    set-up: the factorization and its probe for shift-invert, the
+    matrices not built before otherwise."""
     out = io.StringIO()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        lmd, x, status = partial_hevp(a, B=b, T=T, which=which, tol=tol,
-                                      verb=0)
+        lmd, x, status = partial_hevp(*args, verb=0, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    found = re.findall(r'iterations: (\d+), solve time: (\S+)',
-                       out.getvalue())
+    text = out.getvalue()
+    found = re.findall(r'iterations: (\d+), solve time: (\S+)', text)
     if not found:
-        fail('partial_hevp printed no iteration count')
-    return lmd, x, status, int(found[-1][0]), wall, float(found[-1][1])
+        fail('partial_hevp printed no iteration count: %s' % text[-400:])
+    setup = re.findall(r'setup time: (\S+)', text)
+    return (lmd, x, status, int(found[-1][0]), wall, float(found[-1][1]),
+            float(setup[-1]) if setup else None)
 
 
 def profile_run(torch, run, card):
@@ -1501,8 +1545,8 @@ def phase_lap3d(torch, np, mods, rows, card, profile=False):
         ch = Chebyshev(a, lo, hi, degree=degree)
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
-        lmd, x, st, its, cold, _ = solve(torch, partial_hevp, a, ch, which,
-                                         tol)
+        lmd, x, st, its, cold, _, _ = hevp_call(
+            torch, partial_hevp, a, T=ch, which=which, tol=tol)
         if first:
             launches = {key: sw.LAUNCHES[key]
                         for key in ('float32', 'bfloat16')}
@@ -1515,8 +1559,8 @@ def phase_lap3d(torch, np, mods, rows, card, profile=False):
             rows['dia_spmm_rows_prev_bf16']['launches'] = \
                 sw.LAUNCHES['prev_bfloat16']
         err = check_solution(np, name, lmd, x, st, exact, limit)
-        lmd, x, st, its2, warm, lob = solve(torch, partial_hevp, a, ch,
-                                            which, tol)
+        lmd, x, st, its2, warm, lob, _ = hevp_call(
+            torch, partial_hevp, a, T=ch, which=which, tol=tol)
         check_solution(np, name, lmd, x, st, exact, limit)
         check_iterations(name, grid, (its, its2))
         print('%s: status 0, %d iterations (warm run %d), max rel eigenvalue '
@@ -1529,12 +1573,12 @@ def phase_lap3d(torch, np, mods, rows, card, profile=False):
             main_field = dict(lmd=np.sort(lmd)[:which], iterations=its2,
                               warm=warm, launches=launches)
         if profile:
-            profile_run(torch, lambda: solve(torch, partial_hevp, a, ch,
-                                             which, tol), card)
+            profile_run(torch, lambda: hevp_call(
+                torch, partial_hevp, a, T=ch, which=which, tol=tol), card)
             # the same solve with f32 Chebyshev iterates (auto rule off)
             ch.device_matrix().WINDOW_HBM_BYTES = float('inf')
-            lmd, x, st, its3, wall, lob = solve(torch, partial_hevp, a, ch,
-                                                which, tol)
+            lmd, x, st, its3, wall, lob, _ = hevp_call(
+                torch, partial_hevp, a, T=ch, which=which, tol=tol)
             del ch.device_matrix().WINDOW_HBM_BYTES
             err = check_solution(np, name, lmd, x, st, exact, limit)
             print('%s with f32 Chebyshev iterates: %d iterations, max rel '
@@ -1713,13 +1757,13 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
     layout = type(ch.device_matrix()).__name__
     if layout != 'EllMatrix':
         fail('%s: K landed in %s, not EllMatrix' % (name, layout))
-    lmd, x, st, its, cold, _ = solve(torch, partial_hevp, k_rel, ch, which,
-                                     tol, b=m_rel)
+    lmd, x, st, its, cold, _, _ = hevp_call(
+        torch, partial_hevp, k_rel, B=m_rel, T=ch, which=which, tol=tol)
     if any(sp.LAUNCHES.values()):
         fail('%s launched the BSR kernel: %s' % (name, sp.LAUNCHES))
     ell_lmd, rel = check_pencil(np, name, k_rel, m_rel, lmd, x, st, which)
-    lmd, x, st, its2, warm, lob = solve(torch, partial_hevp, k_rel, ch,
-                                        which, tol, b=m_rel)
+    lmd, x, st, its2, warm, lob, _ = hevp_call(
+        torch, partial_hevp, k_rel, B=m_rel, T=ch, which=which, tol=tol)
     check_pencil(np, name, k_rel, m_rel, lmd, x, st, which)
     print('%s: K in %s, status 0, %d iterations (warm run %d), relative '
           'residual %.2e, lambda %s; Chebyshev set-up %.3f s; partial_hevp '
@@ -1728,8 +1772,9 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
               ell_lmd, precision=6), setup, cold, warm, lob, warm - lob,
              card))
     if profile:
-        profile_run(torch, lambda: solve(torch, partial_hevp, k_rel, ch,
-                                         which, tol, b=m_rel), card)
+        profile_run(torch, lambda: hevp_call(
+            torch, partial_hevp, k_rel, B=m_rel, T=ch, which=which, tol=tol),
+            card)
     del ch
     torch.cuda.empty_cache()
 
@@ -1825,6 +1870,324 @@ def phase_stream_rate(mods, rows, card):
     return rate
 
 
+def phase_wide(torch, np, lap3d, DiaMatrix, BsrMatrix, sw, sp, k_nat):
+    """The f64 instantiations of the DIA and BSR kernels (f64 operand; f32
+    or f64 values or tiles) against their plain versions on the same
+    inputs: the DIA kernel on lap3d(100,100,128) equal bit for bit, the
+    BSR kernel on the FE flagship in the mesher's order within
+    ``F64_SUM_TOL`` of the largest |entry|; timed in turns with the plain
+    version and ``torch.sparse.mm`` on the f64 CSR tensor (for the BSR
+    kernel also an f64 ``torch.sparse_bsr_tensor``) at the core fields'
+    block size ``CORE_BLOCK`` and at m = 16.  Returns their rows."""
+    rows = {}
+    gen = torch.Generator('cuda').manual_seed(9)
+    csr = lap3d(100, 100, 128, 1.0, 1.0, 1.0)
+    dm = DiaMatrix(csr, dtype=np.float64, device='cuda', exact=True)
+    n = dm.shape[0]
+    noff = len(dm.offsets)
+    for vkey, val in (('val32', dm.val.float()), ('val64', dm.val)):
+        name = 'dia_spmm_rows_f64_' + vkey
+        for m in (CORE_BLOCK, 16):
+            x = torch.randn((m, n), generator=gen, device='cuda',
+                            dtype=torch.float64)
+            yk = sw.dia_matmat_rows(val, x, dm.offsets_t)
+            yp = sw.dia_matmat_rows_plain(val, x, dm.offsets_t)
+            torch.cuda.synchronize()
+            if yk.dtype != torch.float64 or not torch.isfinite(yk).all():
+                fail('%s m=%d: output %s, or not finite' % (name, m,
+                                                            yk.dtype))
+            if not torch.equal(yk, yp):
+                fail('%s vs plain m=%d: not equal bit for bit (max abs '
+                     '%.3e)' % (name, m, (yk - yp).abs().max()))
+            del yk, yp
+            t = turns({'plain': lambda: sw.dia_matmat_rows_plain(
+                           val, x, dm.offsets_t),
+                       'kernel': lambda: sw.dia_matmat_rows(
+                           val, x, dm.offsets_t),
+                       'library': library_spmm_fn(torch, csr, x,
+                                                  'float64')}, 50)
+            nbytes = (noff * n * val.element_size() + noff * 4
+                      + 2 * m * n * 8)
+            flops = 2 * m * sum(n - abs(o) for o in dm.offsets)
+            bound_ms, bound_by = bound(nbytes, flops, PEAK_F64)
+            print('%s lap3d(100,100,128) n=%d m=%d: equal to plain bit for '
+                  'bit; kernel %.4f ms (%.0f GB/s), plain %.4f ms, '
+                  'torch.sparse.mm (f64) %s, bound %.4f ms (%s), in turns'
+                  % (name, n, m, t['kernel'], nbytes / t['kernel'] / 1e6,
+                     t['plain'], fmt_ms(t['library']), bound_ms, bound_by))
+            if m == CORE_BLOCK:
+                rows[name] = dict(
+                    name=name, route='cuda', source=DIA[0], replaces=DIA[1],
+                    launches=0, max_abs_err=0.0, ms=t['kernel'],
+                    plain_ms=t['plain'], bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=t['library'], m=m,
+                    bytes=nbytes)
+            else:
+                rows[name].update(m16_ms=t['kernel'], m16_bound_ms=bound_ms,
+                                  m16_plain_ms=t['plain'],
+                                  m16_library_ms=t['library'])
+
+    n = k_nat.shape[0]
+    mats = {'f32': BsrMatrix(k_nat, bs=128, device='cuda'),
+            'f64': BsrMatrix(k_nat, dtype=np.float64, bs=128, device='cuda',
+                             exact=True)}
+    for tkey, bm in mats.items():
+        name = 'bsr_spmm_rows_%s_f64' % tkey
+        args = (bm.blocks, bm.block_indptr_t, bm.block_cols)
+        for m in (CORE_BLOCK, 16):
+            x = torch.randn((m, n), generator=gen, device='cuda',
+                            dtype=torch.float64)
+            yk = sp.bsr_matmat_rows(*args, x, n)
+            yp = sp.bsr_matmat_rows_plain(*args, x, n)
+            torch.cuda.synchronize()
+            if yk.dtype != torch.float64 or not torch.isfinite(yk).all():
+                fail('%s m=%d: output %s, or not finite' % (name, m,
+                                                            yk.dtype))
+            diff = (yk - yp).abs().max().item()
+            rel = diff / yp.abs().max().item()
+            if rel > F64_SUM_TOL:
+                fail('%s vs plain m=%d: %.2e of the largest entry > %.0e'
+                     % (name, m, rel, F64_SUM_TOL))
+            del yk, yp
+            t = turns({'plain': lambda: sp.bsr_matmat_rows_plain(*args, x,
+                                                                 n),
+                       'kernel': lambda: sp.bsr_matmat_rows(*args, x, n),
+                       'csr': library_spmm_fn(torch, k_nat, x, 'float64'),
+                       'bsr': library_bsr_fn(torch, bm, x)}, 20)
+            nbytes = (bm.blocks.numel() * bm.blocks.element_size()
+                      + 2 * m * n * 8 + bm.block_indptr_t.numel() * 4
+                      + bm.block_cols.numel() * 4)
+            flops = 2 * bm.blocks.numel() * m
+            bound_ms, bound_by = bound(nbytes, flops, PEAK_F64)
+            print('%s flagship n=%d m=%d: %.2e of the largest entry from '
+                  'plain; kernel %.4f ms (%.0f GB/s), plain %.4f ms, '
+                  'torch.sparse.mm (f64 CSR) %s, f64 BSR tensor %s, bound '
+                  '%.4f ms (%s), in turns'
+                  % (name, n, m, rel, t['kernel'],
+                     nbytes / t['kernel'] / 1e6, t['plain'],
+                     fmt_ms(t['csr']), fmt_ms(t['bsr']), bound_ms,
+                     bound_by))
+            if m == CORE_BLOCK:
+                rows[name] = dict(
+                    name=name, route='cuda', source=BSR[0], replaces=BSR[1],
+                    launches=0, max_abs_err=diff, ms=t['kernel'],
+                    plain_ms=t['plain'], bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=t['csr'],
+                    library_bsr_ms=t['bsr'], m=m, bytes=nbytes)
+            else:
+                rows[name].update(m16_ms=t['kernel'], m16_bound_ms=bound_ms,
+                                  m16_plain_ms=t['plain'],
+                                  m16_library_ms=t['csr'])
+    rows['bsr_spmm_rows_f64_f64']['off_path'] = (
+        'f64 tiles come with a BSR operator built with exact f64 values, '
+        'which partial_hevp builds only for a matrix that device_sparse '
+        'lays out as BSR; no field here has one (the FE-BSR core field '
+        'drives the f32-tile instantiation)')
+    return rows
+
+
+@contextlib.contextmanager
+def counting_plain_calls(sw, sp):
+    """Counts the calls of the DIA and BSR kernels' plain versions made
+    inside the block: none may come from a path on the card."""
+    calls = {'dia': 0, 'bsr': 0}
+    dia, bsr = sw.dia_matmat_rows_plain, sp.bsr_matmat_rows_plain
+
+    def counted_dia(*a):
+        calls['dia'] += 1
+        return dia(*a)
+
+    def counted_bsr(*a):
+        calls['bsr'] += 1
+        return bsr(*a)
+    sw.dia_matmat_rows_plain, sp.bsr_matmat_rows_plain = (counted_dia,
+                                                          counted_bsr)
+    try:
+        yield calls
+    finally:
+        sw.dia_matmat_rows_plain, sp.bsr_matmat_rows_plain = dia, bsr
+
+
+def phase_core(torch, np, mods, rows, card, pencils, profile=False):
+    """The core block Jacobi-CG Solver under partial_hevp, on the card with
+    no device argument, at the JAX package's f64 flagship sizes:
+    shift-invert on lap3d 50^3 and on the FE flagship, buckling (against
+    the same call on the host, arch='cpu'), engine='core' with a Chebyshev
+    on lap3d(100,100,128) (the f64 DIA kernel's path) and with a BSR
+    Chebyshev on the FE flagship in the mesher's order (the f64 BSR
+    kernel's path).  No plain version of a kernel may run."""
+    from raleigh_tpu_torch import (BsrMatrix, Chebyshev, partial_hevp,
+                                   SparseSymmetricSolver, spectral_bounds)
+    from raleigh_tpu_torch.algebra import dense_torch
+    from raleigh_tpu_torch.native import ldlt
+    from raleigh_tpu_torch.examples import fe_model as fe
+    from raleigh_tpu_torch.examples.laplace import lap3d, lap3d_eigenvalues
+    from raleigh_tpu_torch.utils.link import choose_orchestration, probe_link
+    sw, sp = mods[0], mods[1]
+
+    t0 = time.perf_counter()
+    ldlt._load()      # the host LDL^T library: built with g++ at first use
+    print('native LDL^T library loaded in %.2f s (built at first use)'
+          % (time.perf_counter() - t0))
+    with counting_plain_calls(sw, sp) as plain:
+        # 1. lap3d 50^3 shift-invert, 10 smallest (bench.py:146-182)
+        a = lap3d(50, 50, 50, 1.0, 1.0, 1.0)
+        exact = np.sort(lap3d_eigenvalues(50, 50, 50, 1.0, 1.0, 1.0))[:10]
+        link = probe_link()
+        choice = choose_orchestration(a.shape[0], 32)
+        print('link probe: up %.1f GB/s, down %.1f GB/s, round trip %.1f us;'
+              ' orchestration for n=%d: %s [%s]'
+              % (link['up_bytes_per_s'] / 1e9, link['down_bytes_per_s'] / 1e9,
+                 link['rtt_s'] * 1e6, a.shape[0], choice, card))
+        if choice != 'device':
+            fail('the link probe chose %s orchestration on a co-located '
+                 'card' % choice)
+        dense_torch.reset_counts()
+        lmd, x, st, its, wall, solve_s, setup = hevp_call(
+            torch, partial_hevp, a, sigma=0.0, which=10)
+        if st != 0 or lmd is None or len(lmd) < 10:
+            fail('lap3d 50^3 shift-invert: status %s' % st)
+        err = float(np.max(np.abs(np.sort(lmd)[:10] - exact) / exact))
+        if err > SHIFT_INVERT_LIMIT or not np.all(np.isfinite(x)):
+            fail('lap3d 50^3 shift-invert: eigenvalue error %.2e' % err)
+        print('core 1, lap3d 50^3 shift-invert sigma=0 which=10: status 0, '
+              '%d iterations, max rel eigenvalue error %.2e (limit %.0e); '
+              'set-up %.2f s (analyse, factorize, probe), solve %.2f s, '
+              'wall %.2f s; %s orchestration; %d transfers to the host, %d '
+              'uploads [%s]'
+              % (its, err, SHIFT_INVERT_LIMIT, setup, solve_s, wall, choice,
+                 dense_torch.COUNTS['to_host'],
+                 dense_torch.COUNTS['to_device'], card))
+        # where the set-up and an iteration go: the factorization and one
+        # host solve of a block of the Solver's default size (32)
+        t0 = time.perf_counter()
+        fact = SparseSymmetricSolver()
+        fact.analyse(a, 0.0)
+        t1 = time.perf_counter()
+        fact.factorize()
+        t2 = time.perf_counter()
+        rhs = np.random.RandomState(0).standard_normal((32, a.shape[0]))
+        out = np.empty_like(rhs)
+        fact.solve(rhs, out)
+        t3 = time.perf_counter()
+        print('  lap3d 50^3 LDL^T on the host: analyse %.2f s, factorize '
+              '%.2f s, one solve of 32 right-hand sides %.3f s [%s]'
+              % (t1 - t0, t2 - t1, t3 - t2, card))
+        del fact
+
+        # 2. the FE flagship, shift-invert, 6 nearest 0 (bench.py:460-488)
+        k = pencils[0][0]
+        lmd, x, st, its, wall, solve_s, setup = hevp_call(
+            torch, partial_hevp, k, sigma=0, which=6, tol=1e-6)
+        if st != 0 or lmd is None or len(lmd) < 6:
+            fail('FE flagship shift-invert: status %s' % st)
+        r = k @ x[:, :6] - x[:, :6] * lmd[None, :6]
+        rel = float(np.abs(r).max() / 0.25)     # ||K||_inf ~ 0.25
+        if not rel <= FE_SHIFT_INVERT_LIMIT:
+            fail('FE flagship shift-invert: residual %.1e' % rel)
+        print('core 2, FE flagship shift-invert n=%d sigma=0 which=6 '
+              'tol=1e-6: status 0, %d iterations, residual %.1e (limit '
+              '%.0e); set-up %.2f s, solve %.2f s, wall %.2f s [%s]'
+              % (k.shape[0], its, rel, FE_SHIFT_INVERT_LIMIT, setup,
+                 solve_s, wall, card))
+
+        # 3. buckling, 3 load factors in (-0.08, 0) (bench.py:498-530)
+        kb, gb = fe.buckling_64k()
+        lmd, x, st, its, wall, solve_s, setup = hevp_call(
+            torch, partial_hevp, kb, B=gb, buckling=True, sigma=-0.08,
+            which=3, tol=1e-5)
+        hl, hx, hst, hits, hwall, _, _ = hevp_call(
+            torch, partial_hevp, kb, B=gb, buckling=True, sigma=-0.08,
+            which=3, tol=1e-5, arch='cpu')
+        if st < 0 or hst < 0 or lmd is None or len(lmd) < 3:
+            fail('buckling: status %s (host %s)' % (st, hst))
+        agree = float(np.max(np.abs(lmd[:3] - hl[:3]) / np.abs(hl[:3])))
+        if not agree <= BUCKLING_AGREE:
+            fail('buckling: load factors %s against the host\'s %s (%.1e)'
+                 % (lmd[:3], hl[:3], agree))
+        print('core 3, buckling n=%d sigma=-0.08 which=3: status %d, %d '
+              'iterations, load factors %s, within %.1e of the host run '
+              '(arch=\'cpu\': %d iterations, wall %.2f s); set-up %.2f s, '
+              'solve %.2f s, wall %.2f s [%s]'
+              % (kb.shape[0], st, its, np.array2string(lmd[:3]), agree,
+                 hits, hwall, setup, solve_s, wall, card))
+
+        # 4. engine='core' with a Chebyshev (bench.py:581-611 parameters)
+        a = lap3d(100, 100, 128, 1.0, 1.0, 1.0)
+        exact = np.sort(lap3d_eigenvalues(100, 100, 128, 1.0, 1.0, 1.0))[:4]
+        lo, hi = spectral_bounds(a)
+        ch = Chebyshev(a, lo, hi, degree=12)
+        walls, launches = [], None
+        for run in range(2):
+            reset_counters(mods)
+            dense_torch.reset_counts()
+            lmd, x, st, its, wall, solve_s, _ = hevp_call(
+                torch, partial_hevp, a, T=ch, which=4, tol=5e-5,
+                engine='core')
+            err = check_solution(np, 'core engine lap3d(100,100,128)', lmd,
+                                 x, st, exact, 1e-3)
+            walls.append(wall)
+            launches = {key: sw.LAUNCHES[key]
+                        for key in ('float64_val32', 'float64_val64')}
+            if min(launches.values()) <= 0:
+                fail('core engine: the f64 DIA kernel was skipped: %s'
+                     % launches)
+            other = {key: v for key, v in sw.LAUNCHES.items()
+                     if v and key not in launches}
+            if other:
+                fail('core engine launched other DIA kernels: %s' % other)
+        syncs = dense_torch.COUNTS['to_host'] / its
+        if profile:
+            profile_run(torch, lambda: hevp_call(
+                torch, partial_hevp, a, T=ch, which=4, tol=5e-5,
+                engine='core'), card)
+        rows['dia_spmm_rows_f64_val32']['launches'] = \
+            launches['float64_val32']
+        rows['dia_spmm_rows_f64_val64']['launches'] = \
+            launches['float64_val64']
+        print('core 4, engine=\'core\' lap3d(100,100,128) which=4 tol=5e-5 '
+              'Chebyshev degree 12: status 0, %d iterations, max rel '
+              'eigenvalue error %.2e; wall cold %.2f s, warm %.2f s (solve '
+              '%.2f s); f64 DIA kernel launches per solve %s; %.2f host '
+              'transfers per iteration (%d in all), %d uploads [%s]'
+              % (its, err, walls[0], walls[1], solve_s,
+                 json.dumps(launches), syncs, dense_torch.COUNTS['to_host'],
+                 dense_torch.COUNTS['to_device'], card))
+
+        # 5. engine='core' with a BSR Chebyshev: the f64 BSR kernel's path
+        k_nat = pencils[1][0]
+        lo, hi = spectral_bounds(k_nat)
+        tb = Chebyshev(k_nat, hi * 1e-4, hi, degree=32,
+                       device_matrix=BsrMatrix(k_nat, bs=128))
+        reset_counters(mods)
+        dense_torch.reset_counts()
+        lmd, x, st, its, wall, solve_s, _ = hevp_call(
+            torch, partial_hevp, k_nat, T=tb, which=6, tol=1e-4,
+            engine='core')
+        if st != 0 or lmd is None or len(lmd) < 6:
+            fail('FE-BSR core: status %s' % st)
+        kinf = float(abs(k_nat).sum(axis=1).max())
+        r = k_nat @ x[:, :6] - x[:, :6] * lmd[None, :6]
+        res = float(np.max(np.linalg.norm(r, axis=0)
+                           / (kinf * np.linalg.norm(x[:, :6], axis=0))))
+        if not res <= FE_RESIDUAL_LIMIT:
+            fail('FE-BSR core: residual %.2e' % res)
+        bl = sp.LAUNCHES[('f32', 'f64')]
+        if bl <= 0:
+            fail('FE-BSR core: the f64 BSR kernel was skipped')
+        rows['bsr_spmm_rows_f32_f64']['launches'] = bl
+        rows['bsr_spmm_rows_f64_f64']['launches'] = sp.LAUNCHES[('f64',
+                                                                 'f64')]
+        print('core 5, engine=\'core\' FE flagship (mesher order) which=6 '
+              'tol=1e-4, BSR Chebyshev degree 32: status 0, %d iterations, '
+              'residual %.2e (limit %.0e); wall %.2f s (solve %.2f s); f64 '
+              'BSR kernel launches %d; %.2f host transfers per iteration '
+              '[%s]' % (its, res, FE_RESIDUAL_LIMIT, wall, solve_s, bl,
+                        dense_torch.COUNTS['to_host'] / its, card))
+    if any(plain.values()):
+        fail('the core phase ran plain versions of the kernels: %s' % plain)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1857,12 +2220,15 @@ def main():
              time.perf_counter() - t0))
     rows.update(phase_bsr(torch, np, sp, BsrMatrix, EllMatrix, fe,
                           pencils[1][0], pencils[0][0]))
+    rows.update(phase_wide(torch, np, lap3d, DiaMatrix, BsrMatrix, sw, sp,
+                           pencils[1][0]))
     main_field = phase_lap3d(torch, np, mods, rows, card, profile)
     phase_fe(torch, np, mods, rows, card, pencils, profile)
     rate = phase_stream_rate(mods, rows, card)
     phase_sharded(torch, np, mods, rows, card, main_field, pencils[0][0],
                   profile)
     phase_sweeps(mods, rows, card, wt, gs)
+    phase_core(torch, np, mods, rows, card, pencils, profile)
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in ('jax', 'jaxlib', 'raleigh_tpu'))
     if loaded:

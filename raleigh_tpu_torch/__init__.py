@@ -1,14 +1,24 @@
 """raleigh_tpu_torch — the PyTorch/CUDA port of raleigh_tpu.
 
-The preconditioned sparse symmetric eigensolve on the device:
-``partial_hevp`` with a Chebyshev preconditioner on the LOBPCG engine, for
-stencil matrices (DIA) and finite-element matrices (ELL, BSR), every DIA
-and BSR SpMM through a CUDA kernel written for Hopper; and the same
+The sparse symmetric eigensolve: ``partial_hevp`` in shift-invert,
+generalized, buckling and preconditioned modes, on the core block
+Jacobi-CG ``Solver`` over the block-vector algebra on the card
+(``dense_torch``) or on the host (``dense_numpy``), or on the device
+LOBPCG engine with a Chebyshev preconditioner; stencil matrices (DIA) and
+finite-element matrices (ELL, BSR), every DIA and BSR SpMM through a CUDA
+kernel written for Hopper (f32, bf16 and f64 operands); and the LOBPCG
 iteration with operator and blocks split over a mesh of shards.
 
-  interfaces/   partial_hevp (preconditioned device path)
-  core/         device LOBPCG; solver Options
-  algebra/      SparseSymmetricMatrix, spectral_bounds, Chebyshev, Operator
+  interfaces/   partial_hevp (every mode but engine='jacobi')
+  core/         the block Jacobi-CG Solver and its small dense numerics;
+                device LOBPCG
+  algebra/      the block-vector contract (dense_torch, dense_numpy, the
+                dense.py selector and AMatrix); SparseSymmetricMatrix,
+                SparseSymmetricSolver, IncompleteLU, spectral_bounds,
+                Chebyshev, Operator
+  native/       the host LDL^T, orderings and ILUT in C++ (built with g++
+                at first use)
+  utils/        the link probe and orchestration choice, knobs
   ops/          DIA, ELL and BSR SpMM, the layout rule, the stream-rate
                 probe, the strided copy: CUDA kernel wrappers, plain PyTorch
                 versions, build
@@ -17,7 +27,8 @@ iteration with operator and blocks split over a mesh of shards.
   benches/      the kernel-structure A/B sweeps (three structures of the
                 DIA SpMM, four of the streaming copy) and the one timer
   csrc/         CUDA C++ sources (built with nvcc at first use)
-  examples/     test matrices: Laplacians, finite-element pencils
+  examples/     test matrices (Laplacians, finite-element pencils) and
+                the sparse_evp, buckling_evp and core_solver CLIs
 
 The package imports torch and never jax, and nothing of ``raleigh_tpu``:
 host code both packages need lives here as a copy of its own.
@@ -27,6 +38,12 @@ __version__ = "0.1.0"
 
 _EXPORTS = {
     'Options': 'raleigh_tpu_torch.core.solver',
+    'Solver': 'raleigh_tpu_torch.core.solver',
+    'Problem': 'raleigh_tpu_torch.core.solver',
+    'AMatrix': 'raleigh_tpu_torch.algebra.dense',
+    'SparseSymmetricSolver': 'raleigh_tpu_torch.algebra.sparse',
+    'IncompleteLU': 'raleigh_tpu_torch.algebra.sparse',
+    'Operator': 'raleigh_tpu_torch.algebra.sparse',
     'partial_hevp': 'raleigh_tpu_torch.interfaces.partial_hevp',
     'lobpcg': 'raleigh_tpu_torch.core.device_solver',
     'Chebyshev': 'raleigh_tpu_torch.algebra.sparse',

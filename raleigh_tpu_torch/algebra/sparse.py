@@ -1,18 +1,18 @@
-"""Sparse symmetric operators and the Chebyshev preconditioner.
+"""Sparse symmetric operators, direct solver, and preconditioners.
 
-PyTorch port of the device half of ``raleigh_tpu/algebra/sparse.py``:
+PyTorch port of ``raleigh_tpu/algebra/sparse.py``:
 
   * ``SparseSymmetricMatrix``  SpMM on (m, n) row blocks — host SciPy CSR
-    for ndarrays, the DIA, ELL or BSR device matrix (ops/spmm.py) for
-    tensors;
+    for ndarrays and host ``Vectors``, the DIA, ELL or BSR device matrix
+    (ops/spmm.py) for tensors and ``dense_torch.Vectors``;
+  * ``SparseSymmetricSolver``  shift-and-invert operator (A - sigma B)^-1
+    backed by the native C++ LDL^T (native/ldlt.cpp) with inertia;
+  * ``IncompleteLU``           threshold ILU preconditioner (native ILUT);
   * ``spectral_bounds``        (lo, hi) bounds on a spectrum, on the host;
   * ``Chebyshev``              polynomial approximation to A^-1 on
     [lo, hi], a recurrence of ``degree`` SpMMs that runs on the device;
   * ``Operator``               adapter giving an object with an
-    ndarray-level ``apply`` the tensor interface.
-
-``SparseSymmetricSolver`` and ``IncompleteLU`` come with the shift-invert
-path (ROADMAP queue 1, item 7).
+    ndarray-level ``apply`` the tensor and ``Vectors`` interfaces.
 """
 
 import numpy as np
@@ -22,6 +22,14 @@ import torch
 from ..ops.spmm import (_device_layout, _to_full_csr, rows_matmat_operands,
                         storage_device, torch_dtype)
 from ..parallel.mesh import ShardedRows
+from ..utils import verbosity
+
+
+def _vec_data(x):
+    """The host array of a ``Vectors`` (one transfer from the card for
+    ``dense_torch``), or x itself."""
+    d = getattr(x, 'data', None)
+    return x if d is None or not callable(d) else d()
 
 
 def resolve_device(arch=None, device=None):
@@ -38,9 +46,12 @@ class SparseSymmetricMatrix:
     """y = A x for blocks of row-vectors; A real symmetric in any SciPy
     sparse format.  The device matrix is built as well, on the card
     unless ``device`` names another device; ``arch='cpu'`` keeps the
-    matrix on the host alone."""
+    matrix on the host alone.  Its values take the canonical dtype of the
+    matrix's (``ops.spmm.canonical_dtype``), or stay as they are with
+    ``exact=True``: an f64 problem of the core Solver keeps f64 values."""
 
-    def __init__(self, matrix, arch=None, dtype=None, bs=128, device=None):
+    def __init__(self, matrix, arch=None, dtype=None, bs=128, device=None,
+                 exact=False):
         a = scs.csr_matrix(matrix)
         if dtype is not None:
             a = a.astype(dtype)
@@ -51,7 +62,7 @@ class SparseSymmetricMatrix:
         if device is not None:
             self.__dev = _device_layout(self.__csr_full,
                                         self.__csr_full.dtype.type, device,
-                                        bs=bs)
+                                        bs=bs, exact=exact)
 
     def size(self):
         return self.__csr.shape[0]
@@ -72,15 +83,169 @@ class SparseSymmetricMatrix:
         return self.__dev
 
     def apply(self, x, y):
-        """y = x A for an (m, n) block: a tensor on the device matrix, an
-        ndarray on the host CSR."""
+        """y = x A for an (m, n) block: a tensor or a ``dense_torch``
+        block on the device matrix, an ndarray or a host block on the host
+        CSR."""
         if isinstance(x, torch.Tensor):
             if self.__dev is None:
                 raise ValueError('tensor operand but no device matrix: '
                                  "build without arch='cpu'")
             y.copy_(self.__dev.matmat_rows(x))
             return
-        y[...] = self.__csr_full.dot(np.asarray(x).T).T
+        if self.__dev is not None and hasattr(x, 'device_data'):
+            y.fill(self.__dev.matmat_rows(x.device_data()))
+            return
+        out = self.__csr_full.dot(_vec_data(x).T).T
+        if callable(getattr(y, 'data', None)):   # Vectors
+            y.fill(out)
+        else:
+            y[...] = out
+
+
+class SparseSymmetricSolver:
+    """Shift-and-invert operator: factorize A - sigma*B once (native LDL^T),
+    then ``apply`` solves with block right-hand sides
+    (reference sparse_mkl.py:51-120).  A ``dense_torch`` block comes to
+    the host in one transfer, is solved there and goes back in one
+    upload."""
+
+    def __init__(self, dtype=np.float64, pos_def=False):
+        self.__dtype = np.dtype(dtype).type
+        self.__pos_def = pos_def
+        self.__ldlt = None
+        self.__n = None
+        self.__sigma = 0
+        self.__complex = np.dtype(dtype).kind == 'c'
+
+    def analyse(self, a, sigma=0, b=None):
+        if sigma != 0:
+            if b is None:
+                b = scs.eye(a.shape[0], dtype=a.dtype, format='csr')
+            a_s = a - sigma * b
+        else:
+            a_s = a
+        from ..native.ldlt import SparseLDLT
+        from ..utils import env
+        self.__complex = np.dtype(self.__dtype).kind == 'c'
+        self.__embedded = False
+        if self.__complex and env.complex_via_embedding:
+            # fallback route: Hermitian A = Ar + i*Ai factors through its
+            # real symmetric embedding K = [[Ar, -Ai], [Ai, Ar]]:
+            # eigenvalues double, so inertia halves; solves embed [Re; Im]
+            # per right-hand side.  Twice the size of the native LDL^H.
+            a_s = scs.csr_matrix(a_s)
+            ar = scs.csr_matrix((a_s.data.real, a_s.indices, a_s.indptr),
+                                shape=a_s.shape)
+            ai = scs.csr_matrix((a_s.data.imag, a_s.indices, a_s.indptr),
+                                shape=a_s.shape)
+            k = scs.bmat([[ar, -ai], [ai, ar]], format='csr')
+            self.__ldlt = SparseLDLT(k)
+            self.__embedded = True
+        elif self.__complex:
+            # native Hermitian LDL^H (zldltmf_* engine, real D -> inertia)
+            self.__ldlt = SparseLDLT(scs.csr_matrix(a_s,
+                                                    dtype=np.complex128))
+        else:
+            self.__ldlt = SparseLDLT(a_s)
+        nnz_l = self.__ldlt.analyse()
+        if verbosity.level > 0:
+            print('LDL^T factor nnz: %d' % nnz_l)
+        self.__n = a.shape[0]
+        self.__sigma = sigma
+
+    def factorize(self):
+        try:
+            self.__ldlt.factorize()
+        except RuntimeError as e:
+            raise RuntimeError('factorization failed (near singular '
+                               'matrix?): %s' % e)
+
+    def solve(self, b, x):
+        bd = _vec_data(b)
+        if self.__embedded:
+            bc = np.asarray(bd, dtype=np.complex128)
+            be = np.concatenate((bc.real, bc.imag), axis=-1)
+            oe = self.__ldlt.solve(be)
+            out = oe[..., :self.__n] + 1j * oe[..., self.__n:]
+        elif self.__complex:
+            out = self.__ldlt.solve(np.asarray(bd, dtype=np.complex128))
+        else:
+            out = self.__ldlt.solve(np.asarray(bd, dtype=np.float64))
+        if callable(getattr(x, 'data', None)):   # Vectors
+            x.fill(out.astype(np.dtype(bd.dtype), copy=False))
+        else:
+            x[...] = out
+
+    def apply(self, b, x):
+        self.solve(b, x)
+
+    def inertia(self):
+        neg, pos = self.__ldlt.inertia()
+        if self.__embedded:
+            neg, pos = neg // 2, pos // 2
+        return neg, pos
+
+    def size(self):
+        return self.__n
+
+    def data_type(self):
+        return self.__dtype
+
+    def sigma(self):
+        return self.__sigma
+
+    def solver(self):
+        return self.__ldlt
+
+
+class IncompleteLU:
+    """Threshold incomplete-LU preconditioner backed by the native ILUT
+    engine (native/ilut.cpp), honoring the reference's
+    ``factorize(tol, max_fill)`` semantics — drop tolerance relative to
+    the row norm, per-row fill cap of ``max_fill`` times the average
+    input row density (reference sparse_mkl.py:122-140 + the MKL
+    dcsrilut wrapper mkl_wrap.py:305-331).  Falls back to SuperLU's
+    ILUTP only when the native toolchain is unavailable.  It runs on the
+    host: a ``dense_torch`` block makes a round trip."""
+
+    def __init__(self, matrix):
+        self.__a = scs.csr_matrix(matrix)
+        self.__ilu = None
+        self.__native = None
+
+    def factorize(self, tol=1e-6, max_fill=1):
+        from ..native.ldlt import native_available
+        if native_available():
+            from ..native.ldlt import ILUT
+            self.__native = ILUT(self.__a)
+            self.__native.factorize(tol=tol, max_fill=max_fill)
+        else:
+            import scipy.sparse.linalg as spl
+            self.__ilu = spl.spilu(scs.csc_matrix(self.__a), drop_tol=tol,
+                                   fill_factor=1.0 + max_fill)
+
+    def factor_nnz(self):
+        return self.__native.factor_nnz if self.__native is not None else 0
+
+    def apply(self, x, y):
+        if self.__native is None and self.__ilu is None:
+            self.factorize()
+        xd = np.asarray(_vec_data(x))
+        x2 = np.atleast_2d(xd)
+        if self.__native is not None:
+            if x2.dtype.kind == 'c':
+                # real factors: solve real/imag parts as extra RHS rows
+                re = self.__native.solve(np.concatenate((x2.real, x2.imag)))
+                out = re[:x2.shape[0]] + 1j * re[x2.shape[0]:]
+            else:
+                out = self.__native.solve(x2)
+        else:
+            out = self.__ilu.solve(x2.T).T
+        out = out.reshape(xd.shape)
+        if callable(getattr(y, 'data', None)):   # Vectors
+            y.fill(out.astype(xd.dtype, copy=False))
+        else:
+            y[...] = out
 
 
 def spectral_bounds(matrix, iters=20, seed=7):
@@ -228,41 +393,105 @@ class Chebyshev:
 
     def apply(self, x, y):
         """y ~= A^-1 x: Chebyshev iteration for A y = x with y0 = 0 — on
-        the device for a tensor, on the host CSR for an ndarray."""
+        the device, in the operand's dtype, for a tensor or a
+        ``dense_torch`` block; on the host CSR for an ndarray or a host
+        block."""
         if isinstance(x, torch.Tensor):
             y.copy_(self._device_fused_rows()(x))
+            return
+        if self.device_matrix() is not None and hasattr(x, 'device_data'):
+            y.fill(self._device_fused_rows()(x.device_data()))
             return
         theta = 0.5 * (self.hi + self.lo)
         delta = 0.5 * (self.hi - self.lo)
         sigma1 = theta / delta
         rho = 1.0 / sigma1
-        x = np.asarray(x)
-        d = x / theta           # search direction
-        r = x.copy()            # residual (starts as x, since y0 = 0)
-        ay = np.empty_like(d)
-        y[...] = 0
+        # work blocks of the same kind as x
+        d = _clone_zero(x)      # search direction
+        r = _clone_copy(x)      # residual (starts as x, since y0 = 0)
+        ay = _clone_zero(x)
+        _scale_add(d, r, 1.0 / theta, reset=True)
+        _zero(y)
         for _ in range(self.degree):
-            y += d
-            self.__op.apply(d, ay)
-            r -= ay
+            _axpy(y, d, 1.0)                 # y += d
+            self.__op.apply(d, ay)           # ay = A d
+            _axpy(r, ay, -1.0)               # r -= A d
             rho_new = 1.0 / (2.0 * sigma1 - rho)
-            d = (rho * rho_new) * d + (2.0 * rho_new / delta) * r
+            coef = rho * rho_new
+            _scale_add(d, r, 2.0 * rho_new / delta, scale=coef)
             rho = rho_new
+
+    def preconditioner(self):
+        return self
+
+
+# -- tiny helpers working on either Vectors or ndarrays ---------------------
+
+def _clone_zero(x):
+    try:
+        v = x.new_vectors(x.nvec())
+        v.zero()
+        return v
+    except AttributeError:
+        return np.zeros_like(x)
+
+
+def _clone_copy(x):
+    try:
+        return x.clone()
+    except AttributeError:
+        return x.copy()
+
+
+def _zero(x):
+    try:
+        x.zero()
+    except AttributeError:
+        x[...] = 0
+
+
+def _axpy(y, x, a):
+    try:
+        y.add(x, a)
+    except AttributeError:
+        y += a * x
+
+
+def _scale_add(d, r, coef_r, scale=0.0, reset=False):
+    """d := scale * d + coef_r * r (reset: d := coef_r * r)."""
+    try:
+        if reset or scale == 0.0:
+            d.zero()
+        else:
+            d.scale(np.full(d.nvec(), 1.0 / scale))
+        d.add(r, coef_r)
+    except AttributeError:
+        if reset or scale == 0.0:
+            d[...] = coef_r * r
+        else:
+            d[...] = scale * d + coef_r * r
 
 
 class Operator:
-    """Tensor-aware adapter for any object exposing apply(ndarray,
-    ndarray) (reference sparse_mkl.py:143-154): a tensor operand makes a
-    round trip through host memory."""
+    """Tensor- and Vectors-aware adapter for any object exposing
+    apply(ndarray, ndarray) (reference sparse_mkl.py:143-154): a tensor or
+    a ``dense_torch`` block makes a round trip through host memory."""
 
     def __init__(self, op):
         self.__op = op
 
     def apply(self, x, y):
-        if not isinstance(x, torch.Tensor):
+        if isinstance(x, torch.Tensor):
+            xd = x.detach().cpu().numpy()
+            yd = np.empty_like(xd)
+            self.__op.apply(xd, yd)
+            y.copy_(torch.from_numpy(yd))
+            return
+        try:
+            xd = x.data()
+        except AttributeError:
             self.__op.apply(x, y)
             return
-        xd = x.detach().cpu().numpy()
         yd = np.empty_like(xd)
         self.__op.apply(xd, yd)
-        y.copy_(torch.from_numpy(yd))
+        y.fill(yd)

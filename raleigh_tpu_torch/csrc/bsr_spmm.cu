@@ -59,6 +59,17 @@
 // What is left, as measured (PERF.md): f32 FMA are about half of the
 // loop's instructions; the rest are the copies' predicates and addresses,
 // the operand slab's loads and register moves.
+//
+// The f64 instantiation (bsr_spmm_rows_f32_f64 / _f64_f64) serves the core
+// Solver's f64 blocks: x and y f64, tiles f32 (the card's canonical
+// storage) or f64, each value widened to f64 (exactly) on its way to
+// shared memory, every product and sum an f64 fused multiply-add.  It is
+// the previous design below widened, with no redesign: one thread a tile
+// row, 16 operand rows a block, chunks of 32 columns staged through
+// registers; it takes any bs and alignment.  The tiles are read once: at
+// the FE-BSR shape with f32 tiles and m = 16, 0.213 ms of tiles at
+// 3.35 TB/s, and 0.083 ms more of x and y; its 2*nblocks*bs*bs*m flops
+// take 0.10 ms at the H100's 34 TFLOP/s of f64 FMA.
 // The kernels allocate nothing and do not synchronise.  Each entry point
 // returns cudaGetLastError() after its launch.
 
@@ -577,6 +588,152 @@ int launch_prev(const void* blocks, const void* indptr, const void* cols,
                                 device, stream);
 }
 
+// ---- the f64 instantiation ----------------------------------------------
+//
+// The previous design widened: f64 operand and sums, f32 or f64 tiles.
+
+namespace wide {
+
+constexpr int kThreads = 128;   // tile rows per thread block (one a thread)
+constexpr int kRows = 16;       // operand rows per thread block
+constexpr int kChunk = 32;      // tile columns staged at a time
+constexpr int kTileStride = kChunk + 1;
+constexpr int kSlabStride = kRows + 2;   // 16-byte aligned rows of f64
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileLoads = kThreads / kWarps;        // rows a warp loads
+constexpr int kSlabLoads = kChunk * kRows / kThreads;
+
+__device__ __forceinline__ double to_f64(float v) {
+    return static_cast<double>(v);
+}
+__device__ __forceinline__ double to_f64(double v) { return v; }
+
+// Global loads of chunk c of a block row into registers, as in the
+// previous design, zero where the tile, the operand block or the matrix
+// ends.
+template <typename TB>
+__device__ __forceinline__ void fetch_chunk(
+        const TB* __restrict__ blocks, const int* __restrict__ cols,
+        const double* __restrict__ x, int64_t bs, int64_t m, int64_t n,
+        int64_t t0, int64_t nq, int64_t p0, int64_t r0, int64_t c,
+        TB (&tile_g)[kTileLoads], double (&slab_g)[kSlabLoads]) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int64_t t = t0 + c / nq;
+    const int64_t q = (c % nq) * kChunk + lane;
+    const TB* tile = blocks + t * bs * bs;
+#pragma unroll
+    for (int k = 0; k < kTileLoads; ++k) {
+        const int64_t p = p0 + warp + k * kWarps;
+        tile_g[k] = (p < bs && q < bs) ? tile[p * bs + q] : TB(0);
+    }
+    const int64_t j = static_cast<int64_t>(cols[t]) * bs + q;
+#pragma unroll
+    for (int k = 0; k < kSlabLoads; ++k) {
+        const int64_t r = r0 + warp + k * kWarps;
+        slab_g[k] = (r < m && q < bs && j < n) ? x[r * n + j] : 0.0;
+    }
+}
+
+// Thread block b covers operand-row group b % groups, tile-row slab
+// (b / groups) % slabs and block row b / (groups * slabs).
+template <typename TB>
+__global__ void __launch_bounds__(kThreads, 2)
+bsr_rows_kernel(const TB* __restrict__ blocks, const int* __restrict__ indptr,
+                const int* __restrict__ cols, const double* __restrict__ x,
+                double* __restrict__ y, int64_t bs, int64_t m, int64_t n,
+                int64_t groups, int64_t slabs) {
+    __shared__ double tile_s[kThreads * kTileStride];
+    __shared__ __align__(16) double slab_s[kChunk * kSlabStride];
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int64_t b = blockIdx.x;
+    const int64_t r0 = (b % groups) * kRows;
+    const int64_t p0 = ((b / groups) % slabs) * kThreads;
+    const int64_t brow = b / (groups * slabs);
+
+    const int64_t t0 = indptr[brow];
+    const int64_t ntiles = indptr[brow + 1] - t0;
+    const int64_t nq = (bs + kChunk - 1) / kChunk;   // chunks per tile
+    const int64_t nchunks = ntiles * nq;
+
+    double acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = 0.0;
+
+    TB tile_g[kTileLoads];
+    double slab_g[kSlabLoads];
+    if (nchunks > 0) {
+        fetch_chunk(blocks, cols, x, bs, m, n, t0, nq, p0, r0, 0, tile_g,
+                    slab_g);
+    }
+    for (int64_t c = 0; c < nchunks; ++c) {
+#pragma unroll
+        for (int k = 0; k < kTileLoads; ++k) {
+            tile_s[(warp + k * kWarps) * kTileStride + lane] =
+                to_f64(tile_g[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < kSlabLoads; ++k) {
+            slab_s[lane * kSlabStride + warp + k * kWarps] = slab_g[k];
+        }
+        __syncthreads();
+        if (c + 1 < nchunks) {
+            fetch_chunk(blocks, cols, x, bs, m, n, t0, nq, p0, r0, c + 1,
+                        tile_g, slab_g);
+        }
+        const double* trow = tile_s + tid * kTileStride;
+#pragma unroll 4
+        for (int q = 0; q < kChunk; ++q) {
+            const double a = trow[q];
+            const double2* xs =
+                reinterpret_cast<const double2*>(slab_s + q * kSlabStride);
+#pragma unroll
+            for (int r2 = 0; r2 < kRows / 2; ++r2) {
+                const double2 v = xs[r2];
+                acc[2 * r2 + 0] = fma(a, v.x, acc[2 * r2 + 0]);
+                acc[2 * r2 + 1] = fma(a, v.y, acc[2 * r2 + 1]);
+            }
+        }
+        __syncthreads();
+    }
+
+    const int64_t p = p0 + tid;
+    const int64_t i = brow * bs + p;
+    if (p < bs && i < n) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+            if (r0 + r < m) y[(r0 + r) * n + i] = acc[r];
+        }
+    }
+}
+
+template <typename TB, typename TX>
+int launch(const void* blocks, const void* indptr, const void* cols,
+           const void* x, void* y, int64_t bs, int64_t m, int64_t n,
+           int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (bs <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t nb = (n + bs - 1) / bs;
+    const int64_t groups = (m + kRows - 1) / kRows;
+    const int64_t slabs = (bs + kThreads - 1) / kThreads;
+    const int64_t grid = nb * groups * slabs;
+    if (grid <= 0 || grid > 0x7fffffffLL) {
+        return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    bsr_rows_kernel<TB><<<static_cast<unsigned int>(grid), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const TB*>(blocks), static_cast<const int*>(indptr),
+        static_cast<const int*>(cols), static_cast<const double*>(x),
+        static_cast<double*>(y), bs, m, n, groups, slabs);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wide
+
 }  // namespace
 
 #define BSR_ENTRY(name, impl, TB, TX)                                       \
@@ -594,6 +751,8 @@ BSR_ENTRY(bsr_spmm_rows_f32_f32, launch, float, float)
 BSR_ENTRY(bsr_spmm_rows_f32_bf16, launch, float, __nv_bfloat16)
 BSR_ENTRY(bsr_spmm_rows_bf16_f32, launch, __nv_bfloat16, float)
 BSR_ENTRY(bsr_spmm_rows_bf16_bf16, launch, __nv_bfloat16, __nv_bfloat16)
+BSR_ENTRY(bsr_spmm_rows_f32_f64, wide::launch, float, double)
+BSR_ENTRY(bsr_spmm_rows_f64_f64, wide::launch, double, double)
 BSR_ENTRY(bsr_spmm_rows_prev_f32_f32, launch_prev, float, float)
 BSR_ENTRY(bsr_spmm_rows_prev_f32_bf16, launch_prev, float, __nv_bfloat16)
 BSR_ENTRY(bsr_spmm_rows_prev_bf16_f32, launch_prev, __nv_bfloat16, float)

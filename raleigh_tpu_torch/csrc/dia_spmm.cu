@@ -51,6 +51,17 @@
 // registers, 0.17-0.32 ms at m = 16) or as scalars (62-106 registers,
 // 0.14-0.26 ms).  With fewer threads an SM the round trips they saved
 // came back as latency: occupancy, not the count of round trips, decides.
+//
+// The f64 instantiation (dia_spmm_rows_f64_val32 / _val64) serves the core
+// Solver's f64 blocks: x and y f64, val f32 (the card's canonical storage)
+// or f64, each value widened to f64 on load (exactly), every product and
+// sum rounded in f64 (__dmul_rn, __dadd_rn) in diagonal order from 0 — the
+// order of the plain version, which promotes val to f64, so the two are
+// again equal bit for bit.  It is the design above widened, with no
+// redesign: a thread owns kLanes = 2 neighbouring lanes (one 16-byte
+// double2 of x, an 8- or 16-byte vector of val) and 4 rows.  One apply
+// must move noff*n*sizeof(val) + 2*m*n*8 bytes: at lap3d(100,100,128) and
+// m = 16 with f32 values 363.5 MB, 0.1085 ms at 3.35 TB/s.
 // The kernels allocate nothing and do not synchronise.  Each entry point
 // returns cudaGetLastError() after its launch.
 
@@ -267,6 +278,173 @@ int launch(const void* val, const void* x, void* y, const void* offsets,
     return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the f64 instantiation ----------------------------------------------
+
+namespace wide {
+
+constexpr int kLanes = 2;      // neighbouring lanes a thread: one double2
+constexpr int kRows = 4;       // operand rows a thread
+constexpr int kThreads = 128;  // threads a block
+
+// kLanes values of val in one load
+template <typename V>
+struct ValVec;
+template <>
+struct ValVec<float> { using type = float2; };
+template <>
+struct ValVec<double> { using type = double2; };
+
+// f32 to f64 is exact
+__device__ __forceinline__ void unpack(float2 v, double* f) {
+    f[0] = v.x;
+    f[1] = v.y;
+}
+__device__ __forceinline__ void unpack(double2 v, double* f) {
+    f[0] = v.x;
+    f[1] = v.y;
+}
+
+// One diagonal's terms of every row of the group, its kLanes lanes read as
+// whole aligned double2 from lane ``base`` on: one a row when the shift
+// S = off mod kLanes is 0, two otherwise.
+template <int S>
+__device__ __forceinline__ void add_vectors(
+        const double* __restrict__ xr, int64_t n, int64_t base, int rows,
+        const double (&v)[kLanes], double (&acc)[kRows][kLanes]) {
+    double2 lo[kRows], hi[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+        if (r < rows) {
+            const double2* p =
+                reinterpret_cast<const double2*>(xr + r * n + base);
+            lo[r] = p[0];
+            if constexpr (S != 0) hi[r] = p[1];
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+        if (r < rows) {
+            double f[2 * kLanes];
+            unpack(lo[r], f);
+            if constexpr (S != 0) unpack(hi[r], f + kLanes);
+#pragma unroll
+            for (int e = 0; e < kLanes; ++e) {
+                acc[r][e] = __dadd_rn(acc[r][e], __dmul_rn(v[e], f[S + e]));
+            }
+        }
+    }
+}
+
+// Block b covers row group b % groups and lanes i, i + 1 of thread t,
+// i = kLanes * ((b / groups) * kThreads + t).  ``aligned``: n even and
+// 16-byte bases.
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+dia_lanes_kernel(const V* __restrict__ val, const double* __restrict__ x,
+                 double* __restrict__ y, const int* __restrict__ offsets,
+                 int64_t noff, int64_t m, int64_t n, int64_t groups,
+                 bool aligned) {
+    const int64_t b = blockIdx.x;
+    const int64_t r0 = (b % groups) * kRows;
+    const int64_t i = kLanes * ((b / groups) * kThreads + threadIdx.x);
+    if (i >= n) return;
+    const int64_t left = m - r0;
+    const int rows = left < kRows ? static_cast<int>(left) : kRows;
+    const int lanes = n - i < kLanes ? static_cast<int>(n - i) : kLanes;
+    const bool whole = aligned && lanes == kLanes;
+
+    double acc[kRows][kLanes];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+        for (int e = 0; e < kLanes; ++e) acc[r][e] = 0.0;
+    }
+
+    const double* xr = x + r0 * n;
+    for (int64_t k = 0; k < noff; ++k) {
+        const int off = __ldg(offsets + k);
+        const int64_t j = i + off;   // the source of the first lane
+        if (j + lanes <= 0 || j >= n) continue;   // no lane in range
+        double v[kLanes];
+        if (whole) {
+            unpack(__ldg(reinterpret_cast<const typename ValVec<V>::type*>(
+                       val + k * n + i)),
+                   v);
+        } else {
+#pragma unroll
+            for (int e = 0; e < kLanes; ++e) {
+                v[e] = e < lanes ? static_cast<double>(__ldg(val + k * n + i
+                                                             + e))
+                                 : 0.0;
+            }
+        }
+        const int s = off & (kLanes - 1);   // the same for every thread
+        const int64_t base = j - s;
+        if (whole && base >= 0 && base + 2 * kLanes <= n) {
+            if (s == 0) {
+                add_vectors<0>(xr, n, base, rows, v, acc);
+            } else {
+                add_vectors<1>(xr, n, base, rows, v, acc);
+            }
+            continue;
+        }
+        // a lane pair at an edge of [0, n), or an unaligned operand:
+        // scalars, and a term outside [0, n) skipped
+#pragma unroll
+        for (int e = 0; e < kLanes; ++e) {
+            const bool in = e < lanes && j + e >= 0 && j + e < n;
+            if (!in) continue;
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+                if (r < rows) {
+                    acc[r][e] = __dadd_rn(
+                        acc[r][e], __dmul_rn(v[e], xr[r * n + j + e]));
+                }
+            }
+        }
+    }
+
+    double* yr = y + r0 * n + i;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+        if (r < rows) {
+            if (whole) {
+                *reinterpret_cast<double2*>(yr + r * n) =
+                    make_double2(acc[r][0], acc[r][1]);
+            } else {
+#pragma unroll
+                for (int e = 0; e < kLanes; ++e) {
+                    if (e < lanes) yr[r * n + e] = acc[r][e];
+                }
+            }
+        }
+    }
+}
+
+template <typename V>
+int launch(const void* val, const void* x, void* y, const void* offsets,
+           int64_t noff, int64_t m, int64_t n, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int64_t groups = (m + kRows - 1) / kRows;
+    const int64_t tiles = (n + kLanes * kThreads - 1) / (kLanes * kThreads);
+    const int64_t blocks = groups * tiles;
+    if (blocks <= 0 || blocks > 0x7fffffffLL) {
+        return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(val)
+        | reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y);
+    const bool aligned = n % kLanes == 0 && bases % 16 == 0;
+    dia_lanes_kernel<V><<<static_cast<unsigned int>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const V*>(val), static_cast<const double*>(x),
+        static_cast<double*>(y), static_cast<const int*>(offsets), noff, m,
+        n, groups, aligned);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wide
+
 // ---- the previous design, timed beside the kernel above -----------------
 //
 // Threads along the lanes, one lane each, 8 operand rows a block, the
@@ -352,6 +530,23 @@ extern "C" int dia_spmm_rows_bf16(const void* val, const void* x, void* y,
                                   void* stream) {
     return launch<__nv_bfloat16>(val, x, y, offsets, noff, m, n, device,
                                  stream);
+}
+
+// the f64 instantiation: f64 operand, f32 or f64 values
+extern "C" int dia_spmm_rows_f64_val32(const void* val, const void* x,
+                                       void* y, const void* offsets,
+                                       int64_t noff, int64_t m, int64_t n,
+                                       int device, void* stream) {
+    return wide::launch<float>(val, x, y, offsets, noff, m, n, device,
+                               stream);
+}
+
+extern "C" int dia_spmm_rows_f64_val64(const void* val, const void* x,
+                                       void* y, const void* offsets,
+                                       int64_t noff, int64_t m, int64_t n,
+                                       int device, void* stream) {
+    return wide::launch<double>(val, x, y, offsets, noff, m, n, device,
+                                stream);
 }
 
 extern "C" int dia_spmm_rows_prev_f32(const void* val, const void* x,

@@ -68,8 +68,8 @@ def dryrun_multichip(n_devices, device=None):
     """Runs the mesh path end to end on ``n_devices`` shards of ``device``
     (default: the card; CUDA with no card raises) and raises on any wrong
     result.  The block Jacobi-CG ``Solver`` on split dense vectors, which
-    the reference's dry run also drives, comes with the dense algebra and
-    the core solver (ROADMAP queue 1, items 2 and 3)."""
+    the reference's dry run also drives, comes with sharded ``dense_torch``
+    blocks (ROADMAP queue 1, item 13)."""
     device = storage_device(device)
     meshes = [make_mesh(n_devices, [device] * n_devices)]
     if n_devices >= 4 and n_devices % 2 == 0:

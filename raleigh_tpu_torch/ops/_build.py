@@ -71,6 +71,8 @@ _DRAWN_ARGS = _PIPELINED_ARGS[:6] + [ctypes.c_void_p] + _PIPELINED_ARGS[6:]
 _SIGNATURES = {
     'dia_spmm': {'dia_spmm_rows_f32': _DIA_ARGS,
                  'dia_spmm_rows_bf16': _DIA_ARGS,
+                 'dia_spmm_rows_f64_val32': _DIA_ARGS,
+                 'dia_spmm_rows_f64_val64': _DIA_ARGS,
                  'dia_spmm_rows_prev_f32': _DIA_ARGS,
                  'dia_spmm_rows_prev_bf16': _DIA_ARGS},
     'dia_spmm_ext': {'dia_spmm_rows_ext_f32': _EXT_ARGS,
@@ -84,9 +86,11 @@ _SIGNATURES = {
     'dia_spmm_tiles': {'dia_spmm_rows_tiles_f32': _CLUSTER_ARGS,
                        'dia_spmm_rows_tiles_plan': _PLAN_ARGS,
                        'dia_spmm_rows_tiles_prev_f32': _WINDOW_ARGS},
-    'bsr_spmm': {'bsr_spmm_rows_%s%s_%s' % (prev, b, x): _BSR_ARGS
-                 for prev in ('', 'prev_') for b in ('f32', 'bf16')
-                 for x in ('f32', 'bf16')},
+    'bsr_spmm': {**{'bsr_spmm_rows_%s%s_%s' % (prev, b, x): _BSR_ARGS
+                    for prev in ('', 'prev_') for b in ('f32', 'bf16')
+                    for x in ('f32', 'bf16')},
+                 'bsr_spmm_rows_f32_f64': _BSR_ARGS,
+                 'bsr_spmm_rows_f64_f64': _BSR_ARGS},
     'stream_scale': {'stream_scale_f32': _STREAM_ARGS,
                      'stream_scale_prev_f32': _STREAM_ARGS},
     'stream_probes': {

@@ -45,14 +45,25 @@ def torch_dtype(dtype):
     return torch.from_numpy(np.zeros(0, dtype=np.dtype(dtype))).dtype
 
 
-def canonical_dtype(dtype):
+def canonical_dtype(dtype, exact=False):
     """Storage dtype of device values: float64 only while it is torch's
     default dtype, else float32 — as ``jnp.asarray`` keeps f64 only when
-    ``jax_enable_x64`` is on."""
+    ``jax_enable_x64`` is on.  ``exact``: the dtype as it is (the core
+    Solver's f64 problems keep f64 operators)."""
     dt = torch_dtype(dtype)
-    if dt == torch.float64 and torch.get_default_dtype() != torch.float64:
+    if (dt == torch.float64 and not exact
+            and torch.get_default_dtype() != torch.float64):
         return torch.float32
     return dt
+
+
+def real_operand(x):
+    """Raise for a complex operand: no device sparse layout takes one."""
+    if x.is_complex():
+        raise TypeError('complex operands on a device sparse matrix are not '
+                        'ported yet (ROADMAP queue 1, item 15); a complex '
+                        'Hermitian problem runs shift-invert with B=None, '
+                        'which needs no device SpMM')
 
 
 def storage_device(device=None):
@@ -121,28 +132,30 @@ class DiaMatrix:
     # the SpMM itself: the CUDA kernel serves every size.
     WINDOW_HBM_BYTES = 112 * 2 ** 20
 
-    def __init__(self, a, dtype=np.float32, device=None):
+    def __init__(self, a, dtype=np.float32, device=None, exact=False):
         csr = _to_full_csr(a)
         rows, offsets, k = _diagonals(csr)
         self._init(offsets, _dia_values(csr, rows, offsets, k, dtype),
-                   device)
+                   device, exact)
 
     @classmethod
-    def from_arrays(cls, offsets, val, device=None):
+    def from_arrays(cls, offsets, val, device=None, exact=False):
         """The port's matrix from another DIA matrix's arrays, e.g. the
         ``offsets`` and ``np.asarray(val)`` of a ``raleigh_tpu``
-        ``DiaMatrix``."""
+        ``DiaMatrix``; ``exact`` keeps f64 values f64."""
         self = cls.__new__(cls)
         # torch takes no read-only array (jax hands those out): copy one
-        self._init(offsets, np.require(val, requirements='W'), device)
+        self._init(offsets, np.require(val, requirements='W'), device,
+                   exact)
         return self
 
-    def _init(self, offsets, val, device):
+    def _init(self, offsets, val, device, exact=False):
         n = val.shape[1]
         self.shape = (n, n)
         self.offsets = tuple(int(o) for o in offsets)
         self.device = storage_device(device)
-        self.val = torch.as_tensor(val, dtype=canonical_dtype(val.dtype),
+        self.val = torch.as_tensor(val,
+                                   dtype=canonical_dtype(val.dtype, exact),
                                    device=self.device).contiguous()
         self.dtype = self.val.dtype
         self.offsets_t = torch.tensor(self.offsets, dtype=torch.int32,
@@ -170,6 +183,8 @@ class DiaMatrix:
         symmetric, so x A = (A xᵀ)ᵀ).  With values split over a mesh, x is
         a ``ShardedRows`` and so is the result; a plain tensor is split,
         applied and gathered again."""
+        if not isinstance(x, ShardedRows):
+            real_operand(x)
         if self._multi_device():
             return _dia_sharded_apply(
                 self.val, self._mesh_plan(self.val.sharding), x)
@@ -191,6 +206,7 @@ class DiaMatrix:
             return fn, (self.val,)
 
         def fn(ops, x):
+            real_operand(x)
             return dia_matmat_rows(ops[0], x, ops[1])
         return fn, (self.val, self.offsets_t)
 
@@ -248,13 +264,14 @@ def _dia_sharded_apply(val, plan, x):
     return y.gather() if back is None else y.resplit(back)
 
 
-def _values(values, dtype, device):
+def _values(values, dtype, device, exact=False):
     """Values (an array or a tensor) as a contiguous device tensor of
-    ``dtype`` (default: the canonical dtype of the values).  torch takes
-    no read-only array (jax hands those out): copy one."""
+    ``dtype`` (default: the canonical dtype of the values; ``exact`` keeps
+    f64 f64).  torch takes no read-only array (jax hands those out): copy
+    one."""
     if not isinstance(values, torch.Tensor):
         values = np.require(values, requirements='W')
-    dt = canonical_dtype(values.dtype if dtype is None else dtype)
+    dt = canonical_dtype(values.dtype if dtype is None else dtype, exact)
     return torch.as_tensor(values, device=device).to(dt).contiguous()
 
 
@@ -268,7 +285,8 @@ class EllMatrix:
     k-th entry, rows padded with (column 0, value 0) to ``row_degree``, the
     largest degree rounded up to a multiple of ``pad_to``."""
 
-    def __init__(self, a, dtype=np.float32, pad_to=8, device=None):
+    def __init__(self, a, dtype=np.float32, pad_to=8, device=None,
+                 exact=False):
         a = _to_full_csr(a)
         n = a.shape[0]
         deg = np.diff(a.indptr)
@@ -281,7 +299,7 @@ class EllMatrix:
         offs = np.arange(a.nnz) - np.repeat(a.indptr[:-1], deg)
         idx[rows, offs] = a.indices
         val[rows, offs] = a.data.astype(dtype)
-        self._init(idx, val, int(a.nnz), device)
+        self._init(idx, val, int(a.nnz), device, exact)
 
     @classmethod
     def from_arrays(cls, idx, val, nnz=None, device=None):
@@ -292,13 +310,13 @@ class EllMatrix:
         self._init(idx, val, nnz, device)
         return self
 
-    def _init(self, idx, val, nnz, device):
+    def _init(self, idx, val, nnz, device, exact=False):
         n, k = val.shape
         self.shape = (n, n)
         self.row_degree = k
         self.device = storage_device(device)
         self.idx = _int32(idx, self.device).contiguous()
-        self.val = _values(val, None, self.device)
+        self.val = _values(val, None, self.device, exact)
         self.nnz = int(torch.count_nonzero(self.val)) if nnz is None else nnz
         self.dtype = self.val.dtype
 
@@ -311,6 +329,7 @@ class EllMatrix:
         """(n, m) = A @ (n, m): operand and result transposed blocks."""
         if self._multi_device():
             return self.matmat_rows(xt.T.contiguous()).T
+        real_operand(xt)
         return _ell_matmat(self.idx, self.val, xt)
 
     def matmat_rows(self, x):
@@ -319,6 +338,7 @@ class EllMatrix:
         result; a plain tensor is split, applied and gathered again."""
         if self._multi_device():
             return _ell_sharded_apply(self.idx, self.val, x)
+        real_operand(x)
         return _ell_matmat(self.idx, self.val, x.T).T.contiguous()
 
 
@@ -366,7 +386,8 @@ class BsrMatrix:
     ``block_indptr_t`` is the same as an int32 tensor on ``device`` for the
     kernel."""
 
-    def __init__(self, a, dtype=np.float32, bs=128, device=None):
+    def __init__(self, a, dtype=np.float32, bs=128, device=None,
+                 exact=False):
         import scipy.sparse as scs
         a = _to_full_csr(a)
         n = a.shape[0]
@@ -382,7 +403,7 @@ class BsrMatrix:
                             shape=(nb * bs, nb * bs)).tobsr((bs, bs))
         ab.sort_indices()
         self._init(ab.data, ab.indices, ab.indptr, n, int(a.nnz), store,
-                   device)
+                   device, exact)
 
     @classmethod
     def from_arrays(cls, blocks, block_cols, block_indptr, n, nnz=None,
@@ -394,7 +415,8 @@ class BsrMatrix:
         self._init(blocks, block_cols, block_indptr, n, nnz, None, device)
         return self
 
-    def _init(self, blocks, block_cols, block_indptr, n, nnz, dtype, device):
+    def _init(self, blocks, block_cols, block_indptr, n, nnz, dtype, device,
+              exact=False):
         bs = blocks.shape[1]
         nb = len(block_indptr) - 1
         self.shape = (n, n)
@@ -408,7 +430,7 @@ class BsrMatrix:
         self.block_rows = _int32(np.repeat(np.arange(nb),
                                            np.diff(self.block_indptr)),
                                  self.device)
-        self.blocks = _values(blocks, dtype, self.device)
+        self.blocks = _values(blocks, dtype, self.device, exact)
         self.nnz = (int(torch.count_nonzero(self.blocks)) if nnz is None
                     else nnz)
         self.dtype = self.blocks.dtype
@@ -416,6 +438,7 @@ class BsrMatrix:
     def matmat_rows(self, x):
         """(m, n) = ((m, n) @ A) for a row-vector block, in x's dtype: the
         CUDA kernel on a CUDA tensor, its plain version on the CPU."""
+        real_operand(x)
         return bsr_matmat_rows(self.blocks, self.block_indptr_t,
                                self.block_cols, x.contiguous(),
                                self.shape[0])
@@ -437,12 +460,14 @@ def rows_matmat_operands(dm):
             return fn, (dm.idx, dm.val)
 
         def fn(ops, x):
+            real_operand(x)
             return _ell_matmat(ops[0], ops[1], x.T).T.contiguous()
         return fn, (dm.idx, dm.val)
     if isinstance(dm, BsrMatrix):
         n = dm.shape[0]
 
         def fn(ops, x):
+            real_operand(x)
             return bsr_matmat_rows(ops[0], ops[1], ops[2], x.contiguous(), n)
         return fn, (dm.blocks, dm.block_indptr_t, dm.block_cols)
     raise TypeError('unsupported device matrix %r' % type(dm).__name__)
@@ -459,18 +484,21 @@ ELL_MAX_PADDING = 16            # padded ELL entries per nonzero
 
 
 def device_sparse(a, dtype=np.float32, block_width_hint=32, bs=128,
-                  device=None):
+                  device=None, exact=False):
     """Choose a device layout for the symmetric sparse matrix ``a``: DIA
     when the pattern collapses onto few populated diagonals (stencils,
     banded matrices — no gathers at all), BSR when tile fill times block
     width is high enough, or when the operand block is large and the
     estimated tile-stream time beats the estimated gather time, or when a
-    few hub rows would inflate ELL's padding; ELL otherwise."""
+    few hub rows would inflate ELL's padding; ELL otherwise.  The values
+    are stored in the canonical dtype of ``dtype`` (``canonical_dtype``),
+    or in ``dtype`` itself when ``exact``."""
     return _device_layout(_to_full_csr(a), dtype, device, block_width_hint,
-                          bs)
+                          bs, exact)
 
 
-def _device_layout(csr, dtype, device, block_width_hint=32, bs=128):
+def _device_layout(csr, dtype, device, block_width_hint=32, bs=128,
+                   exact=False):
     """``device_sparse`` of a matrix already in full canonical CSR."""
     n = csr.shape[0]
     if n > 1:
@@ -478,7 +506,7 @@ def _device_layout(csr, dtype, device, block_width_hint=32, bs=128):
         noff = len(offsets)
         if noff <= DIA_MAX_OFFSETS and noff * n <= DIA_MAX_WASTE * csr.nnz:
             val = _dia_values(csr, rows, offsets, k, dtype)
-            return DiaMatrix.from_arrays(offsets, val, device)
+            return DiaMatrix.from_arrays(offsets, val, device, exact)
     if n >= bs:
         # number of nonempty tiles = distinct (row tile, column tile) pairs
         nb = -(-n // bs)
@@ -487,19 +515,22 @@ def _device_layout(csr, dtype, device, block_width_hint=32, bs=128):
         ntiles = np.unique(keys).size
         fill = csr.nnz / (ntiles * bs * bs)
         if fill * min(block_width_hint, 128) >= BSR_MIN_FILL_WIDTH:
-            return BsrMatrix(csr, dtype=dtype, bs=bs, device=device)
+            return BsrMatrix(csr, dtype=dtype, bs=bs, device=device,
+                             exact=exact)
         # large operand blocks: compare estimated apply times instead of
         # demanding high fill
         if n * block_width_hint * 4 > BSR_RESIDENT_BYTES:
             bsr_t = ntiles * bs * bs * 4 / BSR_TILE_STREAM_RATE
             ell_t = csr.nnz / ELL_GATHER_RATE
             if bsr_t < ell_t:
-                return BsrMatrix(csr, dtype=dtype, bs=bs, device=device)
+                return BsrMatrix(csr, dtype=dtype, bs=bs, device=device,
+                             exact=exact)
     # ELL pads every row to the largest degree: a few hub rows (a
     # boundary-condition row coupled to everything, say) would inflate the
     # padded storage K*n arbitrarily — such patterns go to BSR, whose
     # storage is bounded by the nonempty tiles
     deg_max = int(np.diff(csr.indptr).max()) if n else 0
     if (n and deg_max * n > ELL_MAX_PADDING * max(csr.nnz, 1) and n >= bs):
-        return BsrMatrix(csr, dtype=dtype, bs=bs, device=device)
-    return EllMatrix(csr, dtype=dtype, device=device)
+        return BsrMatrix(csr, dtype=dtype, bs=bs, device=device,
+                         exact=exact)
+    return EllMatrix(csr, dtype=dtype, device=device, exact=exact)

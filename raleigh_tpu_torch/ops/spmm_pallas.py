@@ -15,8 +15,10 @@ longest one.
 ``blocks`` (nblocks, bs, bs) f32 or bf16, ``block_indptr`` (nb + 1,) and
 ``block_cols`` (nblocks,) int32, ``x`` (m, n) f32 or bf16, ``n`` unpadded
 (``nb = ceil(n / bs)``; rows and columns past n are masked).  Sums are
-taken in f32 and the result has x's dtype.  On a CUDA tensor the wrapper
-launches the kernel or raises; only a CPU tensor takes the plain version.
+taken in f32 and the result has x's dtype.  The f64 instantiation serves
+the core Solver's f64 blocks: x f64, tiles f32 or f64, sums in f64.  On a
+CUDA tensor the wrapper launches the kernel or raises; only a CPU tensor
+takes the plain version.
 ``bsr_matmat_rows_prev`` launches the kernel's previous design from the
 same source, to be timed beside it.
 """
@@ -25,12 +27,17 @@ import torch
 
 from . import _build
 
-_NAMES = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
+_NAMES = {torch.float32: 'f32', torch.bfloat16: 'bf16',
+          torch.float64: 'f64'}
+# (block, operand) pairs with an instantiation: f32 or bf16 each, and the
+# f64 operand with f32 or f64 tiles
+_PAIRS = [(b, x) for b in ('f32', 'bf16') for x in ('f32', 'bf16')]
+_WIDE_PAIRS = [('f32', 'f64'), ('f64', 'f64')]
 
 # kernel launches per (block dtype, operand dtype), counted where the
 # kernel is launched; PREV_LAUNCHES the same for the previous design
-LAUNCHES = {(b, x): 0 for b in _NAMES.values() for x in _NAMES.values()}
-PREV_LAUNCHES = dict(LAUNCHES)
+LAUNCHES = {key: 0 for key in _PAIRS + _WIDE_PAIRS}
+PREV_LAUNCHES = {key: 0 for key in _PAIRS}
 
 
 def reset_launches():
@@ -64,15 +71,20 @@ def bsr_matmat_rows_plain(blocks, block_indptr, block_cols, x, n):
     return y.reshape(nb * bs, m)[:n].T.to(x.dtype).contiguous()
 
 
-def _check(blocks, block_indptr, block_cols, x, n):
+def _check(blocks, block_indptr, block_cols, x, n, pairs=LAUNCHES):
+    """Raise on what the kernel does not take; ``pairs``: the (block,
+    operand) dtype names with an instantiation (the previous design's
+    counters name only its own)."""
     devices = {t.device for t in (blocks, block_indptr, block_cols, x)}
     if len(devices) != 1:
         raise ValueError('blocks, block_indptr, block_cols and x must share '
                          'a device (got %s)' % sorted(map(str, devices)))
-    if blocks.dtype not in _NAMES or x.dtype not in _NAMES:
+    if (_NAMES.get(blocks.dtype), _NAMES.get(x.dtype)) not in pairs:
         raise TypeError('the BSR kernel takes f32 or bf16 blocks and '
-                        'operands, not %s blocks with a %s operand'
-                        % (blocks.dtype, x.dtype))
+                        'operands%s, not %s blocks with a %s operand'
+                        % (' (or an f64 operand with f32 or f64 blocks)'
+                           if pairs is LAUNCHES else '',
+                           blocks.dtype, x.dtype))
     if block_indptr.dtype != torch.int32 or block_cols.dtype != torch.int32:
         raise TypeError('the BSR kernel takes int32 block_indptr and '
                         'block_cols (got %s, %s)'
@@ -113,7 +125,7 @@ def _bsr_rows(entry, counts, blocks, block_indptr, block_cols, x, n):
         return bsr_matmat_rows_plain(blocks, block_indptr, block_cols, x, n)
     if x.device.type != 'cuda':
         raise ValueError('no BSR apply for device %s' % x.device)
-    _check(blocks, block_indptr, block_cols, x, n)
+    _check(blocks, block_indptr, block_cols, x, n, counts)
     y = torch.empty_like(x)
     m = x.shape[0]
     if m == 0 or n == 0:

@@ -12,10 +12,12 @@ takes any shape.
 
 ``val`` (noff, n), ``x`` (m, n), ``offsets`` an int32 (noff,) tensor on
 the same device.  On a CUDA tensor the wrapper launches the kernel (x f32
-or bf16, val f32) or raises; only a CPU tensor takes the plain version.
-The kernel keeps the plain version's products and order of sums, so the
-two are equal bit for bit.  ``dia_matmat_rows_prev`` launches the
-kernel's previous design from the same source, to be timed beside it.
+or bf16 with val f32; or x f64, the core Solver's blocks, with val f32 or
+f64, the f64 instantiation) or raises; only a CPU tensor takes the plain
+version.  The kernel keeps the plain version's products and order of
+sums, so the two are equal bit for bit.  ``dia_matmat_rows_prev``
+launches the kernel's previous design from the same source, to be timed
+beside it.
 
 Two more kernels compute the same function for f32 operands, each through
 an explicitly staged shared-memory window that reads x from device memory
@@ -66,7 +68,8 @@ from . import _build
 # kernel per operand dtype through its one-piece entry and its mesh entry,
 # and the previous designs of the production kernel per operand dtype and
 # of the two staged-window kernels
-LAUNCHES = {'float32': 0, 'bfloat16': 0, 'slide': 0, 'tiles': 0,
+LAUNCHES = {'float32': 0, 'bfloat16': 0, 'float64_val32': 0,
+            'float64_val64': 0, 'slide': 0, 'tiles': 0,
             'ext_float32': 0, 'ext_bfloat16': 0, 'mesh_float32': 0,
             'mesh_bfloat16': 0, 'prev_float32': 0, 'prev_bfloat16': 0,
             'prev_slide': 0, 'prev_tiles': 0}
@@ -89,7 +92,12 @@ PLAN_KEYS = ('cluster', 'active_clusters', 'clusters_per_segment',
              'segments', 'blocks')
 
 _ENTRY = {torch.float32: ('float32', 'dia_spmm_rows_f32'),
-          torch.bfloat16: ('bfloat16', 'dia_spmm_rows_bf16')}
+          torch.bfloat16: ('bfloat16', 'dia_spmm_rows_bf16'),
+          # the f64 instantiation, by the values' dtype
+          (torch.float64, torch.float32): ('float64_val32',
+                                           'dia_spmm_rows_f64_val32'),
+          (torch.float64, torch.float64): ('float64_val64',
+                                           'dia_spmm_rows_f64_val64')}
 _PREV_ENTRY = {torch.float32: ('prev_float32', 'dia_spmm_rows_prev_f32'),
                torch.bfloat16: ('prev_bfloat16', 'dia_spmm_rows_prev_bf16')}
 _EXT_ENTRY = {torch.float32: ('ext_float32', 'dia_spmm_rows_ext_f32'),
@@ -120,16 +128,25 @@ def dia_matmat_rows_plain(val, x, offsets):
     return y.to(x.dtype)
 
 
-def _check(val, x, offsets):
+def _check(val, x, offsets, f64=False):
+    """Raise on what the kernel does not take; ``f64``: the entries have an
+    f64 instantiation (f64 x with f32 or f64 values)."""
     if not (val.device == x.device == offsets.device):
         raise ValueError('val, x and offsets must share a device (got %s, '
                          '%s, %s)' % (val.device, x.device, offsets.device))
-    if x.dtype not in _ENTRY:
-        raise TypeError('the DIA kernel takes f32 or bf16 operands, not %s'
-                        % x.dtype)
-    if val.dtype != torch.float32 or offsets.dtype != torch.int32:
-        raise TypeError('the DIA kernel takes f32 values and int32 offsets '
-                        '(got %s, %s)' % (val.dtype, offsets.dtype))
+    if f64 and x.dtype == torch.float64:
+        if val.dtype not in (torch.float32, torch.float64):
+            raise TypeError('the f64 DIA kernel takes f32 or f64 values, '
+                            'not %s' % val.dtype)
+    elif x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError('the DIA kernel takes f32 or bf16 operands%s, not %s'
+                        % (' (or f64)' if f64 else '', x.dtype))
+    elif val.dtype != torch.float32:
+        raise TypeError('the DIA kernel takes f32 values with an f32 or '
+                        'bf16 operand (got %s)' % val.dtype)
+    if offsets.dtype != torch.int32:
+        raise TypeError('the DIA kernel takes int32 offsets (got %s)'
+                        % offsets.dtype)
     if (val.dim() != 2 or x.dim() != 2 or offsets.dim() != 1
             or val.shape[1] != x.shape[1]
             or offsets.shape[0] != val.shape[0]):
@@ -161,12 +178,13 @@ def _dia_rows(entries, val, x, offsets):
         return dia_matmat_rows_plain(val, x, offsets)
     if x.device.type != 'cuda':
         raise ValueError('no DIA apply for device %s' % x.device)
-    _check(val, x, offsets)
+    _check(val, x, offsets, f64=entries is _ENTRY)
     y = torch.empty_like(x)
     m, n = x.shape
     if m == 0 or n == 0:
         return y
-    key, entry = entries[x.dtype]
+    key, entry = entries[(x.dtype, val.dtype) if x.dtype == torch.float64
+                         else x.dtype]
     fn = getattr(_build.library(), entry)
     index = x.get_device()
     err = fn(val.data_ptr(), x.data_ptr(), y.data_ptr(), offsets.data_ptr(),

@@ -20,7 +20,10 @@ of ``chip_smoke.bsr_excess`` (twice the f32 summation error bound of an
 entry's terms, plus one rounding on either side for a bf16 result), for
 the kernel on its 16-byte and its general path and for its previous
 design.  Stream
-kernels: exact equality with ``torch.mul``.  The staged-window DIA kernels
+kernels: exact equality with ``torch.mul``.  The f64 instantiation of the
+DIA kernel: exact equality with its plain version; of the BSR kernel:
+1e-13 of the largest |entry| (f64 sums in another order).  The
+staged-window DIA kernels
 and their previous designs keep the plain version's order of summation:
 exact equality, on the bulk-copy path and on the per-thread copy branch.
 The copy
@@ -173,8 +176,17 @@ def test_kernel_many_offsets(cuda):
 def test_kernel_refuses_what_it_cannot_take(cuda):
     dm = DiaMatrix(lap3d(6, 6, 6, 1.0, 1.0, 1.0), device=cuda)
     x = torch.randn((8, dm.shape[0]), device=cuda)
+    # an f64 operand has an instantiation (f32 or f64 values); an f16
+    # operand, bf16 values under an f64 operand and f64 values under an
+    # f32 operand have none
     with pytest.raises(TypeError):
-        sw.dia_matmat_rows(dm.val, x.double(), dm.offsets_t)
+        sw.dia_matmat_rows(dm.val, x.half(), dm.offsets_t)
+    with pytest.raises(TypeError):
+        sw.dia_matmat_rows(dm.val.bfloat16(), x.double(), dm.offsets_t)
+    with pytest.raises(TypeError):
+        sw.dia_matmat_rows(dm.val.double(), x, dm.offsets_t)
+    with pytest.raises(TypeError):
+        sw.dia_matmat_rows_prev(dm.val, x.double(), dm.offsets_t)
     with pytest.raises(ValueError, match='contiguous'):
         sw.dia_matmat_rows(dm.val, torch.randn((dm.shape[0], 8),
                                                device=cuda).T, dm.offsets_t)
@@ -261,14 +273,73 @@ def test_bsr_kernel_and_its_previous_design_on_both_paths(cuda, bs, tiles,
             assert torch.all(y[:, 2 * bs:3 * bs] == 0)
 
 
+@pytest.mark.parametrize('n, offsets', [(1000, (-31, -1, 0, 1, 31)),
+                                        (999, (-7, -2, 0, 3, 5)),
+                                        (64, (-70, -1, 0, 2, 70))])
+@pytest.mark.parametrize('m', [1, 5, 16])
+@pytest.mark.parametrize('values', [torch.float32, torch.float64])
+def test_f64_kernel_equals_plain(cuda, n, offsets, m, values):
+    """The f64 instantiation of the DIA kernel (f64 operand, f32 or f64
+    values widened on load, f64 sums in diagonal order) equals the plain
+    version bit for bit: aligned and odd shifts, odd n, offsets past the
+    matrix, a view at an unaligned base."""
+    offs, val = _banded(n, list(offsets), 3)
+    dm = DiaMatrix.from_arrays(offs, val.astype(np.float64), device=cuda,
+                               exact=True)
+    v = dm.val.to(values)
+    g = torch.Generator(cuda).manual_seed(m)
+    x = torch.randn((m, n), generator=g, device=cuda, dtype=torch.float64)
+    key = 'float64_val32' if values == torch.float32 else 'float64_val64'
+    before = sw.LAUNCHES[key]
+    y = sw.dia_matmat_rows(v, x, dm.offsets_t)
+    want = sw.dia_matmat_rows_plain(v, x, dm.offsets_t)
+    torch.cuda.synchronize()
+    assert sw.LAUNCHES[key] == before + 1
+    assert y.dtype == torch.float64 and torch.equal(y, want)
+    xu = torch.randn((m * n + 1,), generator=g, device=cuda,
+                     dtype=torch.float64)[1:].reshape(m, n)
+    assert torch.equal(sw.dia_matmat_rows(v, xu, dm.offsets_t),
+                       sw.dia_matmat_rows_plain(v, xu, dm.offsets_t))
+
+
+@pytest.mark.parametrize('bs, m', [(64, 16), (5, 24), (160, 3)])
+@pytest.mark.parametrize('tiles', [torch.float32, torch.float64])
+def test_bsr_f64_kernel_matches_plain(cuda, bs, m, tiles):
+    """The f64 instantiation of the BSR kernel (f64 operand, f32 or f64
+    tiles, f64 fused sums) against the plain version, which sums in
+    another order: within 1e-13 of the largest |entry|, one block row
+    emptied."""
+    k = fe_pencil(9, 3, 0.1, seed=2, which='k')
+    n = k.shape[0]
+    bm = BsrMatrix(k, dtype=np.float64, bs=bs, device=cuda, exact=True)
+    blocks = bm.blocks.to(tiles)
+    blocks[bm.block_indptr[2]:bm.block_indptr[3]] = 0
+    g = torch.Generator(cuda).manual_seed(bs)
+    x = torch.randn((m, n), generator=g, device=cuda, dtype=torch.float64)
+    args = (blocks, bm.block_indptr_t, bm.block_cols)
+    key = (sp._NAMES[tiles], 'f64')
+    before = sp.LAUNCHES[key]
+    y = sp.bsr_matmat_rows(*args, x, n)
+    want = sp.bsr_matmat_rows_plain(*args, x, n)
+    torch.cuda.synchronize()
+    assert sp.LAUNCHES[key] == before + 1
+    assert y.dtype == torch.float64
+    assert ((y - want).abs().max() / want.abs().max()).item() < 1e-13
+    assert torch.all(y[:, 2 * bs:min(3 * bs, n)] == 0)
+
+
 def test_bsr_kernel_refuses_what_it_cannot_take(cuda):
     k = fe_pencil(9, 3, 0.1, seed=2, which='k')
     n = k.shape[0]
     bm = BsrMatrix(k, bs=64, device=cuda)
     x = torch.randn((8, n), device=cuda)
     args = (bm.blocks, bm.block_indptr_t, bm.block_cols)
+    # an f64 operand takes f32 or f64 tiles (the f64 instantiation), not
+    # bf16 tiles, and not through the previous design
     with pytest.raises(TypeError, match='float64'):
-        sp.bsr_matmat_rows(*args, x.double(), n)
+        sp.bsr_matmat_rows(bm.blocks.bfloat16(), *args[1:], x.double(), n)
+    with pytest.raises(TypeError, match='float64'):
+        sp.bsr_matmat_rows_prev(*args, x.double(), n)
     with pytest.raises(ValueError, match='contiguous'):
         sp.bsr_matmat_rows(*args, torch.randn((n, 8), device=cuda).T, n)
     with pytest.raises(ValueError, match='shape'):
@@ -891,3 +962,31 @@ def test_sharded_solve_with_no_device_argument_runs_on_the_card(cuda):
     assert sw.LAUNCHES['mesh_float32'] > before[0]
     assert sw.LAUNCHES['float32'] == before[1]
     assert st.LAUNCHES['copy_lanes'] == before[2]
+
+
+def test_core_solver_on_the_card(cuda):
+    """partial_hevp on the core Solver with no device argument: shift-invert
+    and the product problem (dense_torch blocks on the card, the LDL^T on
+    the host) and engine='core' with a Chebyshev, whose recurrence and A's
+    apply run the f64 DIA kernel (f32 and f64 values)."""
+    import scipy.sparse as scs
+    from raleigh_tpu_torch import Chebyshev, partial_hevp, spectral_bounds
+    from raleigh_tpu_torch.algebra import dense_torch
+    from raleigh_tpu_torch.examples.laplace import lap3d_eigenvalues
+    a = lap3d(10, 10, 12, 1.0, 1.0, 1.0)
+    exact = np.sort(lap3d_eigenvalues(10, 10, 12, 1.0, 1.0, 1.0))[:4]
+    dense_torch.reset_counts()
+    lmd, x, status = partial_hevp(a, sigma=0, which=4, tol=1e-6, verb=-1)
+    assert status == 0 and np.allclose(lmd[:4], exact, rtol=1e-6)
+    assert dense_torch.COUNTS['to_device'] > 0
+    b = scs.diags(np.linspace(1.0, 2.0, a.shape[0]), format='csr')
+    lmd, x, status = partial_hevp(a, B=b, sigma=0, which=4, tol=1e-6,
+                                  verb=-1)
+    assert status == 0 and x.dtype == np.float64
+    before = dict(sw.LAUNCHES)
+    T = Chebyshev(a, *spectral_bounds(a), degree=8)
+    lmd, x, status = partial_hevp(a, T=T, which=4, tol=1e-6, verb=-1,
+                                  engine='core')
+    assert status == 0 and np.allclose(lmd[:4], exact, rtol=1e-6)
+    for key in ('float64_val32', 'float64_val64'):
+        assert sw.LAUNCHES[key] > before[key], key

@@ -1,12 +1,16 @@
 """The PyTorch port imports neither jax nor anything of the JAX package:
 import it and run its slices (lap3d 10^3 through DIA, a small girder pencil
 through ELL and through hand-built BSR operators, the two A/B sweeps of
-``raleigh_tpu_torch.benches`` at a small size, and the mesh path: a sharded
+``raleigh_tpu_torch.benches`` at a small size, the mesh path: a sharded
 solve on 8 shards of the CPU, ``ShardedEllMatrix``, the dry run and the
-sharded SpMM bench) in a fresh interpreter,
+sharded SpMM bench, and the core Solver's slice: shift-invert, the product
+problem, buckling and engine='core' on dense_torch blocks, the host path
+and the example CLIs) in a fresh interpreter,
 then look at sys.modules.  The port keeps its own copies of the host code
-both packages need (``Options``, ``spectral_bounds``, ``examples.laplace``,
-``examples.fe_model``), so no module whose top-level name is
+both packages need (the core Solver, ``dense_small``, ``dense_numpy``, the
+native LDL^T and its C++ sources, ``spectral_bounds``,
+``examples.laplace``, ``examples.fe_model``), so no module whose
+top-level name is
 ``raleigh_tpu`` may be loaded.
 """
 
@@ -77,6 +81,38 @@ from raleigh_tpu_torch.benches import bench_spmm_sharded
 graft_entry.dryrun_multichip(8, device='cpu')
 graft_entry.entry(device='cpu')
 bench_spmm_sharded.main(['6', '2', '--device', 'cpu', '--reps', '1'])
+# the core Solver's slice: shift-invert (the native LDL^T, built at first
+# use), the product problem, buckling and engine='core' on dense_torch
+# blocks; the host path; the dense algebra, its selector, the link probe
+# and the example CLIs
+import scipy.sparse as scs
+from raleigh_tpu_torch.algebra import dense, dense_numpy, dense_torch
+from raleigh_tpu_torch.examples import buckling_evp, core_solver, sparse_evp
+from raleigh_tpu_torch.utils.link import choose_orchestration
+a8 = lap3d(8, 8, 8, 1.0, 1.0, 1.0)
+ex8 = np.sort(lap3d_eigenvalues(8, 8, 8, 1.0, 1.0, 1.0))[:4]
+for kw in ({'device': 'cpu'}, {'arch': 'cpu'}):
+    lmd, x, status = rt.partial_hevp(a8, sigma=0, which=4, tol=1e-6,
+                                     verb=-1, **kw)
+    assert status == 0 and np.allclose(lmd[:4], ex8, rtol=1e-6), lmd
+b8 = scs.diags(np.linspace(1.0, 2.0, a8.shape[0]), format='csr')
+lmd, x, status = rt.partial_hevp(a8, B=b8, sigma=0, which=3, tol=1e-6,
+                                 verb=-1, device='cpu')
+assert status == 0, status
+lmd, x, status = rt.partial_hevp(a8, B=-b8, buckling=True, sigma=-10.0,
+                                 which=2, tol=1e-6, verb=-1, device='cpu')
+assert status >= 0, status
+T8 = rt.Chebyshev(a8, *rt.spectral_bounds(a8), degree=8, device='cpu')
+lmd, x, status = rt.partial_hevp(a8, T=T8, which=4, tol=1e-6, verb=-1,
+                                 engine='core', device='cpu')
+assert status == 0 and np.allclose(lmd[:4], ex8, rtol=1e-6), lmd
+assert choose_orchestration(1000, 16, device='cpu') == 'device'
+assert dense.AMatrix(np.eye(3), arch='gpu', device='cpu').backend() \
+    is dense_torch
+solver, v = core_solver.run(device='cpu')
+assert solver.iteration == 58, solver.iteration
+sparse_evp.run(4, 0.0, compare_eigsh=False, lap_dims=(6, 6, 6, 1, 1, 1),
+               device='cpu')
 import json
 print(json.dumps({'jax': sorted(
     m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')),

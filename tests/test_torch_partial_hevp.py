@@ -79,23 +79,31 @@ def test_iteration_dtype_follows_default(capsys):
 
 
 def test_unported_paths_raise(monkeypatch):
+    """Only engine='jacobi' is left unported (item 10); shift-invert
+    (T=None) and engine='core' run and converge; arch='gpu' with no card
+    raises, it never runs on the CPU instead."""
     a = lap3d(4, 4, 4, 1.0, 1.0, 1.0)
     T = Chebyshev(a, 0.1, 1e3, device='cpu')
     kw = dict(arch='gpu', device='cpu', verb=-1)
-    with pytest.raises(NotImplementedError, match='item 7'):
-        partial_hevp(a, which=4, **kw)
-    with pytest.raises(NotImplementedError, match='item 3'):
-        partial_hevp(a, T=T, which=4, engine='core', **kw)
     with pytest.raises(NotImplementedError, match='item 10'):
         partial_hevp(a, T=T, which=4, engine='jacobi', **kw)
-    with pytest.raises(NotImplementedError, match='item 3'):
-        partial_hevp(a, T=T, which=4, arch='cpu')
+    exact = np.sort(lap3d_eigenvalues(4, 4, 4, 1.0, 1.0, 1.0))[:4]
+    lmd, _, status = partial_hevp(a, which=4, tol=1e-6, **kw)
+    assert status == 0 and np.allclose(lmd[:4], exact, rtol=1e-6)
+    lmd, _, status = partial_hevp(a, T=T, which=4, tol=1e-6,
+                                  engine='core', **kw)
+    assert status == 0 and np.allclose(lmd[:4], exact, rtol=1e-6)
+    lmd, _, status = partial_hevp(a, T=T, which=4, tol=1e-6, arch='cpu',
+                                  verb=-1)
+    assert status == 0 and np.allclose(lmd[:4], exact, rtol=1e-6)
     with pytest.raises(ValueError):
         partial_hevp(a, T=T, which=4, arch='cpu', engine='device')
     # arch='gpu' with no card raises; it never runs on the CPU instead
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA'):
         partial_hevp(a, T=T, which=4, arch='gpu')
+    with pytest.raises(RuntimeError, match='no CUDA'):
+        partial_hevp(a, which=4, arch='gpu')
     with pytest.raises(RuntimeError, match='no CUDA'):
         Chebyshev(a, 0.1, 1e3, arch='gpu')
 
@@ -120,3 +128,37 @@ def test_preconditioner_matrix_is_shared(monkeypatch):
     lmd2, _, status2 = partial_hevp(a.copy(), **kw)
     assert status2 == 0 and built == [1]
     assert np.array_equal(lmd, lmd2)
+
+
+@pytest.mark.parametrize('path', ['device', 'core', 'shift-invert'])
+def test_b_device_matrix_is_shared(monkeypatch, path):
+    """B sits on the device once: a second call with the same B object
+    builds no matrix, on the device LOBPCG path, on the core Solver and in
+    shift-invert (where the probe's host operators are kept as well); a
+    new B object is built anew."""
+    from raleigh_tpu_torch.interfaces import partial_hevp as ph
+    a = lap2d(12, 12, 1.0, 1.0)
+    b = scs.diags(1.0 + np.random.RandomState(2).rand(a.shape[0]),
+                  format='csr')
+    lo, hi = spectral_bounds(a)
+    T = Chebyshev(a, lo, hi, degree=8, device='cpu')
+    built = []
+
+    def counted(*args, **kw):
+        built.append(1)
+        return SparseSymmetricMatrix(*args, **kw)
+    monkeypatch.setattr(ph, 'SparseSymmetricMatrix', counted)
+    kw = dict(B=b, which=4, tol=1e-5, verb=-1, device='cpu')
+    if path == 'shift-invert':
+        kw.update(sigma=0)
+    else:
+        kw.update(T=T, engine=path)
+    lmd, _, status = partial_hevp(a, **kw)
+    first = len(built)
+    assert status == 0 and first >= 1
+    lmd2, _, status2 = partial_hevp(a, **kw)
+    assert status2 == 0 and len(built) == first
+    assert np.allclose(lmd, lmd2, rtol=1e-8)
+    kw['B'] = b.copy()
+    partial_hevp(a, **kw)
+    assert len(built) > first
