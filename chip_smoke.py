@@ -43,12 +43,13 @@ carries on, and no wrapper gives way to its plain version on the card.
      orderings, timed, for the layout rule's constants.
    * The f64 instantiations of the DIA kernel (f64 operand, f32 or f64
      values) on lap3d(100,100,128), equal to the plain version bit for
-     bit, and of the BSR kernel (f64 operand, f32 or f64 tiles) on the FE
-     flagship in the mesher's order, within ``F64_SUM_TOL`` of the
-     largest |entry| (f64 sums in another order), at the core fields'
-     block size and at m = 16, timed in turns with the plain version and
-     ``torch.sparse.mm`` on the f64 CSR tensor (the BSR kernel also with
-     an f64 ``torch.sparse_bsr_tensor``).
+     bit, and of the BSR kernel (f64 operand, f32 or f64 tiles) and its
+     previous design (``bsr_matmat_rows_prev``) on the FE flagship in the
+     mesher's order, within ``F64_SUM_TOL`` of the largest |entry| (f64
+     sums in another order), at the core fields' block size and at m = 16,
+     timed in turns with the plain version and ``torch.sparse.mm`` on the
+     f64 CSR tensor (the BSR kernel also with its previous design and an
+     f64 ``torch.sparse_bsr_tensor``).
    * The two staged-window DIA kernels (sliding window, tile ring) and
      their previous designs (``dia_matmat_rows_slide_prev``,
      ``dia_matmat_rows_tiles_prev``, in the same sources) at the tile
@@ -142,7 +143,8 @@ carries on, and no wrapper gives way to its plain version on the card.
      host transfers per iteration;
    * ``engine='core'`` on the FE flagship in the mesher's order, 6
      smallest, tol 1e-4, with a degree-32 Chebyshev on a ``BsrMatrix``:
-     the residual limit of the FE fields, f64 BSR kernel launches > 0.
+     the residual limit of the FE fields, f64 BSR kernel launches > 0
+     (with ``--profile``, the f64 BSR kernel's share of device time).
 6. No module of jax or of the JAX package was loaded.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
@@ -208,8 +210,10 @@ ROW_TILE = {'slide': 4096, 'tiles': 10240, 'tiled': 1024, 'pipelined': 8192}
 # tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-# and f64 outside the tensor cores (the f64 instantiations' operations)
+# and f64 outside the tensor cores (the f64 DIA kernel's operations), and
+# on them (the f64 BSR kernel's: mma.sync m16n8k4 runs at this rate)
 PEAK_F64 = 34e12
+PEAK_F64_MMA = 67e12
 # the core Solver's block size on the core fields (which = 4 and 6: the
 # Solver's default block size policy, a multiple of 8)
 CORE_BLOCK = 8
@@ -1435,7 +1439,8 @@ def hevp_call(torch, partial_hevp, *args, **kw):
 
 def profile_run(torch, run, card):
     """``run()`` (one warm solve) under torch.profiler: device kernel time
-    by kernel and the device's busy share of the wall time."""
+    by kernel and the device's busy share of the wall time.  Returns the
+    device time in seconds and the kernels' profiler events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1457,6 +1462,7 @@ def profile_run(torch, run, card):
     for e in kernels[:15]:
         print('  %9.2f ms %6d x  %s' % (e.self_device_time_total / 1e3,
                                         e.count, e.key[:90]))
+    return busy, kernels
 
 
 def check_solution(np, name, lmd, x, status, exact, limit):
@@ -1874,11 +1880,13 @@ def phase_wide(torch, np, lap3d, DiaMatrix, BsrMatrix, sw, sp, k_nat):
     """The f64 instantiations of the DIA and BSR kernels (f64 operand; f32
     or f64 values or tiles) against their plain versions on the same
     inputs: the DIA kernel on lap3d(100,100,128) equal bit for bit, the
-    BSR kernel on the FE flagship in the mesher's order within
-    ``F64_SUM_TOL`` of the largest |entry|; timed in turns with the plain
-    version and ``torch.sparse.mm`` on the f64 CSR tensor (for the BSR
-    kernel also an f64 ``torch.sparse_bsr_tensor``) at the core fields'
-    block size ``CORE_BLOCK`` and at m = 16.  Returns their rows."""
+    BSR kernel and its previous design on the FE flagship in the mesher's
+    order within ``F64_SUM_TOL`` of the largest |entry|; timed in turns
+    with the plain version and ``torch.sparse.mm`` on the f64 CSR tensor
+    (for the BSR kernel also its previous design and an f64
+    ``torch.sparse_bsr_tensor``) at the core fields' block size
+    ``CORE_BLOCK`` and at m = 16.  Returns their rows (the previous BSR
+    design's too)."""
     rows = {}
     gen = torch.Generator('cuda').manual_seed(9)
     csr = lap3d(100, 100, 128, 1.0, 1.0, 1.0)
@@ -1933,51 +1941,64 @@ def phase_wide(torch, np, lap3d, DiaMatrix, BsrMatrix, sw, sp, k_nat):
                              exact=True)}
     for tkey, bm in mats.items():
         name = 'bsr_spmm_rows_%s_f64' % tkey
+        pname = 'bsr_spmm_rows_prev_%s_f64' % tkey
         args = (bm.blocks, bm.block_indptr_t, bm.block_cols)
         for m in (CORE_BLOCK, 16):
             x = torch.randn((m, n), generator=gen, device='cuda',
                             dtype=torch.float64)
-            yk = sp.bsr_matmat_rows(*args, x, n)
             yp = sp.bsr_matmat_rows_plain(*args, x, n)
-            torch.cuda.synchronize()
-            if yk.dtype != torch.float64 or not torch.isfinite(yk).all():
-                fail('%s m=%d: output %s, or not finite' % (name, m,
-                                                            yk.dtype))
-            diff = (yk - yp).abs().max().item()
-            rel = diff / yp.abs().max().item()
-            if rel > F64_SUM_TOL:
-                fail('%s vs plain m=%d: %.2e of the largest entry > %.0e'
-                     % (name, m, rel, F64_SUM_TOL))
-            del yk, yp
+            diffs = {}
+            for label, apply in ((name, sp.bsr_matmat_rows),
+                                 (pname, sp.bsr_matmat_rows_prev)):
+                yk = apply(*args, x, n)
+                torch.cuda.synchronize()
+                if yk.dtype != torch.float64 or not torch.isfinite(yk).all():
+                    fail('%s m=%d: output %s, or not finite'
+                         % (label, m, yk.dtype))
+                diffs[label] = (yk - yp).abs().max().item()
+                rel = diffs[label] / yp.abs().max().item()
+                if rel > F64_SUM_TOL:
+                    fail('%s vs plain m=%d: %.2e of the largest entry > %.0e'
+                         % (label, m, rel, F64_SUM_TOL))
+                del yk
+            rel = diffs[name] / yp.abs().max().item()
+            del yp
             t = turns({'plain': lambda: sp.bsr_matmat_rows_plain(*args, x,
                                                                  n),
                        'kernel': lambda: sp.bsr_matmat_rows(*args, x, n),
+                       'prev': lambda: sp.bsr_matmat_rows_prev(*args, x, n),
                        'csr': library_spmm_fn(torch, k_nat, x, 'float64'),
                        'bsr': library_bsr_fn(torch, bm, x)}, 20)
             nbytes = (bm.blocks.numel() * bm.blocks.element_size()
                       + 2 * m * n * 8 + bm.block_indptr_t.numel() * 4
                       + bm.block_cols.numel() * 4)
             flops = 2 * bm.blocks.numel() * m
-            bound_ms, bound_by = bound(nbytes, flops, PEAK_F64)
+            bound_ms, bound_by = bound(nbytes, flops, PEAK_F64_MMA)
             print('%s flagship n=%d m=%d: %.2e of the largest entry from '
-                  'plain; kernel %.4f ms (%.0f GB/s), plain %.4f ms, '
-                  'torch.sparse.mm (f64 CSR) %s, f64 BSR tensor %s, bound '
-                  '%.4f ms (%s), in turns'
+                  'plain; kernel %.4f ms (%.0f GB/s), previous design %.4f '
+                  'ms (%.2fx), plain %.4f ms, torch.sparse.mm (f64 CSR) %s, '
+                  'f64 BSR tensor %s, bound %.4f ms (%s), in turns'
                   % (name, n, m, rel, t['kernel'],
-                     nbytes / t['kernel'] / 1e6, t['plain'],
-                     fmt_ms(t['csr']), fmt_ms(t['bsr']), bound_ms,
-                     bound_by))
+                     nbytes / t['kernel'] / 1e6, t['prev'],
+                     t['prev'] / t['kernel'], t['plain'], fmt_ms(t['csr']),
+                     fmt_ms(t['bsr']), bound_ms, bound_by))
             if m == CORE_BLOCK:
-                rows[name] = dict(
-                    name=name, route='cuda', source=BSR[0], replaces=BSR[1],
-                    launches=0, max_abs_err=diff, ms=t['kernel'],
-                    plain_ms=t['plain'], bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=t['csr'],
-                    library_bsr_ms=t['bsr'], m=m, bytes=nbytes)
+                for rname, ms in ((name, t['kernel']), (pname, t['prev'])):
+                    rows[rname] = dict(
+                        name=rname, route='cuda', source=BSR[0],
+                        replaces=BSR[1], launches=0,
+                        max_abs_err=diffs[rname], ms=ms,
+                        plain_ms=t['plain'], bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=t['csr'],
+                        library_bsr_ms=t['bsr'], m=m, bytes=nbytes)
+                rows[name]['prev_ms'] = t['prev']
+                rows[pname]['off_path'] = OFF_PATH_PREV
             else:
-                rows[name].update(m16_ms=t['kernel'], m16_bound_ms=bound_ms,
-                                  m16_plain_ms=t['plain'],
-                                  m16_library_ms=t['csr'])
+                for rname, ms in ((name, t['kernel']), (pname, t['prev'])):
+                    rows[rname].update(m16_ms=ms, m16_bound_ms=bound_ms,
+                                       m16_plain_ms=t['plain'],
+                                       m16_library_ms=t['csr'])
+                rows[name]['m16_prev_ms'] = t['prev']
     rows['bsr_spmm_rows_f64_f64']['off_path'] = (
         'f64 tiles come with a BSR operator built with exact f64 values, '
         'which partial_hevp builds only for a matrix that device_sparse '
@@ -2175,15 +2196,26 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
         bl = sp.LAUNCHES[('f32', 'f64')]
         if bl <= 0:
             fail('FE-BSR core: the f64 BSR kernel was skipped')
-        rows['bsr_spmm_rows_f32_f64']['launches'] = bl
-        rows['bsr_spmm_rows_f64_f64']['launches'] = sp.LAUNCHES[('f64',
-                                                                 'f64')]
+        for key in (('f32', 'f64'), ('f64', 'f64')):
+            rows['bsr_spmm_rows_%s_%s' % key]['launches'] = sp.LAUNCHES[key]
+            rows['bsr_spmm_rows_prev_%s_%s' % key]['launches'] = \
+                sp.PREV_LAUNCHES[key]
         print('core 5, engine=\'core\' FE flagship (mesher order) which=6 '
               'tol=1e-4, BSR Chebyshev degree 32: status 0, %d iterations, '
               'residual %.2e (limit %.0e); wall %.2f s (solve %.2f s); f64 '
               'BSR kernel launches %d; %.2f host transfers per iteration '
               '[%s]' % (its, res, FE_RESIDUAL_LIMIT, wall, solve_s, bl,
                         dense_torch.COUNTS['to_host'] / its, card))
+        if profile:
+            busy, kernels = profile_run(torch, lambda: hevp_call(
+                torch, partial_hevp, k_nat, T=tb, which=6, tol=1e-4,
+                engine='core'), card)
+            k5 = [e for e in kernels if 'wide::bsr_rows_kernel' in e.key]
+            k5_s = sum(e.self_device_time_total for e in k5) / 1e6
+            print('  core 5: the f64 BSR kernel %.1f ms over %d launches, '
+                  '%.1f%% of device time [%s]'
+                  % (k5_s * 1e3, sum(e.count for e in k5),
+                     100 * k5_s / busy, card))
     if any(plain.values()):
         fail('the core phase ran plain versions of the kernels: %s' % plain)
 

@@ -62,14 +62,44 @@
 //
 // The f64 instantiation (bsr_spmm_rows_f32_f64 / _f64_f64) serves the core
 // Solver's f64 blocks: x and y f64, tiles f32 (the card's canonical
-// storage) or f64, each value widened to f64 (exactly) on its way to
-// shared memory, every product and sum an f64 fused multiply-add.  It is
-// the previous design below widened, with no redesign: one thread a tile
-// row, 16 operand rows a block, chunks of 32 columns staged through
-// registers; it takes any bs and alignment.  The tiles are read once: at
-// the FE-BSR shape with f32 tiles and m = 16, 0.213 ms of tiles at
-// 3.35 TB/s, and 0.083 ms more of x and y; its 2*nblocks*bs*bs*m flops
-// take 0.10 ms at the H100's 34 TFLOP/s of f64 FMA.
+// storage) or f64, each value widened to f64 (exactly), every product and
+// sum an IEEE f64 fused multiply-add.  The tiles are read once: at the
+// FE-BSR shape (10,602 tiles of 128^2) 0.213 ms of f32 tiles or 0.420 ms
+// of f64 tiles at 3.35 TB/s.  Its 2*nblocks*bs*bs*m flops, 2.78 GFLOP at
+// m = 8 and 5.56 at m = 16, take 0.082 / 0.164 ms on the CUDA cores' 34
+// TFLOP/s of f64 FMA, and 0.041 / 0.083 ms on the f64 tensor cores' 67.
+// Its previous design (kept below as bsr_spmm_rows_prev_*_f64) was the
+// f32 previous design widened, a thread a tile row: 0.64 ms at m = 8 or
+// 16 with either tile type, so neither bytes nor the FMA bounded it but
+// its own instructions (16 FMA for 9 shared reads, two barriers a chunk).
+//
+// What the f64 design does about it (namespace wide):
+//   * The products run on the f64 tensor cores, mma.sync m16n8k4 (an
+//     sm_90 shape; the sm_80 m8n8k4 runs slower on an H100).  Tile rows
+//     are M, tile columns K, operand rows N: 8 operand rows are one n8
+//     tile, the core block exactly; a block takes 16 operand rows (two n8
+//     tiles) or, with 8 or fewer left, 8.  Each lane reads 16 bytes of a
+//     tile row from shared memory (4 f32 or 2 f64 values, widened in
+//     registers) for as many k-steps: the k-steps take the chunk's columns
+//     in the order the lanes read them, and the B fragments (x, in f64
+//     straight from device memory, L2-resident) in the same order.
+//   * Tiles reach shared memory as in the f32 design: 16-byte cp.async,
+//     64 bytes of every row of the 128-row slab a chunk, here in a ring
+//     of three stages per warp with rows 64 bytes apart (a 16-byte read
+//     phase covers two whole rows: no bank conflict).  8 warps a block,
+//     one block an SM (192 KB), so a lane may hold 255 registers: a
+//     register tile of up to 128 accumulators.  More, smaller blocks (4
+//     or 2 warps, 64- or 32-row slabs) were slower.
+//   * The warps split a block row's chunks and add their partial sums
+//     once at the end, in warp order, through shared memory.
+//   * The widening (cvt.f64.f32, 16 a clock an SM) and the MMA run beside
+//     the copies; bytes of tiles are what is left.
+//   * The 16-byte path needs bs * sizeof(tile) % 16 == 0 and a 16-byte
+//     aligned tile base; any other shape takes the previous design, which
+//     takes any bs and alignment.
+// What is left, as measured (PERF.md): at m = 8 with f32 tiles 1.13 times
+// the tiles' time at the card's measured stream rate; with f32 tiles the
+// 16-row branch spills 52 bytes.
 // The kernels allocate nothing and do not synchronise.  Each entry point
 // returns cudaGetLastError() after its launch.
 
@@ -158,6 +188,88 @@ __device__ __forceinline__ void unpack16(const __nv_bfloat16* s, float* f) {
     }
 }
 
+// A warp's share of a block row's chunks (64 bytes of every row of the
+// slab, tile by tile and column chunk by column chunk; chunk c goes to
+// warp c % kWarps), walked by a cursor (tile, column chunk) with no
+// division in the loop.
+template <int kWarps>
+struct Cursor {
+    int64_t t;   // tile
+    int q;       // column chunk
+    int nq;      // column chunks a tile
+    __device__ __forceinline__ void advance() {
+        q += kWarps;
+        while (q >= nq) {
+            q -= nq;
+            ++t;
+        }
+    }
+};
+
+// This warp's first chunk of block row brow (into first) and how many
+// chunks it has: warp, warp + kWarps, ...
+template <int kWarps>
+__device__ __forceinline__ int warp_share(const int* __restrict__ indptr,
+                                          int64_t brow, int nq, int warp,
+                                          Cursor<kWarps>& first) {
+    const int64_t t0 = indptr[brow];
+    const int64_t nch = (indptr[brow + 1] - t0) * nq;
+    first = Cursor<kWarps>{t0 + warp / nq, warp % nq, nq};
+    return nch > warp
+        ? static_cast<int>((nch - warp + kWarps - 1) / kWarps) : 0;
+}
+
+// A lane's 16-byte copies of a chunk into a stage of its warp's ring whose
+// rows are kRowBytes apart: slab rows prow, prow + kRowStep, ..., part
+// `part` of each row's chunk, zero past the tile; fixed for the block but
+// the chunk.
+template <typename TB, int kWarps, int kRowBytes>
+struct ChunkCopy {
+    static constexpr int kCols = kChunkBytes / sizeof(TB);
+    static constexpr int kPerRead = 16 / sizeof(TB);
+    static constexpr int kCopies = kSlab * kUnits / 32;
+    static constexpr int kRowStep = 32 / kUnits;
+    const TB* blocks;
+    int64_t bs, tile_elems, src_lane, src_step;
+    unsigned int sdst, rows_ok;
+    int part;
+    Cursor<kWarps> at;   // the next chunk to copy
+
+    __device__ __forceinline__ ChunkCopy(const TB* blocks_, int64_t bs_,
+                                         int64_t p0,
+                                         const unsigned char* ring, int lane,
+                                         Cursor<kWarps> first)
+            : blocks(blocks_), bs(bs_), tile_elems(bs_ * bs_), at(first) {
+        const int prow = lane / kUnits;
+        part = lane % kUnits;
+        sdst = static_cast<unsigned int>(__cvta_generic_to_shared(ring))
+            + prow * kRowBytes + part * 16;
+        src_lane = (p0 + prow) * bs + part * kPerRead;
+        src_step = kRowStep * bs;
+        rows_ok = 0;
+#pragma unroll
+        for (int k = 0; k < kCopies; ++k) {
+            if (p0 + prow + k * kRowStep < bs) rows_ok |= 1u << k;
+        }
+    }
+
+    // the chunk at the cursor into the stage `stage` bytes into the ring;
+    // the cursor on to the warp's next chunk
+    __device__ __forceinline__ void copy(unsigned int stage) {
+        const int64_t q0 = static_cast<int64_t>(at.q) * kCols;
+        const bool col_ok = q0 + part * kPerRead < bs;
+        const TB* src = blocks + at.t * tile_elems + src_lane + q0;
+        const unsigned int dst = sdst + stage;
+#pragma unroll
+        for (int k = 0; k < kCopies; ++k) {
+            const bool ok = col_ok && ((rows_ok >> k) & 1u);
+            cp_async16(dst + k * kRowStep * kRowBytes,
+                       ok ? src + k * src_step : blocks, ok ? 16 : 0);
+        }
+        at.advance();
+    }
+};
+
 template <typename TB, typename TX>
 struct Layout {
     static constexpr int kWarps = Occupancy<TB>::kWarps;
@@ -193,56 +305,15 @@ __device__ __forceinline__ void bsr_block(
     unsigned char* wbase = smem + warp * L::kWarpBytes;
     float* xbuf = reinterpret_cast<float*>(wbase + kStages * kStageBytes);
 
-    const int64_t t0 = indptr[brow];
-    const int nq = static_cast<int>((bs + kCols - 1) / kCols);  // per tile
-    const int64_t nch = (indptr[brow + 1] - t0) * nq;
-    // this warp's chunks: warp, warp + kWarps, ...
-    const int mine = nch > warp
-        ? static_cast<int>((nch - warp + kWarps - 1) / kWarps) : 0;
-    // cursors (tile, column chunk) of the next chunk to copy and of the
-    // next operand slab to load: no division in the loop
-    int64_t ct = t0 + warp / nq, xt = ct;
-    int cq = warp % nq, xq = cq;
-    auto advance = [nq](int64_t& t, int& q) {
-        q += kWarps;
-        while (q >= nq) {
-            q -= nq;
-            ++t;
-        }
-    };
-
-    // this lane's 16-byte copies: slab rows prow, prow + kRowStep, ...,
-    // part `part` of each row's chunk; fixed for the block but the chunk
-    constexpr int kCopies = kSlab * kUnits / 32;
-    constexpr int kRowStep = 32 / kUnits;
-    const int prow = lane / kUnits;
-    const int part = lane % kUnits;
-    const unsigned int sdst =
-        static_cast<unsigned int>(__cvta_generic_to_shared(wbase))
-        + prow * kRowBytes + part * 16;
-    const int64_t src_lane = (p0 + prow) * bs + part * kPerRead;
-    const int64_t src_step = kRowStep * bs;
-    const int64_t tile_elems = bs * bs;
-    unsigned int rows_ok = 0;
-#pragma unroll
-    for (int k = 0; k < kCopies; ++k) {
-        if (p0 + prow + k * kRowStep < bs) rows_ok |= 1u << k;
-    }
+    // this warp's chunks, and cursors of the next chunk to copy (in
+    // tiles) and of the next operand slab to load (xat)
+    Cursor<kWarps> xat;
+    const int mine = warp_share(
+        indptr, brow, static_cast<int>((bs + kCols - 1) / kCols), warp, xat);
+    ChunkCopy<TB, kWarps, kRowBytes> tiles(blocks, bs, p0, wbase, lane, xat);
     // the tile chunk of this warp's c-th chunk into stage c % kStages
     auto copy_tile = [&](int c) {
-        if (c < mine) {
-            const int64_t q0 = static_cast<int64_t>(cq) * kCols;
-            const bool col_ok = q0 + part * kPerRead < bs;
-            const TB* src = blocks + ct * tile_elems + src_lane + q0;
-            const unsigned int dst = sdst + (c % kStages) * kStageBytes;
-#pragma unroll
-            for (int k = 0; k < kCopies; ++k) {
-                const bool ok = col_ok && ((rows_ok >> k) & 1u);
-                cp_async16(dst + k * kRowStep * kRowBytes,
-                           ok ? src + k * src_step : blocks, ok ? 16 : 0);
-            }
-            advance(ct, cq);
-        }
+        if (c < mine) tiles.copy((c % kStages) * kStageBytes);
         cp_async_commit();   // an empty group keeps the count in step
     };
 
@@ -260,8 +331,8 @@ __device__ __forceinline__ void bsr_block(
     }
     TX xg[kXLoads];
     auto load_x = [&]() {
-        const int64_t q0 = static_cast<int64_t>(xq) * kCols;
-        const int64_t j0 = static_cast<int64_t>(cols[xt]) * bs + q0;
+        const int64_t q0 = static_cast<int64_t>(xat.q) * kCols;
+        const int64_t j0 = static_cast<int64_t>(cols[xat.t]) * bs + q0;
         const bool col_ok = q0 + xcol < bs && j0 + xcol < n;
         const TX* src = x + x_lane + j0;
 #pragma unroll
@@ -269,7 +340,7 @@ __device__ __forceinline__ void bsr_block(
             const bool ok = col_ok && ((xrows_ok >> k) & 1u);
             xg[k] = ok ? src[k * x_step] : zero<TX>();
         }
-        advance(xt, xq);
+        xat.advance();
     };
     auto store_x = [&](int c) {
         float* xs = xbuf + (c & 1) * (kGroup * kCols);
@@ -588,11 +659,15 @@ int launch_prev(const void* blocks, const void* indptr, const void* cols,
                                 device, stream);
 }
 
-// ---- the f64 instantiation ----------------------------------------------
+// ---- the f64 instantiation's previous design -----------------------------
 //
-// The previous design widened: f64 operand and sums, f32 or f64 tiles.
+// The previous design above widened: f64 operand and sums, f32 or f64
+// tiles, a thread a tile row.  It takes any bs and any alignment, so it is
+// also the general path of the f64 kernel below; its own entry points
+// (bsr_spmm_rows_prev_*_f64) are launched only by chip_smoke.py, through
+// ops/spmm_pallas.py::bsr_matmat_rows_prev.
 
-namespace wide {
+namespace wide_prev {
 
 constexpr int kThreads = 128;   // tile rows per thread block (one a thread)
 constexpr int kRows = 16;       // operand rows per thread block
@@ -732,6 +807,236 @@ int launch(const void* blocks, const void* indptr, const void* cols,
     return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace wide_prev
+
+// ---- the f64 instantiation on the path ----------------------------------
+
+namespace wide {
+
+constexpr int kWarps = 8;                  // a block, one block an SM
+constexpr int kThreads = 32 * kWarps;
+constexpr int kGroup = 16;                 // operand rows a block: 2 n8 tiles
+constexpr int kStages = 3;                 // chunks in a warp's ring
+constexpr int kStageBytes = kSlab * kChunkBytes;   // rows 64 bytes apart
+constexpr int kWarpBytes = kStages * kStageBytes;
+constexpr int kMTiles = kSlab / 16;        // m16 tiles of the slab
+constexpr int kRedStride = kSlab + 4;      // f64 partial sums of a row
+constexpr int kSmem = kWarps * kWarpBytes;
+static_assert(kWarps * kGroup * kRedStride * 8 <= kSmem,
+              "the warps' partial sums fit in their rings");
+
+// c += a b on the f64 tensor cores: A 16 x 4 (a0 row g, a1 row g + 8,
+// column t), B 4 x 8 (row t, column g), C 16 x 8 (c0, c1 row g, c2, c3 row
+// g + 8, columns 2t, 2t + 1), for lane 4g + t
+__device__ __forceinline__ void mma16x8x4(double (&c)[4], double a0,
+                                          double a1, double b) {
+    asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+        : "d"(a0), "d"(a1), "d"(b));
+}
+
+// tile values a 16-byte shared read brings, widened to f64 (exactly)
+__device__ __forceinline__ void widen16(const float* s, double* d) {
+    const float4 v = *reinterpret_cast<const float4*>(s);
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+}
+__device__ __forceinline__ void widen16(const double* s, double* d) {
+    const double2 v = *reinterpret_cast<const double2*>(s);
+    d[0] = v.x;
+    d[1] = v.y;
+}
+
+// Block b covers operand-row group b % groups, tile-row slab
+// (b / groups) % slabs and block row b / (groups * slabs); kNT n8 tiles of
+// the group are computed (2, or 1 when 8 or fewer rows are left).
+template <typename TB, int kNT>
+__device__ __forceinline__ void bsr_block(
+        unsigned char* smem, const TB* __restrict__ blocks,
+        const int* __restrict__ indptr, const int* __restrict__ cols,
+        const double* __restrict__ x, double* __restrict__ y, int64_t bs,
+        int64_t m, int64_t n, int64_t r0, int64_t p0, int64_t brow) {
+    constexpr int kCols = kChunkBytes / sizeof(TB);   // columns a chunk
+    constexpr int kPerRead = 16 / sizeof(TB);   // k-steps a 16-byte read
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    unsigned char* ring = smem + warp * kWarpBytes;
+
+    Cursor<kWarps> xat;   // the next B fragments to load
+    const int mine = warp_share(
+        indptr, brow, static_cast<int>((bs + kCols - 1) / kCols), warp, xat);
+    ChunkCopy<TB, kWarps, kChunkBytes> tiles(blocks, bs, p0, ring, lane,
+                                             xat);
+    auto copy_tile = [&](int c) {
+        if (c < mine) tiles.copy((c % kStages) * kStageBytes);
+        cp_async_commit();   // an empty group keeps the count in step
+    };
+
+    // B fragments of a chunk: k-step j of n8 tile nt is x[r0 + 8 nt + g]
+    // at the chunk's column kPerRead t + j (zero past m, bs, n), the
+    // column this lane's A fragment of k-step j reads
+    const double* x_lane = x + (r0 + g) * n + kPerRead * t;
+    unsigned int xrows_ok = 0;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+        if (r0 + 8 * nt + g < m) xrows_ok |= 1u << nt;
+    }
+    double bx[kNT][kPerRead] = {}, bn[kNT][kPerRead] = {};
+    auto load_x = [&](double (&b)[kNT][kPerRead]) {
+        const int64_t q0 = static_cast<int64_t>(xat.q) * kCols + kPerRead * t;
+        const int64_t j0 = static_cast<int64_t>(cols[xat.t]) * bs
+            + static_cast<int64_t>(xat.q) * kCols;
+        const double* src = x_lane + j0;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+            for (int j = 0; j < kPerRead; ++j) {
+                const bool ok = ((xrows_ok >> nt) & 1u) && q0 + j < bs
+                    && j0 + kPerRead * t + j < n;
+                b[nt][j] = ok ? src[8 * nt * n + j] : 0.0;
+            }
+        }
+        xat.advance();
+    };
+
+    double acc[kMTiles][kNT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0;
+        }
+    }
+
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) copy_tile(s);
+    if (mine > 0) load_x(bx);
+    for (int c = 0; c < mine; ++c) {
+        copy_tile(c + kStages - 1);
+        if (c + 1 < mine) load_x(bn);
+        cp_async_wait<kStages - 1>();
+        __syncwarp();
+        // this lane's A fragments: rows g and g + 8 of each m16 tile,
+        // columns kPerRead t ... of the chunk
+        const TB* st = reinterpret_cast<const TB*>(
+            ring + (c % kStages) * kStageBytes) + g * kCols + kPerRead * t;
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt) {
+            double lo[kPerRead], hi[kPerRead];
+            widen16(st + 16 * mt * kCols, lo);
+            widen16(st + (16 * mt + 8) * kCols, hi);
+#pragma unroll
+            for (int j = 0; j < kPerRead; ++j) {
+#pragma unroll
+                for (int nt = 0; nt < kNT; ++nt) {
+                    mma16x8x4(acc[mt][nt], lo[j], hi[j], bx[nt][j]);
+                }
+            }
+        }
+        __syncwarp();   // every lane is done with this stage
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+            for (int j = 0; j < kPerRead; ++j) bx[nt][j] = bn[nt][j];
+        }
+    }
+    cp_async_wait<0>();
+
+    // the warps' partial sums, added in warp order
+    __syncthreads();
+    double* red = reinterpret_cast<double*>(smem);
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int r = 8 * nt + 2 * t + (i & 1);
+                const int p = 16 * mt + g + 8 * (i >> 1);
+                red[(warp * kGroup + r) * kRedStride + p] = acc[mt][nt][i];
+            }
+        }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < 8 * kNT * kSlab; e += kThreads) {
+        const int p = e % kSlab;
+        const int r = e / kSlab;
+        const int64_t i = brow * bs + p0 + p;
+        if (p0 + p < bs && i < n && r0 + r < m) {
+            double s = red[r * kRedStride + p];
+#pragma unroll
+            for (int w = 1; w < kWarps; ++w) {
+                s += red[(w * kGroup + r) * kRedStride + p];
+            }
+            y[(r0 + r) * n + i] = s;
+        }
+    }
+}
+
+template <typename TB>
+__global__ void __launch_bounds__(kThreads, 1)
+bsr_rows_kernel(const TB* __restrict__ blocks, const int* __restrict__ indptr,
+                const int* __restrict__ cols, const double* __restrict__ x,
+                double* __restrict__ y, int64_t bs, int64_t m, int64_t n,
+                int64_t groups, int64_t slabs) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int64_t b = blockIdx.x;
+    const int64_t r0 = (b % groups) * kGroup;
+    const int64_t p0 = ((b / groups) % slabs) * kSlab;
+    const int64_t brow = b / (groups * slabs);
+    if (m - r0 > 8) {
+        bsr_block<TB, 2>(smem, blocks, indptr, cols, x, y, bs, m, n, r0, p0,
+                         brow);
+    } else {
+        bsr_block<TB, 1>(smem, blocks, indptr, cols, x, y, bs, m, n, r0, p0,
+                         brow);
+    }
+}
+
+template <typename TB, typename TX>
+int launch(const void* blocks, const void* indptr, const void* cols,
+           const void* x, void* y, int64_t bs, int64_t m, int64_t n,
+           int device, void* stream) {
+    if (bs <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    if ((bs * static_cast<int64_t>(sizeof(TB))) % 16 != 0
+            || reinterpret_cast<uintptr_t>(blocks) % 16 != 0) {
+        // the general path: no 16-byte rows to copy
+        return wide_prev::launch<TB, TX>(blocks, indptr, cols, x, y, bs, m,
+                                         n, device, stream);
+    }
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int64_t nb = (n + bs - 1) / bs;
+    const int64_t groups = (m + kGroup - 1) / kGroup;
+    const int64_t slabs = (bs + kSlab - 1) / kSlab;
+    const int64_t grid = nb * groups * slabs;
+    if (grid <= 0 || grid > 0x7fffffffLL) {
+        return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    // past 48 KB a kernel must ask for its dynamic shared memory, once on
+    // each device
+    static bool ready[64] = {};
+    if (device >= 64 || !ready[device]) {
+        err = cudaFuncSetAttribute(bsr_rows_kernel<TB>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kSmem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (device < 64) ready[device] = true;
+    }
+    bsr_rows_kernel<TB><<<static_cast<unsigned int>(grid), kThreads, kSmem,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const TB*>(blocks), static_cast<const int*>(indptr),
+        static_cast<const int*>(cols), static_cast<const double*>(x),
+        static_cast<double*>(y), bs, m, n, groups, slabs);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace wide
 
 }  // namespace
@@ -758,3 +1063,5 @@ BSR_ENTRY(bsr_spmm_rows_prev_f32_bf16, launch_prev, float, __nv_bfloat16)
 BSR_ENTRY(bsr_spmm_rows_prev_bf16_f32, launch_prev, __nv_bfloat16, float)
 BSR_ENTRY(bsr_spmm_rows_prev_bf16_bf16, launch_prev, __nv_bfloat16,
           __nv_bfloat16)
+BSR_ENTRY(bsr_spmm_rows_prev_f32_f64, wide_prev::launch, float, double)
+BSR_ENTRY(bsr_spmm_rows_prev_f64_f64, wide_prev::launch, double, double)

@@ -68,6 +68,10 @@ _PIPELINED_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
                    ctypes.c_void_p]
 # the same with the chunk counter before the device
 _DRAWN_ARGS = _PIPELINED_ARGS[:6] + [ctypes.c_void_p] + _PIPELINED_ARGS[6:]
+# (tile, operand) types of the BSR kernel's entries, and of its previous
+# design's
+_BSR_PAIRS = [(b, x) for b in ('f32', 'bf16') for x in ('f32', 'bf16')] \
+    + [('f32', 'f64'), ('f64', 'f64')]
 _SIGNATURES = {
     'dia_spmm': {'dia_spmm_rows_f32': _DIA_ARGS,
                  'dia_spmm_rows_bf16': _DIA_ARGS,
@@ -86,11 +90,8 @@ _SIGNATURES = {
     'dia_spmm_tiles': {'dia_spmm_rows_tiles_f32': _CLUSTER_ARGS,
                        'dia_spmm_rows_tiles_plan': _PLAN_ARGS,
                        'dia_spmm_rows_tiles_prev_f32': _WINDOW_ARGS},
-    'bsr_spmm': {**{'bsr_spmm_rows_%s%s_%s' % (prev, b, x): _BSR_ARGS
-                    for prev in ('', 'prev_') for b in ('f32', 'bf16')
-                    for x in ('f32', 'bf16')},
-                 'bsr_spmm_rows_f32_f64': _BSR_ARGS,
-                 'bsr_spmm_rows_f64_f64': _BSR_ARGS},
+    'bsr_spmm': {'bsr_spmm_rows_%s%s_%s' % (prev, b, x): _BSR_ARGS
+                 for prev in ('', 'prev_') for b, x in _BSR_PAIRS},
     'stream_scale': {'stream_scale_f32': _STREAM_ARGS,
                      'stream_scale_prev_f32': _STREAM_ARGS},
     'stream_probes': {

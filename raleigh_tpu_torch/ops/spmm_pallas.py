@@ -16,11 +16,13 @@ longest one.
 ``block_cols`` (nblocks,) int32, ``x`` (m, n) f32 or bf16, ``n`` unpadded
 (``nb = ceil(n / bs)``; rows and columns past n are masked).  Sums are
 taken in f32 and the result has x's dtype.  The f64 instantiation serves
-the core Solver's f64 blocks: x f64, tiles f32 or f64, sums in f64.  On a
-CUDA tensor the wrapper launches the kernel or raises; only a CPU tensor
-takes the plain version.
+the core Solver's f64 blocks: x f64, tiles f32 or f64, sums in f64 (on
+the f64 tensor cores where a tile row is a whole number of 16 bytes).
+On a CUDA tensor the wrapper launches the kernel or raises; only a CPU
+tensor takes the plain version.
 ``bsr_matmat_rows_prev`` launches the kernel's previous design from the
-same source, to be timed beside it.
+same source (every instantiation, the f64 ones too), to be timed beside
+it.
 """
 
 import torch
@@ -37,7 +39,7 @@ _WIDE_PAIRS = [('f32', 'f64'), ('f64', 'f64')]
 # kernel launches per (block dtype, operand dtype), counted where the
 # kernel is launched; PREV_LAUNCHES the same for the previous design
 LAUNCHES = {key: 0 for key in _PAIRS + _WIDE_PAIRS}
-PREV_LAUNCHES = {key: 0 for key in _PAIRS}
+PREV_LAUNCHES = {key: 0 for key in _PAIRS + _WIDE_PAIRS}
 
 
 def reset_launches():
@@ -71,20 +73,18 @@ def bsr_matmat_rows_plain(blocks, block_indptr, block_cols, x, n):
     return y.reshape(nb * bs, m)[:n].T.to(x.dtype).contiguous()
 
 
-def _check(blocks, block_indptr, block_cols, x, n, pairs=LAUNCHES):
-    """Raise on what the kernel does not take; ``pairs``: the (block,
-    operand) dtype names with an instantiation (the previous design's
-    counters name only its own)."""
+def _check(blocks, block_indptr, block_cols, x, n):
+    """Raise on what the kernel (or its previous design, which has the
+    same instantiations) does not take."""
     devices = {t.device for t in (blocks, block_indptr, block_cols, x)}
     if len(devices) != 1:
         raise ValueError('blocks, block_indptr, block_cols and x must share '
                          'a device (got %s)' % sorted(map(str, devices)))
-    if (_NAMES.get(blocks.dtype), _NAMES.get(x.dtype)) not in pairs:
+    if (_NAMES.get(blocks.dtype), _NAMES.get(x.dtype)) not in LAUNCHES:
         raise TypeError('the BSR kernel takes f32 or bf16 blocks and '
-                        'operands%s, not %s blocks with a %s operand'
-                        % (' (or an f64 operand with f32 or f64 blocks)'
-                           if pairs is LAUNCHES else '',
-                           blocks.dtype, x.dtype))
+                        'operands (or an f64 operand with f32 or f64 '
+                        'blocks), not %s blocks with a %s operand'
+                        % (blocks.dtype, x.dtype))
     if block_indptr.dtype != torch.int32 or block_cols.dtype != torch.int32:
         raise TypeError('the BSR kernel takes int32 block_indptr and '
                         'block_cols (got %s, %s)'
@@ -113,9 +113,10 @@ def bsr_matmat_rows(blocks, block_indptr, block_cols, x, n):
 
 def bsr_matmat_rows_prev(blocks, block_indptr, block_cols, x, n):
     """``bsr_matmat_rows`` through the kernel's previous design (one
-    thread a tile row, chunks staged through registers), kept in the same
-    source so that the two can be timed in turns on one card; no solver
-    path calls it."""
+    thread a tile row, chunks staged through registers; with an f64
+    operand its f64 FMA on the CUDA cores), kept in the same source so
+    that the two can be timed in turns on one card; no solver path calls
+    it."""
     return _bsr_rows('bsr_spmm_rows_prev_%s_%s', PREV_LAUNCHES, blocks,
                      block_indptr, block_cols, x, n)
 
@@ -125,7 +126,7 @@ def _bsr_rows(entry, counts, blocks, block_indptr, block_cols, x, n):
         return bsr_matmat_rows_plain(blocks, block_indptr, block_cols, x, n)
     if x.device.type != 'cuda':
         raise ValueError('no BSR apply for device %s' % x.device)
-    _check(blocks, block_indptr, block_cols, x, n, counts)
+    _check(blocks, block_indptr, block_cols, x, n)
     y = torch.empty_like(x)
     m = x.shape[0]
     if m == 0 or n == 0:

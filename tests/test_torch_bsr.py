@@ -227,12 +227,13 @@ def test_wrapper_uses_plain_version_only_on_cpu(pencil):
     # the checks the wrapper makes before a launch
     sp._check(*args, x, n)
     # an f64 operand takes f32 or f64 tiles (the f64 instantiation), not
-    # bf16 ones, and the previous design has no f64 instantiation
+    # bf16 ones; the previous design has exactly the same instantiations,
+    # the two f64 pairs among them, and the same check
     sp._check(*args, x.double(), n)
+    sp._check(bm.blocks.double(), *args[1:], x.double(), n)
     with pytest.raises(TypeError, match='float64'):
         sp._check(bm.blocks.bfloat16(), *args[1:], x.double(), n)
-    with pytest.raises(TypeError, match='float64'):
-        sp._check(*args, x.double(), n, sp.PREV_LAUNCHES)
+    assert sorted(sp.PREV_LAUNCHES) == sorted(sp.LAUNCHES)
     with pytest.raises(TypeError, match='int32'):
         sp._check(bm.blocks, bm.block_indptr_t.long(), bm.block_cols, x, n)
     with pytest.raises(ValueError, match='shape'):
@@ -258,8 +259,12 @@ def test_previous_design_wrapper_on_cpu(pencil):
     assert torch.equal(y, sp.bsr_matmat_rows_plain(*args,
                                                    torch.from_numpy(x), n))
     assert _rel(y.numpy(), (k @ x.T.astype(np.float64)).T) < 1e-6
-    assert sorted(sp.PREV_LAUNCHES) == sorted(sp._PAIRS)
+    xd = torch.from_numpy(x.astype(np.float64))
+    assert torch.equal(sp.bsr_matmat_rows_prev(*args, xd, n),
+                       sp.bsr_matmat_rows_plain(*args, xd, n))
+    assert sorted(sp.PREV_LAUNCHES) == sorted(sp._PAIRS + sp._WIDE_PAIRS)
     sp.PREV_LAUNCHES[('f32', 'f32')] = 3
+    sp.PREV_LAUNCHES[('f32', 'f64')] = 2
     sp.reset_launches()
     assert not any(sp.PREV_LAUNCHES.values())
     assert not any(sp.LAUNCHES.values())

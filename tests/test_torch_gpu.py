@@ -21,8 +21,9 @@ entry's terms, plus one rounding on either side for a bf16 result), for
 the kernel on its 16-byte and its general path and for its previous
 design.  Stream
 kernels: exact equality with ``torch.mul``.  The f64 instantiation of the
-DIA kernel: exact equality with its plain version; of the BSR kernel:
-1e-13 of the largest |entry| (f64 sums in another order).  The
+DIA kernel: exact equality with its plain version; of the BSR kernel and
+its previous design: 1e-13 of the largest |entry| (f64 sums in another
+order), against the plain version and each other.  The
 staged-window DIA kernels
 and their previous designs keep the plain version's order of summation:
 exact equality, on the bulk-copy path and on the per-thread copy branch.
@@ -302,30 +303,60 @@ def test_f64_kernel_equals_plain(cuda, n, offsets, m, values):
                        sw.dia_matmat_rows_plain(v, xu, dm.offsets_t))
 
 
-@pytest.mark.parametrize('bs, m', [(64, 16), (5, 24), (160, 3)])
+@pytest.mark.parametrize('bs, aligned', [(128, True), (64, True),
+                                         (16, True), (160, True), (5, True),
+                                         (160, False)])
 @pytest.mark.parametrize('tiles', [torch.float32, torch.float64])
-def test_bsr_f64_kernel_matches_plain(cuda, bs, m, tiles):
+def test_bsr_f64_kernel_matches_plain(cuda, bs, aligned, tiles):
     """The f64 instantiation of the BSR kernel (f64 operand, f32 or f64
-    tiles, f64 fused sums) against the plain version, which sums in
-    another order: within 1e-13 of the largest |entry|, one block row
-    emptied."""
+    tiles, f64 sums on the tensor cores) and its previous design against
+    the plain version and against each other, within 1e-13 of the largest
+    |entry| (f64 sums in other orders): the girder (n = 2,796, a multiple
+    of no block size here) with one block row emptied; bs = 128, 64, 16
+    and 160 (two slabs) on the 16-byte path, bs = 5 and 160 at a tile base
+    4 or 8 bytes off (the general path); m = 1, 3, 8, 9, 16 and 24 (one n8
+    tile, two, a group of 16 and one of 8, rows no group divides); x
+    contiguous and as a view 8 bytes into its storage; one launch each."""
+    import scipy.sparse as scs
     k = fe_pencil(9, 3, 0.1, seed=2, which='k')
     n = k.shape[0]
+    keep = np.ones(n)
+    keep[2 * bs:3 * bs] = 0.0
+    k = scs.csr_matrix(scs.diags(keep) @ k @ scs.diags(keep))
+    k.eliminate_zeros()
     bm = BsrMatrix(k, dtype=np.float64, bs=bs, device=cuda, exact=True)
+    assert n % bs and np.diff(bm.block_indptr).min() == 0
     blocks = bm.blocks.to(tiles)
-    blocks[bm.block_indptr[2]:bm.block_indptr[3]] = 0
-    g = torch.Generator(cuda).manual_seed(bs)
-    x = torch.randn((m, n), generator=g, device=cuda, dtype=torch.float64)
+    if not aligned:
+        blocks = torch.empty(blocks.numel() + 1, dtype=tiles, device=cuda)[
+            1:].view_as(blocks).copy_(blocks)
+    rows16 = bs * blocks.element_size() % 16 == 0
+    assert (rows16 and blocks.data_ptr() % 16 == 0) == (aligned and bs != 5)
     args = (blocks, bm.block_indptr_t, bm.block_cols)
     key = (sp._NAMES[tiles], 'f64')
-    before = sp.LAUNCHES[key]
-    y = sp.bsr_matmat_rows(*args, x, n)
-    want = sp.bsr_matmat_rows_plain(*args, x, n)
-    torch.cuda.synchronize()
-    assert sp.LAUNCHES[key] == before + 1
-    assert y.dtype == torch.float64
-    assert ((y - want).abs().max() / want.abs().max()).item() < 1e-13
-    assert torch.all(y[:, 2 * bs:min(3 * bs, n)] == 0)
+    g = torch.Generator(cuda).manual_seed(bs)
+    for m in (1, 3, 8, 9, 16, 24):
+        xs = (torch.randn((m, n), generator=g, device=cuda,
+                          dtype=torch.float64),
+              torch.randn((m * n + 1,), generator=g, device=cuda,
+                          dtype=torch.float64)[1:].reshape(m, n))
+        for x in xs:
+            want = sp.bsr_matmat_rows_plain(*args, x, n)
+            got = {}
+            for apply, counts in ((sp.bsr_matmat_rows, sp.LAUNCHES),
+                                  (sp.bsr_matmat_rows_prev,
+                                   sp.PREV_LAUNCHES)):
+                before = counts[key]
+                got[apply] = y = apply(*args, x, n)
+                torch.cuda.synchronize()
+                assert counts[key] == before + 1
+                assert y.dtype == torch.float64 and y.shape == x.shape
+                rel = ((y - want).abs().max() / want.abs().max()).item()
+                assert rel < 1e-13, (apply.__name__, m)
+                assert torch.all(y[:, 2 * bs:3 * bs] == 0)
+            new, prev = got.values()
+            assert ((new - prev).abs().max()
+                    / want.abs().max()).item() < 1e-13
 
 
 def test_bsr_kernel_refuses_what_it_cannot_take(cuda):
@@ -335,11 +366,16 @@ def test_bsr_kernel_refuses_what_it_cannot_take(cuda):
     x = torch.randn((8, n), device=cuda)
     args = (bm.blocks, bm.block_indptr_t, bm.block_cols)
     # an f64 operand takes f32 or f64 tiles (the f64 instantiation), not
-    # bf16 tiles, and not through the previous design
+    # bf16 tiles; the previous design takes exactly the same pairs
     with pytest.raises(TypeError, match='float64'):
         sp.bsr_matmat_rows(bm.blocks.bfloat16(), *args[1:], x.double(), n)
     with pytest.raises(TypeError, match='float64'):
-        sp.bsr_matmat_rows_prev(*args, x.double(), n)
+        sp.bsr_matmat_rows_prev(bm.blocks.bfloat16(), *args[1:], x.double(),
+                                n)
+    assert sorted(sp.PREV_LAUNCHES) == sorted(sp.LAUNCHES)
+    before = sp.PREV_LAUNCHES[('f32', 'f64')]
+    sp.bsr_matmat_rows_prev(*args, x.double(), n)
+    assert sp.PREV_LAUNCHES[('f32', 'f64')] == before + 1
     with pytest.raises(ValueError, match='contiguous'):
         sp.bsr_matmat_rows(*args, torch.randn((n, 8), device=cuda).T, n)
     with pytest.raises(ValueError, match='shape'):
