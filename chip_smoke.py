@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six phases; any failure exits non-zero.  No phase catches a failure and
+Seven phases; any failure exits non-zero.  No phase catches a failure and
 carries on, and no wrapper gives way to its plain version on the card.
 
 1. Environment: the card's name and power limit, torch's CUDA version,
@@ -145,7 +145,35 @@ carries on, and no wrapper gives way to its plain version on the card.
      smallest, tol 1e-4, with a degree-32 Chebyshev on a ``BsrMatrix``:
      the residual limit of the FE fields, f64 BSR kernel launches > 0
      (with ``--profile``, the f64 BSR kernel's share of device time).
-6. No module of jax or of the JAX package was loaded.
+6. The dense phase: the SVD/PCA stack as a user calls it, with no device
+   argument.
+   * The headline, ``subspace_pca(a, 800, fetch=False)`` on bench.py's
+     matrix (``make_data``, bench.py:46-66: 12,000 x 39,375 f32, rank-2048
+     factors with k^-0.75 decay, a first column of ones, noise 1e-5) made
+     on the card from a seeded generator: a warm-up at full shape with
+     another seed, then the timed run; bench.py's checks
+     (``_verify_pca``): orthonormality of the leading 64 components
+     <= 1e-2 and relative Frobenius error <= 0.30, both failures here.  The
+     wall time beside the Gram's f32 bound (2 M^2 N FLOP at 67 TFLOP/s).
+   * ``subspace_pca_tol(a, 0.25, max_npc=1200)``, warm then timed: the
+     rank, the wall, and the error within its tolerance.
+   * ``pca(sub, npc=100, method='jacobi')`` on ``a[:3000, :10000]``
+     (bench.py:416-440; warm on ``a[:3000, 10000:20000]``), the device
+     Jacobi engine: Frobenius error within 1.02x of the optimal rank-100
+     truncation (host SVD in f64); iterations and wall.
+   * ``truncated_svd(generate(3000, 2000, 1000), nsv=300)``: all 300
+     singular values within 1e-3 relative of the host SVD, in f64 on the
+     device Jacobi engine (iteration limit 300) and in f32 on the core
+     Solver with blocks on the card; the f32 device engine's result is
+     printed, not held (ROADMAP fault 3.6).
+   * ``partial_hevp(engine='jacobi')`` on lap3d 50^3, 10 smallest, tol 1e-6,
+     Chebyshev degree 16, f64: status 0, within 1e-5 of the analytic
+     eigenvalues, the DIA kernel launched (counters set to 0 before each
+     solve) and no plain version of a kernel called.
+   With ``--profile``, each of the first three also one warm run under the
+   profiler, its device time split into GEMM, QR, eigh/SVD and the rest,
+   and the host's share.
+7. No module of jax or of the JAX package was loaded.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel's launches on its path, error against plain, times and bound
@@ -2220,6 +2248,262 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
         fail('the core phase ran plain versions of the kernels: %s' % plain)
 
 
+# the dense phase: bench.py's headline matrix (bench.py:37-66) and its
+# checks (bench.py:113-143), the tolerance and Jacobi fields
+# (bench.py:388-440), truncated_svd against the host SVD, and
+# partial_hevp(engine='jacobi') on bench.py's lap3d 50^3 field
+DENSE_M, DENSE_N, GEN_RANK, NPC = 12000, 39375, 2048, 800
+ORTHO_LIMIT = 1e-2
+ERR_FRO_LIMIT = 0.30
+JACOBI_OPTIMAL = 1.02
+TSVD_AGREE = 1e-3
+JACOBI_HEVP_LIMIT = 1e-5
+
+
+def make_dense(torch, seed=1):
+    """bench.py's ``make_data`` on the card from a seeded torch.Generator:
+    rank-2048 factors with k^-0.75 singular decay, the first column of u
+    ones (a PCA-invariant leading direction), plus noise 1e-5, f32."""
+    dev = torch.device('cuda')
+    gen = torch.Generator(dev).manual_seed(seed)
+    u = torch.randn((DENSE_M, GEN_RANK), generator=gen, device=dev)
+    u[:, 0] = 1.0
+    v = torch.randn((GEN_RANK, DENSE_N), generator=gen, device=dev)
+    k = torch.arange(1, GEN_RANK + 1, dtype=torch.float32, device=dev)
+    s = k ** -0.75
+    a = torch.matmul(u * (s / DENSE_M ** 0.5), v / DENSE_N ** 0.5)
+    a.add_(torch.randn((DENSE_M, DENSE_N), generator=gen, device=dev),
+           alpha=1e-5)
+    return a
+
+
+def verify_pca(torch, a, mean, trans, comps):
+    """bench.py's ``_verify_pca`` on the card: (orthonormality error of
+    the leading 64 components, relative Frobenius error of the
+    approximation), the squares summed in f64."""
+    g = torch.matmul(comps[:64], comps[:64].T)
+    ortho = float((g - torch.eye(64, device=g.device)).abs().max())
+    centred = a - mean
+    as2 = torch.sum(centred * centred, dtype=torch.float64)
+    lr2 = torch.sum(torch.matmul(trans.T, trans)
+                    * torch.matmul(comps, comps.T), dtype=torch.float64)
+    cross = torch.sum(torch.matmul(trans.T, centred) * comps,
+                      dtype=torch.float64)
+    del centred
+    err2 = torch.clamp(as2 - 2 * cross + lr2, min=0.0)
+    return ortho, float(torch.sqrt(err2 / as2))
+
+
+def timed(torch, run):
+    """(result, wall s) of ``run()`` between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def dense_breakdown(torch, run, card):
+    """One warm run under the profiler, its device time split into
+    GEMM, QR, eigh/SVD and the rest, and the host's share of the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(torch, run)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    groups = {'GEMM': ('gemm', 'cutlass', 'xmma', 'sm90_'),
+              'QR': ('geqr', 'orgqr', 'ormqr', 'larf', 'householder'),
+              'eigh/SVD': ('syev', 'sytrd', 'stedc', 'steqr', 'gesvd',
+                           'bdsqr', 'jacobi', 'orgtr', 'ormtr')}
+    share = dict.fromkeys(list(groups) + ['other'], 0.0)
+    for e in kernels:
+        name = e.key.lower()
+        group = next((g for g, keys in groups.items()
+                      if any(k in name for k in keys)), 'other')
+        share[group] += e.self_device_time_total / 1e6
+    busy = sum(share.values())
+    print('  profile [%s]: wall %.3f s, device busy %.3f s (%.1f%%), %d '
+          'launches; %s; host and idle %.3f s'
+          % (card, wall, busy, 100 * busy / wall,
+             sum(e.count for e in kernels),
+             ', '.join('%s %.3f s' % kv for kv in share.items()),
+             wall - busy))
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    for e in kernels[:8]:
+        print('    %9.2f ms %6d x  %s' % (e.self_device_time_total / 1e3,
+                                          e.count, e.key[:90]))
+
+
+@contextlib.contextmanager
+def jacobi_iterations():
+    """Records the iterations of every DeviceJacobi solve in the block."""
+    from raleigh_tpu_torch.core.device_jacobi import DeviceJacobi
+    counts, solve = [], DeviceJacobi.solve
+
+    def counted(self, *args, **kw):
+        status = solve(self, *args, **kw)
+        counts.append(self.iteration)
+        return status
+    DeviceJacobi.solve = counted
+    try:
+        yield counts
+    finally:
+        DeviceJacobi.solve = solve
+
+
+def phase_dense(torch, np, mods, card, profile=False):
+    """The dense SVD/PCA stack on the card, as a user calls it (no device
+    argument): the headline subspace_pca at bench.py's full shape, the
+    tolerance-driven subspace_pca_tol, pca(method='jacobi') on the device
+    Jacobi engine, truncated_svd, and partial_hevp(engine='jacobi'), whose
+    applies must run K1 and no plain version."""
+    from raleigh_tpu_torch import (Chebyshev, Options, partial_hevp, pca,
+                                   pca_error, spectral_bounds, subspace_pca,
+                                   subspace_pca_tol, truncated_svd)
+    from raleigh_tpu_torch.examples.generate_matrix import generate
+    from raleigh_tpu_torch.examples.laplace import lap3d, lap3d_eigenvalues
+    sw, sp = mods[0], mods[1]
+    t_phase = time.perf_counter()
+
+    # 1. the headline: 800 components of the 12,000 x 39,375 matrix
+    a, gen_s = timed(torch, lambda: make_dense(torch))
+    _, warm = timed(torch, lambda: subspace_pca(a, NPC, fetch=False,
+                                                seed=2))
+    (mean, trans, comps), wall = timed(
+        torch, lambda: subspace_pca(a, NPC, fetch=False))
+    if comps.shape != (NPC, DENSE_N) or trans.shape != (DENSE_M, NPC):
+        fail('subspace_pca: shapes %s, %s' % (tuple(trans.shape),
+                                              tuple(comps.shape)))
+    ortho, err_fro = verify_pca(torch, a, mean, trans, comps)
+    if not (ortho <= ORTHO_LIMIT and err_fro <= ERR_FRO_LIMIT):
+        fail('subspace_pca: orthonormality %.2e (limit %.0e), err_fro '
+             '%.4f (limit %.2f)' % (ortho, ORTHO_LIMIT, err_fro,
+                                    ERR_FRO_LIMIT))
+    gram_flop = 2.0 * DENSE_M ** 2 * DENSE_N
+    print('dense 1, subspace_pca %d x %d npc=%d f32: wall %.3f s (warm-up '
+          'at full shape %.3f s; data made on the card in %.3f s); err_fro '
+          '%.4f (limit %.2f), orthonormality %.2e (limit %.0e); the Gram '
+          'alone is %.3g f32 FLOP, %.3f s at %.0f TFLOP/s [%s]'
+          % (DENSE_M, DENSE_N, NPC, wall, warm, gen_s, err_fro,
+             ERR_FRO_LIMIT, ortho, ORTHO_LIMIT, gram_flop,
+             gram_flop / PEAK_F32, PEAK_F32 / 1e12, card))
+    del mean, trans, comps
+    if profile:
+        dense_breakdown(torch, lambda: subspace_pca(a, NPC, fetch=False),
+                        card)
+
+    # 2. the tolerance-driven engine (bench.py:388-413)
+    def tol_run():
+        return subspace_pca_tol(a, 0.25, max_npc=1200, fetch=False)
+    _, warm = timed(torch, tol_run)
+    (mean, trans, comps), wall = timed(torch, tol_run)
+    ortho, err_fro = verify_pca(torch, a, mean, trans, comps)
+    if not (err_fro <= 0.25 and ortho <= ORTHO_LIMIT):
+        fail('subspace_pca_tol: err_fro %.4f above its tolerance 0.25, '
+             'orthonormality %.2e' % (err_fro, ortho))
+    print('dense 2, subspace_pca_tol tol=0.25 max_npc=1200: rank %d, wall '
+          '%.3f s (warm-up %.3f s), err_fro %.4f, orthonormality %.2e [%s]'
+          % (comps.shape[0], wall, warm, err_fro, ortho, card))
+    del mean, trans, comps
+    if profile:
+        dense_breakdown(torch, tol_run, card)
+
+    # 3. pca(method='jacobi') on a quarter slice (bench.py:416-440)
+    sub = a[:3000, :10000].cpu().numpy()
+    warm_sub = a[:3000, 10000:20000].cpu().numpy()
+    del a
+    torch.cuda.empty_cache()
+    with jacobi_iterations() as its:
+        _, warm = timed(torch, lambda: pca(warm_sub, npc=100,
+                                           method='jacobi'))
+        (mean, trans, comps), wall = timed(
+            torch, lambda: pca(sub, npc=100, method='jacobi'))
+    em, ef = pca_error(sub, mean, trans, comps)
+    centred = sub.astype(np.float64) - sub.mean(axis=0, dtype=np.float64)
+    s = np.linalg.svd(centred, compute_uv=False)
+    ef_opt = float(np.sqrt(np.sum(s[100:] ** 2) / np.sum(s ** 2)))
+    if comps.shape != (100, 10000) or not ef <= JACOBI_OPTIMAL * ef_opt:
+        fail('pca jacobi: %s components, err_fro %.5f against the optimal '
+             '%.5f' % (comps.shape, ef, ef_opt))
+    print('dense 3, pca(method=\'jacobi\') 3000 x 10000 npc=100: %d '
+          'iterations (warm-up on another slice %d, %.3f s), wall %.3f s; '
+          'err_fro %.5f, %.4f x the optimal rank-100 truncation (limit '
+          '%.2f), err_max %.4f [%s]'
+          % (its[-1], its[0], warm, wall, ef, ef / ef_opt, JACOBI_OPTIMAL,
+             em, card))
+    if profile:
+        dense_breakdown(torch, lambda: pca(sub, npc=100, method='jacobi'),
+                        card)
+
+    # 4. truncated_svd on the card, nsv=300, against the host SVD: f64 on
+    # the device Jacobi engine (iteration limit 300: at the default 100 its
+    # restarts, decided by rounding, leave it 192 or 300 values by the
+    # start, ROADMAP fault 3.6) and f32 on the core Solver with the blocks
+    # on the card; then, not held, the f32 device engine, whose trailing
+    # values that fault spoils
+    sv = {}
+    for dtype, engine, max_iter, held in (
+            (np.float64, 'auto', 300, True), (np.float32, 'host', -1, True),
+            (np.float32, 'auto', -1, False)):
+        np.random.seed(1)
+        A, _, _, _ = generate(3000, 2000, 1000, dtype=dtype)
+        if dtype not in sv:
+            sv[dtype] = np.linalg.svd(A.astype(np.float64),
+                                      compute_uv=False)
+        opt = Options()
+        opt.device_engine, opt.max_iter = engine, max_iter
+        with jacobi_iterations() as its:
+            (u, sigma, vt), wall = timed(
+                torch, lambda: truncated_svd(A, nsv=300, opt=opt))
+        k = min(sigma.shape[0], 300)
+        agree = float(np.max(np.abs(sigma[:k] - sv[dtype][:k])
+                             / sv[dtype][:k]))
+        if held and not (k == 300 and agree <= TSVD_AGREE):
+            fail('truncated_svd %s (%s): %d singular values, %.2e from the '
+                 'host SVD' % (np.dtype(dtype).name, engine, k, agree))
+        print('dense 4, truncated_svd 3000 x 2000 nsv=300 %s on the %s: %d '
+              'singular values%s, wall %.3f s; sigma within %.2e of the '
+              'host SVD (limit %.0e%s) [%s]'
+              % (np.dtype(dtype).name, 'device Jacobi engine'
+                 if engine == 'auto' else 'core Solver', sigma.shape[0],
+                 ', %d iterations' % its[-1] if its else '', wall, agree,
+                 TSVD_AGREE, '' if held else '; not held: ROADMAP 3.6',
+                 card))
+
+    # 5. partial_hevp(engine='jacobi'): lap3d 50^3, 10 smallest, f64
+    lap = lap3d(50, 50, 50, 1.0, 1.0, 1.0)
+    exact = np.sort(lap3d_eigenvalues(50, 50, 50, 1.0, 1.0, 1.0))[:10]
+    ch = Chebyshev(lap, *spectral_bounds(lap), degree=16)
+    with counting_plain_calls(sw, sp) as plain:
+        for run in range(2):
+            reset_counters(mods)
+            lmd, x, st, its, wall, solve_s, _ = hevp_call(
+                torch, partial_hevp, lap, T=ch, which=10, tol=1e-6,
+                engine='jacobi')
+            k1 = {key: sw.LAUNCHES[key] for key in sw.LAUNCHES
+                  if sw.LAUNCHES[key]}
+    if any(plain.values()):
+        fail('engine=jacobi ran plain versions of the kernels: %s' % plain)
+    if sum(k1.values()) <= 0:
+        fail('engine=jacobi: the DIA kernel was launched no time')
+    err = check_solution(np, 'engine=jacobi lap3d 50^3', lmd, x, st, exact,
+                         JACOBI_HEVP_LIMIT)
+    print('dense 5, partial_hevp(engine=\'jacobi\') lap3d 50^3 which=10 '
+          'tol=1e-6 Chebyshev degree 16, f64: status 0, %d iterations, max '
+          'rel eigenvalue error %.2e (limit %.0e); wall %.3f s warm (solve '
+          '%.3f s); K1 launches per solve %s, no plain version [%s]'
+          % (its, err, JACOBI_HEVP_LIMIT, wall, solve_s, json.dumps(k1),
+             card))
+    if profile:
+        profile_run(torch, lambda: hevp_call(
+            torch, partial_hevp, lap, T=ch, which=10, tol=1e-6,
+            engine='jacobi'), card)
+    print('dense phase: %.1f s [%s]' % (time.perf_counter() - t_phase, card))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2261,6 +2545,7 @@ def main():
                   profile)
     phase_sweeps(mods, rows, card, wt, gs)
     phase_core(torch, np, mods, rows, card, pencils, profile)
+    phase_dense(torch, np, mods, card, profile)
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in ('jax', 'jaxlib', 'raleigh_tpu'))
     if loaded:

@@ -34,6 +34,18 @@ def best_backend(arch='gpu'):
     return dense_numpy, 'numpy'
 
 
+def data_matrix(a, arch=None, device=None, copy_data=False):
+    """The ``AMatrix`` the dense front ends (truncated_svd, LRA, pca) work
+    on: host NumPy algebra for ``arch='cpu'`` with no ``device``, else torch
+    algebra on ``device`` — the card unless it names another, raising
+    where torch finds none (``algebra.sparse.resolve_device``)."""
+    from .sparse import resolve_device
+    dev = resolve_device(arch, device)
+    if dev is None:
+        return AMatrix(a, arch='cpu', copy_data=copy_data)
+    return AMatrix(a, arch='gpu', copy_data=copy_data, device=dev)
+
+
 class AMatrix:
     """Architecture-aware wrap of a dense 2D array (reference
     raleigh/algebra/dense_matrix.py:10-64).  On the torch backend the

@@ -8,14 +8,15 @@ parity with reference raleigh/interfaces/partial_hevp.py:21-257):
     around the shift and the product problem when ``B`` is given;
   * buckling mode with its load-factor back-transform;
   * the preconditioned path: the device LOBPCG engine for a Chebyshev
-    preconditioner (``engine='auto'``/``'device'``), or the core block
-    Jacobi-CG ``Solver`` (``engine='core'``) with any preconditioner;
+    preconditioner (``engine='auto'``/``'device'``), the chunked
+    per-vector Jacobi engine (``engine='jacobi'``, core/device_jacobi.py),
+    or the core block Jacobi-CG ``Solver`` (``engine='core'``) with any
+    preconditioner;
   * the same status codes and return contract.
 
 The core Solver iterates on ``dense_torch`` blocks on the card, or on
 ``dense_numpy`` blocks for ``arch='cpu'`` and when the link probe
 (utils/link.py) or ``opt.orchestration`` asks for host orchestration.
-``engine='jacobi'`` is not ported yet (ROADMAP queue 1, item 10).
 """
 
 import time
@@ -24,12 +25,14 @@ import weakref
 import numpy as np
 import torch
 
+from ..algebra import dense_torch
 from ..algebra.sparse import (Operator, SparseSymmetricMatrix,
                               SparseSymmetricSolver, resolve_device)
+from ..core.device_jacobi import DeviceJacobi
 from ..core.device_solver import default_block, lobpcg
 from ..core.solver import (DefaultConvergenceCriteria, Options, Problem,
                            Solver)
-from ..ops.spmm import canonical_dtype
+from ..ops.spmm import canonical_dtype, rows_matmat_operands
 
 # the operators partial_hevp built, by (id of the matrix, device, value
 # dtype): each entry holds a weak reference to its matrix and goes with it
@@ -52,8 +55,10 @@ def partial_hevp(A, B=None, T=None, buckling=False, sigma=0, which=6,
     ``engine`` selects the iteration engine of the preconditioned path:
     'core' is the host-orchestrated block Jacobi-CG ``Solver``; 'device'
     the device-resident LOBPCG (std/gen problems with a Chebyshev
-    preconditioner, block convergence control); 'auto' picks 'device'
-    whenever it applies on a device.  'jacobi' is not ported yet.
+    preconditioner, block convergence control); 'jacobi' the chunked
+    device engine with per-vector convergence control (std/gen problems
+    with a Chebyshev preconditioner); 'auto' picks 'device' whenever it
+    applies on a device.
 
     Returns (lmd, x, status): status 0 = converged, -1 = factorization
     too inaccurate (``(None, None, -1)``), other values as the Solver's.
@@ -64,9 +69,6 @@ def partial_hevp(A, B=None, T=None, buckling=False, sigma=0, which=6,
         raise ValueError('sigma must be negative in buckling mode')
     if engine not in ('auto', 'device', 'core', 'jacobi'):
         raise ValueError('unknown engine %r' % (engine,))
-    if engine == 'jacobi':
-        raise NotImplementedError("engine='jacobi' is not ported yet "
-                                  '(ROADMAP queue 1, item 10)')
     if buckling and B is None:
         raise RuntimeError('stress stiffness matrix missing in buckling '
                            'mode')
@@ -79,12 +81,15 @@ def partial_hevp(A, B=None, T=None, buckling=False, sigma=0, which=6,
         if isinstance(which, tuple):
             raise ValueError('which must be an integer when preconditioning'
                              ' is used')
-        if (engine in ('auto', 'device') and dev is not None
+        if (engine != 'core' and dev is not None
                 and hasattr(T, 'device_rows_operands')):
+            if engine == 'jacobi':
+                return _device_jacobi_path(A, B, T, which, tol, verb, opt,
+                                           dev)
             return _device_path(A, B, T, which, tol, verb, opt, dev)
-        if engine == 'device':
-            raise ValueError("engine='device' needs a device (not "
-                             "arch='cpu') and a Chebyshev preconditioner")
+        if engine in ('device', 'jacobi'):
+            raise ValueError("engine='%s' needs a device (not arch='cpu') "
+                             'and a Chebyshev preconditioner' % engine)
 
     if dev is not None and T is None:
         # factorization path on a device: the LDL^T solve runs on the
@@ -295,6 +300,68 @@ def _device_path(A, B, T, which, tol, verb, opt, device):
         print('iterations: %d, solve time: %.2e'
               % (niter, time.time() - start))
     return lmd, x, status
+
+
+def _device_jacobi_path(A, B, T, which, tol, verb, opt, device):
+    """Preconditioned std/gen problem on the chunked per-vector engine
+    (core/device_jacobi.py): Solver-compatible convergence criteria and
+    per-vector locking, on the device.  The smallest eigenpairs of (A, B)
+    are the LARGEST of (-A, B), so the engine runs on the negated operator
+    (the preconditioner commutes with the sign) and the eigenvalues are
+    negated back.  The iteration keeps the problem's dtype, and so do A's
+    and B's device values (f64 stays f64); the Chebyshev recurrence runs
+    in it on its own device matrix."""
+    dtype = np.dtype(A.dtype).type
+    fnA, opsA = rows_matmat_operands(
+        _operator(A, device, dtype).device_matrix())
+    n = A.shape[0]
+
+    def neg_matmat(ops, x):
+        return -fnA(ops, x)
+
+    fnB = opsB = None
+    if B is not None:
+        fnB, opsB = rows_matmat_operands(
+            _operator(B, device, dtype).device_matrix())
+    # fix the block size now so the preconditioner is built for the exact
+    # block shape the engine will iterate; the caller's Options is
+    # restored afterwards
+    block_user = getattr(opt, 'block_size', -1)
+    block = block_user
+    if block is None or block < 1:
+        block = 128 if which > 100 else max(16, which + which // 4)
+    block = min(block, max(8, n // 4))
+    opt.block_size = block
+    precond = T.device_rows_operands(block, n, dtype=dtype)
+    engine = DeviceJacobi(neg_matmat, n, dtype=dtype, precond=precond,
+                          operands=opsA, matmat_b=fnB, operands_b=opsB)
+    cc_user = opt.convergence_criteria
+    max_iter_user = opt.max_iter
+    opt.convergence_criteria = cc_user or DefaultConvergenceCriteria()
+    opt.convergence_criteria.set_error_tolerance('k eigenvector error',
+                                                 tol)
+    if opt.max_iter is None or opt.max_iter < 0:
+        opt.max_iter = 600
+    v = dense_torch.Vectors(n, data_type=dtype, device=device)
+    start = time.time()
+    try:
+        status = engine.solve(v, options=opt, nwanted=which,
+                              verb=max(verb, 0))
+    finally:
+        # full restore: a caller reusing the same Options across calls
+        # must not inherit the tolerance/criteria/max_iter set here
+        opt.block_size = block_user
+        opt.convergence_criteria = cc_user
+        opt.max_iter = max_iter_user
+    if verb > -1:
+        print('iterations: %d, solve time: %.2e'
+              % (engine.iteration, time.time() - start))
+    lmd = -engine.eigenvalues
+    ind = np.argsort(lmd)
+    x = v.data().T
+    if x.shape[1] > 0:
+        x = x[:, ind]
+    return lmd[ind], x, status
 
 
 def _shared_device_matrix(matrix, device):

@@ -1026,3 +1026,91 @@ def test_core_solver_on_the_card(cuda):
     assert status == 0 and np.allclose(lmd[:4], exact, rtol=1e-6)
     for key in ('float64_val32', 'float64_val64'):
         assert sw.LAUNCHES[key] > before[key], key
+
+
+# ---- the dense SVD/PCA engines on the card against the port on the CPU --
+
+def _svd_data(m=600, n=400, rank=200, pca=True, dtype=np.float64):
+    from raleigh_tpu_torch.examples.generate_matrix import generate
+    np.random.seed(1)
+    return generate(m, n, rank, dtype=dtype, pca=pca)[0]
+
+
+@pytest.mark.parametrize('dtype', [np.float32, np.float64])
+def test_subspace_engines_on_the_card_match_cpu(cuda, dtype):
+    """subspace_pca, subspace_pca_tol and randomized_svd from one starting
+    block on the card and on the CPU: the same factors (1e-10 relative in
+    f64, 1e-3 in f32, where cuBLAS's and the CPU's f32 summation orders
+    move the trailing components), the same rank."""
+    from raleigh_tpu_torch.interfaces import randomized as rz
+    a = _svd_data(pca=False, dtype=dtype)
+    tol = 1e-10 if dtype == np.float64 else 1e-3
+    at = torch.from_numpy(a)
+    q = torch.from_numpy(np.random.RandomState(2).standard_normal(
+        (a.shape[0], 40)).astype(dtype))
+    out = [rz._subspace_pca_gram(at.to(dev), q.to(dev), 20, 6)
+           for dev in ('cpu', cuda)]
+    (cm, ct, cc, cs), (gm, gt, gc, gs) = [[t.cpu().numpy() for t in o]
+                                          for o in out]
+    assert np.abs(gs - cs).max() <= tol * cs[0]
+    assert np.abs(gt @ gc - ct @ cc).max() <= tol * np.abs(ct @ cc).max()
+    # the public engines on the card: quality against the host SVD
+    mean, trans, comps = rz.subspace_pca(a, 20)
+    assert isinstance(comps, np.ndarray) and comps.shape == (20, 400)
+    s = np.linalg.svd(a - a.mean(axis=0), compute_uv=False)
+    ef = np.linalg.norm((a - mean) - trans @ comps) / np.linalg.norm(
+        a - mean)
+    assert ef <= 1.02 * np.sqrt(np.sum(s[20:] ** 2) / np.sum(s ** 2))
+    k_card = rz.subspace_pca_tol(a, 0.1)[2].shape[0]
+    k_cpu = rz.subspace_pca_tol(a, 0.1, device='cpu')[2].shape[0]
+    assert abs(k_card - k_cpu) <= 2, (k_card, k_cpu)
+    u, sig, vt = rz.randomized_svd(a, 10)
+    sv = np.linalg.svd(a, compute_uv=False)
+    assert np.abs(sig - sv[:10]).max() <= 1e-3 * sv[0]
+
+
+@pytest.mark.parametrize('method', ['jacobi', 'subspace'])
+def test_pca_on_the_card_matches_cpu(cuda, method):
+    """pca with no device argument runs on the card and agrees with the
+    same call on the CPU in f64: the device Jacobi engine to 1e-10 in
+    sigma (the column norms of L) from one NumPy seed, the subspace
+    engine by its truncation error."""
+    from raleigh_tpu_torch import pca, pca_error
+    a = _svd_data(300, 200, 100)
+    out = []
+    for kw in ({}, {'device': 'cpu'}):
+        np.random.seed(2)
+        out.append(pca(a, npc=15, method=method, **kw))
+    (gm, gl, gr), (cm, cl, cr) = out
+    assert gr.shape == cr.shape == (15, 200)
+    if method == 'jacobi':
+        sg, sc = np.linalg.norm(gl, axis=0), np.linalg.norm(cl, axis=0)
+        assert np.abs(sg - sc).max() <= 1e-10 * sc.max()
+    eg, ec = pca_error(a, gm, gl, gr), pca_error(a, cm, cl, cr)
+    assert eg[1] <= 1.01 * ec[1], (eg, ec)
+
+
+def test_truncated_svd_and_jacobi_hevp_on_the_card(cuda):
+    """truncated_svd on the card against the host SVD, and
+    partial_hevp(engine='jacobi') on lap3d launching the DIA kernel and
+    no plain version."""
+    from raleigh_tpu_torch import Chebyshev, partial_hevp, spectral_bounds
+    from raleigh_tpu_torch import truncated_svd
+    from raleigh_tpu_torch.examples.laplace import lap3d_eigenvalues
+    a = _svd_data(600, 400, 200, pca=False)
+    u, sig, vt = truncated_svd(a, nsv=20)
+    sv = np.linalg.svd(a, compute_uv=False)
+    assert np.abs(sig[:20] - sv[:20]).max() <= 1e-6 * sv[0]
+    lap = lap3d(12, 12, 12, 1.0, 1.0, 1.0)
+    ch = Chebyshev(lap, *spectral_bounds(lap), degree=8)
+    sw.reset_launches()
+    plain = sw.dia_matmat_rows_plain
+    sw.dia_matmat_rows_plain = None      # any plain call would fail
+    try:
+        lmd, x, st_ = partial_hevp(lap, T=ch, which=4, tol=1e-6,
+                                   engine='jacobi', verb=-1)
+    finally:
+        sw.dia_matmat_rows_plain = plain
+    exact = np.sort(lap3d_eigenvalues(12, 12, 12, 1.0, 1.0, 1.0))[:4]
+    assert st_ == 0 and np.allclose(lmd[:4], exact, rtol=1e-6)
+    assert sum(sw.LAUNCHES.values()) > 0

@@ -3,14 +3,17 @@ import it and run its slices (lap3d 10^3 through DIA, a small girder pencil
 through ELL and through hand-built BSR operators, the two A/B sweeps of
 ``raleigh_tpu_torch.benches`` at a small size, the mesh path: a sharded
 solve on 8 shards of the CPU, ``ShardedEllMatrix``, the dry run and the
-sharded SpMM bench, and the core Solver's slice: shift-invert, the product
+sharded SpMM bench, the core Solver's slice: shift-invert, the product
 problem, buckling and engine='core' on dense_torch blocks, the host path
-and the example CLIs) in a fresh interpreter,
+and the example CLIs, and the dense slice: the randomized subspace
+engines, truncated_svd, PartialSVD, LRA, pca in its modes on both Jacobi
+routes, DeviceJacobi under engine='jacobi', the checkpoint copy and the
+pca_demo and truncated_svd_demo CLIs) in a fresh interpreter,
 then look at sys.modules.  The port keeps its own copies of the host code
 both packages need (the core Solver, ``dense_small``, ``dense_numpy``, the
 native LDL^T and its C++ sources, ``spectral_bounds``,
-``examples.laplace``, ``examples.fe_model``), so no module whose
-top-level name is
+``examples.laplace``, ``examples.fe_model``, ``examples.generate_matrix``,
+``utils.checkpoint``), so no module whose top-level name is
 ``raleigh_tpu`` may be loaded.
 """
 
@@ -113,6 +116,40 @@ solver, v = core_solver.run(device='cpu')
 assert solver.iteration == 58, solver.iteration
 sparse_evp.run(4, 0.0, compare_eigsh=False, lap_dims=(6, 6, 6, 1, 1, 1),
                device='cpu')
+# the dense slice: the subspace engines, the SVD/LRA/PCA front ends on
+# both Jacobi routes (the device engine on dense_torch, the core Solver on
+# dense_numpy), engine='jacobi', the checkpoint copy and the demo CLIs
+import os
+import tempfile
+from raleigh_tpu_torch.examples import (generate_matrix, pca_demo,
+                                        truncated_svd_demo)
+from raleigh_tpu_torch.utils import checkpoint
+np.random.seed(1)
+A = generate_matrix.generate(200, 120, 60, pca=True)[0]
+mean, trans, comps = rt.subspace_pca(A, 10, device='cpu')
+assert comps.shape == (10, 120)
+assert rt.subspace_pca_tol(A, 0.2, device='cpu')[2].shape[1] == 120
+assert rt.randomized_svd(A, 5, device='cpu')[1].shape == (5,)
+for kw in ({'device': 'cpu'}, {'arch': 'cpu'}):
+    u, s, vt = rt.truncated_svd(A, nsv=5, **kw)
+    assert s.shape[0] >= 5, s
+    m, l, r = rt.pca(A, npc=8, method='jacobi', **kw)
+    em, ef = rt.pca_error(A, m, l, r)
+    assert ef < 0.9, ef
+    m2, l2, r2 = rt.pca(A[:60], have=(m, l, r), method='jacobi', **kw)
+    assert l2.shape[0] == 260, l2.shape
+    lra = rt.LowerRankApproximation()
+    lra.icompute(A, 100, rank=6, **kw)
+    assert lra.right().shape[1] == 120
+path = os.path.join(tempfile.mkdtemp(), 'lra.npz')
+checkpoint.save_lra(path, mean, trans, comps)
+assert checkpoint.load_lra(path)[2].shape == comps.shape
+lmd, x, status = rt.partial_hevp(a8, T=T8, which=3, tol=1e-6, verb=-1,
+                                 engine='jacobi', device='cpu')
+assert status == 0 and np.allclose(lmd[:3], ex8[:3], rtol=1e-5), lmd
+assert isinstance(rt.DeviceJacobi, type) and rt.PartialSVD
+pca_demo.run('simple', 200, 120, 60, 8, device='cpu')
+truncated_svd_demo.run(200, 120, 60, 5, arch='cpu')
 import json
 print(json.dumps({'jax': sorted(
     m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')),

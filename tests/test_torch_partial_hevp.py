@@ -79,15 +79,17 @@ def test_iteration_dtype_follows_default(capsys):
 
 
 def test_unported_paths_raise(monkeypatch):
-    """Only engine='jacobi' is left unported (item 10); shift-invert
-    (T=None) and engine='core' run and converge; arch='gpu' with no card
-    raises, it never runs on the CPU instead."""
+    """No mode is left unported: engine='jacobi' (ported last),
+    shift-invert (T=None) and engine='core' run and converge; the device
+    engines refuse arch='cpu'; arch='gpu' with no card raises, it never
+    runs on the CPU instead."""
     a = lap3d(4, 4, 4, 1.0, 1.0, 1.0)
     T = Chebyshev(a, 0.1, 1e3, device='cpu')
     kw = dict(arch='gpu', device='cpu', verb=-1)
-    with pytest.raises(NotImplementedError, match='item 10'):
-        partial_hevp(a, T=T, which=4, engine='jacobi', **kw)
     exact = np.sort(lap3d_eigenvalues(4, 4, 4, 1.0, 1.0, 1.0))[:4]
+    lmd, _, status = partial_hevp(a, T=T, which=4, tol=1e-6,
+                                  engine='jacobi', **kw)
+    assert status == 0 and np.allclose(lmd[:4], exact, rtol=1e-6)
     lmd, _, status = partial_hevp(a, which=4, tol=1e-6, **kw)
     assert status == 0 and np.allclose(lmd[:4], exact, rtol=1e-6)
     lmd, _, status = partial_hevp(a, T=T, which=4, tol=1e-6,
@@ -96,8 +98,9 @@ def test_unported_paths_raise(monkeypatch):
     lmd, _, status = partial_hevp(a, T=T, which=4, tol=1e-6, arch='cpu',
                                   verb=-1)
     assert status == 0 and np.allclose(lmd[:4], exact, rtol=1e-6)
-    with pytest.raises(ValueError):
-        partial_hevp(a, T=T, which=4, arch='cpu', engine='device')
+    for engine in ('device', 'jacobi'):
+        with pytest.raises(ValueError):
+            partial_hevp(a, T=T, which=4, arch='cpu', engine=engine)
     # arch='gpu' with no card raises; it never runs on the CPU instead
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA'):
