@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven phases; any failure exits non-zero.  No phase catches a failure and
+Eight phases; any failure exits non-zero.  No phase catches a failure and
 carries on, and no wrapper gives way to its plain version on the card.
 
 1. Environment: the card's name and power limit, torch's CUDA version,
@@ -50,6 +50,18 @@ carries on, and no wrapper gives way to its plain version on the card.
      timed in turns with the plain version and ``torch.sparse.mm`` on the
      f64 CSR tensor (the BSR kernel also with its previous design and an
      f64 ``torch.sparse_bsr_tensor``).
+   * The f64 instantiations of the mesh DIA kernel (f64 operand, f32 or
+     f64 values) on lap3d(100,100,128) in 8 shards of the card at the core
+     block size: one launch for a sharded apply, within ``F64_SUM_TOL`` of
+     the largest |entry| of the plain version over the piece table and
+     equal bit for bit to the unsharded f64 kernel; timed in turns with the
+     plain version, the unsharded f64 kernel and ``torch.sparse.mm`` (f64).
+   * The complex routes (``ops/complex_rows.py``): the DIA kernel on the
+     complex field's B (c128 values, two f64 launches an apply) and the BSR
+     kernel on the FE flagship (f32 tiles, one f64 launch over the stacked
+     real and imaginary rows), c128 operands at the core block size,
+     within ``F64_SUM_TOL`` of the plain version on the complex tensors;
+     timed in turns with it and ``torch.sparse.mm`` on the complex CSR.
    * The two staged-window DIA kernels (sliding window, tile ring) and
      their previous designs (``dia_matmat_rows_slide_prev``,
      ``dia_matmat_rows_tiles_prev``, in the same sources) at the tile
@@ -123,7 +135,8 @@ carries on, and no wrapper gives way to its plain version on the card.
    blockspec4, manual2, manual4, spans, torch, hbm2hbm) at full size;
    then ``benches.bench_spmm_sharded`` at its default size,
    ``benches.bench_launch_cost`` and ``graft_entry.dryrun_multichip(8)``
-   (one mesh kernel launch per device per sharded apply, no copy launch).
+   (its Solver parts on sharded ``dense_torch`` blocks included; one mesh
+   kernel launch per device per sharded apply, no copy launch).
 5. The core phase: the block Jacobi-CG Solver under ``partial_hevp`` at
    the JAX package's f64 flagship sizes, on the card, with every launch
    counter set to 0 before each field and no plain version of a kernel
@@ -145,6 +158,19 @@ carries on, and no wrapper gives way to its plain version on the card.
      smallest, tol 1e-4, with a degree-32 Chebyshev on a ``BsrMatrix``:
      the residual limit of the FE fields, f64 BSR kernel launches > 0
      (with ``--profile``, the f64 BSR kernel's share of device time).
+   * Sharded core 4: core 4's problem on the ``Solver`` with f64
+     ``dense_torch`` blocks split over ``make_mesh(8)`` and over
+     ``make_mesh2d(2, 4)`` (eight shards of the card), the operator and
+     Chebyshev that ``partial_hevp(engine='core')`` builds split by
+     ``shard_operator``; cold and warm: status 0, error <= 1e-3, within
+     1e-6 of core 4's eigenvalues, the f64 mesh kernel launched for both
+     value types once per device per sharded apply, no other kernel, no
+     plain version.
+   * Complex: generalized shift-invert of the complex Hermitian chain of
+     ``tests/test_sparse.py:175`` at n = 125,000 with B = I + 0.25 H, sigma
+     0.3, 4 nearest, on the card (B's c128 DIA values through the DIA
+     kernel's complex route) against the same call with ``arch='cpu'``:
+     within 1e-8; no plain version.
 6. The dense phase: the SVD/PCA stack as a user calls it, with no device
    argument.
    * The headline, ``subspace_pca(a, 800, fetch=False)`` on bench.py's
@@ -170,10 +196,16 @@ carries on, and no wrapper gives way to its plain version on the card.
      Chebyshev degree 16, f64: status 0, within 1e-5 of the analytic
      eigenvalues, the DIA kernel launched (counters set to 0 before each
      solve) and no plain version of a kernel called.
+   * Dense 1 again with the matrix split along its features over 8 shards
+     of the card (``matrix_sharding``): ``_verify_pca``'s limits, and mean
+     within 1e-4 and ``trans @ comps`` within 1e-3 of dense 1's.
    With ``--profile``, each of the first three also one warm run under the
    profiler, its device time split into GEMM, QR, eigh/SVD and the rest,
    and the host's share.
-7. No module of jax or of the JAX package was loaded.
+7. ``examples.eigenimages.run()`` at its synthetic default (12,000 x
+   39,375 made on the card, npc 800), its factors saved to a temporary
+   directory and held to ``_verify_pca``'s checks.
+8. No module of jax or of the JAX package was loaded.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel's launches on its path, error against plain, times and bound
@@ -245,6 +277,14 @@ PEAK_F64_MMA = 67e12
 # the core Solver's block size on the core fields (which = 4 and 6: the
 # Solver's default block size policy, a multiple of 8)
 CORE_BLOCK = 8
+# the sharded core field: its eigenvalues against the unsharded core 4's
+# in the same run (relative)
+MESH_CORE_AGREE = 1e-6
+# the complex field: the chain of tests/test_sparse.py:175 at core 1's
+# size, its shift, and the agreement with the same call on the host
+COMPLEX_N = 125000
+COMPLEX_SIGMA = 0.3
+COMPLEX_AGREE = 1e-8
 # the f64 BSR kernel sums in another order than its plain version: at most
 # this share of the largest |entry| apart (f64 sums of ~3,000 terms)
 F64_SUM_TOL = 1e-12
@@ -1528,15 +1568,17 @@ def counting_sharded_applies():
 
 
 def check_one_launch_per_device(sw, st, what, applies):
-    """Fails unless the mesh kernel ran once per device per sharded apply,
-    and neither the copy kernel nor the one-piece entry ran."""
-    launches = sw.LAUNCHES['mesh_float32'] + sw.LAUNCHES['mesh_bfloat16']
+    """Fails unless the mesh kernel (any instantiation) ran once per device
+    per sharded apply, and neither the copy kernel nor the one-piece entry
+    ran."""
+    launches = sum(v for k, v in sw.LAUNCHES.items()
+                   if k.startswith('mesh_'))
     if not applies or launches != sum(applies):
         fail('%s: %d mesh kernel launches for %d sharded applies over %d '
              'device launches' % (what, launches, len(applies),
                                   sum(applies)))
-    stray = (st.LAUNCHES['copy_lanes'], sw.LAUNCHES['ext_float32'],
-             sw.LAUNCHES['ext_bfloat16'])
+    stray = (st.LAUNCHES['copy_lanes'],) + tuple(
+        v for k, v in sw.LAUNCHES.items() if k.startswith('ext_'))
     if any(stray):
         fail('%s: copy and one-piece launches %s on the mesh DIA path'
              % (what, stray))
@@ -1878,7 +1920,7 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
                   'set-up (K and M, build and upload) %.3f s; lobpcg wall '
                   'cold %.3f s, warm %.3f s; BSR launches %s [%s]'
                   % (label, its, its2, rel, agree, setup, wall, warm,
-                     {'%s_%s' % k5: c for k5, c in launches.items()}, card))
+                     {'_'.join(k5): c for k5, c in launches.items()}, card))
             if profile:
                 profile_run(torch, run, card)
         else:
@@ -1886,7 +1928,7 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
                   'eigenvalues within %.2e of FE-ELL; lobpcg wall %.3f s; '
                   'BSR launches %s [%s]'
                   % (label, its, rel, agree, wall,
-                     {'%s_%s' % k5: c for k5, c in launches.items()}, card))
+                     {'_'.join(k5): c for k5, c in launches.items()}, card))
 
 
 def phase_stream_rate(mods, rows, card):
@@ -2035,26 +2077,209 @@ def phase_wide(torch, np, lap3d, DiaMatrix, BsrMatrix, sw, sp, k_nat):
     return rows
 
 
+def phase_mesh_wide(torch, np, lap3d, DiaMatrix, sw):
+    """The f64 instantiations of the mesh DIA kernel (K4: an f64 operand,
+    f32 or f64 values) at the sharded core field's shapes:
+    lap3d(100,100,128) in ``SHARDS`` shards of the card, m = ``CORE_BLOCK``.
+    One sharded apply is one launch; it equals the plain version over the
+    piece table (within ``F64_SUM_TOL`` of the largest |entry|; the kernel
+    keeps its products and order of sums, so it is exact in practice) and
+    the unsharded f64 kernel bit for bit.  Timed in turns with the plain
+    version, the unsharded f64 kernel and ``torch.sparse.mm`` on the f64
+    CSR tensor.  Returns their rows."""
+    from raleigh_tpu_torch.core.device_solver import shard_operator
+    from raleigh_tpu_torch.parallel.mesh import (ShardedRows,
+                                                 blockvec_sharding, make_mesh)
+    rows = {}
+    gen = torch.Generator('cuda').manual_seed(13)
+    csr = lap3d(100, 100, 128, 1.0, 1.0, 1.0)
+    mesh = make_mesh(SHARDS)
+    m = CORE_BLOCK
+    for vkey, values in (('val32', np.float32), ('val64', np.float64)):
+        whole = DiaMatrix(csr, dtype=values, device='cuda', exact=True)
+        dm = shard_operator(DiaMatrix(csr, dtype=values, device='cuda',
+                                      exact=True), mesh)
+        n, noff = whole.shape[0], len(whole.offsets)
+        plan = dm._mesh_plan(dm.val.sharding)
+        vals = dm.val.parts
+        x = torch.randn((m, n), generator=gen, device='cuda',
+                        dtype=torch.float64)
+        xs = ShardedRows.split(x, blockvec_sharding(mesh))
+        name = 'dia_spmm_mesh_f64_' + vkey
+        before = dict(sw.LAUNCHES)
+        ym = dm.matmat_rows(xs)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in sw.LAUNCHES.items()
+                 if v != before[k]}
+        if moved != {'mesh_float64_' + vkey: 1}:
+            fail('%s: one sharded apply launched %s, not one mesh kernel'
+                 % (name, moved))
+        got = ym.gather()
+        want = torch.cat(sw.dia_matmat_rows_mesh_plain(vals, xs.parts, plan),
+                         dim=1)
+        if got.dtype != torch.float64 or not torch.isfinite(got).all():
+            fail('%s: output %s, or not finite' % (name, got.dtype))
+        diff = (got - want).abs().max().item()
+        rel = diff / want.abs().max().item()
+        if rel > F64_SUM_TOL:
+            fail('%s vs plain: %.2e of the largest entry > %.0e'
+                 % (name, rel, F64_SUM_TOL))
+        if not torch.equal(got, whole.matmat_rows(x)):
+            fail('%s: the sharded apply differs from the unsharded f64 '
+                 'kernel\'s' % name)
+        exact = torch.equal(got, want)
+        del ym, got, want
+        t = turns({'plain': lambda: sw.dia_matmat_rows_mesh_plain(
+                       vals, xs.parts, plan),
+                   'kernel': lambda: sw.dia_matmat_rows_mesh(
+                       vals, xs.parts, plan),
+                   'k1': lambda: whole.matmat_rows(x),
+                   'library': library_spmm_fn(torch, csr, x, 'float64')},
+                  50)
+        # K1's work: a shard's halo lanes are its neighbours' own, read
+        # once as a whole-matrix apply reads them
+        nbytes = noff * n * np.dtype(values).itemsize + noff * 4 \
+            + 2 * m * n * 8
+        flops = 2 * m * sum(n - abs(o) for o in whole.offsets)
+        bound_ms, bound_by = bound(nbytes, flops, PEAK_F64)
+        print('%s lap3d(100,100,128) in %d shards, m=%d: one launch; %.2e '
+              'of the largest entry from plain (%s), equal to the unsharded '
+              'f64 kernel bit for bit; kernel %.4f ms (%.0f GB/s), plain '
+              '%.4f ms, unsharded f64 kernel %.4f ms, torch.sparse.mm (f64) '
+              '%s, bound %.4f ms (%s), in turns [one card: no scaling '
+              'measurement]'
+              % (name, SHARDS, m, rel, 'bit for bit' if exact else
+                 'not bit for bit', t['kernel'], nbytes / t['kernel'] / 1e6,
+                 t['plain'], t['k1'], fmt_ms(t['library']), bound_ms,
+                 bound_by))
+        rows[name] = dict(
+            name=name, route='cuda', source=EXT[0], replaces=EXT[1],
+            launches=0, max_abs_err=diff, ms=t['kernel'],
+            plain_ms=t['plain'], bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=t['library'], m=m, shards=SHARDS, k1_ms=t['k1'],
+            bytes=nbytes)
+        del dm, whole, plan, vals, xs, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def complex_chain(np, n):
+    """The complex Hermitian chain of tests/test_sparse.py:175 (hopping i
+    and -i next to the diagonal linspace(0, 1, n)) and B = I + 0.25 H, H
+    its hopping part: B's spectrum lies in [0.5, 1.5], so it is positive
+    definite."""
+    import scipy.sparse as scs
+    d = 1j * np.ones(n - 1)
+    hop = scs.csr_matrix(scs.diags(d, 1) - scs.diags(d, -1))
+    a = scs.csr_matrix(hop + scs.diags(np.linspace(0, 1, n)))
+    b = scs.csr_matrix(scs.eye(n) + 0.25 * hop)
+    return a, b
+
+
+def phase_complex_kernels(torch, np, sw, sp, DiaMatrix, BsrMatrix, k_nat):
+    """The complex routes of the DIA and BSR kernels against their plain
+    versions on complex tensors (``ops/complex_rows.py``): K1 on the
+    complex field's B (the chain's c128 values, n = ``COMPLEX_N``: two f64
+    launches over the stacked real and imaginary rows) and K5 on the FE
+    flagship in the mesher's order with f32 tiles (one f64 launch over the
+    stacked rows), both at m = ``CORE_BLOCK`` c128 rows, within
+    ``F64_SUM_TOL`` of the largest |entry|.  Timed in turns with the plain
+    version and ``torch.sparse.mm`` on the complex CSR tensor.  Returns
+    their rows."""
+    rows = {}
+    gen = torch.Generator('cuda').manual_seed(17)
+    m = CORE_BLOCK
+    _, b = complex_chain(np, COMPLEX_N)
+    dm = DiaMatrix(b, dtype=np.complex128, device='cuda', exact=True)
+    bm = BsrMatrix(k_nat, bs=128, device='cuda')
+    bargs = (bm.blocks, bm.block_indptr_t, bm.block_cols)
+    cases = (
+        ('dia_spmm_rows_complex_f64_val64', DIA, 'complex_float64_val64',
+         b, dm.shape[0], lambda x: sw.dia_matmat_rows(dm.val, x,
+                                                      dm.offsets_t),
+         lambda x: sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t),
+         sw.LAUNCHES, 2,
+         len(dm.offsets) * dm.shape[0] * 16 + len(dm.offsets) * 4,
+         8 * sum(dm.shape[0] - abs(o) for o in dm.offsets)),
+        ('bsr_spmm_rows_complex_f32_f64', BSR, ('f32', 'f64', 'complex'),
+         k_nat, k_nat.shape[0],
+         lambda x: sp.bsr_matmat_rows(*bargs, x, k_nat.shape[0]),
+         lambda x: sp.bsr_matmat_rows_plain(*bargs, x, k_nat.shape[0]),
+         sp.LAUNCHES, 1,
+         bm.blocks.numel() * 4 + bm.block_indptr_t.numel() * 4
+         + bm.block_cols.numel() * 4, 4 * bm.blocks.numel()))
+    for (name, src, key, csr, n, kern, plain, counts, launches, matrix_bytes,
+         flops_per_row) in cases:
+        x = torch.complex(
+            torch.randn((m, n), generator=gen, device='cuda',
+                        dtype=torch.float64),
+            torch.randn((m, n), generator=gen, device='cuda',
+                        dtype=torch.float64))
+        before = counts[key]
+        got = kern(x)
+        torch.cuda.synchronize()
+        if counts[key] - before != launches:
+            fail('%s: %d launches for one complex apply, not %d'
+                 % (name, counts[key] - before, launches))
+        want = plain(x)
+        if got.dtype != torch.complex128 or not torch.isfinite(
+                torch.view_as_real(got)).all():
+            fail('%s: output %s, or not finite' % (name, got.dtype))
+        diff = (got - want).abs().max().item()
+        rel = diff / want.abs().max().item()
+        if rel > F64_SUM_TOL:
+            fail('%s vs plain: %.2e of the largest entry > %.0e'
+                 % (name, rel, F64_SUM_TOL))
+        del got, want
+        t = turns({'plain': lambda: plain(x), 'kernel': lambda: kern(x),
+                   'library': library_spmm_fn(torch, csr, x, 'complex128')},
+                  20)
+        nbytes = matrix_bytes + 2 * m * n * 16
+        bound_ms, bound_by = bound(nbytes, m * flops_per_row,
+                                   PEAK_F64 if src is DIA else PEAK_F64_MMA)
+        print('%s n=%d m=%d (c128 operand, %d launch%s an apply): %.2e of '
+              'the largest entry from plain; kernel %.4f ms (%.0f GB/s), '
+              'plain %.4f ms, torch.sparse.mm (c128 CSR) %s, bound %.4f ms '
+              '(%s), in turns'
+              % (name, n, m, launches, 'es' if launches > 1 else '', rel,
+                 t['kernel'], nbytes / t['kernel'] / 1e6, t['plain'],
+                 fmt_ms(t['library']), bound_ms, bound_by))
+        rows[name] = dict(
+            name=name, route='cuda', source=src[0], replaces=src[1],
+            launches=0, max_abs_err=diff, ms=t['kernel'],
+            plain_ms=t['plain'], bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=t['library'], m=m, bytes=nbytes)
+        del x
+    rows['bsr_spmm_rows_complex_f32_f64']['off_path'] = (
+        'no field here has a complex block on a BSR operator (the complex '
+        'field\'s B is tridiagonal, so DIA); the route is held against its '
+        'plain version above')
+    return rows
+
+
 @contextlib.contextmanager
 def counting_plain_calls(sw, sp):
-    """Counts the calls of the DIA and BSR kernels' plain versions made
-    inside the block: none may come from a path on the card."""
-    calls = {'dia': 0, 'bsr': 0}
-    dia, bsr = sw.dia_matmat_rows_plain, sp.bsr_matmat_rows_plain
+    """Counts the calls of the DIA, mesh DIA and BSR kernels' plain
+    versions made inside the block: none may come from a path on the
+    card."""
+    names = {'dia': (sw, 'dia_matmat_rows_plain'),
+             'mesh': (sw, '_mesh_shard_plain'),
+             'bsr': (sp, 'bsr_matmat_rows_plain')}
+    calls = dict.fromkeys(names, 0)
+    inner = {key: getattr(mod, attr) for key, (mod, attr) in names.items()}
 
-    def counted_dia(*a):
-        calls['dia'] += 1
-        return dia(*a)
-
-    def counted_bsr(*a):
-        calls['bsr'] += 1
-        return bsr(*a)
-    sw.dia_matmat_rows_plain, sp.bsr_matmat_rows_plain = (counted_dia,
-                                                          counted_bsr)
+    def counter(key):
+        def counted(*a):
+            calls[key] += 1
+            return inner[key](*a)
+        return counted
+    for key, (mod, attr) in names.items():
+        setattr(mod, attr, counter(key))
     try:
         yield calls
     finally:
-        sw.dia_matmat_rows_plain, sp.bsr_matmat_rows_plain = dia, bsr
+        for key, (mod, attr) in names.items():
+            setattr(mod, attr, inner[key])
 
 
 def phase_core(torch, np, mods, rows, card, pencils, profile=False):
@@ -2186,6 +2411,7 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
             if other:
                 fail('core engine launched other DIA kernels: %s' % other)
         syncs = dense_torch.COUNTS['to_host'] / its
+        core4 = dict(lmd=np.sort(lmd)[:4], iterations=its, warm=walls[1])
         if profile:
             profile_run(torch, lambda: hevp_call(
                 torch, partial_hevp, a, T=ch, which=4, tol=5e-5,
@@ -2246,6 +2472,171 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
                      100 * k5_s / busy, card))
     if any(plain.values()):
         fail('the core phase ran plain versions of the kernels: %s' % plain)
+    return core4
+
+
+def phase_mesh_core(torch, np, mods, rows, card, core4, profile=False):
+    """Core 4's problem (lap3d(100,100,128), 4 smallest, tol 5e-5,
+    Chebyshev degree 12) on the port's ``Solver`` with f64 ``dense_torch``
+    blocks split over ``make_mesh(8)`` and over ``make_mesh2d(2, 4)``, eight
+    shards of the card, with the operator and preconditioner that
+    ``partial_hevp(engine='core')`` builds (``SparseSymmetricMatrix`` with
+    exact f64 values, the Chebyshev's own f32 values), both split by
+    ``shard_operator``.  Cold and warm on each mesh: status 0, error <=
+    1e-3, within ``MESH_CORE_AGREE`` of core 4's eigenvalues, the f64 mesh
+    kernel launched for both value types, once per device per sharded
+    apply; no other DIA or BSR kernel, no copy, no plain version."""
+    from raleigh_tpu_torch import Chebyshev, spectral_bounds
+    from raleigh_tpu_torch.algebra import dense_torch
+    from raleigh_tpu_torch.algebra.sparse import SparseSymmetricMatrix
+    from raleigh_tpu_torch.core.device_solver import shard_operator
+    from raleigh_tpu_torch.core.solver import (DefaultConvergenceCriteria,
+                                               Options, Problem, Solver)
+    from raleigh_tpu_torch.examples.laplace import lap3d, lap3d_eigenvalues
+    from raleigh_tpu_torch.parallel.mesh import (blockvec_sharding,
+                                                 make_mesh, make_mesh2d)
+    sw, sp, st = mods
+    a = lap3d(100, 100, 128, 1.0, 1.0, 1.0)
+    exact = np.sort(lap3d_eigenvalues(100, 100, 128, 1.0, 1.0, 1.0))[:4]
+    lo, hi = spectral_bounds(a)
+    keys = ('mesh_float64_val32', 'mesh_float64_val64')
+    for label, mesh in (('make_mesh(%d)' % SHARDS, make_mesh(SHARDS)),
+                        ('make_mesh2d(2, %d)' % (SHARDS // 2),
+                         make_mesh2d(2, SHARDS // 2))):
+        name = 'sharded core 4 on %s' % label
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        op = SparseSymmetricMatrix(a, exact=True)
+        ch = Chebyshev(a, lo, hi, degree=12)
+        shard_operator(op.device_matrix(), mesh, axis=mesh.axis_names)
+        shard_operator(ch.device_matrix(), mesh, axis=mesh.axis_names)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        sh = blockvec_sharding(mesh)
+
+        def run():
+            v = dense_torch.Vectors(a.shape[0], 0, np.float64, sharding=sh)
+            solver = Solver(Problem(v, op))
+            solver.set_preconditioner(ch)
+            opt = Options()
+            opt.convergence_criteria = DefaultConvergenceCriteria()
+            opt.convergence_criteria.set_error_tolerance(
+                'k eigenvector error', 5e-5)
+            opt.sigma = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            status = solver.solve(v, opt, which=(4, 0))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            lmd = solver.eigenvalues
+            order = np.argsort(lmd)
+            x = v.data().T[:, order] if v.nvec() else None
+            return lmd[order], x, status, solver.iteration, wall
+
+        walls = []
+        for _ in range(2):
+            reset_counters(mods)
+            dense_torch.reset_counts()
+            with counting_plain_calls(sw, sp) as plain, \
+                    counting_sharded_applies() as applies:
+                lmd, x, status, its, wall = run()
+            walls.append(wall)
+            err = check_solution(np, name, lmd, x, status, exact, 1e-3)
+            agree = float(np.abs(lmd[:4] / core4['lmd'] - 1).max())
+            if agree > MESH_CORE_AGREE:
+                fail('%s: eigenvalues %.2e from core 4\'s (limit %.0e)'
+                     % (name, agree, MESH_CORE_AGREE))
+            launches = {key: sw.LAUNCHES[key] for key in keys}
+            if min(launches.values()) <= 0:
+                fail('%s: the f64 mesh kernel was skipped: %s'
+                     % (name, launches))
+            other = {key: v for key, v in sw.LAUNCHES.items()
+                     if v and key not in keys}
+            if other or any(sp.LAUNCHES.values()):
+                fail('%s launched other kernels: %s %s'
+                     % (name, other, {k: v for k, v in sp.LAUNCHES.items()
+                                      if v}))
+            check_one_launch_per_device(sw, st, name, applies)
+            if any(plain.values()):
+                fail('%s ran plain versions of the kernels: %s'
+                     % (name, plain))
+        if mesh.devices.ndim == 1:
+            for key in keys:
+                rows['dia_spmm_mesh_f64_' + key[-5:]]['launches'] = \
+                    launches[key]
+        print('%s: status 0, %d iterations (core 4, unsharded: %d), max rel '
+              'eigenvalue error %.2e, within %.2e of core 4; wall cold %.2f '
+              's, warm %.2f s (core 4 warm %.2f s); set-up (operator, '
+              'Chebyshev, split) %.2f s; f64 mesh kernel launches per solve '
+              '%s for %d sharded applies (one per device each), no K1, no '
+              'plain version; %.2f host transfers per iteration [%s; the '
+              'shards share the card: no scaling measurement]'
+              % (name, its, core4['iterations'], err, agree, walls[0],
+                 walls[1], core4['warm'], setup, json.dumps(launches),
+                 len(applies), dense_torch.COUNTS['to_host'] / its, card))
+        if profile:
+            profile_run(torch, run, card)
+        del op, ch
+    torch.cuda.empty_cache()
+
+
+def phase_complex(torch, np, mods, rows, card):
+    """Generalized shift-invert of the complex Hermitian chain (``COMPLEX_N``
+    = core 1's size, sigma ``COMPLEX_SIGMA``, 4 nearest, tol 1e-6) with B =
+    I + 0.25 H on the card (device orchestration: the Solver's c128 blocks
+    and B's DIA apply on the card, the LDL^H solve on the host) against the
+    same call with ``arch='cpu'``: within ``COMPLEX_AGREE``; B's applies go
+    through the DIA kernel's complex route and no plain version runs."""
+    from raleigh_tpu_torch import Options, partial_hevp
+    sw, sp, _ = mods
+    a, b = complex_chain(np, COMPLEX_N)
+    name = ('complex chain n=%d B=I+0.25H sigma=%g which=4'
+            % (COMPLEX_N, COMPLEX_SIGMA))
+    opt = Options()
+    opt.orchestration = 'device'
+    reset_counters(mods)
+    with counting_plain_calls(sw, sp) as plain:
+        lmd, x, st, its, wall, solve_s, setup = hevp_call(
+            torch, partial_hevp, a, B=b, sigma=COMPLEX_SIGMA, which=4,
+            tol=1e-6, opt=opt)
+    launches = {k: v for k, v in sw.LAUNCHES.items() if v}
+    if any(plain.values()):
+        fail('%s ran plain versions of the kernels: %s' % (name, plain))
+    if launches.get('complex_float64_val64', 0) <= 0 or set(launches) != {
+            'complex_float64_val64'}:
+        fail('%s: DIA launches %s, not the complex route alone'
+             % (name, launches))
+    hl, hx, hst, hits, hwall, _, _ = hevp_call(
+        torch, partial_hevp, a, B=b, sigma=COMPLEX_SIGMA, which=4, tol=1e-6,
+        arch='cpu')
+    if st != 0 or hst != 0 or lmd is None or len(lmd) < 4:
+        fail('%s: status %s (host %s)' % (name, st, hst))
+
+    def nearest(v):
+        v = np.asarray(v)
+        return np.sort(v[np.argsort(np.abs(v - COMPLEX_SIGMA))[:4]])
+    agree = float(np.max(np.abs(nearest(lmd) - nearest(hl))
+                         / np.abs(nearest(hl))))
+    if not agree <= COMPLEX_AGREE:
+        fail('%s: eigenvalues %s against the host\'s %s (%.1e)'
+             % (name, nearest(lmd), nearest(hl), agree))
+    ind = np.argsort(np.abs(lmd - COMPLEX_SIGMA))[:4]
+    xs = x[:, ind]
+    res = float(np.max(np.linalg.norm(a @ xs - (b @ xs) * lmd[ind][None, :],
+                                      axis=0)
+                       / np.linalg.norm(b @ xs, axis=0)))
+    if x.dtype != np.complex128 or not res <= 1e-6:
+        fail('%s: eigenvectors %s, residual %.1e' % (name, x.dtype, res))
+    rows['dia_spmm_rows_complex_f64_val64']['launches'] = \
+        launches['complex_float64_val64']
+    print('%s tol=1e-6: status 0, %d iterations, eigenvalues %s within %.1e '
+          'of the host run (arch=\'cpu\': %d iterations, wall %.2f s), '
+          'relative residual %.1e; set-up %.2f s, solve %.2f s, wall %.2f s; '
+          'DIA launches %s (two real launches an apply of B\'s c128 values), '
+          'no plain version [%s]'
+          % (name, its, np.array2string(nearest(lmd), precision=10), agree,
+             hits, hwall, res, setup or 0.0, solve_s, wall,
+             json.dumps(launches), card))
 
 
 # the dense phase: bench.py's headline matrix (bench.py:37-66) and its
@@ -2258,6 +2649,10 @@ ERR_FRO_LIMIT = 0.30
 JACOBI_OPTIMAL = 1.02
 TSVD_AGREE = 1e-3
 JACOBI_HEVP_LIMIT = 1e-5
+# feature-split subspace_pca against dense 1: the leading components f32
+# determines (sharded_pca), and the rank-800 errors' agreement
+PCA_DETERMINED = 100
+PCA_ERR_AGREE = 1e-4
 
 
 def make_dense(torch, seed=1):
@@ -2354,6 +2749,112 @@ def jacobi_iterations():
         DeviceJacobi.solve = solve
 
 
+def sharded_pca(torch, a, mean, trans, comps, card):
+    """Dense 1 with the data split along its features over ``SHARDS``
+    shards of the card (``matrix_sharding``, as a JAX caller passes a
+    feature-sharded array): a warm call, then the timed one.  Held to
+    ``_verify_pca``'s limits, and to tests/test_sharded.py:288's against
+    dense 1's factors: mean within 1e-4, and ``trans @ comps`` within 1e-3
+    of its largest |entry| over the leading ``PCA_DETERMINED`` components.
+    Past those, f32 does not determine the factors: the Gram's rounding,
+    about eps lambda_1 (eps = 6e-8), meets the gap lambda_k - lambda_k+1
+    of about 1.5 lambda_k / k (lambda_k ~ k^-1.5 here), so another order of
+    the Gram's sums (eight shards' partial sums instead of one GEMM) mixes
+    component k with k + 1 by about eps k^2.5 / 1.5: 0.4% at k = 100, O(1)
+    at k = 800.  The rank-800 reconstruction's difference is printed, and
+    its error held equal to dense 1's within ``PCA_ERR_AGREE``."""
+    from raleigh_tpu_torch import subspace_pca
+    from raleigh_tpu_torch.parallel.mesh import (ShardedRows, make_mesh,
+                                                 matrix_sharding)
+    a_sh, split_s = timed(torch, lambda: ShardedRows.split(
+        a, matrix_sharding(make_mesh(SHARDS))))
+    _, warm = timed(torch, lambda: subspace_pca(a_sh, NPC, fetch=False,
+                                                seed=2))
+    (mean_s, trans_s, comps_s), wall = timed(
+        torch, lambda: subspace_pca(a_sh, NPC, fetch=False))
+    if not (isinstance(mean_s, ShardedRows)
+            and isinstance(comps_s, ShardedRows)):
+        fail('sharded subspace_pca gathered its mean or comps')
+    mean_g, comps_g = mean_s.gather(), comps_s.gather()
+    del a_sh, mean_s, comps_s
+    if comps_g.shape != comps.shape or trans_s.shape != trans.shape:
+        fail('sharded subspace_pca: shapes %s, %s'
+             % (tuple(trans_s.shape), tuple(comps_g.shape)))
+    ortho, err_fro = verify_pca(torch, a, mean_g, trans_s, comps_g)
+    _, err_1 = verify_pca(torch, a, mean, trans, comps)
+    mean_diff = float((mean_g - mean).abs().max())
+    rec = {}
+    for k in (64, PCA_DETERMINED, 200, 400, NPC):
+        r1 = torch.matmul(trans[:, :k], comps[:k])
+        r2 = torch.matmul(trans_s[:, :k], comps_g[:k])
+        rec[k] = float((r1 - r2).abs().max() / r1.abs().max())
+        del r1, r2
+    if not (ortho <= ORTHO_LIMIT and err_fro <= ERR_FRO_LIMIT
+            and mean_diff < 1e-4 and rec[PCA_DETERMINED] < 1e-3
+            and abs(err_fro - err_1) <= PCA_ERR_AGREE):
+        fail('sharded subspace_pca: orthonormality %.2e, err_fro %.6f '
+             '(dense 1 %.6f), mean %.2e and reconstructions %s from dense '
+             '1\'s' % (ortho, err_fro, err_1, mean_diff, rec))
+    print('dense 1 on %d feature shards of the card, subspace_pca npc=%d: '
+          'wall %.3f s (warm-up %.3f s; split %.3f s); err_fro %.6f (dense '
+          '1: %.6f, limit %.0e apart), orthonormality %.2e; mean within '
+          '%.2e (limit 1e-4); trans @ comps over the leading k components '
+          'within %s of dense 1\'s (k = %d held to 1e-3) [%s; the shards '
+          'share the card: no scaling measurement]'
+          % (SHARDS, NPC, wall, warm, split_s, err_fro, err_1,
+             PCA_ERR_AGREE, ortho, mean_diff,
+             ', '.join('%.2e (k=%d)' % (v, k) for k, v in rec.items()),
+             PCA_DETERMINED, card))
+
+
+def optimal_error(torch, a, k):
+    """The relative Frobenius error of the best rank-k approximation of the
+    centred ``a`` (Eckart-Young): from the eigenvalues of its centred Gram,
+    taken in f64 on the card."""
+    c = (a - a.mean(dim=0)).double()
+    lmd = torch.linalg.eigvalsh(torch.matmul(c, c.T)).flip(0).clamp(min=0)
+    del c
+    return float(torch.sqrt(lmd[k:].sum() / lmd.sum()))
+
+
+def phase_examples(torch, np, card):
+    """The face-image example as a user runs it: ``eigenimages.run()`` at
+    its synthetic default (12,000 x 39,375, rank 2048, npc 800, made on the
+    card), its factors saved to a temporary directory, then read back and
+    held to ``_verify_pca``'s checks against the same synthetic set: the
+    orthonormality limit, and the error within ``JACOBI_OPTIMAL`` of the
+    optimal rank-800 truncation's.  (``_verify_pca``'s err_fro <= 0.30 is
+    bench.py's data's, noise 1e-5; the example's set, as the JAX package
+    makes it, has noise 1e-4, about 2.2 in Frobenius norm against 1.6 for
+    the rank-2048 part, so its optimum is near 0.8.)"""
+    import tempfile
+    from raleigh_tpu_torch.examples import eigenimages
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        t0 = time.perf_counter()
+        elapsed = eigenimages.run()
+        total = time.perf_counter() - t0
+        with np.load('eigenimages.npz') as f:
+            mean, trans, comps = (torch.from_numpy(f[k]).cuda()
+                                  for k in ('mean', 'trans', 'comps'))
+    a = eigenimages.synthetic()
+    if comps.shape != (NPC, a.shape[1]) or trans.shape != (a.shape[0], NPC):
+        fail('eigenimages.run: shapes %s, %s' % (tuple(trans.shape),
+                                                 tuple(comps.shape)))
+    ortho, err_fro = verify_pca(torch, a, mean, trans, comps)
+    best = optimal_error(torch, a, NPC)
+    if not (ortho <= ORTHO_LIMIT and err_fro <= JACOBI_OPTIMAL * best):
+        fail('eigenimages.run: orthonormality %.2e, err_fro %.4f against '
+             'the optimal %.4f' % (ortho, err_fro, best))
+    print('eigenimages.run() synthetic %d x %d npc=%d: pca %.2f s, run '
+          '(data made on the card, pca, factors saved) %.2f s; err_fro '
+          '%.4f, %.5f x the optimal rank-%d truncation (limit %.2f), '
+          'orthonormality %.2e (limit %.0e) [%s]'
+          % (a.shape[0], a.shape[1], NPC, elapsed, total, err_fro,
+             err_fro / best, NPC, JACOBI_OPTIMAL, ortho, ORTHO_LIMIT, card))
+    del a, mean, trans, comps
+    torch.cuda.empty_cache()
+
+
 def phase_dense(torch, np, mods, card, profile=False):
     """The dense SVD/PCA stack on the card, as a user calls it (no device
     argument): the headline subspace_pca at bench.py's full shape, the
@@ -2390,6 +2891,7 @@ def phase_dense(torch, np, mods, card, profile=False):
           % (DENSE_M, DENSE_N, NPC, wall, warm, gen_s, err_fro,
              ERR_FRO_LIMIT, ortho, ORTHO_LIMIT, gram_flop,
              gram_flop / PEAK_F32, PEAK_F32 / 1e12, card))
+    sharded_pca(torch, a, mean, trans, comps, card)
     del mean, trans, comps
     if profile:
         dense_breakdown(torch, lambda: subspace_pca(a, NPC, fetch=False),
@@ -2538,14 +3040,20 @@ def main():
                           pencils[1][0], pencils[0][0]))
     rows.update(phase_wide(torch, np, lap3d, DiaMatrix, BsrMatrix, sw, sp,
                            pencils[1][0]))
+    rows.update(phase_mesh_wide(torch, np, lap3d, DiaMatrix, sw))
+    rows.update(phase_complex_kernels(torch, np, sw, sp, DiaMatrix,
+                                      BsrMatrix, pencils[1][0]))
     main_field = phase_lap3d(torch, np, mods, rows, card, profile)
     phase_fe(torch, np, mods, rows, card, pencils, profile)
     rate = phase_stream_rate(mods, rows, card)
     phase_sharded(torch, np, mods, rows, card, main_field, pencils[0][0],
                   profile)
     phase_sweeps(mods, rows, card, wt, gs)
-    phase_core(torch, np, mods, rows, card, pencils, profile)
+    core4 = phase_core(torch, np, mods, rows, card, pencils, profile)
+    phase_mesh_core(torch, np, mods, rows, card, core4, profile)
+    phase_complex(torch, np, mods, rows, card)
     phase_dense(torch, np, mods, card, profile)
+    phase_examples(torch, np, card)
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in ('jax', 'jaxlib', 'raleigh_tpu'))
     if loaded:

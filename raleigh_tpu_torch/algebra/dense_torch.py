@@ -44,8 +44,19 @@ Randomness: ``fill_random`` draws on the host with NumPy's global generator
 (uniform in [-1, 1)) and uploads — bit-identical to dense_numpy and
 dense_jax after ``numpy.random.seed``.
 
-Sharded storage (``sharding=``) is not ported yet (ROADMAP queue 1,
-item 13).
+Sharded storage (``sharding=``, a ``parallel.mesh.Sharding``: the
+vector dimension split over a mesh, ``blockvec_sharding`` or
+``matrix_sharding``).  The block is then a ``ShardedRows`` of one
+(capacity, n_p) tensor per shard, each on its shard's device, and the
+window selects the same rows of every shard.  What XLA's partitioner does
+for dense_jax is written out: Gram matrices and row dots are per-shard
+GEMMs and products whose partial sums ``ShardedRows._reduce`` adds on the
+first shard's device, in the mesh's order (within a host first); linear
+combinations, scalings, copies and fills act shard by shard; fetched and
+kept small results live on the first shard's device.  A sharded
+``Matrix`` splits its features (its columns): ``apply`` contracts over
+them by per-shard GEMMs, the reduce, and a split into the output's shards;
+the adjoint apply takes the whole operand to each shard's device.
 """
 
 import numbers
@@ -54,6 +65,7 @@ import numpy as np
 import torch
 
 from ..ops.spmm import storage_device
+from ..parallel.mesh import ShardedRows, _to
 from .dense_numpy import _hadamard_like_fill
 
 # device->host transfers and host->device uploads since the last reset
@@ -89,7 +101,10 @@ def _cj(a):
 
 
 def _host(t):
-    """A host copy of the tensor ``t`` (one transfer)."""
+    """A host copy of the tensor ``t`` (one transfer); a ``ShardedRows`` is
+    gathered on its first shard's device first."""
+    if isinstance(t, ShardedRows):
+        t = t.gather()
     COUNTS['to_host'] += 1
     return t.detach().to('cpu', copy=True).numpy()
 
@@ -105,12 +120,66 @@ def _upload(a, dtype, device):
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def _parts(t):
+    """The per-shard tensors of a block (a tensor is one)."""
+    return t.parts if isinstance(t, ShardedRows) else [t]
+
+
+def _summed(t, partials):
+    """The sum of the partial results of ``t``'s shards on the first
+    shard's device, in the mesh's order (``ShardedRows._reduce``); a
+    tensor's one partial result as it is."""
+    return t._reduce(partials) if isinstance(t, ShardedRows) else partials[0]
+
+
+def _as_layout(t, like):
+    """``t`` (a tensor or a ``ShardedRows``) laid out as ``like``: split as
+    ``like`` is, or whole on ``like``'s device."""
+    if isinstance(like, ShardedRows):
+        if isinstance(t, ShardedRows):
+            return t.resplit(like.sharding)
+        return ShardedRows.split(t, like.sharding, like.dim)
+    if isinstance(t, ShardedRows):
+        return _to(t.gather(), like.device)
+    return t
+
+
+def _laid_out(t, sharding):
+    """The tensor ``t`` split by ``sharding``, or ``t`` where it is None."""
+    return t if sharding is None else ShardedRows.split(t, sharding)
+
+
+def _zeros(rows, n, dtype, device, sharding):
+    """A zero block of ``rows`` vectors of dimension ``n``: on ``device``,
+    or one part per shard of ``sharding``, each on its shard's device."""
+    if sharding is None:
+        return torch.zeros((rows, n), dtype=dtype,
+                           device=storage_device(device))
+    return ShardedRows([torch.zeros((rows, e - s), dtype=dtype, device=d)
+                        for (s, e), d in zip(sharding.bounds(n),
+                                             sharding.devices)], sharding)
+
+
+def _upload_block(a, dtype, device, sharding):
+    """The host block ``a`` on ``device``, or split by ``sharding``: each
+    shard's columns uploaded to its device."""
+    if sharding is None:
+        return _upload(a, dtype, storage_device(device))
+    return ShardedRows([_upload(a[:, s:e], dtype, d)
+                        for (s, e), d in zip(sharding.bounds(a.shape[1]),
+                                             sharding.devices)], sharding)
+
+
 def _same_storage(a, b):
+    a, b = _parts(a)[0], _parts(b)[0]
     return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
 
 
 def _copy_into(dst, src):
-    """dst[...] = src, reading src first where the two share storage."""
+    """dst[...] = src, reading src first where the two share storage; a
+    ``ShardedRows`` source meets a tensor destination gathered."""
+    if isinstance(src, ShardedRows) and not isinstance(dst, ShardedRows):
+        src = src.gather()
     if _same_storage(dst, src):
         src = src.clone()
     dst.copy_(src)
@@ -233,49 +302,58 @@ class Vectors:
                  sharding=None, compensated=False, device=None):
         """A block from another ``Vectors`` (a copy of its window, or a
         view of it when ``shallow``), a ``Matrix`` (the same), a tensor
-        (used as storage), a host array (uploaded) or a dimension ``n``
-        with ``nvec`` zero vectors of ``data_type`` (default f32, as in
-        dense_jax).  Host arrays and new blocks go to ``device``, the card
-        unless it names another; the others stay where they are.
+        (used as storage), a ``ShardedRows`` (the same), a host array
+        (uploaded) or a dimension ``n`` with ``nvec`` zero vectors of
+        ``data_type`` (default f32, as in dense_jax).  Host arrays and new
+        blocks go to ``device``, the card unless it names another; the
+        others stay where they are.  ``sharding``: the vector dimension
+        split over a mesh (a tensor or a host array is split; a block or a
+        matrix keeps its own sharding, as in dense_jax).
 
         ``compensated=True``: f32 and c64 storage whose fetched Gram
         reductions (``dot``, ``dots``) are taken in f64 / c128 and
         returned so."""
-        if sharding is not None:
-            raise NotImplementedError('sharded Vectors are not ported yet '
-                                      '(ROADMAP queue 1, item 13)')
         self._comp = bool(compensated)
+        self._sharding = sharding
         if isinstance(arg, Vectors):
             f, k = arg.selected()
             self._comp = arg._comp
+            self._sharding = arg._sharding
             block = arg._array[f:f + k]
             self._array = block if shallow else block.clone()
         elif isinstance(arg, Matrix):
+            self._sharding = arg._sharding
             self._array = arg._data if shallow else arg._data.clone()
+        elif isinstance(arg, ShardedRows):
+            self._sharding = arg.sharding
+            self._array = arg
         elif isinstance(arg, torch.Tensor):
             if arg.dim() != 2:
                 raise ValueError('Vectors storage must be 2-D')
-            self._array = arg.contiguous()
+            self._array = _laid_out(arg.contiguous(), sharding)
         elif isinstance(arg, np.ndarray):
             a = np.ascontiguousarray(arg)
-            self._array = _upload(a, _torch_dtype(a.dtype),
-                                  storage_device(device))
+            self._array = _upload_block(a, _torch_dtype(a.dtype), device,
+                                        sharding)
         elif isinstance(arg, numbers.Number):
             dt = _torch_dtype(np.float32 if data_type is None else data_type)
-            self._array = torch.zeros((nvec, int(arg)), dtype=dt,
-                                      device=storage_device(device))
+            self._array = _zeros(nvec, int(arg), dt, device, sharding)
         else:
             raise ValueError('cannot build Vectors from %r' % type(arg))
         self._nvec = self._array.shape[0]
         self._sel = (0, self._nvec)
 
     def _ensure_capacity(self, need):
-        cap, n = self._array.shape
+        cap = self._array.shape[0]
         if cap < need:
-            grown = torch.zeros((need, n), dtype=self._array.dtype,
-                                device=self._array.device)
-            grown[:cap] = self._array
-            self._array = grown
+            grown = []
+            for p in _parts(self._array):
+                g = p.new_zeros((need, p.shape[1]))
+                g[:cap] = p
+                grown.append(g)
+            self._array = (ShardedRows(grown, self._array.sharding)
+                           if isinstance(self._array, ShardedRows)
+                           else grown[0])
 
     def _window(self, first, k):
         return self._array[first:first + k]
@@ -314,6 +392,7 @@ class Vectors:
         return host if i is None else host[i]
 
     def device_data(self):
+        """The selected rows: a tensor, or a ``ShardedRows`` of views."""
         f, k = self._sel
         return self._array[f:f + k]
 
@@ -327,11 +406,12 @@ class Vectors:
             if a.dtype != self._array.dtype and (
                     a.is_complex() == self._array.is_complex()):
                 a = a.to(self._array.dtype)
-            return Vectors(a, compensated=self._comp)
+            return Vectors(a, compensated=self._comp,
+                           sharding=self._sharding)
         if dim is None:
             dim = self.dimension()
         return Vectors(dim, arg, self.data_type(), compensated=self._comp,
-                       device=self._array.device)
+                       device=self._array.device, sharding=self._sharding)
 
     def clone(self):
         return Vectors(self)
@@ -343,18 +423,29 @@ class Vectors:
         if axis == 0:
             mine = self._array[:self._nvec] if self._sel == (0, self._nvec) \
                 else self.device_data()
-            self._array = torch.cat((mine, other.device_data().to(
-                self._array.device, self._array.dtype)))
+            theirs = _as_layout(other.device_data(), mine)
+            if isinstance(mine, ShardedRows):
+                self._array = ShardedRows.cat(
+                    [mine, theirs.to(self._array.dtype)])
+            else:
+                self._array = torch.cat((mine, theirs.to(
+                    self._array.device, self._array.dtype)))
             self._nvec = mine.shape[0] + other.nvec()
         else:
-            cap = self._array.shape[0]
-            ob = other._array.to(self._array.device, self._array.dtype)
+            whole = self._array.gather() \
+                if isinstance(self._array, ShardedRows) else self._array
+            cap = whole.shape[0]
+            ob = other._array
+            if isinstance(ob, ShardedRows):
+                ob = ob.gather()
+            ob = ob.to(whole.device, whole.dtype)
             if ob.shape[0] >= cap:
                 ob = ob[:cap]
             else:
                 ob = torch.cat((ob, ob.new_zeros((cap - ob.shape[0],
                                                   ob.shape[1]))))
-            self._array = torch.cat((self._array, ob), dim=1)
+            self._array = _laid_out(torch.cat((whole, ob), dim=1),
+                                    self._sharding)
         self._sel = (0, self._nvec)
 
     # ---- fills ----------------------------------------------------------
@@ -366,6 +457,9 @@ class Vectors:
         w = self.device_data()
         if isinstance(value, numbers.Number):
             w.fill_(value)
+            return
+        if isinstance(value, ShardedRows):
+            _copy_into(w, _as_layout(value, w).to(w.dtype))
             return
         if isinstance(value, torch.Tensor):
             v = value.to(w.device)
@@ -393,8 +487,9 @@ class Vectors:
     # ---- contract ops ---------------------------------------------------
 
     def _coef(self, s, k):
-        """Per-vector coefficients as a (k, 1) tensor on the device, in
-        the real type of the storage unless they are complex."""
+        """Per-vector coefficients as a (k, 1) tensor on the device (the
+        first shard's), in the real type of the storage unless they are
+        complex."""
         if isinstance(s, torch.Tensor):
             c = s.reshape(-1)[:k]
             dt = self._array.dtype if c.is_complex() \
@@ -407,7 +502,7 @@ class Vectors:
 
     def _matrix(self, q):
         """A coefficient matrix (host array or kept tensor) as a tensor of
-        the storage type on the device."""
+        the storage type on the device (the first shard's)."""
         if isinstance(q, torch.Tensor):
             return q.to(self._array.device, self._array.dtype)
         return _upload(np.asarray(q), self._array.dtype, self._array.device)
@@ -417,15 +512,19 @@ class Vectors:
             assert self.nvec() == other.nvec()
             k = self.nvec()
             other._ensure_capacity(other._sel[0] + k)
-            _copy_into(other._window(other._sel[0], k),
-                       self.device_data().to(other._array.dtype))
+            dst = other._window(other._sel[0], k)
+            _copy_into(dst, _as_layout(self.device_data(), dst).to(
+                other._array.dtype))
         else:
             ind = np.asarray(ind, dtype=np.int64).reshape(-1)
             k = len(ind)
             other._ensure_capacity(other._sel[0] + k)
-            rows = self._array.index_select(
-                0, _upload(ind, torch.int64, self._array.device))
-            other._window(other._sel[0], k).copy_(rows)
+            idx = _upload(ind, torch.int64, self._array.device)
+            rows = self._array[idx] \
+                if isinstance(self._array, ShardedRows) \
+                else self._array.index_select(0, idx)
+            dst = other._window(other._sel[0], k)
+            dst.copy_(_as_layout(rows, dst))
 
     def scale(self, s, multiply=False):
         w = self.device_data()
@@ -445,7 +544,7 @@ class Vectors:
 
     def _pair(self, other, k, keep):
         a = self.device_data()
-        b = other._window(other._sel[0], k)
+        b = _as_layout(other._window(other._sel[0], k), a)
         if self._comp_active(other, keep):
             a = a.to(_WIDE[a.dtype])
             b = b.to(_WIDE[b.dtype])
@@ -457,12 +556,21 @@ class Vectors:
         # a product and a sum: the einsum of dense_jax becomes a batched
         # matrix-vector product in torch, which cuBLAS runs at a twentieth
         # of the card's memory rate on these long rows
-        r = (_cj(b) * a).sum(dim=0 if transp else 1)
+        partials = [(_cj(q) * p).sum(dim=0 if transp else 1)
+                    for p, q in zip(_parts(a), _parts(b))]
+        if not transp:
+            r = _summed(a, partials)
+        elif len(partials) == 1:
+            r = partials[0]
+        else:
+            # one sum per lane: the shards' lanes side by side
+            r = torch.cat([_to(p, a.device) for p in partials])
         return r if keep else _host(r)
 
     def dot(self, other, keep=False):
         a, b = self._pair(other, other.nvec(), keep)
-        r = torch.matmul(_cj(b), a.T)
+        r = _summed(a, [torch.matmul(_cj(q), p.T)
+                        for p, q in zip(_parts(a), _parts(b))])
         return r if keep else _host(r)
 
     def multiply(self, q, output):
@@ -471,15 +579,17 @@ class Vectors:
         f, k = output.selected()
         output._ensure_capacity(f + k)
         dst = output._window(f, k)
-        src = self.device_data()
-        if _same_storage(dst, src) or dst.dtype != src.dtype:
-            dst.copy_(torch.matmul(qt.T, src))
-        else:
-            torch.matmul(qt.T, src, out=dst)
+        src = _as_layout(self.device_data(), dst)
+        for d, s in zip(_parts(dst), _parts(src)):
+            qs = _to(qt, s.device)
+            if _same_storage(d, s) or d.dtype != s.dtype:
+                d.copy_(torch.matmul(qs.T, s))
+            else:
+                torch.matmul(qs.T, s, out=d)
 
     def add(self, other, s, q=None):
         w = self.device_data()
-        o = other.device_data()
+        o = _as_layout(other.device_data(), w)
         if _same_storage(w, o):
             o = o.clone()
         if np.isscalar(s):
@@ -488,8 +598,10 @@ class Vectors:
             if q is None:
                 w.add_(o.to(w.dtype), alpha=s)
             else:
-                w.add_(torch.matmul(self._matrix(q).T, o.to(w.dtype)),
-                       alpha=s)
+                qm = self._matrix(q)
+                for wp, op in zip(_parts(w), _parts(o)):
+                    wp.add_(torch.matmul(_to(qm, op.device).T,
+                                         op.to(wp.dtype)), alpha=s)
         else:
             w.addcmul_(self._coef(s, w.shape[0]), o.to(w.dtype))
 
@@ -497,9 +609,11 @@ class Vectors:
 
     def orthogonalize(self, other):
         ws = self.device_data()
-        wo = other.device_data().to(ws.dtype)
-        q = torch.matmul(_cj(wo), ws.T)
-        ws.sub_(torch.matmul(q.T, wo))
+        wo = _as_layout(other.device_data(), ws).to(ws.dtype)
+        q = _summed(ws, [torch.matmul(_cj(po), ps.T)
+                         for ps, po in zip(_parts(ws), _parts(wo))])
+        for ps, po in zip(_parts(ws), _parts(wo)):
+            ps.sub_(torch.matmul(_to(q, po.device).T, po))
         return self.new_vectors(_host(q))
 
     def svd(self):
@@ -551,23 +665,28 @@ class Vectors:
 class Matrix:
     """Dense operator on a 2-D tensor: ``apply`` is y = x @ A^T, its
     adjoint y = x @ conj(A) — ``torch.matmul``, which the JAX package also
-    leaves to XLA."""
+    leaves to XLA.  With ``sharding`` its features (columns) are split over
+    a mesh, one part per shard."""
 
     def __init__(self, arg, sharding=None, device=None):
-        """From a ``Vectors`` (a view of its window), a tensor (used as
-        it is) or a host array (uploaded to ``device``, the card unless
-        it names another)."""
-        if sharding is not None:
-            raise NotImplementedError('a sharded Matrix is not ported yet '
-                                      '(ROADMAP queue 1, item 13)')
+        """From a ``Vectors`` (a view of its window, with its sharding), a
+        ``ShardedRows`` (used as it is), a tensor (used as it is, or split
+        by ``sharding``) or a host array (uploaded to ``device``, the card
+        unless it names another, or split by ``sharding`` and each part
+        uploaded to its shard's device)."""
+        self._sharding = sharding
         if isinstance(arg, Vectors):
             self._data = arg.device_data()
-        elif isinstance(arg, torch.Tensor):
+            self._sharding = arg._sharding
+        elif isinstance(arg, ShardedRows):
             self._data = arg
+            self._sharding = arg.sharding
+        elif isinstance(arg, torch.Tensor):
+            self._data = _laid_out(arg, sharding)
         elif isinstance(arg, np.ndarray):
             a = np.ascontiguousarray(arg)
-            self._data = _upload(a, _torch_dtype(a.dtype),
-                                 storage_device(device))
+            self._data = _upload_block(a, _torch_dtype(a.dtype), device,
+                                       sharding)
         else:
             raise ValueError('cannot build Matrix from %r' % type(arg))
 
@@ -596,12 +715,28 @@ class Matrix:
         y._ensure_capacity(f + kx)
         wx = x.device_data()
         dt = torch.promote_types(wx.dtype, self._data.dtype)
-        a = self._data.to(dt)
-        if transp:
-            w = torch.matmul(wx.to(dt), _cj(a))
+        if not isinstance(self._data, ShardedRows):
+            wx = _as_layout(wx, self._data)
+            a = self._data.to(dt)
+            if transp:
+                w = torch.matmul(wx.to(dt), _cj(a))
+            else:
+                w = torch.matmul(wx.to(dt), a.T)
+        elif transp:
+            # y = x conj(A): the whole operand on every shard's device, the
+            # result split as the features are
+            whole = _as_layout(wx, self._data.parts[0]).to(dt)
+            w = ShardedRows([torch.matmul(_to(whole, p.device),
+                                          _cj(p.to(dt)))
+                             for p in self._data.parts], self._data.sharding)
         else:
-            w = torch.matmul(wx.to(dt), a.T)
-        y._window(f, kx).copy_(w)
+            # y = x A^T contracts over the split features: per-shard GEMMs
+            # and the reduce; the copy below splits it into y's shards
+            xs = _as_layout(wx, self._data)
+            w = self._data._reduce([torch.matmul(q.to(dt), p.to(dt).T)
+                                    for p, q in zip(self._data.parts,
+                                                    xs.parts)])
+        _copy_into(y._window(f, kx), w)
 
     def dots(self):
         v = Vectors(self, shallow=True)
@@ -610,4 +745,5 @@ class Matrix:
     def new_vectors(self, dim=None, nv=0):
         if dim is None:
             dim = self._data.shape[1]
-        return Vectors(dim, nv, self.data_type(), device=self._data.device)
+        return Vectors(dim, nv, self.data_type(), device=self._data.device,
+                       sharding=self._sharding)

@@ -4,7 +4,8 @@ PyTorch port of ``raleigh_tpu/algebra/sparse.py``:
 
   * ``SparseSymmetricMatrix``  SpMM on (m, n) row blocks — host SciPy CSR
     for ndarrays and host ``Vectors``, the DIA, ELL or BSR device matrix
-    (ops/spmm.py) for tensors and ``dense_torch.Vectors``;
+    (ops/spmm.py) for tensors and ``dense_torch.Vectors``, sharded ones
+    too;
   * ``SparseSymmetricSolver``  shift-and-invert operator (A - sigma B)^-1
     backed by the native C++ LDL^T (native/ldlt.cpp) with inertia;
   * ``IncompleteLU``           threshold ILU preconditioner (native ILUT);
@@ -30,6 +31,18 @@ def _vec_data(x):
     ``dense_torch``), or x itself."""
     d = getattr(x, 'data', None)
     return x if d is None or not callable(d) else d()
+
+
+def _rows_apply(dev, x):
+    """x A on the device matrix ``dev`` for a tensor or ``ShardedRows``
+    block ``x``: a sharded block meets a matrix whose values are split over
+    the same mesh shard by shard (``core.device_solver.shard_operator``:
+    DIA through the mesh kernel, ELL by row blocks), and any other matrix
+    (BSR, or one left whole) gathered, applied and split again."""
+    multi = getattr(dev, '_multi_device', None)
+    if isinstance(x, ShardedRows) and (multi is None or not multi()):
+        return ShardedRows.split(dev.matmat_rows(x.gather()), x.sharding)
+    return dev.matmat_rows(x)
 
 
 def resolve_device(arch=None, device=None):
@@ -84,8 +97,8 @@ class SparseSymmetricMatrix:
 
     def apply(self, x, y):
         """y = x A for an (m, n) block: a tensor or a ``dense_torch``
-        block on the device matrix, an ndarray or a host block on the host
-        CSR."""
+        block (sharded too, ``_rows_apply``) on the device matrix, an
+        ndarray or a host block on the host CSR."""
         if isinstance(x, torch.Tensor):
             if self.__dev is None:
                 raise ValueError('tensor operand but no device matrix: '
@@ -93,7 +106,7 @@ class SparseSymmetricMatrix:
             y.copy_(self.__dev.matmat_rows(x))
             return
         if self.__dev is not None and hasattr(x, 'device_data'):
-            y.fill(self.__dev.matmat_rows(x.device_data()))
+            y.fill(_rows_apply(self.__dev, x.device_data()))
             return
         out = self.__csr_full.dot(_vec_data(x).T).T
         if callable(getattr(y, 'data', None)):   # Vectors
@@ -394,8 +407,9 @@ class Chebyshev:
     def apply(self, x, y):
         """y ~= A^-1 x: Chebyshev iteration for A y = x with y0 = 0 — on
         the device, in the operand's dtype, for a tensor or a
-        ``dense_torch`` block; on the host CSR for an ndarray or a host
-        block."""
+        ``dense_torch`` block (a sharded block shard by shard on a matrix
+        split over its mesh, else gathered); on the host CSR for an
+        ndarray or a host block."""
         if isinstance(x, torch.Tensor):
             y.copy_(self._device_fused_rows()(x))
             return

@@ -24,6 +24,16 @@
 // finite wrapped lane, so it adds 0 and the sum is the one csrc/dia_spmm.cu
 // gives (bit for bit: same products, same order, same rounding).
 //
+// The f64 instantiations (dia_spmm_mesh_f64_val32 / _val64 and the
+// one-piece dia_spmm_rows_ext_f64_val32 / _val64) serve the core Solver's
+// f64 blocks on a mesh: x and y f64, val_s f32 (the Chebyshev's canonical
+// values) or f64 (A's exact values), each value widened to f64 on load
+// (exactly), every product and sum rounded in f64 (__dmul_rn, __dadd_rn)
+// in diagonal order from 0.  That is the order of the plain version, which
+// promotes val to f64, so the two are equal bit for bit.  The thread layout
+// and the piece look-up are the f32 kernel's: a simple widening, no
+// redesign (8 f64 accumulators a thread).
+//
 // The piece table, the shards and their sources travel by value as one
 // __grid_constant__ parameter block (Params, under the 4 KB parameter
 // limit): no upload, no extra launch.  The one-piece case, a single shard
@@ -108,19 +118,46 @@ static_assert(sizeof(Params) == 8 * (8 + 7 * kMaxShards + 2 * kMaxSources
               "Params must be an array of int64 slots");
 static_assert(sizeof(Params) <= 4096, "Params exceeds the parameter limit");
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+// the accumulator type of an operand type: f32 for f32 and bf16, f64 for
+// f64
+template <typename T> struct AccOf { using type = float; };
+template <> struct AccOf<double> { using type = double; };
+
+// a value or an operand element in the accumulator type (exact)
+__device__ __forceinline__ float as_acc(float v, float) { return v; }
+__device__ __forceinline__ float as_acc(__nv_bfloat16 v, float) {
     return __bfloat162float(v);
+}
+__device__ __forceinline__ double as_acc(float v, double) {
+    return static_cast<double>(v);
+}
+__device__ __forceinline__ double as_acc(double v, double) { return v; }
+
+// products and sums rounded separately, never fused
+__device__ __forceinline__ float mul_rn(float a, float b) {
+    return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+    return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+    return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+    return __dadd_rn(a, b);
 }
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
     *p = __float2bfloat16(v);
 }
+__device__ __forceinline__ void store(double* p, double v) { *p = v; }
 
-template <typename T>
+// T: the operand's type; V: the values' (f32, or f64 with an f64 operand)
+template <typename T, typename V>
 __global__ void __launch_bounds__(kThreads)
 dia_mesh_kernel(const __grid_constant__ Params p) {
+    using A = typename AccOf<T>::type;
     // the launch's shard that owns block b: the last whose blocks begin at
     // or before it
     const int64_t b = blockIdx.x;
@@ -145,14 +182,14 @@ dia_mesh_kernel(const __grid_constant__ Params p) {
     const int64_t last = (tile0 + kThreads < n ? tile0 + kThreads : n) - 1;
     const int64_t left = p.m - r0;
     const int rows = left < kRows ? static_cast<int>(left) : kRows;
-    const float* val = reinterpret_cast<const float*>(sh.val);
+    const V* val = reinterpret_cast<const V*>(sh.val);
     const int* offsets = reinterpret_cast<const int*>(p.offsets);
     const T* xown = reinterpret_cast<const T*>(own.base) + r0 * own.stride
         + sh.own_shift + i;
 
-    float acc[kRows];
+    A acc[kRows];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
+    for (int r = 0; r < kRows; ++r) acc[r] = A(0);
 
     for (int64_t k = 0; k < p.noff; ++k) {
         const int64_t off = static_cast<int64_t>(offsets[k]);
@@ -173,12 +210,12 @@ dia_mesh_kernel(const __grid_constant__ Params p) {
                 + p.pieces[j].shift + i + off;
             stride = src.stride;
         }
-        const float v = val[k * n + i];
+        const A v = as_acc(val[k * n + i], A(0));
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
             if (r < rows) {
-                acc[r] = __fadd_rn(acc[r],
-                                   __fmul_rn(v, to_f32(xr[r * stride])));
+                acc[r] = add_rn(acc[r],
+                                mul_rn(v, as_acc(xr[r * stride], A(0))));
             }
         }
     }
@@ -198,7 +235,7 @@ cudaError_t use_device(int device) {
 }
 
 // Checks the table, fills in the block prefix and launches.
-template <typename T>
+template <typename T, typename V>
 int launch(Params& p, int device, void* stream) {
     if (p.m <= 0) return 0;
     if (p.nshards < 1 || p.nshards > kMaxShards || p.noff < 0) {
@@ -226,8 +263,8 @@ int launch(Params& p, int device, void* stream) {
     p.blocks = blocks;
     cudaError_t err = use_device(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dia_mesh_kernel<T><<<static_cast<unsigned int>(blocks), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(p);
+    dia_mesh_kernel<T, V><<<static_cast<unsigned int>(blocks), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(p);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -258,7 +295,7 @@ Params one_piece(const void* val, const void* x, void* y,
     return p;
 }
 
-template <typename T>
+template <typename T, typename V>
 int launch_table(const void* params, int64_t nbytes, int device,
                  void* stream) {
     if (nbytes != static_cast<int64_t>(sizeof(Params))) {
@@ -266,7 +303,17 @@ int launch_table(const void* params, int64_t nbytes, int device,
     }
     Params p;
     std::memcpy(&p, params, sizeof(Params));
-    return launch<T>(p, device, stream);
+    return launch<T, V>(p, device, stream);
+}
+
+template <typename T, typename V>
+int launch_one_piece(const void* val, const void* x, void* y,
+                     const void* offsets, int64_t noff, int64_t m, int64_t n,
+                     int64_t x_stride, int64_t halo_lo, int device,
+                     void* stream) {
+    if (n <= 0) return 0;
+    Params p = one_piece(val, x, y, offsets, noff, m, n, x_stride, halo_lo);
+    return launch<T, V>(p, device, stream);
 }
 
 }  // namespace
@@ -275,12 +322,24 @@ int launch_table(const void* params, int64_t nbytes, int device,
 // entry point copies it and fills in the block prefix.
 extern "C" int dia_spmm_mesh_f32(const void* params, int64_t nbytes,
                                  int device, void* stream) {
-    return launch_table<float>(params, nbytes, device, stream);
+    return launch_table<float, float>(params, nbytes, device, stream);
 }
 
 extern "C" int dia_spmm_mesh_bf16(const void* params, int64_t nbytes,
                                   int device, void* stream) {
-    return launch_table<__nv_bfloat16>(params, nbytes, device, stream);
+    return launch_table<__nv_bfloat16, float>(params, nbytes, device,
+                                              stream);
+}
+
+// the f64 instantiation: f64 operand, f32 or f64 values
+extern "C" int dia_spmm_mesh_f64_val32(const void* params, int64_t nbytes,
+                                       int device, void* stream) {
+    return launch_table<double, float>(params, nbytes, device, stream);
+}
+
+extern "C" int dia_spmm_mesh_f64_val64(const void* params, int64_t nbytes,
+                                       int device, void* stream) {
+    return launch_table<double, double>(params, nbytes, device, stream);
 }
 
 // x_stride: elements between two rows of x_ext.
@@ -289,9 +348,8 @@ extern "C" int dia_spmm_rows_ext_f32(const void* val, const void* x, void* y,
                                      int64_t m, int64_t n, int64_t x_stride,
                                      int64_t halo_lo, int device,
                                      void* stream) {
-    if (n <= 0) return 0;
-    Params p = one_piece(val, x, y, offsets, noff, m, n, x_stride, halo_lo);
-    return launch<float>(p, device, stream);
+    return launch_one_piece<float, float>(val, x, y, offsets, noff, m, n,
+                                          x_stride, halo_lo, device, stream);
 }
 
 extern "C" int dia_spmm_rows_ext_bf16(const void* val, const void* x, void* y,
@@ -299,7 +357,23 @@ extern "C" int dia_spmm_rows_ext_bf16(const void* val, const void* x, void* y,
                                       int64_t m, int64_t n, int64_t x_stride,
                                       int64_t halo_lo, int device,
                                       void* stream) {
-    if (n <= 0) return 0;
-    Params p = one_piece(val, x, y, offsets, noff, m, n, x_stride, halo_lo);
-    return launch<__nv_bfloat16>(p, device, stream);
+    return launch_one_piece<__nv_bfloat16, float>(
+        val, x, y, offsets, noff, m, n, x_stride, halo_lo, device, stream);
+}
+
+extern "C" int dia_spmm_rows_ext_f64_val32(
+        const void* val, const void* x, void* y, const void* offsets,
+        int64_t noff, int64_t m, int64_t n, int64_t x_stride,
+        int64_t halo_lo, int device, void* stream) {
+    return launch_one_piece<double, float>(val, x, y, offsets, noff, m, n,
+                                           x_stride, halo_lo, device, stream);
+}
+
+extern "C" int dia_spmm_rows_ext_f64_val64(
+        const void* val, const void* x, void* y, const void* offsets,
+        int64_t noff, int64_t m, int64_t n, int64_t x_stride,
+        int64_t halo_lo, int device, void* stream) {
+    return launch_one_piece<double, double>(val, x, y, offsets, noff, m, n,
+                                            x_stride, halo_lo, device,
+                                            stream);
 }

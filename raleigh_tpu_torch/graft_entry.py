@@ -9,14 +9,18 @@ that dominate every iteration of the dense solvers.
 ``dryrun_multichip(n)`` builds a mesh of n shards (``parallel/mesh.py``: a
 list of devices walked by one process, by default n shards of the card) and
 runs on it, at tiny shapes, one block-iteration step over split layouts,
-the sharded device LOBPCG and the explicit halo-exchange DIA SpMM, on a 1-D
+the block Jacobi-CG ``Solver`` on sharded ``dense_torch`` blocks, the
+sharded device LOBPCG and the explicit halo-exchange DIA SpMM, on a 1-D
 mesh and on a 2-D (hosts x chips) one.
 """
 
 import numpy as np
 import torch
 
+from .algebra import dense_torch
 from .core.device_solver import lobpcg, shard_operator
+from .core.solver import (DefaultConvergenceCriteria, Options, Problem,
+                          Solver)
 from .examples.laplace import lap1d
 from .ops.spmm import device_sparse, storage_device
 from .parallel.mesh import (AXIS, HOST_AXIS, ShardedRows, blockvec_sharding,
@@ -64,12 +68,30 @@ def _block_step(x, a, k):
     return xn, w, theta, res
 
 
+def _solver_step(mesh, n):
+    """The block Jacobi-CG ``Solver`` over blocks split along the vector
+    dimension (its Grams per-shard GEMMs and a reduce): an f32 diagonal
+    ``Matrix`` split the same way, the 2 smallest eigenvalues to 1e-3 in
+    at most 12 iterations.  Returns (status, 0 or 1; the Solver)."""
+    sh = blockvec_sharding(mesh)
+    diag = np.arange(1, n + 1, dtype=np.float32)
+    A = dense_torch.Matrix(np.diag(diag), sharding=sh)
+    v = dense_torch.Vectors(n, data_type=np.float32, sharding=sh)
+    opt = Options()
+    opt.convergence_criteria = DefaultConvergenceCriteria()
+    opt.convergence_criteria.set_error_tolerance('eigenvector error', 1e-3)
+    opt.verbosity = -1
+    opt.max_iter = 12
+    solver = Solver(Problem(v, A))
+    status = solver.solve(v, opt, which=(2, 0))
+    assert status in (0, 1), status
+    return status, solver
+
+
 def dryrun_multichip(n_devices, device=None):
     """Runs the mesh path end to end on ``n_devices`` shards of ``device``
     (default: the card; CUDA with no card raises) and raises on any wrong
-    result.  The block Jacobi-CG ``Solver`` on split dense vectors, which
-    the reference's dry run also drives, comes with sharded ``dense_torch``
-    blocks (ROADMAP queue 1, item 13)."""
+    result."""
     device = storage_device(device)
     meshes = [make_mesh(n_devices, [device] * n_devices)]
     if n_devices >= 4 and n_devices % 2 == 0:
@@ -90,6 +112,9 @@ def dryrun_multichip(n_devices, device=None):
         assert np.allclose(theta.cpu().numpy(), ref, rtol=1e-4), (theta, ref)
         gram = xn.gram(xn).cpu().numpy()
         assert np.abs(gram - np.eye(k)).max() < 1e-3, gram
+
+        # the production Solver over the same mesh
+        _solver_step(mesh, n)
 
         # the device LOBPCG over the same mesh: halo-exchange DIA SpMM,
         # Gram partial sums and the Ritz eigh on the first shard's device

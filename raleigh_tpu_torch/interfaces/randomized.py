@@ -23,17 +23,30 @@ there.
 
 Entry points run on the card unless ``device`` names another device (or
 the data is already a tensor on one); with no card they raise.
+
+Feature-split data.  ``subspace_pca`` also takes the data matrix as a
+``parallel.mesh.ShardedRows`` split along its features (columns) by
+``matrix_sharding(mesh)``, where the JAX caller passes an array sharded
+the same way and GSPMD partitions the products.  The centred Gram is then
+per-shard GEMMs whose partial sums ``ShardedRows._reduce`` adds on the
+first shard's device; the subspace iteration runs there; the mean and the
+right factors (``comps``) stay split, shard by shard, until they are
+fetched (``fetch=False`` returns them as ``ShardedRows``).
 """
 
 import numpy as np
 import torch
 
 from ..ops.spmm import storage_device
+from ..parallel.mesh import ShardedRows, _to
 
 
 def _data(a, device):
     """``a`` as a 2-D f32/f64 tensor: a tensor stays on its device, a host
-    array goes to ``device`` (the card unless it names another)."""
+    array goes to ``device`` (the card unless it names another); a
+    feature-split ``ShardedRows`` stays split."""
+    if isinstance(a, ShardedRows):
+        return a if a.dtype == torch.float64 else a.to(torch.float32)
     if isinstance(a, torch.Tensor):
         t = a
     else:
@@ -52,16 +65,22 @@ def _normal(shape, like, seed):
                        device=like.device)
 
 
+def _parts(t):
+    return t.parts if isinstance(t, ShardedRows) else [t]
+
+
 def _finished(*ts):
-    """Wait for the device to finish ``ts`` (the JAX engines'
-    ``block_until_ready``)."""
-    if ts[0].is_cuda:
-        torch.cuda.synchronize(ts[0].device)
+    """Wait for the devices to finish ``ts`` (the JAX engines'
+    ``block_until_ready``); a ``ShardedRows`` waits for each of its
+    shards' devices."""
+    for dev in {p.device for t in ts for p in _parts(t) if p.is_cuda}:
+        torch.cuda.synchronize(dev)
     return ts
 
 
 def _host(*ts):
-    return tuple(t.cpu().numpy() for t in ts)
+    return tuple((t.gather() if isinstance(t, ShardedRows) else t)
+                 .cpu().numpy() for t in ts)
 
 
 def _gram_about(a, mean):
@@ -75,7 +94,16 @@ def _gram_about(a, mean):
 
 def _right_factors(a, mean, u, sigma):
     """(trans, comps) of the centered data from its left factor u:
-    comps = (As^T u / sigma)^T, again without As."""
+    comps = (As^T u / sigma)^T, again without As.  Feature-split data give
+    split comps, each shard's columns from its own."""
+    if isinstance(a, ShardedRows):
+        su = torch.sum(u, dim=0)
+        parts = []
+        for p, mu in zip(a.parts, mean.parts):
+            ud = _to(u, p.device)
+            atu = torch.matmul(p.T, ud) - mu[:, None] * _to(su, p.device)
+            parts.append(_scaled_factors(atu, ud, _to(sigma, p.device))[1])
+        return u * sigma[None, :], ShardedRows(parts, a.sharding, dim=1)
     atu = torch.matmul(a.T, u)
     atu = atu - mean[:, None] * torch.sum(u, dim=0)[None, :]
     return _scaled_factors(atu, u, sigma)
@@ -104,7 +132,12 @@ def subspace_pca(a, npc, oversample=64, iters=6, seed=1, fetch=True,
 
     With ``fetch=False`` the factors are returned as tensors on the
     device, the computation finished, for on-device consumers — no host
-    transfer."""
+    transfer.
+
+    ``a`` may be a ``ShardedRows`` split along the features by
+    ``parallel.mesh.matrix_sharding(mesh)``: the Gram is then per-shard
+    GEMMs and a reduce, and with ``fetch=False`` mean and comps come back
+    split (``ShardedRows``), trans whole on the first shard's device."""
     a = _data(a, device)
     m = a.shape[0]
     l = min(int(npc) + int(oversample), m)
@@ -114,7 +147,11 @@ def subspace_pca(a, npc, oversample=64, iters=6, seed=1, fetch=True,
 
 
 def _deliver(mean, trans, comps, fetch):
-    mean = mean.reshape(1, -1)
+    if isinstance(mean, ShardedRows):
+        mean = ShardedRows([p.reshape(1, -1) for p in mean.parts],
+                           mean.sharding, dim=1)
+    else:
+        mean = mean.reshape(1, -1)
     if not fetch:
         return _finished(mean, trans, comps)
     return _host(mean, trans, comps)
@@ -122,9 +159,18 @@ def _deliver(mean, trans, comps, fetch):
 
 def _centered_gram(a):
     """G = As As^T for As = A - e mean, and the mean, without
-    materializing As."""
-    mean = torch.mean(a, dim=0)
-    return _gram_about(a, mean), mean
+    materializing As.  For feature-split data each shard's products are
+    summed by ``ShardedRows._reduce`` (the mesh's order) on the first
+    shard's device, and the mean stays split."""
+    if not isinstance(a, ShardedRows):
+        mean = torch.mean(a, dim=0)
+        return _gram_about(a, mean), mean
+    means = [torch.mean(p, dim=0) for p in a.parts]
+    r = a._reduce([torch.matmul(p, mu) for p, mu in zip(a.parts, means)])
+    mu2 = a._reduce([torch.dot(mu, mu) for mu in means])
+    g = a._reduce([torch.matmul(p, p.T) for p in a.parts])
+    g = g.sub_(r[:, None]).sub_(r[None, :]).add_(mu2)
+    return g, ShardedRows(means, a.sharding, dim=0)
 
 
 def _gram_subspace(G, q, iters):

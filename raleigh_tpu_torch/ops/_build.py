@@ -81,8 +81,12 @@ _SIGNATURES = {
                  'dia_spmm_rows_prev_bf16': _DIA_ARGS},
     'dia_spmm_ext': {'dia_spmm_rows_ext_f32': _EXT_ARGS,
                      'dia_spmm_rows_ext_bf16': _EXT_ARGS,
+                     'dia_spmm_rows_ext_f64_val32': _EXT_ARGS,
+                     'dia_spmm_rows_ext_f64_val64': _EXT_ARGS,
                      'dia_spmm_mesh_f32': _TABLE_ARGS,
-                     'dia_spmm_mesh_bf16': _TABLE_ARGS},
+                     'dia_spmm_mesh_bf16': _TABLE_ARGS,
+                     'dia_spmm_mesh_f64_val32': _TABLE_ARGS,
+                     'dia_spmm_mesh_f64_val64': _TABLE_ARGS},
     'copy_lanes': {'copy_lanes_many': _TABLE_ARGS},
     'dia_spmm_slide': {'dia_spmm_rows_slide_f32': _CLUSTER_ARGS,
                        'dia_spmm_rows_slide_plan': _PLAN_ARGS,

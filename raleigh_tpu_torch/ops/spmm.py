@@ -24,6 +24,12 @@ through the mesh kernel, one launch per device that reads each shard's
 halo lanes where they lie (``DiaMatrix.sharded_rows_fn``), ELL row block
 by row block against the gathered operand.
 
+Every layout takes complex values and complex operands, as the JAX
+package's XLA applies do: on the card a complex block goes through the DIA,
+mesh DIA or BSR kernel as one real block of its real and imaginary rows,
+and complex values as two launches (``ops/complex_rows.py``); the plain
+versions and the ELL apply take complex tensors as they are.
+
 Left out, because they exist only for the TPU: the per-shape kernel
 caches and their shard fingerprints, the window/fused-XLA routing and its
 Mosaic alignment limits, and ``window_padded_fn`` (the kernels take
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import ShardedRows
+from .complex_rows import result_dtype
 from .spmm_pallas import bsr_matmat_rows
 from .spmm_window import DiaMeshPlan, dia_matmat_rows, dia_matmat_rows_mesh
 
@@ -46,24 +53,18 @@ def torch_dtype(dtype):
 
 
 def canonical_dtype(dtype, exact=False):
-    """Storage dtype of device values: float64 only while it is torch's
-    default dtype, else float32 — as ``jnp.asarray`` keeps f64 only when
-    ``jax_enable_x64`` is on.  ``exact``: the dtype as it is (the core
-    Solver's f64 problems keep f64 operators)."""
+    """Storage dtype of device values: float64 (complex128) only while
+    float64 is torch's default dtype, else float32 (complex64) — as
+    ``jnp.asarray`` keeps 64-bit types only when ``jax_enable_x64`` is on.
+    ``exact``: the dtype as it is (the core Solver's f64 problems keep f64
+    operators)."""
     dt = torch_dtype(dtype)
-    if (dt == torch.float64 and not exact
+    narrow = {torch.float64: torch.float32,
+              torch.complex128: torch.complex64}
+    if (dt in narrow and not exact
             and torch.get_default_dtype() != torch.float64):
-        return torch.float32
+        return narrow[dt]
     return dt
-
-
-def real_operand(x):
-    """Raise for a complex operand: no device sparse layout takes one."""
-    if x.is_complex():
-        raise TypeError('complex operands on a device sparse matrix are not '
-                        'ported yet (ROADMAP queue 1, item 15); a complex '
-                        'Hermitian problem runs shift-invert with B=None, '
-                        'which needs no device SpMM')
 
 
 def storage_device(device=None):
@@ -183,8 +184,6 @@ class DiaMatrix:
         symmetric, so x A = (A xᵀ)ᵀ).  With values split over a mesh, x is
         a ``ShardedRows`` and so is the result; a plain tensor is split,
         applied and gathered again."""
-        if not isinstance(x, ShardedRows):
-            real_operand(x)
         if self._multi_device():
             return _dia_sharded_apply(
                 self.val, self._mesh_plan(self.val.sharding), x)
@@ -206,7 +205,6 @@ class DiaMatrix:
             return fn, (self.val,)
 
         def fn(ops, x):
-            real_operand(x)
             return dia_matmat_rows(ops[0], x, ops[1])
         return fn, (self.val, self.offsets_t)
 
@@ -329,7 +327,6 @@ class EllMatrix:
         """(n, m) = A @ (n, m): operand and result transposed blocks."""
         if self._multi_device():
             return self.matmat_rows(xt.T.contiguous()).T
-        real_operand(xt)
         return _ell_matmat(self.idx, self.val, xt)
 
     def matmat_rows(self, x):
@@ -338,7 +335,6 @@ class EllMatrix:
         result; a plain tensor is split, applied and gathered again."""
         if self._multi_device():
             return _ell_sharded_apply(self.idx, self.val, x)
-        real_operand(x)
         return _ell_matmat(self.idx, self.val, x.T).T.contiguous()
 
 
@@ -346,14 +342,15 @@ def _ell_matmat(idx, val, xt):
     """y[i, :] = sum_k val[i, k] * xt[idx[i, k], :] by a loop over the
     padded-column axis: one gather and one multiply-add per step keep peak
     memory at one (n, m) temporary instead of an (n, K, m) cube.
-    Accumulates in the promoted type of val and xt, returns xt's dtype."""
+    Accumulates in the promoted type of val and xt, returns xt's dtype
+    (made complex for complex values)."""
     n, k = idx.shape
     acc = torch.zeros((n, xt.shape[1]), device=xt.device,
                       dtype=torch.promote_types(val.dtype, xt.dtype))
     xt = xt.contiguous()
     for j in range(k):
         acc.addcmul_(val[:, j, None], xt.index_select(0, idx[:, j]))
-    return acc.to(xt.dtype)
+    return acc.to(result_dtype(val.dtype, xt.dtype))
 
 
 def _ell_sharded_apply(idx, val, x):
@@ -395,7 +392,10 @@ class BsrMatrix:
         store = torch_dtype(dtype)
         # tiles are cut from a matrix already in the host type nearest the
         # storage type, so no (nblocks, bs, bs) f64 copy is ever made
-        a = a.astype(np.float64 if store == torch.float64 else np.float32)
+        wide = store in (torch.float64, torch.complex128)
+        a = a.astype((np.complex128 if wide else np.complex64)
+                     if store.is_complex or a.dtype.kind == 'c'
+                     else (np.float64 if wide else np.float32))
         # pad to whole tiles: empty rows below, empty columns to the right
         indptr = np.concatenate(
             [a.indptr, np.full(nb * bs - n, a.indptr[-1], a.indptr.dtype)])
@@ -438,7 +438,6 @@ class BsrMatrix:
     def matmat_rows(self, x):
         """(m, n) = ((m, n) @ A) for a row-vector block, in x's dtype: the
         CUDA kernel on a CUDA tensor, its plain version on the CPU."""
-        real_operand(x)
         return bsr_matmat_rows(self.blocks, self.block_indptr_t,
                                self.block_cols, x.contiguous(),
                                self.shape[0])
@@ -460,14 +459,12 @@ def rows_matmat_operands(dm):
             return fn, (dm.idx, dm.val)
 
         def fn(ops, x):
-            real_operand(x)
             return _ell_matmat(ops[0], ops[1], x.T).T.contiguous()
         return fn, (dm.idx, dm.val)
     if isinstance(dm, BsrMatrix):
         n = dm.shape[0]
 
         def fn(ops, x):
-            real_operand(x)
             return bsr_matmat_rows(ops[0], ops[1], ops[2], x.contiguous(), n)
         return fn, (dm.blocks, dm.block_indptr_t, dm.block_cols)
     raise TypeError('unsupported device matrix %r' % type(dm).__name__)

@@ -19,7 +19,11 @@ taken in f32 and the result has x's dtype.  The f64 instantiation serves
 the core Solver's f64 blocks: x f64, tiles f32 or f64, sums in f64 (on
 the f64 tensor cores where a tile row is a whole number of 16 bytes).
 On a CUDA tensor the wrapper launches the kernel or raises; only a CPU
-tensor takes the plain version.
+tensor takes the plain version.  A complex operand goes through the
+kernel as one real block of its real and imaginary rows, complex tiles as
+two launches, one with their real and one with their imaginary parts
+(``ops/complex_rows.py``); the plain version takes complex tensors as
+they are.
 ``bsr_matmat_rows_prev`` launches the kernel's previous design from the
 same source (every instantiation, the f64 ones too), to be timed beside
 it.
@@ -28,6 +32,7 @@ it.
 import torch
 
 from . import _build
+from .complex_rows import complex_rows, result_dtype
 
 _NAMES = {torch.float32: 'f32', torch.bfloat16: 'bf16',
           torch.float64: 'f64'}
@@ -37,9 +42,13 @@ _PAIRS = [(b, x) for b in ('f32', 'bf16') for x in ('f32', 'bf16')]
 _WIDE_PAIRS = [('f32', 'f64'), ('f64', 'f64')]
 
 # kernel launches per (block dtype, operand dtype), counted where the
-# kernel is launched; PREV_LAUNCHES the same for the previous design
-LAUNCHES = {key: 0 for key in _PAIRS + _WIDE_PAIRS}
-PREV_LAUNCHES = {key: 0 for key in _PAIRS + _WIDE_PAIRS}
+# kernel is launched; PREV_LAUNCHES the same for the previous design.  The
+# launches of a complex apply count under (block dtype, operand dtype,
+# 'complex'), the dtypes those of the real parts it launches with.
+_KEYS = _PAIRS + _WIDE_PAIRS + [key + ('complex',)
+                                for key in [('f32', 'f32')] + _WIDE_PAIRS]
+LAUNCHES = {key: 0 for key in _KEYS}
+PREV_LAUNCHES = {key: 0 for key in _KEYS}
 
 
 def reset_launches():
@@ -49,10 +58,10 @@ def reset_launches():
 
 
 def bsr_matmat_rows_plain(blocks, block_indptr, block_cols, x, n):
-    """Plain PyTorch BSR row apply, any device and dtype: gather of the
-    operand slabs, one batched product, ``index_add_`` per block row.
-    Accumulates in f32 or better (the promoted type of blocks, x and
-    f32) and returns x's dtype."""
+    """Plain PyTorch BSR row apply, any device and dtype (complex too):
+    gather of the operand slabs, one batched product, ``index_add_`` per
+    block row.  Accumulates in f32 or better (the promoted type of blocks,
+    x and f32) and returns x's dtype (made complex for complex tiles)."""
     nblocks, bs, _ = blocks.shape
     nb = block_indptr.shape[0] - 1
     m = x.shape[0]
@@ -70,7 +79,8 @@ def bsr_matmat_rows_plain(blocks, block_indptr, block_cols, x, n):
         (block_indptr[1:] - block_indptr[:-1]).long(), output_size=nblocks)
     y = torch.zeros((nb, bs, m), dtype=acc, device=x.device)
     y.index_add_(0, block_rows, prod)
-    return y.reshape(nb * bs, m)[:n].T.to(x.dtype).contiguous()
+    return y.reshape(nb * bs, m)[:n].T.to(
+        result_dtype(blocks.dtype, x.dtype)).contiguous()
 
 
 def _check(blocks, block_indptr, block_cols, x, n):
@@ -121,9 +131,15 @@ def bsr_matmat_rows_prev(blocks, block_indptr, block_cols, x, n):
                      block_indptr, block_cols, x, n)
 
 
-def _bsr_rows(entry, counts, blocks, block_indptr, block_cols, x, n):
+def _bsr_rows(entry, counts, blocks, block_indptr, block_cols, x, n,
+              tag=()):
     if x.device.type == 'cpu':
         return bsr_matmat_rows_plain(blocks, block_indptr, block_cols, x, n)
+    if x.is_complex() or blocks.is_complex():
+        return complex_rows(
+            lambda b, s: _bsr_rows(entry, counts, b, block_indptr,
+                                   block_cols, s, n, ('complex',)),
+            blocks, x)
     if x.device.type != 'cuda':
         raise ValueError('no BSR apply for device %s' % x.device)
     _check(blocks, block_indptr, block_cols, x, n)
@@ -139,5 +155,5 @@ def _bsr_rows(entry, counts, blocks, block_indptr, block_cols, x, n):
              blocks.shape[1], m, n, index, _build.current_stream(index))
     if err != 0:
         raise RuntimeError('BSR kernel launch failed: CUDA error %d' % err)
-    counts[key] += 1
+    counts[key + tag] += 1
     return y

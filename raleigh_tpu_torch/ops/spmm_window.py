@@ -62,17 +62,26 @@ import ctypes
 import torch
 
 from . import _build
+from .complex_rows import complex_parts, complex_rows, result_dtype
 
 # kernel launches, counted where the kernel is launched: the production
 # kernel per operand dtype, the two staged-window kernels, the mesh
 # kernel per operand dtype through its one-piece entry and its mesh entry,
 # and the previous designs of the production kernel per operand dtype and
-# of the two staged-window kernels
-LAUNCHES = {'float32': 0, 'bfloat16': 0, 'float64_val32': 0,
-            'float64_val64': 0, 'slide': 0, 'tiles': 0,
-            'ext_float32': 0, 'ext_bfloat16': 0, 'mesh_float32': 0,
-            'mesh_bfloat16': 0, 'prev_float32': 0, 'prev_bfloat16': 0,
-            'prev_slide': 0, 'prev_tiles': 0}
+# of the two staged-window kernels.  The launches that apply a complex
+# operand or complex values (``ops/complex_rows.py``) count under keys of
+# their own, ``complex_`` and ``mesh_complex_`` before the real route's.
+_ROUTES = ('float32', 'float64_val32', 'float64_val64')
+LAUNCHES = dict(
+    {'float32': 0, 'bfloat16': 0, 'float64_val32': 0,
+     'float64_val64': 0, 'slide': 0, 'tiles': 0,
+     'ext_float32': 0, 'ext_bfloat16': 0, 'ext_float64_val32': 0,
+     'ext_float64_val64': 0, 'mesh_float32': 0, 'mesh_bfloat16': 0,
+     'mesh_float64_val32': 0, 'mesh_float64_val64': 0,
+     'prev_float32': 0, 'prev_bfloat16': 0, 'prev_slide': 0,
+     'prev_tiles': 0},
+    **{pre + key: 0 for pre in ('complex_', 'mesh_complex_')
+       for key in _ROUTES})
 
 # operand rows a block of a staged-window kernel can own, and the most
 # diagonals it takes (they travel as a kernel argument)
@@ -101,9 +110,23 @@ _ENTRY = {torch.float32: ('float32', 'dia_spmm_rows_f32'),
 _PREV_ENTRY = {torch.float32: ('prev_float32', 'dia_spmm_rows_prev_f32'),
                torch.bfloat16: ('prev_bfloat16', 'dia_spmm_rows_prev_bf16')}
 _EXT_ENTRY = {torch.float32: ('ext_float32', 'dia_spmm_rows_ext_f32'),
-              torch.bfloat16: ('ext_bfloat16', 'dia_spmm_rows_ext_bf16')}
+              torch.bfloat16: ('ext_bfloat16', 'dia_spmm_rows_ext_bf16'),
+              (torch.float64, torch.float32): (
+                  'ext_float64_val32', 'dia_spmm_rows_ext_f64_val32'),
+              (torch.float64, torch.float64): (
+                  'ext_float64_val64', 'dia_spmm_rows_ext_f64_val64')}
 _MESH_ENTRY = {torch.float32: ('mesh_float32', 'dia_spmm_mesh_f32'),
-               torch.bfloat16: ('mesh_bfloat16', 'dia_spmm_mesh_bf16')}
+               torch.bfloat16: ('mesh_bfloat16', 'dia_spmm_mesh_bf16'),
+               (torch.float64, torch.float32): ('mesh_float64_val32',
+                                                'dia_spmm_mesh_f64_val32'),
+               (torch.float64, torch.float64): ('mesh_float64_val64',
+                                                'dia_spmm_mesh_f64_val64')}
+
+
+def _entry_key(x_dtype, val_dtype):
+    """The key of an entry table for an operand and values: the operand's
+    dtype, or (f64, the values' dtype) for the f64 instantiations."""
+    return (x_dtype, val_dtype) if x_dtype == torch.float64 else x_dtype
 
 
 def reset_launches():
@@ -112,10 +135,11 @@ def reset_launches():
 
 
 def dia_matmat_rows_plain(val, x, offsets):
-    """Plain PyTorch DIA row apply, any device and dtype; ``offsets`` a
-    tensor or a sequence of ints.  Accumulates in
-    the promoted type of val and x (f32 for bf16 operands with f32
-    values), adding the diagonals in order, and returns x's dtype."""
+    """Plain PyTorch DIA row apply, any device and dtype (complex too);
+    ``offsets`` a tensor or a sequence of ints.  Accumulates in the
+    promoted type of val and x (f32 for bf16 operands with f32 values),
+    adding the diagonals in order, and returns x's dtype (made complex for
+    complex values)."""
     m, n = x.shape
     y = torch.zeros((m, n), dtype=torch.promote_types(val.dtype, x.dtype),
                     device=x.device)
@@ -125,7 +149,7 @@ def dia_matmat_rows_plain(val, x, offsets):
         lo, hi = max(0, -off), min(n, n - off)
         if lo < hi:
             y[:, lo:hi] += val[k, lo:hi] * x[:, lo + off:hi + off]
-    return y.to(x.dtype)
+    return y.to(result_dtype(val.dtype, x.dtype))
 
 
 def _check(val, x, offsets, f64=False):
@@ -161,7 +185,14 @@ def _check(val, x, offsets, f64=False):
 def dia_matmat_rows(val, x, offsets):
     """(m, n) = DIA matrix applied to the (m, n) row block ``x``, in x's
     dtype.  CUDA tensors go through the kernel, CPU tensors through
-    ``dia_matmat_rows_plain``."""
+    ``dia_matmat_rows_plain``.  A complex operand goes through the kernel
+    as one real block of its real and imaginary rows, complex values as
+    two launches, one with their real and one with their imaginary parts
+    (``ops/complex_rows.py``), counted under the ``complex_`` keys."""
+    if x.device.type == 'cuda' and (x.is_complex() or val.is_complex()):
+        return complex_rows(
+            lambda v, s: _dia_rows(_ENTRY, v, s, offsets, 'complex_'),
+            val, x)
     return _dia_rows(_ENTRY, val, x, offsets)
 
 
@@ -173,7 +204,7 @@ def dia_matmat_rows_prev(val, x, offsets):
     return _dia_rows(_PREV_ENTRY, val, x, offsets)
 
 
-def _dia_rows(entries, val, x, offsets):
+def _dia_rows(entries, val, x, offsets, tag=''):
     if x.device.type == 'cpu':
         return dia_matmat_rows_plain(val, x, offsets)
     if x.device.type != 'cuda':
@@ -183,15 +214,14 @@ def _dia_rows(entries, val, x, offsets):
     m, n = x.shape
     if m == 0 or n == 0:
         return y
-    key, entry = entries[(x.dtype, val.dtype) if x.dtype == torch.float64
-                         else x.dtype]
+    key, entry = entries[_entry_key(x.dtype, val.dtype)]
     fn = getattr(_build.library(), entry)
     index = x.get_device()
     err = fn(val.data_ptr(), x.data_ptr(), y.data_ptr(), offsets.data_ptr(),
              val.shape[0], m, n, index, _build.current_stream(index))
     if err != 0:
         raise RuntimeError('DIA kernel launch failed: CUDA error %d' % err)
-    LAUNCHES[key] += 1
+    LAUNCHES[tag + key] += 1
     return y
 
 
@@ -208,7 +238,7 @@ def dia_matmat_rows_ext_plain(val, x_ext, offsets, halo_lo, n):
         offsets = offsets.tolist()
     for k, off in enumerate(offsets):
         y += val[k, :n] * x_ext[:, halo_lo + off:halo_lo + off + n]
-    return y.to(x_ext.dtype)
+    return y.to(result_dtype(val.dtype, x_ext.dtype))
 
 
 def dia_matmat_rows_ext(val, x_ext, offsets, halo_lo, n, reach=None):
@@ -224,7 +254,8 @@ def dia_matmat_rows_ext(val, x_ext, offsets, halo_lo, n, reach=None):
     ints saves reading the offsets back from the device.  ``x_ext`` needs
     unit stride along the lanes and may have any row stride.  CUDA tensors
     go through the mesh kernel as one shard with one piece (x_ext f32 or
-    bf16, val f32), CPU tensors through ``dia_matmat_rows_ext_plain``."""
+    bf16 with f32 values, or f64 with f32 or f64 values), CPU tensors
+    through ``dia_matmat_rows_ext_plain``."""
     halo_lo, n = int(halo_lo), int(n)
     if not (val.device == x_ext.device == offsets.device):
         raise ValueError('val, x_ext and offsets must share a device (got '
@@ -247,12 +278,15 @@ def dia_matmat_rows_ext(val, x_ext, offsets, halo_lo, n, reach=None):
                                     n, reach[0], reach[1]))
     if x_ext.device.type == 'cpu':
         return dia_matmat_rows_ext_plain(val, x_ext, offsets, halo_lo, n)
-    if x_ext.dtype not in _EXT_ENTRY:
-        raise TypeError('the DIA kernel takes f32 or bf16 operands, not %s'
-                        % x_ext.dtype)
-    if val.dtype != torch.float32 or offsets.dtype != torch.int32:
-        raise TypeError('the DIA kernel takes f32 values and int32 offsets '
-                        '(got %s, %s)' % (val.dtype, offsets.dtype))
+    if _entry_key(x_ext.dtype, val.dtype) not in _EXT_ENTRY or (
+            x_ext.dtype != torch.float64 and val.dtype != torch.float32):
+        raise TypeError('the DIA kernel takes f32 values with an f32 or bf16 '
+                        'operand, or f32 or f64 values with an f64 operand '
+                        '(got %s values, a %s operand)'
+                        % (val.dtype, x_ext.dtype))
+    if offsets.dtype != torch.int32:
+        raise TypeError('the DIA kernel takes int32 offsets (got %s)'
+                        % offsets.dtype)
     m = x_ext.shape[0]
     if not (val.is_contiguous() and offsets.is_contiguous()
             and (x_ext.shape[1] <= 1 or x_ext.stride(1) == 1)):
@@ -262,7 +296,7 @@ def dia_matmat_rows_ext(val, x_ext, offsets, halo_lo, n, reach=None):
     y = torch.empty((m, n), dtype=x_ext.dtype, device=x_ext.device)
     if m == 0 or n == 0:
         return y
-    key, entry = _EXT_ENTRY[x_ext.dtype]
+    key, entry = _EXT_ENTRY[_entry_key(x_ext.dtype, val.dtype)]
     index = x_ext.get_device()
     err = getattr(_build.library(), entry)(
         val.data_ptr(), x_ext.data_ptr(), y.data_ptr(), offsets.data_ptr(),
@@ -433,19 +467,21 @@ def _mesh_shard_plain(val, xs, plan, s):
     m, dtype, width, dev = xs[0].shape[0], xs[0].dtype, plan.widths[s], \
         plan.devices[s]
     if width == 0:
-        return torch.empty((m, 0), dtype=dtype, device=dev)
+        return torch.empty((m, 0), dtype=result_dtype(val.dtype, dtype),
+                           device=dev)
     y = torch.zeros((m, width), dtype=torch.promote_types(val.dtype, dtype),
                     device=dev)
     for k, off in enumerate(plan.offsets):
         y += val[k] * _mesh_lanes(xs, plan.pieces[s], off, width, dev)
-    return y.to(dtype)
+    return y.to(result_dtype(val.dtype, dtype))
 
 
 def dia_matmat_rows_mesh_plain(vals, xs, plan):
     """Plain PyTorch version of ``dia_matmat_rows_mesh`` over the same piece
     table, any device and dtype: per shard, each diagonal's source lanes
     gathered from the pieces as one slice, the diagonals added in order in
-    the promoted type of val and x, the result in x's dtype."""
+    the promoted type of val and x, the result in x's dtype (made complex
+    for complex values)."""
     return [_mesh_shard_plain(v, xs, plan, s) for s, v in enumerate(vals)]
 
 
@@ -485,10 +521,12 @@ def _check_mesh(vals, xs, plan):
             raise ValueError('a value part %s on %s for a shard of %d lanes '
                              'and %d diagonals on %s'
                              % (tuple(v.shape), v.device, width, noff, dev))
-        if dev.type == 'cuda' and not (v.dtype == torch.float32
+        wide = dtype == torch.float64 and v.dtype == torch.float64
+        if dev.type == 'cuda' and not ((v.dtype == torch.float32 or wide)
                                        and v.is_contiguous()):
-            raise TypeError('the mesh kernel takes contiguous f32 values, '
-                            'not %s' % v.dtype)
+            raise TypeError('the mesh kernel takes contiguous f32 values '
+                            '(or f64 with an f64 operand), not %s'
+                            % v.dtype)
     plan._vals_checked = tuple(vals)
     return strides
 
@@ -502,11 +540,27 @@ def dia_matmat_rows_mesh(vals, xs, plan):
         y_s[r, i] = sum_k vals[s][k, i] * X_s[r, i + offsets[k]]
 
     Returns the (m, n_s) results, one per shard.  On the card one kernel
-    launch per device covers all of its shards (x f32 or bf16, values f32);
-    lanes that lie on another device are first copied to a staging tensor
-    there by ``Tensor.copy_``.  CPU tensors go through
+    launch per device covers all of its shards (x f32 or bf16 with f32
+    values, or f64 with f32 or f64 values); lanes that lie on another
+    device are first copied to a staging tensor there by
+    ``Tensor.copy_``.  A complex operand or complex values take the real
+    launches of ``ops/complex_rows.py`` (one per device for a real-valued
+    matrix, two for a complex-valued one), counted under the
+    ``mesh_complex_`` keys.  CPU tensors go through
     ``dia_matmat_rows_mesh_plain``.  Values outside the global matrix must
     be zero (``shard_operator`` zeroes them): the wrapped lanes meet them."""
+    if (xs[0].is_complex() or vals[0].is_complex()) and any(
+            d.type == 'cuda' for d in plan.devices):
+        return complex_parts(
+            lambda vs, ss: _mesh_apply(vs, ss, plan, 'mesh_complex_'),
+            vals, xs)
+    return _mesh_apply(vals, xs, plan, '')
+
+
+def _mesh_apply(vals, xs, plan, tag):
+    """``dia_matmat_rows_mesh`` for real values and operand parts; the
+    launches count under ``tag`` + the route's key (``mesh_float32``, say,
+    for no tag)."""
     strides = _check_mesh(vals, xs, plan)
     m, dtype = xs[0].shape[0], xs[0].dtype
     out = [None] * len(xs)
@@ -521,9 +575,10 @@ def dia_matmat_rows_mesh(vals, xs, plan):
             continue
         if dev.type != 'cuda':
             raise ValueError('no DIA apply for device %s' % dev)
-        if dtype not in _MESH_ENTRY:
-            raise TypeError('the mesh kernel takes f32 or bf16 operands, not '
-                            '%s' % dtype)
+        if _entry_key(dtype, vals[launch.shards[0]].dtype) not in \
+                _MESH_ENTRY:
+            raise TypeError('the mesh kernel takes f32 or bf16 operands '
+                            '(or f64), not %s' % dtype)
         ys, y = launch.outputs(m, dtype)
         for s, ys_s in zip(launch.shards, ys):
             out[s] = ys_s
@@ -546,7 +601,9 @@ def dia_matmat_rows_mesh(vals, xs, plan):
             staged.append(src)
             params[at] = src.data_ptr()
             params[at + 1] = src.stride(0)
-        key, entry = _MESH_ENTRY[dtype]
+        key, entry = _MESH_ENTRY[_entry_key(dtype,
+                                            vals[launch.shards[0]].dtype)]
+        key = tag + key[len('mesh_'):] if tag else key
         err = getattr(_build.library(), entry)(
             launch.address, launch.nbytes, dev.index,
             _build.current_stream(dev.index))

@@ -17,9 +17,10 @@ shards on distinct devices exchange data with ``Tensor.copy_``.
 What the partitioner did silently PyTorch has to be told: ``ShardedRows``
 holds one contiguous (m, n_p) tensor per shard and carries exactly the
 operations the device LOBPCG and the Chebyshev recurrence apply to a
-block.  Every reduction over the vector dimension (Gram matrices, row
-dots, row norms) sums per-shard partial results on the first shard's
-device, along the innermost mesh axis first.
+block, and the in-place updates of a sharded ``dense_torch`` block.
+Every reduction over the vector dimension (Gram matrices, row dots, row
+norms) sums per-shard partial results on the first shard's device, along
+the innermost mesh axis first.
 """
 
 import bisect
@@ -271,6 +272,67 @@ class ShardedRows:
 
     def zeros_like(self):
         return self._map(torch.zeros_like)
+
+    def clone(self):
+        return self._map(torch.clone)
+
+    def is_complex(self):
+        return self.parts[0].is_complex()
+
+    # ---- in place, shard by shard (the block storage of dense_torch) -----
+    def _parts_of(self, src):
+        """``src`` cut as this array is: a ``ShardedRows`` under this
+        sharding, or a tensor broadcast to the global shape and narrowed to
+        each shard's range, each piece on its shard's device."""
+        if isinstance(src, ShardedRows):
+            return src.resplit(self.sharding).parts
+        src = src.broadcast_to(self.shape)
+        return [_to(src.narrow(self.dim, s, e - s), p.device)
+                for (s, e), p in zip(self.bounds(), self.parts)]
+
+    def copy_(self, src):
+        for p, q in zip(self.parts, self._parts_of(src)):
+            p.copy_(q)
+        return self
+
+    def zero_(self):
+        for p in self.parts:
+            p.zero_()
+        return self
+
+    def fill_(self, value):
+        for p in self.parts:
+            p.fill_(value)
+        return self
+
+    def _inplace(self, name, other, *args, **kw):
+        """``part.name(other, ...)`` on every shard; ``other`` a scalar, a
+        small tensor that broadcasts against a part (sent to the part's
+        device) or a ``ShardedRows`` of this sharding."""
+        if isinstance(other, ShardedRows):
+            others = other.resplit(self.sharding).parts
+        elif isinstance(other, torch.Tensor) and other.dim():
+            others = [_to(other, p.device) for p in self.parts]
+        else:
+            others = [other] * len(self.parts)
+        for p, q in zip(self.parts, others):
+            getattr(p, name)(q, *args, **kw)
+        return self
+
+    def mul_(self, other):
+        return self._inplace('mul_', other)
+
+    def div_(self, other):
+        return self._inplace('div_', other)
+
+    def add_(self, other, alpha=1):
+        return self._inplace('add_', other, alpha=alpha)
+
+    def addcmul_(self, coef, other):
+        """self += coef * other for a small ``coef`` that broadcasts."""
+        for p, q in zip(self.parts, other.resplit(self.sharding).parts):
+            p.addcmul_(_to(coef, p.device), q)
+        return self
 
     def zero_rows(self, dead):
         """The block with the rows flagged in the (m,) mask set to 0."""

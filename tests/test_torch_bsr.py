@@ -219,9 +219,12 @@ def test_wrapper_uses_plain_version_only_on_cpu(pencil):
     assert torch.equal(sp.bsr_matmat_rows(*args, x, n),
                        sp.bsr_matmat_rows_plain(*args, x, n))
     assert sp.LAUNCHES == before
+    # the real pairs, and the complex route's under keys of their own
     assert sorted(sp.LAUNCHES) == [('bf16', 'bf16'), ('bf16', 'f32'),
                                    ('f32', 'bf16'), ('f32', 'f32'),
-                                   ('f32', 'f64'), ('f64', 'f64')]
+                                   ('f32', 'f32', 'complex'),
+                                   ('f32', 'f64'), ('f32', 'f64', 'complex'),
+                                   ('f64', 'f64'), ('f64', 'f64', 'complex')]
     with pytest.raises(ValueError, match='device'):
         sp.bsr_matmat_rows(*args, x.to('meta'), n)
     # the checks the wrapper makes before a launch
@@ -262,7 +265,8 @@ def test_previous_design_wrapper_on_cpu(pencil):
     xd = torch.from_numpy(x.astype(np.float64))
     assert torch.equal(sp.bsr_matmat_rows_prev(*args, xd, n),
                        sp.bsr_matmat_rows_plain(*args, xd, n))
-    assert sorted(sp.PREV_LAUNCHES) == sorted(sp._PAIRS + sp._WIDE_PAIRS)
+    assert sorted(sp.PREV_LAUNCHES) == sorted(sp.LAUNCHES)
+    assert set(sp._PAIRS + sp._WIDE_PAIRS) < set(sp.PREV_LAUNCHES)
     sp.PREV_LAUNCHES[('f32', 'f32')] = 3
     sp.PREV_LAUNCHES[('f32', 'f64')] = 2
     sp.reset_launches()

@@ -343,8 +343,11 @@ def test_backend_selection_and_amatrix(monkeypatch):
     assert np.allclose(am.dots(), (a * a).sum(axis=1))
     assert np.allclose(am.as_vectors().data(), a)
     assert dense.AMatrix(a, arch='cpu').backend() is dense_numpy
-    with pytest.raises(NotImplementedError, match='item 13'):
-        dense_torch.Vectors(8, 2, sharding=object(), device='cpu')
+    # a sharded block: one part per shard of a CPU mesh
+    from raleigh_tpu_torch.parallel.mesh import blockvec_sharding, make_mesh
+    sh = blockvec_sharding(make_mesh(2, ['cpu'] * 2))
+    v = dense_torch.Vectors(8, 2, sharding=sh, device='cpu')
+    assert [tuple(p.shape) for p in v.device_data().parts] == [(2, 4)] * 2
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA'):
         dense.best_backend('gpu!')

@@ -860,7 +860,7 @@ def test_ext_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match='reach'):
         sw.dia_matmat_rows_ext(dm.val, x_ext[:, :-1], dm.offsets_t, lo, n)
     with pytest.raises(TypeError, match='f32 or bf16'):
-        sw.dia_matmat_rows_ext(dm.val, x_ext.double(), dm.offsets_t, lo, n)
+        sw.dia_matmat_rows_ext(dm.val, x_ext.half(), dm.offsets_t, lo, n)
     with pytest.raises(ValueError, match='shape'):
         sw.dia_matmat_rows_ext(dm.val, x_ext, dm.offsets_t, lo, n - 1)
     with pytest.raises(ValueError, match='device'):
@@ -918,7 +918,7 @@ def test_mesh_kernel_refuses_what_it_cannot_take(cuda):
     x = torch.randn((5, 288), device=cuda)
     xs = ShardedRows.split(x, sharded.val.sharding).parts
     with pytest.raises(TypeError, match='f32 or bf16'):
-        sw.dia_matmat_rows_mesh(sharded.val.parts, [p.double() for p in xs],
+        sw.dia_matmat_rows_mesh(sharded.val.parts, [p.half() for p in xs],
                                 plan)
     with pytest.raises(ValueError, match='operand parts'):
         sw.dia_matmat_rows_mesh(sharded.val.parts,
@@ -1114,3 +1114,233 @@ def test_truncated_svd_and_jacobi_hevp_on_the_card(cuda):
     exact = np.sort(lap3d_eigenvalues(12, 12, 12, 1.0, 1.0, 1.0))[:4]
     assert st_ == 0 and np.allclose(lmd[:4], exact, rtol=1e-6)
     assert sum(sw.LAUNCHES.values()) > 0
+
+
+# ---- K4 in f64, the complex routes, the sharded core Solver -------------
+
+@pytest.mark.parametrize('values', [torch.float32, torch.float64])
+@pytest.mark.parametrize('shape,shards', [((8, 8, 16), 8), ((5, 7, 9), 3),
+                                          ((30, 30, 31), 2), ((6, 6, 6), 8),
+                                          ((8, 8, 16), 20)])
+def test_mesh_f64_kernel_equals_plain_and_the_unsharded(cuda, shape, shards,
+                                                        values):
+    """The mesh kernel's f64 instantiations (an f64 operand, f32 or f64
+    values): one launch per table, equal bit for bit to the plain version
+    over the piece table (products and sums in its order) and to the
+    unsharded f64 kernel."""
+    from raleigh_tpu_torch import make_mesh, shard_operator
+    from raleigh_tpu_torch.parallel.mesh import ShardedRows, blockvec_sharding
+    a = lap3d(*shape, 1.0, 1.0, 1.0)
+    vdt = np.float64 if values == torch.float64 else np.float32
+    dm = DiaMatrix(a, dtype=vdt, exact=True)
+    sharded = shard_operator(DiaMatrix(a, dtype=vdt, exact=True),
+                             make_mesh(shards))
+    g = torch.Generator(cuda).manual_seed(8)
+    x = torch.randn((9, dm.shape[0]), generator=g, device=cuda,
+                    dtype=torch.float64)
+    xs = ShardedRows.split(x, sharded.val.sharding)
+    plan = sharded._mesh_plan(sharded.val.sharding)
+    key = 'mesh_float64_val%d' % (64 if values == torch.float64 else 32)
+    before = dict(sw.LAUNCHES)
+    y = sharded.matmat_rows(xs)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in sw.LAUNCHES.items()
+             if v != before[k]}
+    assert moved == {key: len(plan.launches)}
+    assert y.dtype == torch.float64
+    want = sw.dia_matmat_rows_mesh_plain(sharded.val.parts, xs.parts, plan)
+    assert torch.equal(y.gather(), torch.cat(want, dim=1))
+    assert torch.equal(y.gather(), dm.matmat_rows(x))
+
+
+@pytest.mark.parametrize('values', [torch.float32, torch.float64])
+def test_ext_f64_kernel_matches_plain(cuda, values):
+    """The one-piece entry's f64 instantiations over a ring-extended
+    operand: equal to its plain version and to the unsharded f64 kernel."""
+    dm, x, x_ext, lo = _ext_case(cuda, (5, 7, 9), 12, torch.float64)
+    val = dm.val.to(values)
+    n = dm.shape[0]
+    key = 'ext_float64_val%d' % (64 if values == torch.float64 else 32)
+    before = sw.LAUNCHES[key]
+    y = sw.dia_matmat_rows_ext(val, x_ext, dm.offsets_t, lo, n)
+    want = sw.dia_matmat_rows_ext_plain(val, x_ext, dm.offsets_t, lo, n)
+    torch.cuda.synchronize()
+    assert sw.LAUNCHES[key] == before + 1
+    assert torch.equal(y, want)
+    assert torch.equal(y, sw.dia_matmat_rows(val, x, dm.offsets_t))
+
+
+def _complex_block(cuda, m, n, dtype, seed):
+    g = torch.Generator(cuda).manual_seed(seed)
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
+    return torch.complex(
+        torch.randn((m, n), generator=g, device=cuda, dtype=real),
+        torch.randn((m, n), generator=g, device=cuda, dtype=real))
+
+
+def _hermitian(a, dtype):
+    """a's pattern with an imaginary antisymmetric part added."""
+    import scipy.sparse as scs
+    a = scs.csr_matrix(a, dtype=np.float64)
+    up = scs.triu(a, k=1).tocoo()
+    im = scs.csr_matrix((np.random.RandomState(3).standard_normal(up.nnz),
+                         (up.row, up.col)), shape=a.shape)
+    return (a + 1j * (im - im.T)).astype(dtype)
+
+
+@pytest.mark.parametrize('xdt,vdt,key,launches', [
+    (torch.complex128, np.float64, 'complex_float64_val64', 1),
+    (torch.complex128, np.float32, 'complex_float64_val32', 1),
+    (torch.complex128, np.complex128, 'complex_float64_val64', 2),
+    (torch.float64, np.complex128, 'complex_float64_val64', 2),
+    (torch.complex64, np.float32, 'complex_float32', 1),
+    (torch.complex64, np.complex64, 'complex_float32', 2)])
+def test_complex_dia_route_matches_plain(cuda, xdt, vdt, key, launches):
+    """A complex operand as one real block of its real and imaginary rows
+    (one launch), complex values as two launches, counted under the
+    complex keys: within 1e-14 (c128) or 1e-6 (c64) of the largest |entry|
+    of the plain version on the complex tensors."""
+    a = lap3d(8, 9, 10, 1.0, 1.0, 1.0)
+    if np.dtype(vdt).kind == 'c':
+        a = _hermitian(a, vdt)
+    dm = DiaMatrix(a, dtype=vdt, device=cuda, exact=True)
+    n = dm.shape[0]
+    x = (_complex_block(cuda, 7, n, xdt, 4) if xdt.is_complex
+         else torch.randn((7, n), device=cuda, dtype=xdt))
+    before = dict(sw.LAUNCHES)
+    y = sw.dia_matmat_rows(dm.val, x, dm.offsets_t)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in sw.LAUNCHES.items()
+             if v != before[k]}
+    assert moved == {key: launches}
+    want = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
+    assert y.dtype == want.dtype and y.is_complex()
+    tol = 1e-14 if y.dtype == torch.complex128 else 1e-6
+    assert (y - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.parametrize('values', [np.float64, np.complex128])
+def test_complex_mesh_route_matches_plain(cuda, values):
+    """A c128 block on a DIA matrix split over 8 shards of the card: the
+    mesh kernel's f64 instantiation over the stacked rows, one launch per
+    device (two for complex values), counted under the mesh_complex keys."""
+    from raleigh_tpu_torch import make_mesh, shard_operator
+    from raleigh_tpu_torch.parallel.mesh import ShardedRows
+    a = lap3d(8, 8, 16, 1.0, 1.0, 1.0)
+    if np.dtype(values).kind == 'c':
+        a = _hermitian(a, values)
+    whole = DiaMatrix(a, dtype=values, device=cuda, exact=True)
+    sharded = shard_operator(DiaMatrix(a, dtype=values, exact=True),
+                             make_mesh(8))
+    x = _complex_block(cuda, 5, whole.shape[0], torch.complex128, 9)
+    before = dict(sw.LAUNCHES)
+    y = sharded.matmat_rows(ShardedRows.split(x, sharded.val.sharding))
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in sw.LAUNCHES.items()
+             if v != before[k]}
+    assert moved == {'mesh_complex_float64_val64':
+                     2 if np.dtype(values).kind == 'c' else 1}
+    want = sw.dia_matmat_rows_plain(whole.val, x, whole.offsets_t)
+    assert (y.gather() - want).abs().max() <= 1e-14 * want.abs().max()
+
+
+@pytest.mark.parametrize('tiles,xdt,launches', [
+    (np.float32, torch.complex128, 1), (np.float64, torch.complex128, 1),
+    (np.complex128, torch.complex128, 2), (np.float32, torch.complex64, 1)])
+def test_complex_bsr_route_matches_plain(cuda, tiles, xdt, launches):
+    """K5 on a complex operand (stacked rows, one launch) or complex tiles
+    (two launches), counted under (tiles, operand, 'complex'): within
+    1e-13 (c128) or 1e-5 (c64) of the largest |entry| of the plain
+    version."""
+    k = fe_pencil(9, 3, 0.1, seed=2, which='k')
+    if np.dtype(tiles).kind == 'c':
+        k = _hermitian(k, tiles)
+    n = k.shape[0]
+    bm = BsrMatrix(k, dtype=tiles, bs=64, device=cuda, exact=True)
+    x = _complex_block(cuda, 6, n, xdt, 5)
+    args = (bm.blocks, bm.block_indptr_t, bm.block_cols)
+    real = 'f64' if xdt == torch.complex128 else 'f32'
+    part = 'f32' if tiles == np.float32 else 'f64'
+    key = (part, real, 'complex') if real == 'f64' else ('f32', 'f32',
+                                                         'complex')
+    before = dict(sp.LAUNCHES)
+    y = sp.bsr_matmat_rows(*args, x, n)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in sp.LAUNCHES.items()
+             if v != before[k]}
+    assert moved == {key: launches}
+    want = sp.bsr_matmat_rows_plain(*args, x, n)
+    tol = 1e-13 if xdt == torch.complex128 else 1e-5
+    assert (y - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.parametrize('two_d', [False, True])
+def test_sharded_core_solver_on_the_card(cuda, two_d):
+    """The core Solver on f64 dense_torch blocks split over 8 shards of the
+    card, lap3d 12^3 with its DIA operator and Chebyshev split by
+    shard_operator: the f64 mesh kernel for both value types and no other
+    DIA kernel; the unsharded run's eigenvalues within 1e-10 and the
+    analytic ones within 1e-6."""
+    from raleigh_tpu_torch import Chebyshev, spectral_bounds
+    from raleigh_tpu_torch.algebra import dense_torch
+    from raleigh_tpu_torch.algebra.sparse import SparseSymmetricMatrix
+    from raleigh_tpu_torch.core.device_solver import shard_operator
+    from raleigh_tpu_torch.core.solver import (DefaultConvergenceCriteria,
+                                               Options, Problem, Solver)
+    from raleigh_tpu_torch.examples.laplace import lap3d_eigenvalues
+    from raleigh_tpu_torch.parallel.mesh import (blockvec_sharding,
+                                                 make_mesh, make_mesh2d)
+    a = lap3d(12, 12, 12, 1.0, 1.0, 1.0)
+    lo, hi = spectral_bounds(a)
+    mesh = make_mesh2d(2, 4) if two_d else make_mesh(8)
+    runs = []
+    for sh in (blockvec_sharding(mesh), None):
+        op = SparseSymmetricMatrix(a, exact=True)
+        ch = Chebyshev(a, lo, hi, degree=10)
+        if sh is not None:
+            shard_operator(op.device_matrix(), mesh, axis=mesh.axis_names)
+            shard_operator(ch.device_matrix(), mesh, axis=mesh.axis_names)
+        np.random.seed(2)
+        v = dense_torch.Vectors(a.shape[0], 0, np.float64, sharding=sh)
+        solver = Solver(Problem(v, op))
+        solver.set_preconditioner(ch)
+        opt = Options()
+        opt.convergence_criteria = DefaultConvergenceCriteria()
+        opt.convergence_criteria.set_error_tolerance('k eigenvector error',
+                                                     1e-6)
+        before = dict(sw.LAUNCHES)
+        assert solver.solve(v, opt, which=(4, 0)) == 0
+        moved = {k for k, c in sw.LAUNCHES.items() if c != before[k]}
+        runs.append((np.sort(solver.eigenvalues)[:4], solver.iteration,
+                     moved))
+    (lmd, its, moved), (lmd1, its1, moved1) = runs
+    assert moved == {'mesh_float64_val32', 'mesh_float64_val64'}
+    assert moved1 == {'float64_val32', 'float64_val64'}
+    assert its == its1 and np.abs(lmd - lmd1).max() <= 1e-10 * lmd1.max()
+    exact = np.sort(lap3d_eigenvalues(12, 12, 12, 1.0, 1.0, 1.0))[:4]
+    assert np.allclose(lmd, exact, rtol=1e-6)
+
+
+def test_complex_generalized_shift_invert_on_the_card(cuda):
+    """The complex chain with B = I + 0.25 H on the card (B's c128 DIA
+    values through the complex route) against the host algebra: within
+    1e-8."""
+    import scipy.sparse as scs
+    from raleigh_tpu_torch import Options, partial_hevp
+    n = 2000
+    d = 1j * np.ones(n - 1)
+    hop = scs.csr_matrix(scs.diags(d, 1) - scs.diags(d, -1))
+    a = scs.csr_matrix(hop + scs.diags(np.linspace(0, 1, n)))
+    b = scs.csr_matrix(scs.eye(n) + 0.25 * hop)
+    opt = Options()
+    opt.orchestration = 'device'
+    before = sw.LAUNCHES['complex_float64_val64']
+    lmd, x, status = partial_hevp(a, B=b, sigma=0.3, which=4, tol=1e-6,
+                                  verb=-1, opt=opt)
+    assert sw.LAUNCHES['complex_float64_val64'] > before
+    hl, hx, hs = partial_hevp(a, B=b, sigma=0.3, which=4, tol=1e-6,
+                              verb=-1, arch='cpu')
+    assert status == hs == 0 and x.dtype == np.complex128
+    near = np.sort(lmd[np.argsort(np.abs(lmd - 0.3))[:4]])
+    hnear = np.sort(hl[np.argsort(np.abs(hl - 0.3))[:4]])
+    assert np.abs(near - hnear).max() <= 1e-8 * np.abs(hnear).max()

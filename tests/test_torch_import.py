@@ -8,7 +8,9 @@ problem, buckling and engine='core' on dense_torch blocks, the host path
 and the example CLIs, and the dense slice: the randomized subspace
 engines, truncated_svd, PartialSVD, LRA, pca in its modes on both Jacobi
 routes, DeviceJacobi under engine='jacobi', the checkpoint copy and the
-pca_demo and truncated_svd_demo CLIs) in a fresh interpreter,
+pca_demo and truncated_svd_demo CLIs, and the slice of sharded dense
+blocks, complex operands, profiling and the image examples) in a fresh
+interpreter,
 then look at sys.modules.  The port keeps its own copies of the host code
 both packages need (the core Solver, ``dense_small``, ``dense_numpy``, the
 native LDL^T and its C++ sources, ``spectral_bounds``,
@@ -150,6 +152,33 @@ assert status == 0 and np.allclose(lmd[:3], ex8[:3], rtol=1e-5), lmd
 assert isinstance(rt.DeviceJacobi, type) and rt.PartialSVD
 pca_demo.run('simple', 200, 120, 60, 8, device='cpu')
 truncated_svd_demo.run(200, 120, 60, 5, arch='cpu')
+# the slice of sharded dense blocks, complex operands, profiling and the
+# image examples: the Solver on blocks split over 8 shards of the CPU,
+# feature-split subspace_pca, a complex pencil on a device matrix, the
+# timers and a trace, the synthetic image set and its converter's masks
+import scipy.sparse as scs
+import torch
+from raleigh_tpu_torch import graft_entry
+from raleigh_tpu_torch.examples import convert_images, eigenimages
+from raleigh_tpu_torch.parallel.mesh import ShardedRows, matrix_sharding
+from raleigh_tpu_torch.utils import profiling
+cmesh = rt.make_mesh(8, ['cpu'] * 8)
+assert graft_entry._solver_step(cmesh, 128)[0] in (0, 1)
+split = ShardedRows.split(torch.from_numpy(A), matrix_sharding(cmesh))
+assert rt.subspace_pca(split, 10)[2].shape == (10, 120)
+d = 1j * np.ones(199)
+hop = scs.csr_matrix(scs.diags(d, 1) - scs.diags(d, -1))
+ca = scs.csr_matrix(hop + scs.diags(np.linspace(0, 1, 200)))
+cb = scs.csr_matrix(scs.eye(200) + 0.25 * hop)
+lmd, x, status = rt.partial_hevp(ca, B=cb, sigma=0.3, which=3, tol=1e-6,
+                                 verb=-1, device='cpu')
+assert status == 0 and x.dtype == np.complex128, status
+with profiling.timers('trace'):
+    with profiling.device_trace(tempfile.mkdtemp()):
+        torch.ones(4).sum()
+assert profiling.timers.count['trace'] == 1
+assert eigenimages.synthetic(40, 30, rank=8, device='cpu').shape == (40, 30)
+assert convert_images.face_mask(20, 10).shape == (20, 10)
 import json
 print(json.dumps({'jax': sorted(
     m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')),

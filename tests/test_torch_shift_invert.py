@@ -275,17 +275,6 @@ def test_f64_wrappers_on_cpu_match_jax():
     assert (dict(sw.LAUNCHES), dict(sp.LAUNCHES)) == before
 
 
-def test_complex_operand_on_a_device_matrix_raises():
-    from raleigh_tpu_torch.ops.spmm import device_sparse
-    a = lap2d(6, 6, 1.0, 1.0)
-    for bs in (None, 16):
-        dm = device_sparse(a, device='cpu') if bs is None else \
-            __import__('raleigh_tpu_torch').BsrMatrix(a, bs=bs, device='cpu')
-        x = torch.zeros((2, a.shape[0]), dtype=torch.complex128)
-        with pytest.raises(TypeError, match='item 15'):
-            dm.matmat_rows(x)
-
-
 def test_native_sources_and_binding_are_copies():
     """The C++ sources are the JAX package's byte for byte; the port's
     binding builds its own library (under raleigh_tpu_torch/_build/) and
