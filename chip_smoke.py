@@ -186,16 +186,17 @@ carries on, and no wrapper gives way to its plain version on the card.
    * ``pca(sub, npc=100, method='jacobi')`` on ``a[:3000, :10000]``
      (bench.py:416-440; warm on ``a[:3000, 10000:20000]``), the device
      Jacobi engine: Frobenius error within 1.02x of the optimal rank-100
-     truncation (host SVD in f64); iterations and wall.
+     truncation (host SVD in f64); iterations, restarts and wall.
    * ``truncated_svd(generate(3000, 2000, 1000), nsv=300)``: all 300
-     singular values within 1e-3 relative of the host SVD, in f64 on the
-     device Jacobi engine (iteration limit 300) and in f32 on the core
-     Solver with blocks on the card; the f32 device engine's result is
-     printed, not held (ROADMAP fault 3.6).
+     singular values within 1e-3 relative of the host SVD, at the default
+     iteration limit, in f64 and f32 on the device Jacobi engine and in
+     f32 on the core Solver with blocks on the card; iterations, restarts
+     and walls.
    * ``partial_hevp(engine='jacobi')`` on lap3d 50^3, 10 smallest, tol 1e-6,
      Chebyshev degree 16, f64: status 0, within 1e-5 of the analytic
      eigenvalues, the DIA kernel launched (counters set to 0 before each
-     solve) and no plain version of a kernel called.
+     solve) and no plain version of a kernel called; iterations and
+     restarts.
    * Dense 1 again with the matrix split along its features over 8 shards
      of the card (``matrix_sharding``): ``_verify_pca``'s limits, and mean
      within 1e-4 and ``trans @ comps`` within 1e-3 of dense 1's.
@@ -2734,13 +2735,14 @@ def dense_breakdown(torch, run, card):
 
 @contextlib.contextmanager
 def jacobi_iterations():
-    """Records the iterations of every DeviceJacobi solve in the block."""
+    """Records (iterations, restarts) of every DeviceJacobi solve in the
+    block."""
     from raleigh_tpu_torch.core.device_jacobi import DeviceJacobi
     counts, solve = [], DeviceJacobi.solve
 
     def counted(self, *args, **kw):
         status = solve(self, *args, **kw)
-        counts.append(self.iteration)
+        counts.append((self.iteration, self.restarts))
         return status
     DeviceJacobi.solve = counted
     try:
@@ -2931,55 +2933,52 @@ def phase_dense(torch, np, mods, card, profile=False):
         fail('pca jacobi: %s components, err_fro %.5f against the optimal '
              '%.5f' % (comps.shape, ef, ef_opt))
     print('dense 3, pca(method=\'jacobi\') 3000 x 10000 npc=100: %d '
-          'iterations (warm-up on another slice %d, %.3f s), wall %.3f s; '
-          'err_fro %.5f, %.4f x the optimal rank-100 truncation (limit '
-          '%.2f), err_max %.4f [%s]'
-          % (its[-1], its[0], warm, wall, ef, ef / ef_opt, JACOBI_OPTIMAL,
-             em, card))
+          'iterations, %d restarts (warm-up on another slice: %d '
+          'iterations, %d restarts, %.3f s), wall %.3f s; err_fro %.5f, '
+          '%.4f x the optimal rank-100 truncation (limit %.2f), err_max '
+          '%.4f [%s]'
+          % (its[-1] + its[0] + (warm, wall, ef, ef / ef_opt,
+                                 JACOBI_OPTIMAL, em, card)))
     if profile:
         dense_breakdown(torch, lambda: pca(sub, npc=100, method='jacobi'),
                         card)
 
-    # 4. truncated_svd on the card, nsv=300, against the host SVD: f64 on
-    # the device Jacobi engine (iteration limit 300: at the default 100 its
-    # restarts, decided by rounding, leave it 192 or 300 values by the
-    # start, ROADMAP fault 3.6) and f32 on the core Solver with the blocks
-    # on the card; then, not held, the f32 device engine, whose trailing
-    # values that fault spoils
+    # 4. truncated_svd on the card, nsv=300, against the host SVD, every
+    # run at the default iteration limit: f64 and f32 on the device Jacobi
+    # engine, and f32 on the core Solver with the blocks on the card
     sv = {}
-    for dtype, engine, max_iter, held in (
-            (np.float64, 'auto', 300, True), (np.float32, 'host', -1, True),
-            (np.float32, 'auto', -1, False)):
+    for dtype, engine in ((np.float64, 'auto'), (np.float32, 'host'),
+                          (np.float32, 'auto')):
         np.random.seed(1)
         A, _, _, _ = generate(3000, 2000, 1000, dtype=dtype)
         if dtype not in sv:
             sv[dtype] = np.linalg.svd(A.astype(np.float64),
                                       compute_uv=False)
         opt = Options()
-        opt.device_engine, opt.max_iter = engine, max_iter
+        opt.device_engine = engine
         with jacobi_iterations() as its:
             (u, sigma, vt), wall = timed(
                 torch, lambda: truncated_svd(A, nsv=300, opt=opt))
         k = min(sigma.shape[0], 300)
         agree = float(np.max(np.abs(sigma[:k] - sv[dtype][:k])
                              / sv[dtype][:k]))
-        if held and not (k == 300 and agree <= TSVD_AGREE):
+        if not (k == 300 and agree <= TSVD_AGREE):
             fail('truncated_svd %s (%s): %d singular values, %.2e from the '
                  'host SVD' % (np.dtype(dtype).name, engine, k, agree))
         print('dense 4, truncated_svd 3000 x 2000 nsv=300 %s on the %s: %d '
               'singular values%s, wall %.3f s; sigma within %.2e of the '
-              'host SVD (limit %.0e%s) [%s]'
+              'host SVD (limit %.0e) [%s]'
               % (np.dtype(dtype).name, 'device Jacobi engine'
                  if engine == 'auto' else 'core Solver', sigma.shape[0],
-                 ', %d iterations' % its[-1] if its else '', wall, agree,
-                 TSVD_AGREE, '' if held else '; not held: ROADMAP 3.6',
-                 card))
+                 ', %d iterations, %d restarts' % its[-1] if its else '',
+                 wall, agree, TSVD_AGREE, card))
 
     # 5. partial_hevp(engine='jacobi'): lap3d 50^3, 10 smallest, f64
     lap = lap3d(50, 50, 50, 1.0, 1.0, 1.0)
     exact = np.sort(lap3d_eigenvalues(50, 50, 50, 1.0, 1.0, 1.0))[:10]
     ch = Chebyshev(lap, *spectral_bounds(lap), degree=16)
-    with counting_plain_calls(sw, sp) as plain:
+    with counting_plain_calls(sw, sp) as plain, \
+            jacobi_iterations() as restarts:
         for run in range(2):
             reset_counters(mods)
             lmd, x, st, its, wall, solve_s, _ = hevp_call(
@@ -2994,11 +2993,11 @@ def phase_dense(torch, np, mods, card, profile=False):
     err = check_solution(np, 'engine=jacobi lap3d 50^3', lmd, x, st, exact,
                          JACOBI_HEVP_LIMIT)
     print('dense 5, partial_hevp(engine=\'jacobi\') lap3d 50^3 which=10 '
-          'tol=1e-6 Chebyshev degree 16, f64: status 0, %d iterations, max '
-          'rel eigenvalue error %.2e (limit %.0e); wall %.3f s warm (solve '
-          '%.3f s); K1 launches per solve %s, no plain version [%s]'
-          % (its, err, JACOBI_HEVP_LIMIT, wall, solve_s, json.dumps(k1),
-             card))
+          'tol=1e-6 Chebyshev degree 16, f64: status 0, %d iterations, %d '
+          'restarts, max rel eigenvalue error %.2e (limit %.0e); wall %.3f s '
+          'warm (solve %.3f s); K1 launches per solve %s, no plain version '
+          '[%s]' % (its, restarts[-1][1], err, JACOBI_HEVP_LIMIT, wall,
+                    solve_s, json.dumps(k1), card))
     if profile:
         profile_run(torch, lambda: hevp_call(
             torch, partial_hevp, lap, T=ch, which=10, tol=1e-6,

@@ -37,6 +37,25 @@ Blocks are (m, n) row tensors.  f32 products run at full f32 (TF32 stays
 off).  Not carried over: the JAX package's shared store of compiled
 kernels (it serves a remote compiler) and speculative chunk pipelining
 (``pipeline``; its default of 1 was the only setting in use).
+
+Where this engine departs from the JAX package's (whose f32 runs returned
+a quarter of the values asked at nsv = 300, and whose f64 runs restarted
+on rounding and locked pairs as stagnated before they converged):
+
+  * the Rayleigh-Ritz solves the pencil of S = [X, W, P] with S's own
+    (B-)Gram, so the new X is orthonormal to rounding whatever the
+    whitening of W left in S; the chunk-exit check then restarts only on a
+    block that really lost orthonormality;
+  * the new P is an orthonormal mixing of S (the old X's part that the new
+    X left), not a renormalized difference, so the tracked images of P
+    take no amplified rounding from one iteration to the next;
+  * below the rounding of the Ritz values the eigenvalue history records
+    the decrements that the Rayleigh-Ritz predicts, as the host Solver
+    does, so the kinematic error estimates go on falling and pairs lock on
+    the convergence test, not as stagnated;
+  * the whitening's flags of dead rows no longer land on live rows, and
+    complex blocks take the coefficients <basis, row>, not their
+    conjugates, and a whitening of (V Lambda^-1/2)^T.
 """
 
 import math
@@ -84,6 +103,14 @@ def svd_normal_matmat(adata, transp, shift, aves=None):
                     z = z - torch.sum(z, dim=1, keepdim=True) / m
             return torch.matmul(z, _cj(adata))
     return matmat, operands
+
+
+def _coef(block, bbasis):
+    """The coefficients <basis_j, block_i> of ``block``'s rows along a
+    (B-)orthonormal basis, read from the basis's B-image: block := block -
+    coef @ basis projects the basis out.  (``_gram(block, bbasis)`` is
+    their conjugate, which only real blocks may use in their place.)"""
+    return _gram(bbasis, block).T
 
 
 def _row_dots(a, b):
@@ -146,6 +173,7 @@ class DeviceJacobi:
                                      else None)
         # Solver-compatible public state
         self.iteration = 0
+        self.restarts = 0
         self.lcon = 0
         self.rcon = 0
         self.eigenvalues = np.zeros((0,), dtype=np.float64)
@@ -165,6 +193,11 @@ class DeviceJacobi:
         eps = float(np.finfo(np.dtype(self.dtype).type(0).real.dtype).eps)
         self._eps_rel = 100 * eps
         self._sqrt_eps = math.sqrt(eps)
+        # the small dense problems (Grams, whitening, Rayleigh-Ritz) are
+        # solved in f64 whatever the blocks' precision: more accurate, and
+        # on the H100 cuSOLVER's f64 eigh is faster than its f32 one
+        self._small = torch.complex128 if np.dtype(self.dtype).kind == 'c' \
+            else torch.float64
 
     # -- Solver API surface used by stopping criteria ---------------------
 
@@ -212,171 +245,187 @@ class DeviceJacobi:
             torch.where(dead[:, None], 0.0, bblock / safe[:, None])
         return out, bout, dead, norms
 
-    @staticmethod
-    def _whitening(block, other, cutoff):
+    def _whitening(self, block, other, cutoff):
         """The row mixing that (B-)orthonormalizes ``block`` by
         eigh-whitening of its (B-)Gram, directions below ``cutoff`` times
         the largest eigenvalue dropped: rows := mix @ rows."""
-        g = _gram(block, other)
+        g = _gram(block, other).to(self._small)
         g = 0.5 * (g + g.conj().T)
-        w, v = _eigh(g)
+        # a zero row (a dead one) takes eigenvalue -1, below the cutoff
+        # and apart from the live spectrum: LAPACK's eigh failed to
+        # converge on an f32 Gram with 75 exact zero rows of 128
+        zero = torch.diagonal(g).real == 0
+        w, v = _eigh(g - torch.diag(zero.to(g.dtype)))
         wmax = torch.clamp(w[-1], min=0.0)
         dead_g = w <= wmax * cutoff
         inv = torch.where(dead_g, 0.0,
                           1.0 / torch.sqrt(torch.where(dead_g, 1.0, w)))
-        return (v * inv[None, :]).T.conj()
+        return (v * inv[None, :]).T.to(block.dtype)
 
-    def _whiten(self, block, dead0=None, bblock=None):
+    def _whiten(self, block, bblock=None):
         """(B-)orthonormalize rows; near-dependent directions zeroed and
-        flagged."""
+        flagged.  The rows out are the Gram's eigendirections, not the rows
+        in: a dead row in (zero) is a dropped direction out, wherever it
+        lands, so the flags in do not carry over by index."""
         mix = self._whitening(block, block if bblock is None else bblock,
                               self._eps_rel)
         bw = torch.matmul(mix, block)
         bbw = None if bblock is None else torch.matmul(mix, bblock)
-        return self._norm_drop(bw, dead0, bbw)[:3]
-
-    def _whiten_linear(self, block, dead0=None, bblock=None):
-        """Whitening as a PURE linear row-mixing (out = mix @ block
-        exactly, dead rows zeroed without rescaling) so tracked A/B
-        images stay exact under img := mix @ img.
-
-        The drop cutoff is sqrt(eps), much looser than _whiten's: the
-        mixing amplifies the tracked images' rounding error by up to
-        1/sqrt(cutoff), and a nearly-dependent conjugate direction is
-        noise, not signal — dropping it costs nothing."""
-        mix = self._whitening(block, block if bblock is None else bblock,
-                              self._sqrt_eps)
-        bw = torch.matmul(mix, block)
-        bbw = None if bblock is None else torch.matmul(mix, bblock)
-        # zero-only noise mask: a correctly whitened live row has unit
-        # (B-)norm; rows far from it are rounding noise
-        norms = torch.sqrt(torch.clamp(
-            _row_dots(bw, bw if bbw is None else bbw), min=0.0))
-        dead = norms <= 0.5
-        if dead0 is not None:
-            dead = dead | dead0
-        out = torch.where(dead[:, None], 0.0, bw)
-        bout = None if bbw is None else torch.where(dead[:, None], 0.0, bbw)
-        return out, bout, dead, mix
+        return self._norm_drop(bw, bblock=bbw)[:3]
 
     @staticmethod
     def _ortho_rows(block, basis, bbasis):
         """Two-pass classical Gram-Schmidt against a (B-)orthonormal basis
-        (coefficients from the basis's B-image).  Returns the block and
-        the total subtracted coefficients (for exact image tracking)."""
-        q_tot = None
+        (coefficients from the basis's B-image)."""
         for _ in range(2):
-            q = _gram(block, bbasis)
-            block = block - torch.matmul(q, basis)
-            q_tot = q if q_tot is None else q_tot + q
-        return block, q_tot
+            block = block - torch.matmul(_coef(block, bbasis), basis)
+        return block
 
-    def _step(self, state, lam_h, dx_h, t):
+    def _deflate(self, x, ax, bx):
+        """Rows (B-)orthogonal to the locked set, their A/B-images
+        following exactly (row operations commute with the operators)."""
+        q = _coef(x, self._bxc)
+        x = x - torch.matmul(q, self._xc)
+        ax = ax - torch.matmul(q, self._axc)
+        bx = bx - torch.matmul(q, self._bxc) if self.has_b else x
+        return x, ax, bx
+
+    def _step(self, state, hist, dx_h, t):
         """One iteration: residuals, deflation, the new direction W (the
-        one operator application), conjugate directions P, Rayleigh-Ritz
-        over [X, W, P]."""
+        one operator application), Rayleigh-Ritz over S = [X, W, P] with
+        S's own (B-)Gram, and the new X and P."""
         x, ax, bx, p, ap, bp = state
-        xc, axc, bxc = self._xc, self._axc, self._bxc
+        xc, bxc = self._xc, self._bxc
         has_b = self.has_b
         m = x.shape[0]
-        # re-deflate X against the locked set every iteration: a locked
-        # direction with a larger eigenvalue amplifies any leak
+        # re-deflate X and P against the locked set every iteration: a
+        # locked direction with a larger eigenvalue amplifies any leak
         # exponentially through the Rayleigh-Ritz maximization, so the leak
-        # must be reset to rounding level each step (A/B-images follow
-        # exactly: row ops commute with the operators)
-        qx = _gram(x, bxc)
-        x = x - torch.matmul(qx, xc)
-        ax = ax - torch.matmul(qx, axc)
-        bx = bx - torch.matmul(qx, bxc) if has_b else x
+        # must be reset to rounding level each step
+        x, ax, bx = self._deflate(x, ax, bx)
+        p, ap, bp = self._deflate(p, ap, bp)
+        # P rows are unit or zero (empty after an entry): a short one is
+        # dropped so that every dead row of S is exactly zero
+        dead_p = _row_dots(p, bp) < 0.25
+        p, ap, bp = (torch.where(dead_p[:, None], 0.0, v) for v in (p, ap, bp))
         lam = _row_dots(x, ax)
-        lam_h[t] = lam
+        hist[0, t] = lam
         w = ax - lam[:, None].to(x.dtype) * bx
         if self.precond is not None:
             w = self.precond(w).to(w.dtype)
-        # deflate against locked constraints; B-inner products contract
-        # against the tracked B-images
-        w, _ = self._ortho_rows(w, xc, bxc)
+        # W: deflated against the locked constraints, then (B-)orthogonal
+        # to X and P; B-inner products contract against the B-images
+        w = self._ortho_rows(w, xc, bxc)
         w, _, dead_w, _ = self._norm_drop(w)
-        w, _ = self._ortho_rows(w, x, bx)
+        xp = torch.cat((x, p), dim=0)
+        w = self._ortho_rows(w, xp, torch.cat((bx, bp), dim=0)
+                             if has_b else xp)
         if has_b:
             bw = self._mm_b(w)
             w, bw, dead_w, _ = self._norm_drop(w, dead_w, bw)
-            w, bw, dead_w = self._whiten(w, dead_w, bw)
+            w, bw, dead_w = self._whiten(w, bw)
         else:
             w, _, dead_w, _ = self._norm_drop(w, dead_w)
-            w, _, dead_w = self._whiten(w, dead_w)
+            w, _, dead_w = self._whiten(w)
             bw = w
         aw = self._mm(w)
-        # conjugate directions: deflate and re-orthonormalize with exact
-        # A/B-image tracking — every transform of P here is a pure row
-        # operation, which commutes with the operators
-        p, bp_n, dead_p, nrm = self._norm_drop(
-            p, bblock=bp if has_b else None)
-        safe = torch.where(nrm == 0, 1.0, nrm).to(p.dtype)
-        ap = torch.where(dead_p[:, None], 0.0, ap / safe[:, None])
-        bp = bp_n if has_b else p
-        for basis, abasis, bbasis in ((xc, axc, bxc), (x, ax, bx),
-                                      (w, aw, bw)):
-            p, q = self._ortho_rows(p, basis, bbasis)
-            ap = ap - torch.matmul(q, abasis)
-            if has_b:
-                bp = bp - torch.matmul(q, bbasis)
-        p, bp, dead_p, mix = self._whiten_linear(
-            p, dead_p, bp if has_b else None)
-        ap = torch.where(dead_p[:, None], 0.0, torch.matmul(mix, ap))
-        if not has_b:
-            bp = p
 
         s = torch.cat((x, w, p), dim=0)                  # (3m, n) rows
         a_s = torch.cat((ax, aw, ap), dim=0)
-        h = _gram(s, a_s)
-        h = 0.5 * (h + h.conj().T)
+        b_s = torch.cat((bx, bw, bp), dim=0) if has_b else s
         dead = torch.cat((torch.zeros(m, dtype=torch.bool, device=x.device),
                           dead_w, dead_p))
+        # Rayleigh-Ritz as the pencil (h, g) with g S's own Gram: S is
+        # orthonormal only to the whitening's rounding (in f32 that is far
+        # above eps), and the pencil keeps the new X orthonormal to
+        # rounding instead of inheriting S's error.  Dead rows of S are
+        # zero: a unit diagonal in g keeps the Cholesky factor regular, and
+        # a failed factorization turns into NaNs that the chunk-exit check
+        # restarts from
+        hg = _gram(s, torch.cat((a_s, b_s), dim=0)).to(self._small)
+        h, g = hg[:, :3 * m], hg[:, 3 * m:]
+        g = 0.5 * (g + g.conj().T) + torch.diag(dead.to(g.dtype))
+        low, info = torch.linalg.cholesky_ex(g)
+        low = low + torch.where(info > 0, float('nan'), 0.0).to(low.dtype)
+        h = torch.linalg.solve_triangular(low, h, upper=False)
+        h = torch.linalg.solve_triangular(low, h.conj().T, upper=False)
+        h = 0.5 * (h + h.conj().T)
         # push dead columns just below the live spectrum so the top-m Ritz
-        # selection never picks them; a moderate shift keeps ||H|| (and
-        # with it f32 eigh's absolute error) of the order of the live
-        # eigenvalues
-        big = (torch.diagonal(h).abs().max() + 1.0) * 3.0
+        # selection never picks them; a shift of the live diagonal's scale
+        # keeps ||H||, and with it eigh's absolute error, of the order of
+        # the live eigenvalues (a shift of order 1 swamped the decrements
+        # of Ritz values near 1e-4 in f32)
+        big = torch.diagonal(h).real.abs().max() * 3.0
+        big = torch.where(big > 0, big, 1.0)
         h = h - torch.diag(torch.where(dead, big, 0.0).to(h.dtype))
-        _, c = _eigh(h)                                  # ascending
-        cm = c[:, 2 * m:]                                # top m
-        cmt = cm.T
-        xn = torch.matmul(cmt, s)
-        axn = torch.matmul(cmt, a_s)
+        _, v = _eigh(h)                                  # ascending
+        # the predicted decrement of each new Ritz value: with v = [a; b]
+        # split at the old X's coordinates, rho(a) - theta = -Re(a^H H12
+        # b) / |a|^2 exactly (H12 the X-to-rest block of h), a product of
+        # small terms, so unlike the difference of two Ritz values it
+        # stays accurate after the decrement falls below rounding of the
+        # eigenvalue (the host Solver's predicted decrements, from its
+        # Rayleigh-Ritz data, serve the same end)
+        a, b = v[:m, 2 * m:], v[m:, 2 * m:]
+        a2 = _row_dots(a.T, a.T)
+        num = _row_dots(a.T, torch.matmul(h[:m, m:], b).T)
+        hist[1, t] = torch.where(a2 > 0, -num / torch.where(a2 > 0, a2, 1.0),
+                                 0.0)
+        # v's coordinates are those of the orthonormal basis that the
+        # Cholesky factor makes of S, and the first m of them span the old
+        # X.  The new X are the top m columns.  The new P span what the old
+        # X had that the new X has not: the old X's coordinates in the
+        # other columns vr, orthonormalized (Householder QR), which makes
+        # P an orthonormal mixing of vr.  So both are orthonormal mixings,
+        # the tracked images of X and P take no growing error from them,
+        # and span[X, P] is that of the classical P = X_new - X_old C.
+        # Columns of vr that belong to dead rows of S carry no direction
+        # and are dropped, and so are the QR's columns whose diagonal of R
+        # is at rounding: directions the old X has barely left, where the
+        # QR's completion could fall on those dead rows
+        vr = v[:, :2 * m]
+        on_dead = _row_dots(vr.T, torch.where(dead[:, None], vr, 0.0).T)
+        vr = torch.where((on_dead > 0.5)[None, :], 0.0, vr)
+        q, r = torch.linalg.qr(vr[:m].conj().T)          # (2m, m)
+        q = torch.where((torch.diagonal(r).abs() > self._eps_rel)[None, :],
+                        q, 0.0)
+        coef = torch.linalg.solve_triangular(
+            low.conj().T, torch.cat((v[:, 2 * m:], torch.matmul(vr, q)),
+                                    dim=1), upper=True).to(s.dtype)
         # kinematic dX: norms of the (W, P)-components of the new X
+        cm = coef[:, :m]
         dx_h[t] = torch.sqrt(_row_dots(cm[m:].T, cm[m:].T))
-        cwp = cm.clone()
-        cwp[:m] = 0
-        pn = torch.matmul(cwp.T, s)
-        apn = torch.matmul(cwp.T, a_s)
+        coef_t = coef.T
+        xn, pn = torch.matmul(coef_t, s).split(m)
+        axn, apn = torch.matmul(coef_t, a_s).split(m)
         if has_b:
-            b_s = torch.cat((bx, bw, bp), dim=0)
-            bxn = torch.matmul(cmt, b_s)
-            bpn = torch.matmul(cwp.T, b_s)
+            bxn, bpn = torch.matmul(coef_t, b_s).split(m)
         else:
             bxn, bpn = xn, pn
         return xn, axn, bxn, pn, apn, bpn
 
     def _run_chunk(self, state, iters):
         """``iters`` iterations, then the chunk-exit statistics: (state,
-        lam, res, lam_h, dx_h, gram_err), all on the device."""
+        lam, res, hist, dx_h, gram_err), all on the device: ``hist[0]``
+        holds each iteration's Ritz values, ``hist[1]`` the decrements its
+        Rayleigh-Ritz predicted."""
         x = state[0]
         m = x.shape[0]
         # the eigenvalue history carries the engine's REAL dtype: an f32
         # history under an f64 iteration quantizes decrements at
         # ~eps32*|lam|, and that noise reads as fake progress to the
         # stagnation/kinematic machinery (pairs never lock)
-        lam_h = torch.zeros((iters, m), dtype=x.real.dtype, device=x.device)
+        hist = torch.zeros((2, iters, m), dtype=x.real.dtype,
+                           device=x.device)
         dx_h = torch.zeros((iters, m), dtype=torch.float32, device=x.device)
         for t in range(iters):
-            state = self._step(state, lam_h, dx_h, t)
+            state = self._step(state, hist, dx_h, t)
         x, ax, bx, p, ap, bp = state
         # deflate the last update's leak, then refresh the tracked A/B-
         # images of X at chunk exit: RR-updated images drift by rounding,
         # and the lock/convergence decisions made from this chunk's exit
         # data must be trustworthy
-        x = x - torch.matmul(_gram(x, self._bxc), self._xc)
+        x = x - torch.matmul(_coef(x, self._bxc), self._xc)
         ax = self._mm(x)
         bx = self._mm_b(x)
         lam = _row_dots(x, ax)
@@ -385,7 +434,7 @@ class DeviceJacobi:
         g = _gram(x, bx)
         gram_err = torch.max(torch.abs(g - torch.eye(m, dtype=g.dtype,
                                                      device=g.device)))
-        return (x, ax, bx, p, ap, bp), lam, res, lam_h, dx_h, gram_err
+        return (x, ax, bx, p, ap, bp), lam, res, hist, dx_h, gram_err
 
     def _orthonormal_entry(self, x):
         """(B-)orthonormalize a (re)filled block against the locked set
@@ -394,14 +443,14 @@ class DeviceJacobi:
         if self.has_b:
             bx = self._mm_b(x)
             for _ in range(2):
-                q = _gram(x, self._bxc)
+                q = _coef(x, self._bxc)
                 x = x - torch.matmul(q, self._xc)
                 bx = bx - torch.matmul(q, self._bxc)
-            x, bx, dead, _ = self._norm_drop(x, bblock=bx)
-            x, bx, _ = self._whiten(x, dead, bx)
+            x, bx = self._norm_drop(x, bblock=bx)[:2]
+            x, bx, _ = self._whiten(x, bx)
         else:
             for _ in range(2):
-                x = x - torch.matmul(_gram(x, self._xc), self._xc)
+                x = x - torch.matmul(_coef(x, self._xc), self._xc)
             x = torch.matmul(self._whitening(x, x, self._eps_rel), x)
             bx = x
         z = torch.zeros_like(x)
@@ -478,6 +527,7 @@ class DeviceJacobi:
         state = self._orthonormal_entry(x)
 
         self.iteration = 0
+        self.restarts = 0
         self.rcon = 0
         self.lcon = 0
         status = 2
@@ -492,7 +542,8 @@ class DeviceJacobi:
             state, *stats = self._run_chunk(state, iters)
             dispatched += iters
             # the chunk's one host round trip
-            lam, res, lam_h, dx_h, gram_err = fetch(*stats)
+            lam, res, hist, dx_h, gram_err = fetch(*stats)
+            lam_h, pred_h = hist
             if gram_err > sqeps or not np.all(np.isfinite(lam)):
                 # Ritz-quality restart (reference core/solver.py:854-920):
                 # re-orthonormalize the block against the constraints,
@@ -503,6 +554,7 @@ class DeviceJacobi:
                 x = torch.nan_to_num(state[0], nan=0.0, posinf=0.0,
                                      neginf=0.0)
                 state = self._orthonormal_entry(x)
+                self.restarts += 1
                 rec = 0
                 dlmd[:] = 0
                 iterations += iters
@@ -522,10 +574,12 @@ class DeviceJacobi:
                     dlmd[:, :-1] = dlmd[:, 1:]
                 else:
                     rec += 1
+                # the actual decrement where it stands above rounding,
+                # else the predicted one (the host loop's rule)
                 delta = before - after
                 eps_d = sqeps * np.maximum(np.abs(before), np.abs(after))
                 dlmd[:, rec - 1] = np.where(np.abs(delta) > eps_d,
-                                            delta, 0.0)
+                                            delta, pred_h[t])
                 dX[:] = dx_h[t]
                 self.lmd[:] = after
                 self._estimate_errors(0, m, 0, m, m, rec, dlmd, dX, acf,
