@@ -39,8 +39,19 @@ carries on, and no wrapper gives way to its plain version on the card.
      f32 summation error bound of the entry's L terms, plus one rounding
      on either side for a bf16 result.  Two controls, a bf16 running sum
      over the tiles and bf16 products, must fail it.
-   * The ELL apply (plain PyTorch, no kernel) on the same flagship in both
-     orderings, timed, for the layout rule's constants.
+   * The ELL kernel (``csrc/ell_spmm.cu``, in the JAX package a jitted
+     ``lax.scan``) on the same flagship in both orderings (``phase_ell``):
+     f32 values with an f32 operand at m = 8, 16, 32, a bf16 operand at
+     m = 16, an f64 operand at m = 8 with f32 and with f64 values, and a
+     c128 operand at m = 8 (the complex route, one f64 launch over the
+     stacked rows).  Tolerance entrywise (``ell_excess``): twice the
+     summation error bound of a row's K terms in the sum type, plus one
+     bf16 rounding on either side for a bf16 result; the kernel sums in
+     the plain version's order, so exact equality is reported as well.
+     Two controls, a bf16 running sum and bf16 products, must fail the
+     bound.  Timed in turns with the plain version, ``torch.sparse.mm``
+     on the CSR tensor of the same type and the row-layout apply (the
+     (n, m) copy of the operand, then the launch).
    * The f64 instantiations of the DIA kernel (f64 operand, f32 or f64
      values) on lap3d(100,100,128), equal to the plain version bit for
      bit, and of the BSR kernel (f64 operand, f32 or f64 tiles) and its
@@ -109,7 +120,11 @@ carries on, and no wrapper gives way to its plain version on the card.
      lap3d 50^3, 10 smallest, degree 16, to 1e-6 (1e-5 relative).
    * FE-ELL: the vibration pencil K x = lambda M x of ``shipsec_like()``
      through ``partial_hevp`` (degree-32 Chebyshev on [hi 1e-4, hi], 6
-     smallest to 1e-4); both matrices land in ``EllMatrix``; no BSR launch.
+     smallest to 1e-4); both matrices land in ``EllMatrix``; 16
+     iterations, ELL kernel launches (f32 only) > 0, no plain version of
+     a kernel run, no BSR launch; then the same pencil through ``lobpcg``
+     with bf16 Chebyshev iterates (the ELL kernel's bf16-operand
+     instantiation), its eigenvalues within 1e-3 of FE-ELL's.
    * FE-BSR: the same mesh in the mesher's order through ``lobpcg`` on
      ``BsrMatrix(bs=128)`` operators, BSR launches > 0; then with bf16
      Chebyshev iterates and with bf16 tiles in the preconditioner, so that
@@ -127,8 +142,8 @@ carries on, and no wrapper gives way to its plain version on the card.
      mesh kernel launch per device per sharded apply, no copy launch, none
      of the one-piece entry or of the unsharded DIA kernel.
    * ``ShardedEllMatrix`` of ``shipsec_like()``'s stiffness matrix on the
-     same mesh, m = 16: halo mode, one copy launch per product, within
-     1e-5 of SciPy and of ``EllMatrix``.
+     same mesh, m = 16: halo mode, one copy launch and one ELL launch a
+     shard per product, within 1e-5 of SciPy and of ``EllMatrix``.
 4. The two kernel-structure sweeps through their ``main``:
    ``benches.bench_window_tiles`` (ring, slide, tiles; m = 32, and m = 16
    for the staged kernels) and ``benches.bench_grid_shapes`` (blockspec,
@@ -158,6 +173,12 @@ carries on, and no wrapper gives way to its plain version on the card.
      smallest, tol 1e-4, with a degree-32 Chebyshev on a ``BsrMatrix``:
      the residual limit of the FE fields, f64 BSR kernel launches > 0
      (with ``--profile``, the f64 BSR kernel's share of device time).
+   * Core 5b: the same on the relabelled flagship with its own Chebyshev,
+     which lands in ``EllMatrix``: the residual limit, and launches > 0 of
+     the ELL kernel's f64 instantiations (f32 values in the recurrence,
+     the operator's f64 values).
+   Every core field prints its ELL launches (core 3's and core 5's
+   operator K is ELL).
    * Sharded core 4: core 4's problem on the ``Solver`` with f64
      ``dense_torch`` blocks split over ``make_mesh(8)`` and over
      ``make_mesh2d(2, 4)`` (eight shards of the card), the operator and
@@ -248,10 +269,12 @@ COPY = ('raleigh_tpu_torch/csrc/copy_lanes.cu',
         'benches/bench_grid_shapes.py:119')
 EXT = ('raleigh_tpu_torch/csrc/dia_spmm_ext.cu',
        'raleigh_tpu/ops/spmm_window.py:527')
+# not a Pallas kernel: the JAX package's ELL apply, a jitted lax.scan
+ELL = ('raleigh_tpu_torch/csrc/ell_spmm.cu', 'raleigh_tpu/ops/spmm.py:463')
 # iterations of each solver field as the records have them (whole chunks
 # of 16 between host checks)
 ITERATIONS = {(100, 100, 128): 32, (50, 50, 50): 16, 'FE-BSR': 16,
-              'sharded': 32}
+              'FE-ELL': 16, 'sharded': 32}
 # sources whose kernel was redesigned, the previous design kept beside it
 # (its ``_prev`` entries run in phase 2 only, timed in turns with the new)
 REDESIGNED = ('dia_spmm', 'bsr_spmm', 'stream_scale', 'stream_probes',
@@ -714,12 +737,11 @@ def check_bsr(torch, sp, bm, x, name, prev=False):
     return (yk.float() - yp.float()).abs().max().item(), worst, yp
 
 
-def phase_bsr(torch, np, sp, BsrMatrix, EllMatrix, fe, k_nat, k_rel):
+def phase_bsr(torch, np, sp, BsrMatrix, fe, k_nat):
     """The BSR kernel and its previous design against the plain version:
     the flagship in the mesher's order in the four instantiations at m = 16
     and m = 24, with controls and times in turns, and awkward small shapes
-    (the 16-byte path and the general path); then the ELL apply's time on
-    the same flagship in both orderings.  Returns the rows of both
+    (the 16-byte path and the general path).  Returns the rows of both
     designs."""
     rows = {}
     gen = torch.Generator('cuda').manual_seed(2)
@@ -836,19 +858,203 @@ def phase_bsr(torch, np, sp, BsrMatrix, EllMatrix, fe, k_nat, k_rel):
                 diff, worst, _ = check_bsr(torch, sp, bm, xx, name)
                 print('%s: max abs err %.3e (worst %.3f of the bound)'
                       % (name, diff, worst))
-
-    # the ELL apply (plain PyTorch) on the flagship, both orderings
-    x32 = torch.randn((16, n), generator=gen, device='cuda')
-    for label, k in (('relabelled', k_rel), ("mesher's order", k_nat)):
-        em = EllMatrix(k, device='cuda')
-        t = time_ms(lambda: em.matmat_rows(x32), 5)
-        ell_bytes = em.idx.numel() * 4 + em.val.numel() * 4
-        print('ell apply (plain PyTorch) flagship %s: row degree %d, %.1f MB '
-              'of idx + val, m=16: %.4f ms (%.2f Gnnz/s)'
-              % (label, em.row_degree, ell_bytes / 1e6, t,
-                 em.nnz / t / 1e6))
-        del em
     return rows
+
+
+def library_ell_fn(torch, csr, xt, dtype):
+    """``torch.sparse.mm`` of ``csr`` as a CSR tensor of ``dtype`` (a torch
+    dtype name) with the (n, m) operand ``xt`` in the same dtype, as a
+    callable; None (with a note) if this torch cannot do it."""
+    try:
+        a = torch.sparse_csr_tensor(
+            torch.from_numpy(csr.indptr.astype('int64')),
+            torch.from_numpy(csr.indices.astype('int64')),
+            torch.from_numpy(csr.data.astype(
+                'float64' if dtype == 'bfloat16' else dtype)).to(
+                    getattr(torch, dtype)),
+            size=csr.shape, device='cuda')
+        xl = xt.to(a.dtype).contiguous()
+        torch.sparse.mm(a, xl)
+        return lambda: torch.sparse.mm(a, xl)
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        print('  torch.sparse.mm on a %s CSR tensor is not available: %s'
+              % (dtype, str(e).splitlines()[0]))
+        return None
+
+
+# the ELL kernel's cases in phase_ell: (row name, value dtype, operand
+# dtype, m, the library call's CSR dtype); the first m of a name is the
+# main path's shape and gives its row
+ELL_CASES = (
+    ('ell_spmm_f32_f32', 'float32', 'float32', 16, 'float32'),
+    ('ell_spmm_f32_f32', 'float32', 'float32', 8, 'float32'),
+    ('ell_spmm_f32_f32', 'float32', 'float32', 32, 'float32'),
+    ('ell_spmm_f32_bf16', 'float32', 'bfloat16', 16, 'bfloat16'),
+    ('ell_spmm_f32_f64', 'float32', 'float64', CORE_BLOCK, 'float64'),
+    ('ell_spmm_f64_f64', 'float64', 'float64', CORE_BLOCK, 'float64'),
+    ('ell_spmm_complex_f32_f64', 'float32', 'complex128', CORE_BLOCK,
+     'complex128'))
+
+
+def phase_ell(torch, np, ell, EllMatrix, k_rel, k_nat):
+    """The ELL kernel (``csrc/ell_spmm.cu``) against its plain version on
+    the FE flagship in both orderings (the FE-ELL field's relabelled order
+    first, then the mesher's), every instantiation (``ELL_CASES``), the
+    complex route (a c128 operand over f32 values: one launch of the f64
+    instantiation over the stacked rows) included.  Tolerance entrywise
+    (``ell_excess``): twice the summation error bound of a row's K terms
+    in the sum type (plus one bf16 rounding on either side for a bf16
+    result); whether the kernel also equals the plain version bit for bit
+    (it sums in the plain version's order, one FMA a term) is printed.  At
+    f32, m = 16 two controls (a bf16 running sum, bf16 products) must fail
+    the bound.  The kernel ((n, m) operand and result: the launch alone),
+    the plain version and ``torch.sparse.mm`` on the CSR tensor are timed
+    in turns; the row-layout apply a solver makes (the (n, m) copy of its
+    operand, then the launch) beside them.  Returns the rows, those of the
+    relabelled order."""
+    rows = {}
+    gen = torch.Generator('cuda').manual_seed(21)
+    for order, k in (('relabelled', k_rel), ("mesher's order", k_nat)):
+        mats = {'float32': EllMatrix(k, device='cuda'),
+                'float64': EllMatrix(k, dtype=np.float64, device='cuda',
+                                     exact=True)}
+        em = mats['float32']
+        n, kk = em.idx.shape
+        print('ELL flagship, %s: n=%d nnz=%d, row degree %d, %.1f MB of '
+              'f32 idx + val' % (order, n, em.nnz, kk,
+                                 em.idx.numel() * 8 / 1e6))
+        for name, vdt, xdt, m, libdt in ELL_CASES:
+            em = mats[vdt]
+            idx, val = em.idx, em.val
+            x64 = torch.randn((n, m), generator=gen, device='cuda',
+                              dtype=torch.float64)
+            if xdt == 'complex128':
+                xt = torch.complex(x64, torch.randn(
+                    (n, m), generator=gen, device='cuda',
+                    dtype=torch.float64))
+            else:
+                xt = x64.to(getattr(torch, xdt))
+            del x64
+            label = '%s m=%d (%s)' % (name, m, order)
+            key = (('f32', 'f64', 'complex') if xdt == 'complex128' else
+                   (vdt.replace('float', 'f'),
+                    xdt.replace('float', 'f').replace('bfloat16', 'bf16')))
+            before = ell.ELL_LAUNCHES[key]
+            got = ell._ell_matmat(idx, val, xt)
+            torch.cuda.synchronize()
+            if ell.ELL_LAUNCHES[key] - before != 1:
+                fail('%s: %d launches under %s for one apply, not 1'
+                     % (label, ell.ELL_LAUNCHES[key] - before, key))
+            want = ell._ell_matmat_plain(idx, val, xt)
+            if got.dtype != xt.dtype or got.shape != xt.shape:
+                fail('%s: kernel output %s %s' % (label, got.dtype,
+                                                   tuple(got.shape)))
+            if not torch.isfinite(torch.view_as_real(got) if got.is_complex()
+                                  else got.float()).all():
+                fail('%s: non-finite kernel output' % label)
+            worst, share = ell_excess(torch, ell, idx, val, xt, got, want)
+            if worst > 1:
+                fail('%s: %.3e of the entries beyond the bound (worst %.2f '
+                     'times it)' % (label, share, worst))
+            diff = (got - want).abs().max().item()
+            equal = torch.equal(got, want)
+            if name == 'ell_spmm_f32_f32' and m == 16:
+                for cname, yc in ell_controls(torch, idx, val, xt).items():
+                    cworst, cshare = ell_excess(torch, ell, idx, val, xt, yc,
+                                                want)
+                    print('  control (%s) vs plain, %s: %.4f of the entries '
+                          'beyond the bound (worst %.1f times it)'
+                          % (cname, label, cshare, cworst))
+                    if cworst <= 1:
+                        fail('the ELL bound passes the control (%s)' % cname)
+            del got, want
+            x_rows = xt.T.contiguous()
+            t = turns({
+                'plain': lambda: ell._ell_matmat_plain(idx, val, xt),
+                'kernel': lambda: ell._ell_matmat(idx, val, xt),
+                'rows': lambda: ell._ell_matmat_rows(idx, val, x_rows),
+                'library': library_ell_fn(torch, k, xt, libdt)}, 20)
+            del x_rows
+            width = 2 * m if xt.is_complex() else m
+            nbytes = (idx.numel() * 4 + val.numel() * val.element_size()
+                      + 2 * n * m * xt.element_size())
+            wide = xdt in ('float64', 'complex128')
+            bound_ms, bound_by = bound(nbytes, 2 * n * kk * width,
+                                       PEAK_F64 if wide else PEAK_F32)
+            print('%s n=%d: max abs err %.3e (worst %.3f of the bound; %s '
+                  'plain bit for bit), kernel %.4f ms (%.0f GB/s, %.2f '
+                  'Gnnz/s), row-layout apply (copy and launch) %.4f ms; plain '
+                  '%.4f ms (%.1fx), torch.sparse.mm on %s CSR %s, bound '
+                  '%.4f ms (%s), in turns'
+                  % (label, n, diff, worst, 'equal to' if equal else
+                     'not equal to', t['kernel'], nbytes / t['kernel'] / 1e6,
+                     em.nnz / t['kernel'] / 1e6, t['rows'], t['plain'],
+                     t['plain'] / t['kernel'], libdt, fmt_ms(t['library']),
+                     bound_ms, bound_by))
+            if name in rows and order == 'relabelled':
+                rows[name]['m%d_ms' % m] = t['kernel']
+            elif name in rows:
+                rows[name].setdefault('mesher_order_ms', t['kernel'])
+            else:
+                rows[name] = dict(
+                    name=name, route='cuda', source=ELL[0],
+                    replaces=ELL[1], launches=0, max_abs_err=diff,
+                    ms=t['kernel'], plain_ms=t['plain'], bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=t['library'], m=m,
+                    rows_ms=t['rows'], bytes=nbytes)
+            del xt
+        del mats, em, idx, val
+        torch.cuda.empty_cache()
+    rows['ell_spmm_complex_f32_f64']['off_path'] = (
+        'no field here has a complex block on an ELL operator (the complex '
+        'field\'s B is tridiagonal, so DIA); the route is held against its '
+        'plain version above')
+    return rows
+
+
+def ell_excess(torch, spmm, idx, val, xt, got, want):
+    """Entrywise |got - want| over the bound for two (n, m) ELL applies
+    that each sum a row's K terms in the promoted type of val and xt, in
+    any order: twice the summation error bound, 2 K u sum_k |val x| (from
+    the plain version on |val|, |x|; u = 2^-24 for f32 sums, 2^-53 for
+    f64), with 2K + 1 terms for a complex sum (real and imaginary products
+    and the sum of a complex-valued matrix's two launches), compared part
+    by part, plus one bf16 rounding on either side (2^-7 |want|) when
+    either result is bf16.  Returns (largest ratio, share of entries above
+    1)."""
+    acc = torch.promote_types(torch.promote_types(val.dtype, xt.dtype),
+                              torch.float32)
+    wide = acc in (torch.float64, torch.complex128)
+    real = torch.float64 if wide else torch.float32
+    terms = spmm._ell_matmat_plain(idx, val.abs().to(real),
+                                   xt.abs().to(real))
+    k = idx.shape[1]
+    k = 2 * k + 1 if acc.is_complex else k
+    limit = 2 * k * (2.0 ** -53 if wide else 2.0 ** -24) * terms
+    if torch.bfloat16 in (got.dtype, want.dtype):
+        limit = limit + BF16_HALF_ULP_PAIR * want.to(real).abs()
+    d = got.to(acc) - want.to(acc)
+    diff = (torch.maximum(d.real.abs(), d.imag.abs()) if acc.is_complex
+            else d.abs())
+    ratio = torch.where(diff == 0, 0.0, diff / limit)   # 0/0 is agreement
+    return ratio.max().item(), (ratio > 1).float().mean().item()
+
+
+def ell_controls(torch, idx, val, xt):
+    """The ELL apply done wrong in two ways a kernel could be: a bf16
+    running sum over a row's entries, and each product rounded to bf16
+    before an f32 sum.  (n, m) results in xt's dtype."""
+    n, k = idx.shape
+    run = torch.zeros((n, xt.shape[1]), dtype=torch.bfloat16,
+                      device=xt.device)
+    prod = torch.zeros((n, xt.shape[1]), dtype=torch.float32,
+                       device=xt.device)
+    for j in range(k):
+        term = val[:, j, None].float() * xt.index_select(0, idx[:, j]).float()
+        run = (run.float() + term).to(torch.bfloat16)
+        prod += term.to(torch.bfloat16).float()
+    return {'bf16 running sum': run.to(xt.dtype),
+            'bf16 products': prod.to(xt.dtype)}
 
 
 def window_excess(torch, sw, val, x, offsets, got, want, terms=None):
@@ -1421,7 +1627,7 @@ def phase_sweeps(mods, rows, card, wt, gs):
     """The two kernel-structure sweeps as a user runs them: ``main`` with
     no device argument, at full size.  Each call is one path: the launch
     counters are set to 0 just before it and read just after."""
-    sw, _, st = mods
+    sw, _, st = mods[:3]
 
     def drive(main, argv, counter, key, row):
         reset_counters(mods)
@@ -1598,6 +1804,13 @@ def reset_counters(mods):
         mod.reset_launches()
 
 
+def ell_launches(ell):
+    """The ELL kernel's launches since the counters were set to 0, by
+    instantiation ('f32_f64': f32 values, f64 operand), as JSON."""
+    return json.dumps({'_'.join(k): v for k, v in ell.ELL_LAUNCHES.items()
+                       if v})
+
+
 def phase_lap3d(torch, np, mods, rows, card, profile=False):
     """The stencil path: partial_hevp on two lap3d fields.  The DIA rows'
     launches are those of the first field."""
@@ -1676,7 +1889,7 @@ def phase_sharded(torch, np, mods, rows, card, main_field, k_rel,
                                    spectral_bounds)
     from raleigh_tpu_torch.core.device_solver import default_block
     from raleigh_tpu_torch.examples.laplace import lap3d, lap3d_eigenvalues
-    sw, _, st = mods
+    sw, _, st, ell = mods
     grid, which, degree, tol = (100, 100, 128), 4, 12, 5e-5
     name = 'sharded lap3d(100,100,128) which=4 tol=5e-5 on %d shards' % SHARDS
     a = lap3d(*grid, 1.0, 1.0, 1.0)
@@ -1770,13 +1983,17 @@ def phase_sharded(torch, np, mods, rows, card, main_field, k_rel,
     if sm.mode != 'halo' or copies != 1:
         fail('ShardedEllMatrix in mode %s made %d copy launches in one '
              'product, not one' % (sm.mode, copies))
+    ell_launches = {k: v for k, v in ell.ELL_LAUNCHES.items() if v}
+    if ell_launches != {('f32', 'f32'): SHARDS}:
+        fail('ShardedEllMatrix: ELL launches %s in one product, not one a '
+             'shard' % ell_launches)
     # the f32 batch is the copy kernel's case on this path; its halo and
     # bf16 rows are on none and keep 0
     rows['copy_lanes_many_f32']['launches'] = copies
     ref = k_rel @ xt.astype(np.float64)
     err = float(np.abs(y.cpu().numpy() - ref).max() / np.abs(ref).max())
-    ell = EllMatrix(k_rel).matmat_t(torch.from_numpy(xt).cuda())
-    err_ell = float((y - ell).abs().max() / ell.abs().max())
+    y_ell = EllMatrix(k_rel).matmat_t(torch.from_numpy(xt).cuda())
+    err_ell = float((y - y_ell).abs().max() / y_ell.abs().max())
     if not (err < 1e-5 and err_ell < 1e-5):
         fail('ShardedEllMatrix: %.2e from SciPy, %.2e from EllMatrix'
              % (err, err_ell))
@@ -1784,10 +2001,11 @@ def phase_sharded(torch, np, mods, rows, card, main_field, k_rel,
     t = time_ms(lambda: sm.matmat_t(xd), 5)
     print('ShardedEllMatrix shipsec_like() n=%d on %d shards: mode %s, halo '
           '%s of %d rows per shard, row degree %d; m=16 product within %.2e '
-          'of SciPy and %.2e of EllMatrix, %d copy launches, %.3f ms; set-up '
-          '(RCM, ELL, upload) %.2f s [%s; one card: no scaling measurement]'
+          'of SciPy and %.2e of EllMatrix, %d copy launches and %d ELL '
+          'launches, %.3f ms; set-up (RCM, ELL, upload) %.2f s [%s; one '
+          'card: no scaling measurement]'
           % (n, SHARDS, sm.mode, sm.halo, sm.chunk, sm.row_degree, err,
-             err_ell, copies, t, setup, card))
+             err_ell, copies, ell_launches[('f32', 'f32')], t, setup, card))
 
 
 def check_pencil(np, name, k, mass, lmd, x, status, which):
@@ -1814,10 +2032,10 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
     """The finite-element paths: FE-ELL through partial_hevp, FE-BSR
     through lobpcg on BsrMatrix operators.  The BSR rows' launches are
     those of the FE-BSR solves."""
-    from raleigh_tpu_torch import (BsrMatrix, Chebyshev, lobpcg,
+    from raleigh_tpu_torch import (BsrMatrix, Chebyshev, EllMatrix, lobpcg,
                                    partial_hevp, spectral_bounds)
     from raleigh_tpu_torch.core.device_solver import default_block
-    sp = mods[1]
+    sw, sp, _, ell = mods
     which, tol, degree = 6, 1e-4, 32
     (k_rel, m_rel), (k_nat, m_nat) = pencils
     n = k_rel.shape[0]
@@ -1834,25 +2052,70 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
     layout = type(ch.device_matrix()).__name__
     if layout != 'EllMatrix':
         fail('%s: K landed in %s, not EllMatrix' % (name, layout))
-    lmd, x, st, its, cold, _, _ = hevp_call(
-        torch, partial_hevp, k_rel, B=m_rel, T=ch, which=which, tol=tol)
-    if any(sp.LAUNCHES.values()):
-        fail('%s launched the BSR kernel: %s' % (name, sp.LAUNCHES))
+
+    def ell_solve():
+        """One FE-ELL solve with every counter set to 0: its result, and
+        the ELL launches it made."""
+        reset_counters(mods)
+        with counting_plain_calls(sw, sp, ell) as plain:
+            out = hevp_call(torch, partial_hevp, k_rel, B=m_rel, T=ch,
+                            which=which, tol=tol)
+        launches = {k: v for k, v in ell.ELL_LAUNCHES.items() if v}
+        if any(sp.LAUNCHES.values()):
+            fail('%s launched the BSR kernel: %s' % (name, sp.LAUNCHES))
+        if any(plain.values()):
+            fail('%s ran plain versions of the kernels: %s' % (name, plain))
+        if set(launches) != {('f32', 'f32')}:
+            fail('%s: ELL launches %s, not the f32 kernel alone'
+                 % (name, launches))
+        return out, launches[('f32', 'f32')]
+
+    (lmd, x, st, its, cold, _, _), launches = ell_solve()
     ell_lmd, rel = check_pencil(np, name, k_rel, m_rel, lmd, x, st, which)
-    lmd, x, st, its2, warm, lob, _ = hevp_call(
-        torch, partial_hevp, k_rel, B=m_rel, T=ch, which=which, tol=tol)
+    (lmd, x, st, its2, warm, lob, _), launches2 = ell_solve()
     check_pencil(np, name, k_rel, m_rel, lmd, x, st, which)
+    check_iterations(name, 'FE-ELL', (its, its2))
+    rows['ell_spmm_f32_f32']['launches'] = launches2
     print('%s: K in %s, status 0, %d iterations (warm run %d), relative '
           'residual %.2e, lambda %s; Chebyshev set-up %.3f s; partial_hevp '
-          'wall cold %.3f s, warm %.3f s (LOBPCG %.3f s, rest %.3f s) [%s]'
+          'wall cold %.3f s, warm %.3f s (LOBPCG %.3f s, rest %.3f s); ELL '
+          'kernel launches %d (cold %d), no plain version [%s]'
           % (name, layout, its, its2, rel, np.array2string(
               ell_lmd, precision=6), setup, cold, warm, lob, warm - lob,
-             card))
+             launches2, launches, card))
     if profile:
         profile_run(torch, lambda: hevp_call(
             torch, partial_hevp, k_rel, B=m_rel, T=ch, which=which, tol=tol),
             card)
-    del ch
+    # the same pencil through lobpcg with bf16 Chebyshev iterates: the
+    # kernel's f32-values, bf16-operand instantiation on its path
+    label = name + ', bf16 iterates in the preconditioner'
+    ell_m = EllMatrix(m_rel)
+    m = default_block(which, n)
+    precond = ch.device_rows_operands(m, n, stream_bf16=True)
+    reset_counters(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with counting_plain_calls(sw, sp, ell) as plain:
+        lmd, x, _, its3, st = lobpcg(ch.device_matrix(), which, opB=ell_m,
+                                     precond=precond, tol=tol, maxit=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in ell.ELL_LAUNCHES.items() if v}
+    if any(plain.values()) or launches.get(('f32', 'bf16'), 0) <= 0:
+        fail('%s: ELL launches %s, plain calls %s' % (label, launches,
+                                                       plain))
+    rows['ell_spmm_f32_bf16']['launches'] = launches[('f32', 'bf16')]
+    bf_lmd, rel = check_pencil(np, label, k_rel, m_rel, lmd, x, st, which)
+    agree = float(np.abs(bf_lmd / ell_lmd - 1).max())
+    if agree > FE_AGREE:
+        fail('%s: eigenvalues differ from FE-ELL by %.2e > %.0e'
+             % (label, agree, FE_AGREE))
+    print('%s: status 0, %d iterations, relative residual %.2e, eigenvalues '
+          'within %.2e of FE-ELL; lobpcg wall %.3f s; ELL launches %s [%s]'
+          % (label, its3, rel, agree, wall,
+             {'_'.join(k): c for k, c in launches.items()}, card))
+    del ch, ell_m, precond
     torch.cuda.empty_cache()
 
     # ---- FE-BSR -------------------------------------------------------
@@ -2259,13 +2522,14 @@ def phase_complex_kernels(torch, np, sw, sp, DiaMatrix, BsrMatrix, k_nat):
 
 
 @contextlib.contextmanager
-def counting_plain_calls(sw, sp):
-    """Counts the calls of the DIA, mesh DIA and BSR kernels' plain
+def counting_plain_calls(sw, sp, ell):
+    """Counts the calls of the DIA, mesh DIA, BSR and ELL kernels' plain
     versions made inside the block: none may come from a path on the
     card."""
     names = {'dia': (sw, 'dia_matmat_rows_plain'),
              'mesh': (sw, '_mesh_shard_plain'),
-             'bsr': (sp, 'bsr_matmat_rows_plain')}
+             'bsr': (sp, 'bsr_matmat_rows_plain'),
+             'ell': (ell, '_ell_matmat_plain')}
     calls = dict.fromkeys(names, 0)
     inner = {key: getattr(mod, attr) for key, (mod, attr) in names.items()}
 
@@ -2298,13 +2562,13 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
     from raleigh_tpu_torch.examples import fe_model as fe
     from raleigh_tpu_torch.examples.laplace import lap3d, lap3d_eigenvalues
     from raleigh_tpu_torch.utils.link import choose_orchestration, probe_link
-    sw, sp = mods[0], mods[1]
+    sw, sp, _, ell = mods
 
     t0 = time.perf_counter()
     ldlt._load()      # the host LDL^T library: built with g++ at first use
     print('native LDL^T library loaded in %.2f s (built at first use)'
           % (time.perf_counter() - t0))
-    with counting_plain_calls(sw, sp) as plain:
+    with counting_plain_calls(sw, sp, ell) as plain:
         # 1. lap3d 50^3 shift-invert, 10 smallest (bench.py:146-182)
         a = lap3d(50, 50, 50, 1.0, 1.0, 1.0)
         exact = np.sort(lap3d_eigenvalues(50, 50, 50, 1.0, 1.0, 1.0))[:10]
@@ -2317,6 +2581,7 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
         if choice != 'device':
             fail('the link probe chose %s orchestration on a co-located '
                  'card' % choice)
+        reset_counters(mods)
         dense_torch.reset_counts()
         lmd, x, st, its, wall, solve_s, setup = hevp_call(
             torch, partial_hevp, a, sigma=0.0, which=10)
@@ -2329,10 +2594,10 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
               '%d iterations, max rel eigenvalue error %.2e (limit %.0e); '
               'set-up %.2f s (analyse, factorize, probe), solve %.2f s, '
               'wall %.2f s; %s orchestration; %d transfers to the host, %d '
-              'uploads [%s]'
+              'uploads; ELL launches %s [%s]'
               % (its, err, SHIFT_INVERT_LIMIT, setup, solve_s, wall, choice,
                  dense_torch.COUNTS['to_host'],
-                 dense_torch.COUNTS['to_device'], card))
+                 dense_torch.COUNTS['to_device'], ell_launches(ell), card))
         # where the set-up and an iteration go: the factorization and one
         # host solve of a block of the Solver's default size (32)
         t0 = time.perf_counter()
@@ -2352,6 +2617,7 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
 
         # 2. the FE flagship, shift-invert, 6 nearest 0 (bench.py:460-488)
         k = pencils[0][0]
+        reset_counters(mods)
         lmd, x, st, its, wall, solve_s, setup = hevp_call(
             torch, partial_hevp, k, sigma=0, which=6, tol=1e-6)
         if st != 0 or lmd is None or len(lmd) < 6:
@@ -2362,15 +2628,18 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
             fail('FE flagship shift-invert: residual %.1e' % rel)
         print('core 2, FE flagship shift-invert n=%d sigma=0 which=6 '
               'tol=1e-6: status 0, %d iterations, residual %.1e (limit '
-              '%.0e); set-up %.2f s, solve %.2f s, wall %.2f s [%s]'
+              '%.0e); set-up %.2f s, solve %.2f s, wall %.2f s; ELL '
+              'launches %s [%s]'
               % (k.shape[0], its, rel, FE_SHIFT_INVERT_LIMIT, setup,
-                 solve_s, wall, card))
+                 solve_s, wall, ell_launches(ell), card))
 
         # 3. buckling, 3 load factors in (-0.08, 0) (bench.py:498-530)
         kb, gb = fe.buckling_64k()
+        reset_counters(mods)
         lmd, x, st, its, wall, solve_s, setup = hevp_call(
             torch, partial_hevp, kb, B=gb, buckling=True, sigma=-0.08,
             which=3, tol=1e-5)
+        core3_ell = ell_launches(ell)
         hl, hx, hst, hits, hwall, _, _ = hevp_call(
             torch, partial_hevp, kb, B=gb, buckling=True, sigma=-0.08,
             which=3, tol=1e-5, arch='cpu')
@@ -2383,9 +2652,9 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
         print('core 3, buckling n=%d sigma=-0.08 which=3: status %d, %d '
               'iterations, load factors %s, within %.1e of the host run '
               '(arch=\'cpu\': %d iterations, wall %.2f s); set-up %.2f s, '
-              'solve %.2f s, wall %.2f s [%s]'
+              'solve %.2f s, wall %.2f s; ELL launches %s [%s]'
               % (kb.shape[0], st, its, np.array2string(lmd[:3]), agree,
-                 hits, hwall, setup, solve_s, wall, card))
+                 hits, hwall, setup, solve_s, wall, core3_ell, card))
 
         # 4. engine='core' with a Chebyshev (bench.py:581-611 parameters)
         a = lap3d(100, 100, 128, 1.0, 1.0, 1.0)
@@ -2425,10 +2694,11 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
               'Chebyshev degree 12: status 0, %d iterations, max rel '
               'eigenvalue error %.2e; wall cold %.2f s, warm %.2f s (solve '
               '%.2f s); f64 DIA kernel launches per solve %s; %.2f host '
-              'transfers per iteration (%d in all), %d uploads [%s]'
+              'transfers per iteration (%d in all), %d uploads; ELL launches '
+              '%s [%s]'
               % (its, err, walls[0], walls[1], solve_s,
                  json.dumps(launches), syncs, dense_torch.COUNTS['to_host'],
-                 dense_torch.COUNTS['to_device'], card))
+                 dense_torch.COUNTS['to_device'], ell_launches(ell), card))
 
         # 5. engine='core' with a BSR Chebyshev: the f64 BSR kernel's path
         k_nat = pencils[1][0]
@@ -2458,9 +2728,11 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
         print('core 5, engine=\'core\' FE flagship (mesher order) which=6 '
               'tol=1e-4, BSR Chebyshev degree 32: status 0, %d iterations, '
               'residual %.2e (limit %.0e); wall %.2f s (solve %.2f s); f64 '
-              'BSR kernel launches %d; %.2f host transfers per iteration '
-              '[%s]' % (its, res, FE_RESIDUAL_LIMIT, wall, solve_s, bl,
-                        dense_torch.COUNTS['to_host'] / its, card))
+              'BSR kernel launches %d; ELL launches %s (the operator K); '
+              '%.2f host transfers per iteration [%s]'
+              % (its, res, FE_RESIDUAL_LIMIT, wall, solve_s, bl,
+                 ell_launches(ell), dense_torch.COUNTS['to_host'] / its,
+                 card))
         if profile:
             busy, kernels = profile_run(torch, lambda: hevp_call(
                 torch, partial_hevp, k_nat, T=tb, which=6, tol=1e-4,
@@ -2471,6 +2743,44 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
                   '%.1f%% of device time [%s]'
                   % (k5_s * 1e3, sum(e.count for e in k5),
                      100 * k5_s / busy, card))
+
+        # 5b. engine='core' on the relabelled FE flagship with its own
+        # Chebyshev, which lands in EllMatrix: the ELL kernel's f64
+        # instantiations (f32 values in the recurrence, the operator's
+        # f64 values) on their path
+        k_rel = pencils[0][0]
+        lo, hi = spectral_bounds(k_rel)
+        te = Chebyshev(k_rel, hi * 1e-4, hi, degree=32)
+        if type(te.device_matrix()).__name__ != 'EllMatrix':
+            fail('FE-ELL core: the Chebyshev landed in %s, not EllMatrix'
+                 % type(te.device_matrix()).__name__)
+        reset_counters(mods)
+        dense_torch.reset_counts()
+        lmd, x, st, its, wall, solve_s, _ = hevp_call(
+            torch, partial_hevp, k_rel, T=te, which=6, tol=1e-4,
+            engine='core')
+        if st != 0 or lmd is None or len(lmd) < 6:
+            fail('FE-ELL core: status %s' % st)
+        kinf = float(abs(k_rel).sum(axis=1).max())
+        r = k_rel @ x[:, :6] - x[:, :6] * lmd[None, :6]
+        res = float(np.max(np.linalg.norm(r, axis=0)
+                           / (kinf * np.linalg.norm(x[:, :6], axis=0))))
+        if not res <= FE_RESIDUAL_LIMIT:
+            fail('FE-ELL core: residual %.2e' % res)
+        launches = dict(ell.ELL_LAUNCHES)
+        if min(launches[('f32', 'f64')], launches[('f64', 'f64')]) <= 0:
+            fail('FE-ELL core: an f64 ELL instantiation was skipped: %s'
+                 % ell_launches(ell))
+        for key in (('f32', 'f64'), ('f64', 'f64')):
+            rows['ell_spmm_%s_%s' % key]['launches'] = launches[key]
+        print('core 5b, engine=\'core\' FE flagship (relabelled) which=6 '
+              'tol=1e-4, its own Chebyshev degree 32 (EllMatrix): status 0, '
+              '%d iterations, residual %.2e (limit %.0e); wall %.2f s (solve '
+              '%.2f s); ELL launches %s; %.2f host transfers per iteration '
+              '[%s]' % (its, res, FE_RESIDUAL_LIMIT, wall, solve_s,
+                        ell_launches(ell),
+                        dense_torch.COUNTS['to_host'] / its, card))
+        del te
     if any(plain.values()):
         fail('the core phase ran plain versions of the kernels: %s' % plain)
     return core4
@@ -2496,7 +2806,7 @@ def phase_mesh_core(torch, np, mods, rows, card, core4, profile=False):
     from raleigh_tpu_torch.examples.laplace import lap3d, lap3d_eigenvalues
     from raleigh_tpu_torch.parallel.mesh import (blockvec_sharding,
                                                  make_mesh, make_mesh2d)
-    sw, sp, st = mods
+    sw, sp, st, ell = mods
     a = lap3d(100, 100, 128, 1.0, 1.0, 1.0)
     exact = np.sort(lap3d_eigenvalues(100, 100, 128, 1.0, 1.0, 1.0))[:4]
     lo, hi = spectral_bounds(a)
@@ -2538,7 +2848,7 @@ def phase_mesh_core(torch, np, mods, rows, card, core4, profile=False):
         for _ in range(2):
             reset_counters(mods)
             dense_torch.reset_counts()
-            with counting_plain_calls(sw, sp) as plain, \
+            with counting_plain_calls(sw, sp, ell) as plain, \
                     counting_sharded_applies() as applies:
                 lmd, x, status, its, wall = run()
             walls.append(wall)
@@ -2589,14 +2899,14 @@ def phase_complex(torch, np, mods, rows, card):
     same call with ``arch='cpu'``: within ``COMPLEX_AGREE``; B's applies go
     through the DIA kernel's complex route and no plain version runs."""
     from raleigh_tpu_torch import Options, partial_hevp
-    sw, sp, _ = mods
+    sw, sp, _, ell = mods
     a, b = complex_chain(np, COMPLEX_N)
     name = ('complex chain n=%d B=I+0.25H sigma=%g which=4'
             % (COMPLEX_N, COMPLEX_SIGMA))
     opt = Options()
     opt.orchestration = 'device'
     reset_counters(mods)
-    with counting_plain_calls(sw, sp) as plain:
+    with counting_plain_calls(sw, sp, ell) as plain:
         lmd, x, st, its, wall, solve_s, setup = hevp_call(
             torch, partial_hevp, a, B=b, sigma=COMPLEX_SIGMA, which=4,
             tol=1e-6, opt=opt)
@@ -2868,7 +3178,7 @@ def phase_dense(torch, np, mods, card, profile=False):
                                    subspace_pca_tol, truncated_svd)
     from raleigh_tpu_torch.examples.generate_matrix import generate
     from raleigh_tpu_torch.examples.laplace import lap3d, lap3d_eigenvalues
-    sw, sp = mods[0], mods[1]
+    sw, sp, _, ell = mods
     t_phase = time.perf_counter()
 
     # 1. the headline: 800 components of the 12,000 x 39,375 matrix
@@ -2977,7 +3287,7 @@ def phase_dense(torch, np, mods, card, profile=False):
     lap = lap3d(50, 50, 50, 1.0, 1.0, 1.0)
     exact = np.sort(lap3d_eigenvalues(50, 50, 50, 1.0, 1.0, 1.0))[:10]
     ch = Chebyshev(lap, *spectral_bounds(lap), degree=16)
-    with counting_plain_calls(sw, sp) as plain, \
+    with counting_plain_calls(sw, sp, ell) as plain, \
             jacobi_iterations() as restarts:
         for run in range(2):
             reset_counters(mods)
@@ -3017,13 +3327,14 @@ def main():
     from raleigh_tpu_torch.examples import fe_model as fe
     from raleigh_tpu_torch.examples.laplace import lap3d
     from raleigh_tpu_torch.ops import _build
+    from raleigh_tpu_torch.ops import spmm as ell
     from raleigh_tpu_torch.ops import spmm_pallas as sp
     from raleigh_tpu_torch.ops import spmm_window as sw
     from raleigh_tpu_torch.ops import stream as st
     from raleigh_tpu_torch.ops.spmm import BsrMatrix, DiaMatrix, EllMatrix
 
     profile = '--profile' in sys.argv[1:]
-    mods = (sw, sp, st)
+    mods = (sw, sp, st, ell)
     card = phase_environment(torch, _build)
     rows = phase_kernels(torch, np, lap3d, DiaMatrix, sw)
     rows.update(phase_stream(torch, st))
@@ -3035,8 +3346,9 @@ def main():
     print('shipsec_like() in both orderings: n=%d, nnz=%d, built in %.1f s'
           % (pencils[0][0].shape[0], pencils[0][0].nnz,
              time.perf_counter() - t0))
-    rows.update(phase_bsr(torch, np, sp, BsrMatrix, EllMatrix, fe,
-                          pencils[1][0], pencils[0][0]))
+    rows.update(phase_bsr(torch, np, sp, BsrMatrix, fe, pencils[1][0]))
+    rows.update(phase_ell(torch, np, ell, EllMatrix, pencils[0][0],
+                          pencils[1][0]))
     rows.update(phase_wide(torch, np, lap3d, DiaMatrix, BsrMatrix, sw, sp,
                            pencils[1][0]))
     rows.update(phase_mesh_wide(torch, np, lap3d, DiaMatrix, sw))

@@ -6,11 +6,11 @@ Jacobi-CG ``Solver`` over the block-vector algebra on the card
 (``dense_torch``) or on the host (``dense_numpy``), on the device LOBPCG
 engine or on the chunked per-vector Jacobi engine with a Chebyshev
 preconditioner; stencil matrices (DIA) and finite-element matrices (ELL,
-BSR), every DIA and BSR SpMM through a CUDA kernel written for Hopper (f32,
-bf16 and f64 operands); the LOBPCG iteration with operator and blocks split
-over a mesh of shards; and the dense SVD/PCA stack: ``truncated_svd``,
-``PartialSVD``, ``LowerRankApproximation`` and ``pca`` on the Jacobi
-engines, and the randomized subspace engines (``subspace_pca``,
+BSR), every DIA, ELL and BSR SpMM through a CUDA kernel written for Hopper
+(f32, bf16 and f64 operands); the LOBPCG iteration with operator and
+blocks split over a mesh of shards; and the dense SVD/PCA stack:
+``truncated_svd``, ``PartialSVD``, ``LowerRankApproximation`` and ``pca``
+on the Jacobi engines, and the randomized subspace engines (``subspace_pca``,
 ``subspace_pca_tol``, ``randomized_svd``) — GEMMs, QR, ``eigh`` and SVD,
 no kernel of their own.
 

@@ -11,24 +11,25 @@ PyTorch port of ``raleigh_tpu/ops/spmm.py``, three layouts:
 
 ``device_sparse`` picks one by the JAX package's rule.  Every layout is
 built on the card unless ``device`` names another, and raises when there
-is no card.  Operands are (m, n) blocks with vectors as rows.  On CUDA every DIA and BSR row apply
-goes through its hand-written kernel (``ops/spmm_window.py``,
-``ops/spmm_pallas.py``) at every size, and on the CPU through the
-kernel's plain PyTorch version.  The ELL apply is plain PyTorch on either
-device, as it is plain XLA code in the JAX package.
+is no card.  Operands are (m, n) blocks with vectors as rows.  On CUDA
+every apply goes through a hand-written kernel at every size: DIA and BSR
+through ``ops/spmm_window.py`` and ``ops/spmm_pallas.py``, ELL through
+``csrc/ell_spmm.cu`` (``_ell_matmat`` below; in the JAX package the ELL
+apply is a jitted ``lax.scan``, not a Pallas kernel).  On the CPU each
+goes through the kernel's plain PyTorch version.
 
 A DIA or ELL matrix whose values ``core.device_solver.shard_operator``
 has split over a mesh (``parallel/mesh.py``: a list of devices, one per
 shard, walked by one process) applies to ``ShardedRows`` blocks: DIA
 through the mesh kernel, one launch per device that reads each shard's
 halo lanes where they lie (``DiaMatrix.sharded_rows_fn``), ELL row block
-by row block against the gathered operand.
+by row block against the gathered operand, one ELL launch a shard.
 
 Every layout takes complex values and complex operands, as the JAX
 package's XLA applies do: on the card a complex block goes through the DIA,
-mesh DIA or BSR kernel as one real block of its real and imaginary rows,
-and complex values as two launches (``ops/complex_rows.py``); the plain
-versions and the ELL apply take complex tensors as they are.
+mesh DIA, ELL or BSR kernel as one real block of its real and imaginary
+rows, and complex values as two launches (``ops/complex_rows.py``); the
+plain versions take complex tensors as they are.
 
 Left out, because they exist only for the TPU: the per-shape kernel
 caches and their shard fingerprints, the window/fused-XLA routing and its
@@ -40,7 +41,8 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import ShardedRows
-from .complex_rows import result_dtype
+from . import _build
+from .complex_rows import complex_rows, result_dtype
 from .spmm_pallas import bsr_matmat_rows
 from .spmm_window import DiaMeshPlan, dia_matmat_rows, dia_matmat_rows_mesh
 
@@ -277,6 +279,17 @@ def _int32(index, device):
     return torch.as_tensor(np.array(index, dtype=np.int32), device=device)
 
 
+def _checked_columns(idx, width):
+    """``idx`` as a host int32 array, every entry in [0, width): the ELL
+    kernel gathers operand rows by it unchecked, so a matrix checks its
+    columns once, when it is built."""
+    idx = np.array(idx, dtype=np.int32)
+    if idx.size and (idx.min() < 0 or idx.max() >= width):
+        raise ValueError('ELL column indices must lie in [0, %d), not '
+                         '[%d, %d]' % (width, idx.min(), idx.max()))
+    return idx
+
+
 class EllMatrix:
     """Padded-row (ELLPACK) device storage of a symmetric sparse matrix:
     ``idx[i, k]`` and ``val[i, k]`` hold the column and value of row i's
@@ -313,7 +326,7 @@ class EllMatrix:
         self.shape = (n, n)
         self.row_degree = k
         self.device = storage_device(device)
-        self.idx = _int32(idx, self.device).contiguous()
+        self.idx = _int32(_checked_columns(idx, n), self.device).contiguous()
         self.val = _values(val, None, self.device, exact)
         self.nnz = int(torch.count_nonzero(self.val)) if nnz is None else nnz
         self.dtype = self.val.dtype
@@ -327,7 +340,7 @@ class EllMatrix:
         """(n, m) = A @ (n, m): operand and result transposed blocks."""
         if self._multi_device():
             return self.matmat_rows(xt.T.contiguous()).T
-        return _ell_matmat(self.idx, self.val, xt)
+        return _ell_matmat(self.idx, self.val, xt.contiguous())
 
     def matmat_rows(self, x):
         """(m, n) = ((m, n) @ A) for a row-vector block, in x's dtype.
@@ -335,15 +348,36 @@ class EllMatrix:
         result; a plain tensor is split, applied and gathered again."""
         if self._multi_device():
             return _ell_sharded_apply(self.idx, self.val, x)
-        return _ell_matmat(self.idx, self.val, x.T).T.contiguous()
+        return _ell_matmat_rows(self.idx, self.val, x)
 
 
-def _ell_matmat(idx, val, xt):
+# (value, operand) dtype pairs the ELL kernel has an instantiation for:
+# f32 values with an f32 or bf16 operand (f32 sums), and an f64 operand
+# with f32 or f64 values (f64 sums)
+_ELL_NAMES = {torch.float32: 'f32', torch.bfloat16: 'bf16',
+              torch.float64: 'f64'}
+_ELL_PAIRS = [('f32', 'f32'), ('f32', 'bf16'), ('f32', 'f64'),
+              ('f64', 'f64')]
+# ELL kernel launches per (value dtype, operand dtype), counted where the
+# kernel is launched.  The launches of a complex apply count under (value
+# dtype, operand dtype, 'complex'), the dtypes those of the real parts it
+# launches with.
+ELL_LAUNCHES = {key: 0 for key in _ELL_PAIRS + [
+    pair + ('complex',) for pair in _ELL_PAIRS if pair[1] != 'bf16']}
+
+
+def reset_launches():
+    for key in ELL_LAUNCHES:
+        ELL_LAUNCHES[key] = 0
+
+
+def _ell_matmat_plain(idx, val, xt):
     """y[i, :] = sum_k val[i, k] * xt[idx[i, k], :] by a loop over the
     padded-column axis: one gather and one multiply-add per step keep peak
     memory at one (n, m) temporary instead of an (n, K, m) cube.
     Accumulates in the promoted type of val and xt, returns xt's dtype
-    (made complex for complex values)."""
+    (made complex for complex values).  The ELL kernel's plain version,
+    any device and dtype."""
     n, k = idx.shape
     acc = torch.zeros((n, xt.shape[1]), device=xt.device,
                       dtype=torch.promote_types(val.dtype, xt.dtype))
@@ -353,11 +387,80 @@ def _ell_matmat(idx, val, xt):
     return acc.to(result_dtype(val.dtype, xt.dtype))
 
 
+def _ell_check(idx, val, xt):
+    """Raise on what the ELL kernel does not take."""
+    devices = {t.device for t in (idx, val, xt)}
+    if len(devices) != 1:
+        raise ValueError('idx, val and x must share a device (got %s)'
+                         % sorted(map(str, devices)))
+    if (_ELL_NAMES.get(val.dtype), _ELL_NAMES.get(xt.dtype)) \
+            not in _ELL_PAIRS:
+        raise TypeError('the ELL kernel takes f32 values with an f32, bf16 '
+                        'or f64 operand, or f64 values with an f64 operand, '
+                        'not %s values with a %s operand'
+                        % (val.dtype, xt.dtype))
+    if idx.dtype != torch.int32:
+        raise TypeError('the ELL kernel takes int32 idx (got %s)' % idx.dtype)
+    if (idx.dim() != 2 or val.shape != idx.shape or xt.dim() != 2
+            or (xt.shape[0] == 0 and idx.numel() > 0)):
+        raise ValueError('shape mismatch: idx %s, val %s, x %s'
+                         % (tuple(idx.shape), tuple(val.shape),
+                            tuple(xt.shape)))
+    if not all(t.is_contiguous() for t in (idx, val, xt)):
+        raise ValueError('the ELL kernel takes contiguous tensors')
+
+
+def _ell_matmat(idx, val, xt, rows=False, tag=()):
+    """(n, m) = A @ xt: y[i, :] = sum_k val[i, k] * xt[idx[i, k], :] for
+    ELL arrays ``idx`` (n, K) int32 and ``val`` (n, K) and an (n_x, m)
+    operand ``xt``, every idx in [0, n_x); with ``rows`` its (m, n)
+    transpose, which the kernel writes directly.  Sums in the promoted
+    type of val and xt, returns xt's dtype (made complex for complex
+    values).  CUDA tensors go through the kernel (``csrc/ell_spmm.cu``)
+    or raise, CPU tensors through ``_ell_matmat_plain``; complex operands
+    or values through the real kernel (``ops/complex_rows.py``), their
+    launches counted under ``tag``."""
+    if xt.device.type == 'cpu':
+        y = _ell_matmat_plain(idx, val, xt)
+        return y.T.contiguous() if rows else y
+    if xt.is_complex() or val.is_complex():
+        y = complex_rows(
+            lambda v, s: _ell_matmat(idx, v, s.T.contiguous(), True,
+                                     ('complex',)), val, xt.T)
+        return y if rows else y.T.contiguous()
+    _ell_check(idx, val, xt)
+    if xt.device.type != 'cuda':
+        raise ValueError('no ELL apply for device %s' % xt.device)
+    n, k = idx.shape
+    m = xt.shape[1]
+    y = torch.empty((m, n) if rows else (n, m), dtype=xt.dtype,
+                    device=xt.device)
+    if m == 0 or n == 0:
+        return y
+    key = (_ELL_NAMES[val.dtype], _ELL_NAMES[xt.dtype])
+    fn = getattr(_build.library(), 'ell_spmm_%s_%s' % key)
+    index = xt.get_device()
+    ys_row, ys_col = (1, n) if rows else (m, 1)
+    err = fn(idx.data_ptr(), val.data_ptr(), xt.data_ptr(), y.data_ptr(),
+             n, k, m, m, ys_row, ys_col, index, _build.current_stream(index))
+    if err != 0:
+        raise RuntimeError('ELL kernel launch failed: CUDA error %d' % err)
+    ELL_LAUNCHES[key + tag] += 1
+    return y
+
+
+def _ell_matmat_rows(idx, val, x):
+    """(m, n) = x A for an (m, n_x) row block ``x``, in x's dtype: the
+    (n_x, m) copy the kernel gathers from is made here, once, and the
+    kernel writes the (m, n) result directly."""
+    return _ell_matmat(idx, val, x.T.contiguous(), rows=True)
+
+
 def _ell_sharded_apply(idx, val, x):
     """The ELL apply with ``idx`` and ``val`` split by rows: every shard
     multiplies its row block against the whole operand, gathered onto its
-    device (indices stay global; traffic grows with n, valid for any
-    pattern)."""
+    device in the (n, m) layout once per device (indices stay global;
+    traffic grows with n, valid for any pattern), one launch a shard."""
     if not isinstance(x, ShardedRows):
         return _ell_sharded_apply(
             idx, val, ShardedRows.split(x, val.sharding)).gather()
@@ -367,8 +470,8 @@ def _ell_sharded_apply(idx, val, x):
     for i, v in zip(idx.parts, val.parts):
         if v.device not in whole:
             whole[v.device] = torch.cat(
-                [p.to(v.device) for p in x.parts], dim=1).T
-        parts.append(_ell_matmat(i, v, whole[v.device]).T.contiguous())
+                [p.to(v.device) for p in x.parts], dim=1).T.contiguous()
+        parts.append(_ell_matmat(i, v, whole[v.device], rows=True))
     return ShardedRows(parts, val.sharding).resplit(back)
 
 
@@ -459,7 +562,7 @@ def rows_matmat_operands(dm):
             return fn, (dm.idx, dm.val)
 
         def fn(ops, x):
-            return _ell_matmat(ops[0], ops[1], x.T).T.contiguous()
+            return _ell_matmat_rows(ops[0], ops[1], x)
         return fn, (dm.idx, dm.val)
     if isinstance(dm, BsrMatrix):
         n = dm.shape[0]

@@ -18,8 +18,9 @@ Three regimes, chosen from the reordered pattern:
     correct, traffic grows with n.
 
 The mesh is a list of devices walked by one process (``parallel/mesh.py``).
-The product itself is plain PyTorch, as it is plain XLA in the JAX package;
-the halo and body copies that assemble the shards' extended operands go
+Each shard's product is one launch of the ELL kernel (``csrc/ell_spmm.cu``,
+through ``ops.spmm._ell_matmat``) on its (rows, m) extended operand; the
+halo and body copies that assemble the shards' extended operands go
 through the hand-written copy kernel, one ``ops.stream.copy_lanes_many``
 launch for all copies within a device, and through ``Tensor.copy_``
 between devices.
@@ -28,7 +29,8 @@ between devices.
 import numpy as np
 import torch
 
-from ..ops.spmm import _ell_matmat, _int32, _to_full_csr, _values
+from ..ops.spmm import (_checked_columns, _ell_matmat, _int32,
+                        _to_full_csr, _values)
 from .mesh import AXIS, ShardedRows, Sharding, ring_extended
 
 
@@ -134,7 +136,11 @@ class ShardedEllMatrix:
         self.iperm[perm] = np.arange(n0)
         self.row_degree = k
         first = sharding.devices[0]
-        self.idx = ShardedRows.split(_int32(idx, first), sharding, dim=0)
+        # halo mode indexes each shard's extended operand, gather mode the
+        # whole one
+        width = chunk + sum(halo) if mode == 'halo' else n
+        self.idx = ShardedRows.split(
+            _int32(_checked_columns(idx, width), first), sharding, dim=0)
         self.val = ShardedRows.split(_values(val, None, first), sharding,
                                      dim=0)
         self.nnz = int(np.count_nonzero(val)) if nnz is None else nnz
