@@ -40,18 +40,20 @@ carries on, and no wrapper gives way to its plain version on the card.
      on either side for a bf16 result.  Two controls, a bf16 running sum
      over the tiles and bf16 products, must fail it.
    * The ELL kernel (``csrc/ell_spmm.cu``, in the JAX package a jitted
-     ``lax.scan``) on the same flagship in both orderings (``phase_ell``):
+     ``lax.scan``) and its previous design (``_ell_matmat_prev``, the same
+     source) on the same flagship in both orderings (``phase_ell``):
      f32 values with an f32 operand at m = 8, 16, 32, a bf16 operand at
      m = 16, an f64 operand at m = 8 with f32 and with f64 values, and a
      c128 operand at m = 8 (the complex route, one f64 launch over the
      stacked rows).  Tolerance entrywise (``ell_excess``): twice the
      summation error bound of a row's K terms in the sum type, plus one
-     bf16 rounding on either side for a bf16 result; the kernel sums in
+     bf16 rounding on either side for a bf16 result; both designs sum in
      the plain version's order, so exact equality is reported as well.
      Two controls, a bf16 running sum and bf16 products, must fail the
-     bound.  Timed in turns with the plain version, ``torch.sparse.mm``
-     on the CSR tensor of the same type and the row-layout apply (the
-     (n, m) copy of the operand, then the launch).
+     bound.  Both designs timed in turns with the plain version,
+     ``torch.sparse.mm`` on the CSR tensor of the same type and the
+     row-layout apply (the (n, m) copy of the operand, then the launch),
+     with each design's registers a thread and resident blocks an SM.
    * The f64 instantiations of the DIA kernel (f64 operand, f32 or f64
      values) on lap3d(100,100,128), equal to the plain version bit for
      bit, and of the BSR kernel (f64 operand, f32 or f64 tiles) and its
@@ -67,12 +69,15 @@ carries on, and no wrapper gives way to its plain version on the card.
      the largest |entry| of the plain version over the piece table and
      equal bit for bit to the unsharded f64 kernel; timed in turns with the
      plain version, the unsharded f64 kernel and ``torch.sparse.mm`` (f64).
-   * The complex routes (``ops/complex_rows.py``): the DIA kernel on the
-     complex field's B (c128 values, two f64 launches an apply) and the BSR
-     kernel on the FE flagship (f32 tiles, one f64 launch over the stacked
-     real and imaginary rows), c128 operands at the core block size,
-     within ``F64_SUM_TOL`` of the plain version on the complex tensors;
-     timed in turns with it and ``torch.sparse.mm`` on the complex CSR.
+   * The DIA kernel's complex instantiation on the complex field's B
+     (c128 values, one launch an apply) and on B's pattern with real f64
+     and f32 values, each timed in turns with the stacked route it
+     replaced (``ops/complex_rows.py``: two f64 launches over the stacked
+     real and imaginary rows for c128 values); the BSR kernel's complex
+     route on the FE flagship (f32 tiles, one f64 launch over the stacked
+     rows); c128 operands at the core block size, within ``F64_SUM_TOL``
+     of the plain version on the complex tensors; timed in turns with it
+     and ``torch.sparse.mm`` on the complex CSR.
    * The two staged-window DIA kernels (sliding window, tile ring) and
      their previous designs (``dia_matmat_rows_slide_prev``,
      ``dia_matmat_rows_tiles_prev``, in the same sources) at the tile
@@ -190,8 +195,9 @@ carries on, and no wrapper gives way to its plain version on the card.
    * Complex: generalized shift-invert of the complex Hermitian chain of
      ``tests/test_sparse.py:175`` at n = 125,000 with B = I + 0.25 H, sigma
      0.3, 4 nearest, on the card (B's c128 DIA values through the DIA
-     kernel's complex route) against the same call with ``arch='cpu'``:
-     within 1e-8; no plain version.
+     kernel's complex instantiation, no launch of the stacked route)
+     against the same call with ``arch='cpu'``: within 1e-8; no plain
+     version.
 6. The dense phase: the SVD/PCA stack as a user calls it, with no device
    argument.
    * The headline, ``subspace_pca(a, 800, fetch=False)`` on bench.py's
@@ -278,7 +284,7 @@ ITERATIONS = {(100, 100, 128): 32, (50, 50, 50): 16, 'FE-BSR': 16,
 # sources whose kernel was redesigned, the previous design kept beside it
 # (its ``_prev`` entries run in phase 2 only, timed in turns with the new)
 REDESIGNED = ('dia_spmm', 'bsr_spmm', 'stream_scale', 'stream_probes',
-              'dia_spmm_slide', 'dia_spmm_tiles')
+              'dia_spmm_slide', 'dia_spmm_tiles', 'ell_spmm')
 OFF_PATH_PREV = ('the previous design, kept to be timed in turns with the '
                  'kernel on the path; no solver path launches it')
 # the previous designs of the staged-window kernels, by sweep variant
@@ -897,21 +903,24 @@ ELL_CASES = (
 
 
 def phase_ell(torch, np, ell, EllMatrix, k_rel, k_nat):
-    """The ELL kernel (``csrc/ell_spmm.cu``) against its plain version on
+    """The ELL kernel (``csrc/ell_spmm.cu``) and its previous design
+    (``_ell_matmat_prev``, the same source) against the plain version on
     the FE flagship in both orderings (the FE-ELL field's relabelled order
     first, then the mesher's), every instantiation (``ELL_CASES``), the
     complex route (a c128 operand over f32 values: one launch of the f64
-    instantiation over the stacked rows) included.  Tolerance entrywise
-    (``ell_excess``): twice the summation error bound of a row's K terms
-    in the sum type (plus one bf16 rounding on either side for a bf16
-    result); whether the kernel also equals the plain version bit for bit
-    (it sums in the plain version's order, one FMA a term) is printed.  At
-    f32, m = 16 two controls (a bf16 running sum, bf16 products) must fail
-    the bound.  The kernel ((n, m) operand and result: the launch alone),
-    the plain version and ``torch.sparse.mm`` on the CSR tensor are timed
-    in turns; the row-layout apply a solver makes (the (n, m) copy of its
-    operand, then the launch) beside them.  Returns the rows, those of the
-    relabelled order."""
+    instantiation over the stacked rows; no previous design) included.
+    Tolerance entrywise (``ell_excess``): twice the summation error bound
+    of a row's K terms in the sum type (plus one bf16 rounding on either
+    side for a bf16 result); whether each design also equals the plain
+    version bit for bit (both sum in its order, one FMA a term) is
+    printed.  At f32, m = 16 two controls (a bf16 running sum, bf16
+    products) must fail the bound.  The kernel and its previous design
+    ((n, m) operand and result: the launch alone), the plain version and
+    ``torch.sparse.mm`` on the CSR tensor are timed in turns, the
+    row-layout apply a solver makes (the (n, m) copy of its operand, then
+    the launch) beside them; each design's registers a thread and
+    resident blocks an SM at the shape are printed.  Returns the rows of
+    both designs, those of the relabelled order."""
     rows = {}
     gen = torch.Generator('cuda').manual_seed(21)
     for order, k in (('relabelled', k_rel), ("mesher's order", k_nat)):
@@ -936,7 +945,8 @@ def phase_ell(torch, np, ell, EllMatrix, k_rel, k_nat):
                 xt = x64.to(getattr(torch, xdt))
             del x64
             label = '%s m=%d (%s)' % (name, m, order)
-            key = (('f32', 'f64', 'complex') if xdt == 'complex128' else
+            cplx = xdt == 'complex128'
+            key = (('f32', 'f64', 'complex') if cplx else
                    (vdt.replace('float', 'f'),
                     xdt.replace('float', 'f').replace('bfloat16', 'bf16')))
             before = ell.ELL_LAUNCHES[key]
@@ -946,18 +956,31 @@ def phase_ell(torch, np, ell, EllMatrix, k_rel, k_nat):
                 fail('%s: %d launches under %s for one apply, not 1'
                      % (label, ell.ELL_LAUNCHES[key] - before, key))
             want = ell._ell_matmat_plain(idx, val, xt)
-            if got.dtype != xt.dtype or got.shape != xt.shape:
-                fail('%s: kernel output %s %s' % (label, got.dtype,
-                                                   tuple(got.shape)))
-            if not torch.isfinite(torch.view_as_real(got) if got.is_complex()
-                                  else got.float()).all():
-                fail('%s: non-finite kernel output' % label)
-            worst, share = ell_excess(torch, ell, idx, val, xt, got, want)
-            if worst > 1:
-                fail('%s: %.3e of the entries beyond the bound (worst %.2f '
-                     'times it)' % (label, share, worst))
-            diff = (got - want).abs().max().item()
-            equal = torch.equal(got, want)
+            designs = {'kernel': got}
+            if not cplx:
+                before = ell.ELL_PREV_LAUNCHES[key]
+                designs['previous design'] = ell._ell_matmat_prev(idx, val,
+                                                                  xt)
+                torch.cuda.synchronize()
+                if ell.ELL_PREV_LAUNCHES[key] - before != 1:
+                    fail('%s: %d launches of the previous design for one '
+                         'apply, not 1'
+                         % (label, ell.ELL_PREV_LAUNCHES[key] - before))
+            checks = {}
+            for what, y in designs.items():
+                if y.dtype != xt.dtype or y.shape != xt.shape:
+                    fail('%s: %s output %s %s' % (label, what, y.dtype,
+                                                   tuple(y.shape)))
+                if not torch.isfinite(torch.view_as_real(y) if y.is_complex()
+                                      else y.float()).all():
+                    fail('%s: non-finite %s output' % (label, what))
+                worst, share = ell_excess(torch, ell, idx, val, xt, y, want)
+                if worst > 1:
+                    fail('%s: %s, %.3e of the entries beyond the bound '
+                         '(worst %.2f times it)' % (label, what, share,
+                                                     worst))
+                checks[what] = ((y - want).abs().max().item(), worst,
+                                torch.equal(y, want))
             if name == 'ell_spmm_f32_f32' and m == 16:
                 for cname, yc in ell_controls(torch, idx, val, xt).items():
                     cworst, cshare = ell_excess(torch, ell, idx, val, xt, yc,
@@ -967,11 +990,13 @@ def phase_ell(torch, np, ell, EllMatrix, k_rel, k_nat):
                           % (cname, label, cshare, cworst))
                     if cworst <= 1:
                         fail('the ELL bound passes the control (%s)' % cname)
-            del got, want
+            del got, want, designs
             x_rows = xt.T.contiguous()
             t = turns({
                 'plain': lambda: ell._ell_matmat_plain(idx, val, xt),
                 'kernel': lambda: ell._ell_matmat(idx, val, xt),
+                'prev': None if cplx else
+                lambda: ell._ell_matmat_prev(idx, val, xt),
                 'rows': lambda: ell._ell_matmat_rows(idx, val, x_rows),
                 'library': library_ell_fn(torch, k, xt, libdt)}, 20)
             del x_rows
@@ -981,27 +1006,61 @@ def phase_ell(torch, np, ell, EllMatrix, k_rel, k_nat):
             wide = xdt in ('float64', 'complex128')
             bound_ms, bound_by = bound(nbytes, 2 * n * kk * width,
                                        PEAK_F64 if wide else PEAK_F32)
-            print('%s n=%d: max abs err %.3e (worst %.3f of the bound; %s '
-                  'plain bit for bit), kernel %.4f ms (%.0f GB/s, %.2f '
-                  'Gnnz/s), row-layout apply (copy and launch) %.4f ms; plain '
-                  '%.4f ms (%.1fx), torch.sparse.mm on %s CSR %s, bound '
-                  '%.4f ms (%s), in turns'
-                  % (label, n, diff, worst, 'equal to' if equal else
-                     'not equal to', t['kernel'], nbytes / t['kernel'] / 1e6,
-                     em.nnz / t['kernel'] / 1e6, t['rows'], t['plain'],
-                     t['plain'] / t['kernel'], libdt, fmt_ms(t['library']),
-                     bound_ms, bound_by))
+            # a complex apply launches the f64 instantiation on 2m rows
+            pair, mk = (('f32', 'f64'), 2 * m) if cplx else (key, m)
+            fits = {d: ell.ell_occupancy(d, *pair, mk)
+                    for d in ell.ELL_DESIGNS[cplx:]}
+            print('%s n=%d: %s; kernel %.4f ms (%.0f GB/s, %.2f Gnnz/s), '
+                  'previous design %s, row-layout apply (copy and launch) '
+                  '%.4f ms; plain %.4f ms (%.1fx), torch.sparse.mm on %s CSR '
+                  '%s, bound %.4f ms (%s), in turns; %s'
+                  % (label, n, '; '.join(
+                      '%s max abs err %.3e (worst %.3f of the bound; %s plain '
+                      'bit for bit)' % (what, d, w, 'equal to' if e else
+                                        'not equal to')
+                      for what, (d, w, e) in checks.items()),
+                     t['kernel'], nbytes / t['kernel'] / 1e6,
+                     em.nnz / t['kernel'] / 1e6, fmt_ms(t['prev']),
+                     t['rows'], t['plain'], t['plain'] / t['kernel'], libdt,
+                     fmt_ms(t['library']), bound_ms, bound_by, '; '.join(
+                         '%s design: %d registers, %d blocks of %d threads an '
+                         'SM, %d bytes local'
+                         % (d, f['registers'], f['blocks_per_sm'],
+                            f['threads'], f['local_bytes'])
+                         for d, f in fits.items())))
+            prev_name = name.replace('ell_spmm_', 'ell_spmm_prev_')
             if name in rows and order == 'relabelled':
                 rows[name]['m%d_ms' % m] = t['kernel']
+                if not cplx:
+                    rows[name]['m%d_prev_ms' % m] = t['prev']
+                    rows[prev_name]['m%d_ms' % m] = t['prev']
             elif name in rows:
                 rows[name].setdefault('mesher_order_ms', t['kernel'])
+                if not cplx:
+                    rows[name].setdefault('mesher_order_prev_ms', t['prev'])
+                    rows[prev_name].setdefault('mesher_order_ms', t['prev'])
             else:
                 rows[name] = dict(
                     name=name, route='cuda', source=ELL[0],
-                    replaces=ELL[1], launches=0, max_abs_err=diff,
-                    ms=t['kernel'], plain_ms=t['plain'], bound_ms=bound_ms,
+                    replaces=ELL[1], launches=0,
+                    max_abs_err=checks['kernel'][0], ms=t['kernel'],
+                    plain_ms=t['plain'], bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=t['library'], m=m,
-                    rows_ms=t['rows'], bytes=nbytes)
+                    rows_ms=t['rows'], bytes=nbytes,
+                    registers=fits['kernel']['registers'],
+                    blocks_per_sm=fits['kernel']['blocks_per_sm'])
+                if not cplx:
+                    rows[name]['prev_ms'] = t['prev']
+                    rows[prev_name] = dict(
+                        name=prev_name, route='cuda', source=ELL[0],
+                        replaces=ELL[1], launches=0,
+                        max_abs_err=checks['previous design'][0],
+                        ms=t['prev'], plain_ms=t['plain'],
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=t['library'], m=m, bytes=nbytes,
+                        registers=fits['previous']['registers'],
+                        blocks_per_sm=fits['previous']['blocks_per_sm'],
+                        off_path=OFF_PATH_PREV)
             del xt
         del mats, em, idx, val
         torch.cuda.empty_cache()
@@ -2068,6 +2127,9 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
         if set(launches) != {('f32', 'f32')}:
             fail('%s: ELL launches %s, not the f32 kernel alone'
                  % (name, launches))
+        if any(ell.ELL_PREV_LAUNCHES.values()):
+            fail('%s launched the previous ELL design: %s'
+                 % (name, ell.ELL_PREV_LAUNCHES))
         return out, launches[('f32', 'f32')]
 
     (lmd, x, st, its, cold, _, _), launches = ell_solve()
@@ -2076,6 +2138,8 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
     check_pencil(np, name, k_rel, m_rel, lmd, x, st, which)
     check_iterations(name, 'FE-ELL', (its, its2))
     rows['ell_spmm_f32_f32']['launches'] = launches2
+    rows['ell_spmm_prev_f32_f32']['launches'] = \
+        ell.ELL_PREV_LAUNCHES[('f32', 'f32')]
     print('%s: K in %s, status 0, %d iterations (warm run %d), relative '
           'residual %.2e, lambda %s; Chebyshev set-up %.3f s; partial_hevp '
           'wall cold %.3f s, warm %.3f s (LOBPCG %.3f s, rest %.3f s); ELL '
@@ -2102,10 +2166,13 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in ell.ELL_LAUNCHES.items() if v}
-    if any(plain.values()) or launches.get(('f32', 'bf16'), 0) <= 0:
-        fail('%s: ELL launches %s, plain calls %s' % (label, launches,
-                                                       plain))
+    if (any(plain.values()) or launches.get(('f32', 'bf16'), 0) <= 0
+            or any(ell.ELL_PREV_LAUNCHES.values())):
+        fail('%s: ELL launches %s, previous design %s, plain calls %s'
+             % (label, launches, ell.ELL_PREV_LAUNCHES, plain))
     rows['ell_spmm_f32_bf16']['launches'] = launches[('f32', 'bf16')]
+    rows['ell_spmm_prev_f32_bf16']['launches'] = \
+        ell.ELL_PREV_LAUNCHES[('f32', 'bf16')]
     bf_lmd, rel = check_pencil(np, label, k_rel, m_rel, lmd, x, st, which)
     agree = float(np.abs(bf_lmd / ell_lmd - 1).max())
     if agree > FE_AGREE:
@@ -2440,80 +2507,139 @@ def complex_chain(np, n):
     return a, b
 
 
+# the stacked route of a complex block (ops/complex_rows.py), which c128
+# blocks on a DIA matrix took before the complex instantiation
+OFF_PATH_STACKED = (
+    'the stacked route (ops/complex_rows.py over the f64 instantiation), '
+    'kept to be timed in turns with the complex instantiation; only c64 '
+    'blocks and real operands with complex values take it, on no field\'s '
+    'path')
+
+
 def phase_complex_kernels(torch, np, sw, sp, DiaMatrix, BsrMatrix, k_nat):
-    """The complex routes of the DIA and BSR kernels against their plain
-    versions on complex tensors (``ops/complex_rows.py``): K1 on the
-    complex field's B (the chain's c128 values, n = ``COMPLEX_N``: two f64
-    launches over the stacked real and imaginary rows) and K5 on the FE
-    flagship in the mesher's order with f32 tiles (one f64 launch over the
-    stacked rows), both at m = ``CORE_BLOCK`` c128 rows, within
-    ``F64_SUM_TOL`` of the largest |entry|.  Timed in turns with the plain
-    version and ``torch.sparse.mm`` on the complex CSR tensor.  Returns
-    their rows."""
+    """The DIA kernel's complex instantiation and the BSR kernel's complex
+    route against their plain versions on complex tensors, at m =
+    ``CORE_BLOCK`` c128 rows, within ``F64_SUM_TOL`` of the largest
+    |entry|: K1 on the complex field's B (the chain's c128 values, n =
+    ``COMPLEX_N``: one launch of ``dia_spmm_rows_c128_val128``), and on
+    B's pattern with real f64 and f32 values (|B|: ``_val64``,
+    ``_val32``), each timed in turns with the stacked route it replaced
+    (``dia_matmat_rows_complex_prev``: two f64 launches over the stacked
+    real and imaginary rows for c128 values, one for real values); K5 on
+    the FE flagship in the mesher's order with f32 tiles (one f64 launch
+    over the stacked rows).  Timed in turns with the plain version and
+    ``torch.sparse.mm`` on the complex CSR tensor.  Returns their rows."""
     rows = {}
     gen = torch.Generator('cuda').manual_seed(17)
     m = CORE_BLOCK
     _, b = complex_chain(np, COMPLEX_N)
     dm = DiaMatrix(b, dtype=np.complex128, device='cuda', exact=True)
+    nb = dm.shape[0]
+    terms = sum(nb - abs(o) for o in dm.offsets)
+    babs = abs(b).astype(np.complex128)
     bm = BsrMatrix(k_nat, bs=128, device='cuda')
     bargs = (bm.blocks, bm.block_indptr_t, bm.block_cols)
+
+    def dia_case(name, val, csr, flops_per_term, stacked_launches):
+        stacked_key = ('complex_float64_val32' if val.dtype == torch.float32
+                       else 'complex_float64_val64')
+        return (name, DIA, name.replace('dia_spmm_rows_c128',
+                                        'complex128'),
+                csr, nb, lambda x: sw.dia_matmat_rows(val, x, dm.offsets_t),
+                lambda x: sw.dia_matmat_rows_plain(val, x, dm.offsets_t),
+                sw.LAUNCHES, 1,
+                lambda x: sw.dia_matmat_rows_complex_prev(val, x,
+                                                          dm.offsets_t),
+                (stacked_key, stacked_launches),
+                len(dm.offsets) * nb * val.element_size()
+                + len(dm.offsets) * 4, flops_per_term * terms)
     cases = (
-        ('dia_spmm_rows_complex_f64_val64', DIA, 'complex_float64_val64',
-         b, dm.shape[0], lambda x: sw.dia_matmat_rows(dm.val, x,
-                                                      dm.offsets_t),
-         lambda x: sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t),
-         sw.LAUNCHES, 2,
-         len(dm.offsets) * dm.shape[0] * 16 + len(dm.offsets) * 4,
-         8 * sum(dm.shape[0] - abs(o) for o in dm.offsets)),
+        dia_case('dia_spmm_rows_c128_val128', dm.val, b, 8, 2),
+        dia_case('dia_spmm_rows_c128_val64', dm.val.abs(), babs, 4, 1),
+        dia_case('dia_spmm_rows_c128_val32', dm.val.abs().float(), babs, 4,
+                 1),
         ('bsr_spmm_rows_complex_f32_f64', BSR, ('f32', 'f64', 'complex'),
          k_nat, k_nat.shape[0],
          lambda x: sp.bsr_matmat_rows(*bargs, x, k_nat.shape[0]),
          lambda x: sp.bsr_matmat_rows_plain(*bargs, x, k_nat.shape[0]),
-         sp.LAUNCHES, 1,
+         sp.LAUNCHES, 1, None, None,
          bm.blocks.numel() * 4 + bm.block_indptr_t.numel() * 4
          + bm.block_cols.numel() * 4, 4 * bm.blocks.numel()))
-    for (name, src, key, csr, n, kern, plain, counts, launches, matrix_bytes,
-         flops_per_row) in cases:
+    for (name, src, key, csr, n, kern, plain, counts, launches, stacked,
+         stacked_count, matrix_bytes, flops_per_row) in cases:
         x = torch.complex(
             torch.randn((m, n), generator=gen, device='cuda',
                         dtype=torch.float64),
             torch.randn((m, n), generator=gen, device='cuda',
                         dtype=torch.float64))
-        before = counts[key]
+        before = dict(counts)
         got = kern(x)
         torch.cuda.synchronize()
-        if counts[key] - before != launches:
-            fail('%s: %d launches for one complex apply, not %d'
-                 % (name, counts[key] - before, launches))
+        moved = {k: v - before[k] for k, v in counts.items()
+                 if v != before[k]}
+        if moved != {key: launches}:
+            fail('%s: launches %s for one complex apply, not %d under %s'
+                 % (name, moved, launches, key))
         want = plain(x)
-        if got.dtype != torch.complex128 or not torch.isfinite(
-                torch.view_as_real(got)).all():
-            fail('%s: output %s, or not finite' % (name, got.dtype))
-        diff = (got - want).abs().max().item()
-        rel = diff / want.abs().max().item()
-        if rel > F64_SUM_TOL:
-            fail('%s vs plain: %.2e of the largest entry > %.0e'
-                 % (name, rel, F64_SUM_TOL))
-        del got, want
+        outs = {'kernel': got}
+        if stacked is not None:
+            before = dict(counts)
+            outs['stacked route'] = stacked(x)
+            torch.cuda.synchronize()
+            moved = {k: v - before[k] for k, v in counts.items()
+                     if v != before[k]}
+            if moved != {stacked_count[0]: stacked_count[1]}:
+                fail('%s: the stacked route launched %s, not %d under %s'
+                     % (name, moved, stacked_count[1], stacked_count[0]))
+        errs = {}
+        for what, y in outs.items():
+            if y.dtype != torch.complex128 or not torch.isfinite(
+                    torch.view_as_real(y)).all():
+                fail('%s: %s output %s, or not finite' % (name, what,
+                                                           y.dtype))
+            diff = (y - want).abs().max().item()
+            rel = diff / want.abs().max().item()
+            if rel > F64_SUM_TOL:
+                fail('%s (%s) vs plain: %.2e of the largest entry > %.0e'
+                     % (name, what, rel, F64_SUM_TOL))
+            errs[what] = (diff, rel)
+        del got, want, outs
         t = turns({'plain': lambda: plain(x), 'kernel': lambda: kern(x),
+                   'prev': None if stacked is None else lambda: stacked(x),
                    'library': library_spmm_fn(torch, csr, x, 'complex128')},
                   20)
         nbytes = matrix_bytes + 2 * m * n * 16
         bound_ms, bound_by = bound(nbytes, m * flops_per_row,
                                    PEAK_F64 if src is DIA else PEAK_F64_MMA)
-        print('%s n=%d m=%d (c128 operand, %d launch%s an apply): %.2e of '
-              'the largest entry from plain; kernel %.4f ms (%.0f GB/s), '
-              'plain %.4f ms, torch.sparse.mm (c128 CSR) %s, bound %.4f ms '
-              '(%s), in turns'
-              % (name, n, m, launches, 'es' if launches > 1 else '', rel,
-                 t['kernel'], nbytes / t['kernel'] / 1e6, t['plain'],
-                 fmt_ms(t['library']), bound_ms, bound_by))
+        print('%s n=%d m=%d (c128 operand, %d launch%s an apply): %s; '
+              'kernel %.4f ms (%.0f GB/s), stacked route %s, plain %.4f ms, '
+              'torch.sparse.mm (c128 CSR) %s, bound %.4f ms (%s), in turns'
+              % (name, n, m, launches, 'es' if launches > 1 else '',
+                 '; '.join('%s %.2e of the largest entry from plain'
+                           % (what, rel) for what, (_, rel) in errs.items()),
+                 t['kernel'], nbytes / t['kernel'] / 1e6, fmt_ms(t['prev']),
+                 t['plain'], fmt_ms(t['library']), bound_ms, bound_by))
         rows[name] = dict(
             name=name, route='cuda', source=src[0], replaces=src[1],
-            launches=0, max_abs_err=diff, ms=t['kernel'],
+            launches=0, max_abs_err=errs['kernel'][0], ms=t['kernel'],
             plain_ms=t['plain'], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=t['library'], m=m, bytes=nbytes)
+        if stacked is not None:
+            rows[name]['prev_ms'] = t['prev']
+        if name == 'dia_spmm_rows_c128_val128':
+            # the stacked route on the complex field's B, as it ran there
+            # before the complex instantiation
+            rows['dia_spmm_rows_complex_f64_val64'] = dict(
+                rows[name], name='dia_spmm_rows_complex_f64_val64',
+                max_abs_err=errs['stacked route'][0], ms=t['prev'],
+                off_path=OFF_PATH_STACKED)
+            del rows['dia_spmm_rows_complex_f64_val64']['prev_ms']
         del x
+    for name in ('dia_spmm_rows_c128_val64', 'dia_spmm_rows_c128_val32'):
+        rows[name]['off_path'] = (
+            'no field here applies a real DIA matrix to a c128 block (the '
+            'complex field\'s B has c128 values); held against its plain '
+            'version above')
     rows['bsr_spmm_rows_complex_f32_f64']['off_path'] = (
         'no field here has a complex block on a BSR operator (the complex '
         'field\'s B is tridiagonal, so DIA); the route is held against its '
@@ -2771,8 +2897,13 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
         if min(launches[('f32', 'f64')], launches[('f64', 'f64')]) <= 0:
             fail('FE-ELL core: an f64 ELL instantiation was skipped: %s'
                  % ell_launches(ell))
+        if any(ell.ELL_PREV_LAUNCHES.values()):
+            fail('FE-ELL core launched the previous ELL design: %s'
+                 % ell.ELL_PREV_LAUNCHES)
         for key in (('f32', 'f64'), ('f64', 'f64')):
             rows['ell_spmm_%s_%s' % key]['launches'] = launches[key]
+            rows['ell_spmm_prev_%s_%s' % key]['launches'] = \
+                ell.ELL_PREV_LAUNCHES[key]
         print('core 5b, engine=\'core\' FE flagship (relabelled) which=6 '
               'tol=1e-4, its own Chebyshev degree 32 (EllMatrix): status 0, '
               '%d iterations, residual %.2e (limit %.0e); wall %.2f s (solve '
@@ -2913,9 +3044,9 @@ def phase_complex(torch, np, mods, rows, card):
     launches = {k: v for k, v in sw.LAUNCHES.items() if v}
     if any(plain.values()):
         fail('%s ran plain versions of the kernels: %s' % (name, plain))
-    if launches.get('complex_float64_val64', 0) <= 0 or set(launches) != {
-            'complex_float64_val64'}:
-        fail('%s: DIA launches %s, not the complex route alone'
+    if launches.get('complex128_val128', 0) <= 0 or set(launches) != {
+            'complex128_val128'}:
+        fail('%s: DIA launches %s, not the complex instantiation alone'
              % (name, launches))
     hl, hx, hst, hits, hwall, _, _ = hevp_call(
         torch, partial_hevp, a, B=b, sigma=COMPLEX_SIGMA, which=4, tol=1e-6,
@@ -2938,12 +3069,13 @@ def phase_complex(torch, np, mods, rows, card):
                        / np.linalg.norm(b @ xs, axis=0)))
     if x.dtype != np.complex128 or not res <= 1e-6:
         fail('%s: eigenvectors %s, residual %.1e' % (name, x.dtype, res))
-    rows['dia_spmm_rows_complex_f64_val64']['launches'] = \
-        launches['complex_float64_val64']
+    rows['dia_spmm_rows_c128_val128']['launches'] = \
+        launches['complex128_val128']
     print('%s tol=1e-6: status 0, %d iterations, eigenvalues %s within %.1e '
           'of the host run (arch=\'cpu\': %d iterations, wall %.2f s), '
           'relative residual %.1e; set-up %.2f s, solve %.2f s, wall %.2f s; '
-          'DIA launches %s (two real launches an apply of B\'s c128 values), '
+          'DIA launches %s (one launch of the complex instantiation an '
+          'apply of B\'s c128 values), '
           'no plain version [%s]'
           % (name, its, np.array2string(nearest(lmd), precision=10), agree,
              hits, hwall, res, setup or 0.0, solve_s, wall,

@@ -62,6 +62,37 @@
 // double2 of x, an 8- or 16-byte vector of val) and 4 rows.  One apply
 // must move noff*n*sizeof(val) + 2*m*n*8 bytes: at lap3d(100,100,128) and
 // m = 16 with f32 values 363.5 MB, 0.1085 ms at 3.35 TB/s.
+//
+// The complex instantiation (dia_spmm_rows_c128_val32 / _val64 / _val128)
+// serves complex blocks on the card: x and y c128, val f32, f64 (a real
+// matrix; f32 is the card's canonical storage of real f64 values) or c128
+// (a Hermitian one such as the complex shift-invert pencil's B).  Its
+// terms are
+//
+//     y[r, i] = sum_k val[k, i] * x[r, i + off_k]   (zero outside [0, n)),
+//
+// summed in diagonal order from 0 in f64, the real and imaginary parts by
+// fused multiply-adds: for a real value a and x = c + i d,
+//     re = fma(a, c, re); im = fma(a, d, im);
+// for a complex value a + i b,
+//     re = fma(a, c, re); re = fma(-b, d, re);
+//     im = fma(a, d, im); im = fma(b, c, im).
+// The plain version's PyTorch complex arithmetic may round each product
+// before its sum, so the two may differ by the rounding of the products,
+// a few units of the last place of the largest term (on an H100 they
+// agreed bit for bit on the complex field's B).  It replaces the stacked route of ops/complex_rows.py,
+// which for c128 values made two launches of the f64 instantiation over a
+// concatenated (2m, n) block, two contiguous copies of the values' real
+// and imaginary parts, and the slices, adds and torch.complex that put the
+// result together (about eight launches to move the bytes of one apply).
+// What bounds it: one apply must move noff*n*sizeof(val) + 2*m*n*16 bytes:
+// on the complex field's B (3 diagonals, n = 125,000, c128 values, m = 8)
+// 38 MB, 0.0113 ms at 3.35 TB/s.  Design: a simple one that reads the
+// tensors' interleaved storage directly, each c128 element one 16-byte
+// load or store.  A thread owns one lane i and kRows = 4 rows; neighbouring
+// threads own neighbouring lanes, so every load of x and store of y is
+// coalesced along i.  For each diagonal it loads its value once and the 4
+// rows' x, so each thread has 4 gathers in flight.
 // The kernels allocate nothing and do not synchronise.  Each entry point
 // returns cudaGetLastError() after its launch.
 
@@ -445,6 +476,89 @@ int launch(const void* val, const void* x, void* y, const void* offsets,
 
 }  // namespace wide
 
+// ---- the complex instantiation ------------------------------------------
+
+namespace cplx {
+
+constexpr int kRows = 4;       // operand rows a thread
+constexpr int kThreads = 128;  // threads a block
+
+// acc += v * x for a real value v, or a complex one (double2: re, im), in
+// the order the note states
+__device__ __forceinline__ void madd(double v, double2 x, double2& acc) {
+    acc.x = __fma_rn(v, x.x, acc.x);
+    acc.y = __fma_rn(v, x.y, acc.y);
+}
+__device__ __forceinline__ void madd(float v, double2 x, double2& acc) {
+    madd(static_cast<double>(v), x, acc);
+}
+__device__ __forceinline__ void madd(double2 v, double2 x, double2& acc) {
+    acc.x = __fma_rn(v.x, x.x, acc.x);
+    acc.x = __fma_rn(-v.y, x.y, acc.x);
+    acc.y = __fma_rn(v.x, x.y, acc.y);
+    acc.y = __fma_rn(v.y, x.x, acc.y);
+}
+
+// Block b covers row group b % groups and lane i = (b / groups) * kThreads
+// + t of thread t.
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+dia_complex_kernel(const V* __restrict__ val, const double2* __restrict__ x,
+                   double2* __restrict__ y, const int* __restrict__ offsets,
+                   int64_t noff, int64_t m, int64_t n, int64_t groups) {
+    const int64_t b = blockIdx.x;
+    const int64_t r0 = (b % groups) * kRows;
+    const int64_t i = (b / groups) * kThreads + threadIdx.x;
+    if (i >= n) return;
+    const int64_t left = m - r0;
+    const int rows = left < kRows ? static_cast<int>(left) : kRows;
+
+    double2 acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = make_double2(0.0, 0.0);
+
+    const double2* xr = x + r0 * n;
+    for (int64_t k = 0; k < noff; ++k) {
+        const int64_t j = i + __ldg(offsets + k);
+        if (j < 0 || j >= n) continue;   // the term is zero
+        const V v = __ldg(val + k * n + i);
+        double2 xs[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+            if (r < rows) xs[r] = __ldg(xr + r * n + j);
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+            if (r < rows) madd(v, xs[r], acc[r]);
+        }
+    }
+    double2* yr = y + r0 * n + i;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+        if (r < rows) yr[r * n] = acc[r];
+    }
+}
+
+template <typename V>
+int launch(const void* val, const void* x, void* y, const void* offsets,
+           int64_t noff, int64_t m, int64_t n, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int64_t groups = (m + kRows - 1) / kRows;
+    const int64_t blocks = groups * ((n + kThreads - 1) / kThreads);
+    if (blocks <= 0 || blocks > 0x7fffffffLL) {
+        return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    dia_complex_kernel<V><<<static_cast<unsigned int>(blocks), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const V*>(val), static_cast<const double2*>(x),
+        static_cast<double2*>(y), static_cast<const int*>(offsets), noff, m,
+        n, groups);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace cplx
+
 // ---- the previous design, timed beside the kernel above -----------------
 //
 // Threads along the lanes, one lane each, 8 operand rows a block, the
@@ -547,6 +661,31 @@ extern "C" int dia_spmm_rows_f64_val64(const void* val, const void* x,
                                        int device, void* stream) {
     return wide::launch<double>(val, x, y, offsets, noff, m, n, device,
                                 stream);
+}
+
+// the complex instantiation: c128 operand, f32, f64 or c128 values
+extern "C" int dia_spmm_rows_c128_val32(const void* val, const void* x,
+                                        void* y, const void* offsets,
+                                        int64_t noff, int64_t m, int64_t n,
+                                        int device, void* stream) {
+    return cplx::launch<float>(val, x, y, offsets, noff, m, n, device,
+                               stream);
+}
+
+extern "C" int dia_spmm_rows_c128_val64(const void* val, const void* x,
+                                        void* y, const void* offsets,
+                                        int64_t noff, int64_t m, int64_t n,
+                                        int device, void* stream) {
+    return cplx::launch<double>(val, x, y, offsets, noff, m, n, device,
+                                stream);
+}
+
+extern "C" int dia_spmm_rows_c128_val128(const void* val, const void* x,
+                                         void* y, const void* offsets,
+                                         int64_t noff, int64_t m, int64_t n,
+                                         int device, void* stream) {
+    return cplx::launch<double2>(val, x, y, offsets, noff, m, n, device,
+                                 stream);
 }
 
 extern "C" int dia_spmm_rows_prev_f32(const void* val, const void* x,

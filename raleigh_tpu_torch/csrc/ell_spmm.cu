@@ -11,12 +11,14 @@
 //
 // with idx (n, K) int32 and val (n, K) row-major as EllMatrix stores them
 // (rows padded with column 0 and value 0, which add a zero as in the plain
-// version), x an (n_x, m) operand with row stride ldx, and y written
-// through two strides, so the same launch writes the (n, m) column layout
-// (ys_row = m, ys_col = 1) or the (m, n) row layout (ys_row = 1,
-// ys_col = n).  The sums run over k in the plain version's order, one
-// fused multiply-add a term, in the promoted type of the value and operand
-// types; the result is rounded to the operand type once, on store.
+// version: the padding is read and summed like any entry, so a non-finite
+// x[0] propagates as it does there), x an (n_x, m) operand with row stride
+// ldx, and y written through two strides, so the same launch writes the
+// (n, m) column layout (ys_row = m, ys_col = 1) or the (m, n) row layout
+// (ys_row = 1, ys_col = n).  The sums run over k in the plain version's
+// order, one fused multiply-add a term, in the promoted type of the value
+// and operand types; the result is rounded to the operand type once, on
+// store.  So every instantiation equals the plain version bit for bit.
 // Instantiations (value type, operand type, sum type): (f32, f32, f32),
 // (f32, bf16, f32), (f32, f64, f64), (f64, f64, f64).  Every idx must lie in
 // [0, n_x): the kernel does not check it (the matrices check their
@@ -26,37 +28,54 @@
 // at the finite-element flagship (n = 139,179, K = 80, m = 16, f32) that is
 // 89.1 MB of idx and val and 8.9 MB each of x and y, 107 MB, 0.032 ms at
 // 3.35 TB/s; its 2 n K m flops (0.36 GFLOP) take 0.005 ms.  Bytes bound it.
-// But x is gathered, n K rows of m values (712 MB at that shape), so what
-// the design must keep cheap is the gather, and the x block (9 MB) lives in
-// the 50 MB L2.
+// But x is gathered, n K rows of m values (712 MB at that shape), from the
+// 50 MB L2 and the SMs' L1, where the 9 MB block lives.  Every lane also
+// loads its row's idx and val (G lanes a row, below): at m = 16, 356 MB
+// more through L1.  Both pass through the SMs' load path.
 //
-// What the design does about it:
+// What paced the previous design (kept below as ell_spmm_prev_*; 0.0827 ms
+// at that shape on an H100, 2.6 times the bound, and as long at m = 8 as
+// at m = 16): a thread walked its row in steps of 8 entries, and a step's
+// idx and val loads had to land before its 8 gathers could issue and the
+// gathers before its multiply-adds, with nothing of the next step in
+// flight, a device-memory wait then an L2 wait ten times a row; and 2,175
+// blocks of 256 threads ran as about three waves, the last partial.
+//
+// What this design does about it:
+//   * The next step's idx and val are loaded right after this step's 8
+//     gathers are issued and before its multiply-adds, so the wait for
+//     them overlaps the wait for the gathers.  That takes registers: 70 to
+//     76 a thread against 40 to 44, three blocks of 256 threads an SM
+//     against five or six (the launch bounds ask for three: unbounded, f32
+//     values with an f64 operand took 84 registers and fit only two).
+//   * A persistent grid, as many blocks as fit the SMs at once
+//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, asked once per
+//     kernel and device), each walking tiles of 256 / G rows with a stride
+//     of the grid, so the SMs work on one band of rows at a time and no
+//     partial last wave is left.
 //   * x is read in its (n, m) layout: the m values of one gathered row are
 //     one contiguous run, read by G neighbouring lanes as 16-byte vectors
 //     (4 f32, 8 bf16 or 2 f64 values a lane; G the power of two that
-//     covers m, at most 32, wider m in column chunks by blockIdx.y).  At
-//     m = 16 in f32 four lanes read a 64-byte row in one request; from the
-//     (m, n) layout the same row would be 16 scattered 4-byte loads.
-//     Neighbouring rows of a block often share columns (the dofs of one
-//     mesh node have one pattern), so many of a warp's gathers of one
-//     instruction fall on the same row and are served once.
-//   * idx and val are read once, in their stored layout, as 16-byte
-//     vectors of 8 consecutive entries of a row (a full 32-byte sector of
-//     idx and of f32 val a step) with evict-first loads, so that they do
-//     not push x out of L2; the G lanes of a row load the same vector in
-//     the same request.  This needs K % 8 == 0 (EllMatrix pads to 8) and
-//     16-byte aligned bases; any other K takes a scalar loop.
-//   * Each lane keeps its 2 to 8 sums in registers; the 8 gathers of a
-//     step are issued before their multiply-adds, so a lane has 8 loads in
-//     flight, held as loaded (32 registers) and widened one at a time.
-//     256 threads a block, rows in order (one row a lane group), no
-//     shared memory and no barrier.
-//   * An operand whose rows are not whole 16-byte vectors (m % V != 0, an
-//     unaligned base or row stride) takes the same design with one value a
-//     lane (V = 1).
-// Index arithmetic is 64-bit.  The kernel allocates nothing and does not
+//     covers m, at most 32; wider m in column chunks, each a tile's item).
+//     Neighbouring rows often share columns (the dofs of one mesh node have
+//     one pattern), so many gathers of one instruction fall on one row.
+//   * idx and val are read as 16-byte vectors of 8 entries with
+//     evict-first loads, so that they do not push x out of L2.  This needs
+//     K % 8 == 0 (EllMatrix pads to 8) and 16-byte aligned bases; any other
+//     K takes a scalar loop.  An operand whose rows are not whole 16-byte
+//     vectors (m % V != 0, an unaligned base or row stride) takes one value
+//     a lane (V = 1).
+// Designs measured beside it and not kept (PERF.md): idx and val
+// streamed by TMA bulk copies through a ring of shared-memory stages with
+// a producer warp (slower at m <= 16, and by up to 2x where the stages
+// take much of the SM's shared memory and L1, where the gathers hit), a
+// contiguous run of tiles a block, the most L1 as the carveout, loads
+// that ask L2 for 256 bytes, two vectors a lane (fewer lanes loading a
+// row's idx and val, more registers), and six blocks an SM (spills).
+// Index arithmetic is 64-bit.  The kernels allocate nothing and do not
 // synchronise.  Each entry point returns cudaGetLastError() after its
-// launch.
+// launch; ell_spmm_occupancy reports either design's registers and
+// resident blocks an SM at a shape.
 
 #include <cstdint>
 
@@ -67,6 +86,7 @@ namespace {
 
 constexpr int kThreads = 256;   // threads a block
 constexpr int kStep = 8;        // entries of a row a step of the vector loop
+constexpr int kMinBlocks = 3;   // resident blocks an SM the kernel asks for
 
 __device__ __forceinline__ float fmadd(float a, float b, float c) {
     return __fmaf_rn(a, b, c);
@@ -161,29 +181,232 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
     *p = __float2bfloat16(v);
 }
 
-// One lane group of G = 1 << g_log2 lanes a row; a lane sums V columns.
+// acc += the k terms of one row (k a positive multiple of 8, ip and vp
+// 16-byte aligned), in k order, one FMA a term.  The entries of step
+// kk + 8 are loaded after the gathers of step kk are issued and before
+// its multiply-adds.
+template <typename TV, typename TX, typename TA, int V>
+__device__ __forceinline__ void row_sum(const int32_t* ip, const TV* vp,
+                                        const TX* xc, int64_t k,
+                                        int64_t ldx, TA (&acc)[V]) {
+    int32_t j[kStep];
+    TA v[kStep];
+    load_idx8(ip, j);
+    load_val8(vp, v);
+    for (int64_t kk = 0; kk < k; kk += kStep) {
+        typename Raw<TX, V>::type raw[kStep];
+#pragma unroll
+        for (int e = 0; e < kStep; ++e) {
+            raw[e] = load_x<TX, V>(xc + static_cast<int64_t>(j[e]) * ldx);
+        }
+        TA w[kStep];
+#pragma unroll
+        for (int e = 0; e < kStep; ++e) w[e] = v[e];
+        if (kk + kStep < k) {
+            load_idx8(ip + kk + kStep, j);
+            load_val8(vp + kk + kStep, v);
+        }
+#pragma unroll
+        for (int e = 0; e < kStep; ++e) {
+            TA xv[V];
+            widen<TX, TA, V>(raw[e], xv);
+#pragma unroll
+            for (int c = 0; c < V; ++c) acc[c] = fmadd(w[e], xv[c], acc[c]);
+        }
+    }
+}
+
+// acc += the k terms of one row, one entry at a time (any k, any base)
+template <typename TV, typename TX, typename TA, int V>
+__device__ __forceinline__ void row_sum_scalar(const int32_t* ip,
+                                               const TV* vp, const TX* xc,
+                                               int64_t k, int64_t ldx,
+                                               TA (&acc)[V]) {
+    for (int64_t kk = 0; kk < k; ++kk) {
+        const int64_t j = __ldcs(ip + kk);
+        const TA v = static_cast<TA>(__ldcs(vp + kk));
+        TA xv[V];
+        widen<TX, TA, V>(load_x<TX, V>(xc + j * ldx), xv);
+#pragma unroll
+        for (int c = 0; c < V; ++c) acc[c] = fmadd(v, xv[c], acc[c]);
+    }
+}
+
+template <typename TX, typename TA, int V>
+__device__ __forceinline__ void store_row(TX* y, int64_t row, int64_t col,
+                                          int64_t ys_row, int64_t ys_col,
+                                          const TA (&acc)[V]) {
+    TX* yp = y + row * ys_row + col * ys_col;
+#pragma unroll
+    for (int c = 0; c < V; ++c) store(yp + c * ys_col, acc[c]);
+}
+
+// What a launch walks: tiles of `rows` = kThreads >> g_log2 rows, each in
+// `chunks` column chunks of G = 1 << g_log2 lanes; item = tile * chunks +
+// chunk.
+struct Walk {
+    int64_t n, k, m, ldx, ys_row, ys_col, chunks;
+    int g_log2, rows;
+    bool vec_entries;   // idx and val as 16-byte vectors of 8 entries
+};
+
+// One lane group of G lanes a row, kThreads >> g_log2 rows a tile, the
+// tiles strided over a persistent grid; registers for kMinBlocks blocks an
+// SM.
+template <typename TV, typename TX, typename TA, int V>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+ell_rows_kernel(const int32_t* __restrict__ idx, const TV* __restrict__ val,
+                const TX* __restrict__ x, TX* __restrict__ y, Walk w) {
+    const int lane_row = threadIdx.x >> w.g_log2;
+    const int64_t lane_col =
+        static_cast<int64_t>(threadIdx.x & ((1 << w.g_log2) - 1)) * V;
+    const int64_t items = (w.n + w.rows - 1) / w.rows * w.chunks;
+    for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+        const int64_t tile = item / w.chunks;
+        const int64_t chunk = item - tile * w.chunks;
+        const int64_t row = tile * w.rows + lane_row;
+        const int64_t col = ((chunk << w.g_log2) * V) + lane_col;
+        if (row >= w.n || col >= w.m) continue;
+        TA acc[V];
+#pragma unroll
+        for (int c = 0; c < V; ++c) acc[c] = TA(0);
+        if (w.vec_entries) {
+            if (w.k > 0) {
+                row_sum<TV, TX, TA, V>(idx + row * w.k, val + row * w.k,
+                                       x + col, w.k, w.ldx, acc);
+            }
+        } else {
+            row_sum_scalar<TV, TX, TA, V>(idx + row * w.k, val + row * w.k,
+                                          x + col, w.k, w.ldx, acc);
+        }
+        store_row<TX, TA, V>(y, row, col, w.ys_row, w.ys_col, acc);
+    }
+}
+
+cudaError_t use_device(int device) {
+    int current = -1;
+    cudaError_t err = cudaGetDevice(&current);
+    if (err != cudaSuccess) return err;
+    return current == device ? cudaSuccess : cudaSetDevice(device);
+}
+
+// Resident blocks an SM of `fn` at kThreads threads on `device`, and the
+// device's SMs; cached, so that a launch asks the runtime once per kernel
+// and device.
+struct Fit {
+    const void* fn;
+    int device, per_sm;
+};
+constexpr int kMaxFits = 64;
+Fit g_fits[kMaxFits];
+int g_nfits = 0;
+constexpr int kMaxDevices = 64;
+int g_sms[kMaxDevices];
+
+cudaError_t fit(const void* fn, int device, int* per_sm, int* sms) {
+    if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+    cudaError_t err;
+    if (g_sms[device] == 0) {
+        err = cudaDeviceGetAttribute(&g_sms[device],
+                                     cudaDevAttrMultiProcessorCount, device);
+        if (err != cudaSuccess) return err;
+    }
+    *sms = g_sms[device];
+    for (int i = 0; i < g_nfits; ++i) {
+        if (g_fits[i].fn == fn && g_fits[i].device == device) {
+            *per_sm = g_fits[i].per_sm;
+            return cudaSuccess;
+        }
+    }
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn,
+                                                        kThreads, 0);
+    if (err != cudaSuccess) return err;
+    if (*per_sm < 1) return cudaErrorInvalidConfiguration;
+    if (g_nfits < kMaxFits) g_fits[g_nfits++] = Fit{fn, device, *per_sm};
+    return cudaSuccess;
+}
+
+// The shape of a launch: lane groups, rows a tile and column chunks from m
+// and V, and whether idx and val take the vector loads.
+Walk walk(const void* idx, const void* val, int64_t n, int64_t k, int64_t m,
+          int64_t ldx, int64_t ys_row, int64_t ys_col, int vec) {
+    const int64_t vectors = (m + vec - 1) / vec;
+    int g_log2 = 0;
+    while (g_log2 < 5 && (int64_t{1} << g_log2) < vectors) ++g_log2;
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(idx)
+        | reinterpret_cast<uintptr_t>(val);
+    Walk w{};
+    w.n = n;
+    w.k = k;
+    w.m = m;
+    w.ldx = ldx;
+    w.ys_row = ys_row;
+    w.ys_col = ys_col;
+    w.g_log2 = g_log2;
+    w.chunks = (vectors + (int64_t{1} << g_log2) - 1) >> g_log2;
+    w.rows = kThreads >> g_log2;
+    w.vec_entries = k % kStep == 0 && bases % 16 == 0;
+    return w;
+}
+
+template <typename TV, typename TX, typename TA, int V>
+int launch_v(const void* idx, const void* val, const void* x, void* y,
+             int64_t n, int64_t k, int64_t m, int64_t ldx, int64_t ys_row,
+             int64_t ys_col, int device, void* stream) {
+    const Walk w = walk(idx, val, n, k, m, ldx, ys_row, ys_col, V);
+    auto kernel = ell_rows_kernel<TV, TX, TA, V>;
+    int per_sm = 0, sms = 0;
+    const cudaError_t err =
+        fit(reinterpret_cast<const void*>(kernel), device, &per_sm, &sms);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int64_t items = (n + w.rows - 1) / w.rows * w.chunks;
+    const int64_t most = static_cast<int64_t>(per_sm) * sms;
+    const int64_t blocks = items < most ? items : most;
+    kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(idx), static_cast<const TV*>(val),
+        static_cast<const TX*>(x), static_cast<TX*>(y), w);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TX>
+bool wide_operand(const void* x, int64_t m, int64_t ldx) {
+    constexpr int kVec = 16 / static_cast<int>(sizeof(TX));
+    return m % kVec == 0
+        && (ldx * static_cast<int64_t>(sizeof(TX))) % 16 == 0
+        && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+// ---- the previous design, timed beside the kernel above -----------------
+//
+// One lane group a row, 256 threads a block, one block for each 256 / G
+// rows (blockIdx.y the column chunk); each step's 8 idx and val loads
+// before the step's gathers, nothing of the next step in flight.
+// Launched only by chip_smoke.py and benches/bench_ell.py, through
+// ops/spmm.py::_ell_matmat_prev.
+
+namespace prev {
+
 template <typename TV, typename TX, typename TA, int V>
 __global__ void __launch_bounds__(kThreads)
 ell_rows_kernel(const int32_t* __restrict__ idx, const TV* __restrict__ val,
-                const TX* __restrict__ x, TX* __restrict__ y, int64_t n,
-                int64_t k, int64_t m, int64_t ldx, int64_t ys_row,
-                int64_t ys_col, int g_log2, bool vec_entries) {
+                const TX* __restrict__ x, TX* __restrict__ y, Walk w) {
     const int lane = threadIdx.x;
-    const int64_t row = static_cast<int64_t>(blockIdx.x)
-        * (kThreads >> g_log2) + (lane >> g_log2);
-    const int64_t col = (static_cast<int64_t>(blockIdx.y) << g_log2) * V
-        + static_cast<int64_t>(lane & ((1 << g_log2) - 1)) * V;
-    if (row >= n || col >= m) return;
+    const int64_t row = static_cast<int64_t>(blockIdx.x) * w.rows
+        + (lane >> w.g_log2);
+    const int64_t col = (static_cast<int64_t>(blockIdx.y) << w.g_log2) * V
+        + static_cast<int64_t>(lane & ((1 << w.g_log2) - 1)) * V;
+    if (row >= w.n || col >= w.m) return;
 
-    const int32_t* ip = idx + row * k;
-    const TV* vp = val + row * k;
+    const int32_t* ip = idx + row * w.k;
+    const TV* vp = val + row * w.k;
     const TX* xc = x + col;
     TA acc[V];
 #pragma unroll
     for (int c = 0; c < V; ++c) acc[c] = TA(0);
 
-    if (vec_entries) {
-        for (int64_t kk = 0; kk < k; kk += kStep) {
+    if (w.vec_entries) {
+        for (int64_t kk = 0; kk < w.k; kk += kStep) {
             int32_t j[kStep];
             TA v[kStep];
             load_idx8(ip + kk, j);
@@ -192,7 +415,7 @@ ell_rows_kernel(const int32_t* __restrict__ idx, const TV* __restrict__ val,
 #pragma unroll
             for (int e = 0; e < kStep; ++e) {
                 raw[e] = load_x<TX, V>(xc
-                                       + static_cast<int64_t>(j[e]) * ldx);
+                                       + static_cast<int64_t>(j[e]) * w.ldx);
             }
 #pragma unroll
             for (int e = 0; e < kStep; ++e) {
@@ -205,56 +428,38 @@ ell_rows_kernel(const int32_t* __restrict__ idx, const TV* __restrict__ val,
             }
         }
     } else {
-        for (int64_t kk = 0; kk < k; ++kk) {
-            const int64_t j = __ldcs(ip + kk);
-            const TA v = static_cast<TA>(__ldcs(vp + kk));
-            TA xv[V];
-            widen<TX, TA, V>(load_x<TX, V>(xc + j * ldx), xv);
-#pragma unroll
-            for (int c = 0; c < V; ++c) acc[c] = fmadd(v, xv[c], acc[c]);
-        }
+        row_sum_scalar<TV, TX, TA, V>(ip, vp, xc, w.k, w.ldx, acc);
     }
-    TX* yp = y + row * ys_row + col * ys_col;
-#pragma unroll
-    for (int c = 0; c < V; ++c) store(yp + c * ys_col, acc[c]);
-}
-
-cudaError_t use_device(int device) {
-    int current = -1;
-    cudaError_t err = cudaGetDevice(&current);
-    if (err != cudaSuccess) return err;
-    return current == device ? cudaSuccess : cudaSetDevice(device);
+    store_row<TX, TA, V>(y, row, col, w.ys_row, w.ys_col, acc);
 }
 
 template <typename TV, typename TX, typename TA, int V>
 int launch_v(const void* idx, const void* val, const void* x, void* y,
              int64_t n, int64_t k, int64_t m, int64_t ldx, int64_t ys_row,
-             int64_t ys_col, void* stream) {
-    // lanes a row: the power of two that covers the row's vectors, at
-    // most a warp; wider rows in column chunks of 32 vectors
-    const int64_t vectors = (m + V - 1) / V;
-    int g_log2 = 0;
-    while (g_log2 < 5 && (int64_t{1} << g_log2) < vectors) ++g_log2;
-    const int64_t chunks = (vectors + (int64_t{1} << g_log2) - 1) >> g_log2;
-    const int64_t rows_per_block = kThreads >> g_log2;
-    const int64_t blocks = (n + rows_per_block - 1) / rows_per_block;
-    if (blocks > 0x7fffffffLL || chunks > 65535) {
+             int64_t ys_col, int, void* stream) {
+    const Walk w = walk(idx, val, n, k, m, ldx, ys_row, ys_col, V);
+    const int64_t blocks = (n + w.rows - 1) / w.rows;
+    if (blocks > 0x7fffffffLL || w.chunks > 65535) {
         return static_cast<int>(cudaErrorInvalidConfiguration);
     }
-    const uintptr_t bases = reinterpret_cast<uintptr_t>(idx)
-        | reinterpret_cast<uintptr_t>(val);
-    const bool vec_entries = k % kStep == 0 && bases % 16 == 0;
     const dim3 grid(static_cast<unsigned int>(blocks),
-                    static_cast<unsigned int>(chunks));
-    ell_rows_kernel<TV, TX, TA, V>
+                    static_cast<unsigned int>(w.chunks));
+    prev::ell_rows_kernel<TV, TX, TA, V>
         <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const int32_t*>(idx), static_cast<const TV*>(val),
-            static_cast<const TX*>(x), static_cast<TX*>(y), n, k, m, ldx,
-            ys_row, ys_col, g_log2, vec_entries);
+            static_cast<const TX*>(x), static_cast<TX*>(y), w);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TV, typename TX, typename TA>
+}  // namespace prev
+
+using Launch = int (*)(const void*, const void*, const void*, void*,
+                       int64_t, int64_t, int64_t, int64_t, int64_t, int64_t,
+                       int, void*);
+
+// Either design (kPrev: the previous one) at V values a lane: 16 bytes
+// where the operand's rows allow, else one.
+template <bool kPrev, typename TV, typename TX, typename TA>
 int launch(const void* idx, const void* val, const void* x, void* y,
            int64_t n, int64_t k, int64_t m, int64_t ldx, int64_t ys_row,
            int64_t ys_col, int device, void* stream) {
@@ -262,26 +467,56 @@ int launch(const void* idx, const void* val, const void* x, void* y,
     if (err != cudaSuccess) return static_cast<int>(err);
     if (n <= 0 || m <= 0) return static_cast<int>(cudaSuccess);
     constexpr int kVec = 16 / static_cast<int>(sizeof(TX));
-    const bool wide = m % kVec == 0
-        && (ldx * static_cast<int64_t>(sizeof(TX))) % 16 == 0
-        && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    if (wide) {
-        return launch_v<TV, TX, TA, kVec>(idx, val, x, y, n, k, m, ldx,
-                                          ys_row, ys_col, stream);
+    Launch go;
+    if (wide_operand<TX>(x, m, ldx)) {
+        go = kPrev ? prev::launch_v<TV, TX, TA, kVec>
+                   : launch_v<TV, TX, TA, kVec>;
+    } else {
+        go = kPrev ? prev::launch_v<TV, TX, TA, 1> : launch_v<TV, TX, TA, 1>;
     }
-    return launch_v<TV, TX, TA, 1>(idx, val, x, y, n, k, m, ldx, ys_row,
-                                   ys_col, stream);
+    return go(idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
+}
+
+// out: registers a thread, resident blocks an SM, threads a block, local
+// (spill) bytes a thread, for an operand of m columns that are whole
+// 16-byte vectors when m allows.
+template <typename TV, typename TX, typename TA>
+cudaError_t occupancy(bool prev_design, int64_t m, int device, int64_t* out) {
+    constexpr int kVec = 16 / static_cast<int>(sizeof(TX));
+    const bool wide = m % kVec == 0;
+    const void* fn = prev_design
+        ? (wide ? reinterpret_cast<const void*>(
+                      prev::ell_rows_kernel<TV, TX, TA, kVec>)
+                : reinterpret_cast<const void*>(
+                      prev::ell_rows_kernel<TV, TX, TA, 1>))
+        : (wide ? reinterpret_cast<const void*>(
+                      ell_rows_kernel<TV, TX, TA, kVec>)
+                : reinterpret_cast<const void*>(
+                      ell_rows_kernel<TV, TX, TA, 1>));
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0, sms = 0;
+    err = fit(fn, device, &per_sm, &sms);
+    if (err != cudaSuccess) return err;
+    out[0] = attr.numRegs;
+    out[1] = per_sm;
+    out[2] = kThreads;
+    out[3] = static_cast<int64_t>(attr.localSizeBytes);
+    return cudaSuccess;
 }
 
 }  // namespace
 
-// entry points: ell_spmm_<value type>_<operand type>
+// entry points: ell_spmm_<value type>_<operand type>, and the previous
+// design's ell_spmm_prev_<value type>_<operand type>
 extern "C" int ell_spmm_f32_f32(const void* idx, const void* val,
-                                const void* x, void* y, int64_t n, int64_t k,
-                                int64_t m, int64_t ldx, int64_t ys_row,
-                                int64_t ys_col, int device, void* stream) {
-    return launch<float, float, float>(idx, val, x, y, n, k, m, ldx, ys_row,
-                                       ys_col, device, stream);
+                                const void* x, void* y, int64_t n,
+                                int64_t k, int64_t m, int64_t ldx,
+                                int64_t ys_row, int64_t ys_col, int device,
+                                void* stream) {
+    return launch<false, float, float, float>(
+        idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
 }
 
 extern "C" int ell_spmm_f32_bf16(const void* idx, const void* val,
@@ -289,23 +524,87 @@ extern "C" int ell_spmm_f32_bf16(const void* idx, const void* val,
                                  int64_t k, int64_t m, int64_t ldx,
                                  int64_t ys_row, int64_t ys_col, int device,
                                  void* stream) {
-    return launch<float, __nv_bfloat16, float>(idx, val, x, y, n, k, m, ldx,
-                                               ys_row, ys_col, device,
-                                               stream);
+    return launch<false, float, __nv_bfloat16, float>(
+        idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
 }
 
 extern "C" int ell_spmm_f32_f64(const void* idx, const void* val,
-                                const void* x, void* y, int64_t n, int64_t k,
-                                int64_t m, int64_t ldx, int64_t ys_row,
-                                int64_t ys_col, int device, void* stream) {
-    return launch<float, double, double>(idx, val, x, y, n, k, m, ldx,
-                                         ys_row, ys_col, device, stream);
+                                const void* x, void* y, int64_t n,
+                                int64_t k, int64_t m, int64_t ldx,
+                                int64_t ys_row, int64_t ys_col, int device,
+                                void* stream) {
+    return launch<false, float, double, double>(
+        idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
 }
 
 extern "C" int ell_spmm_f64_f64(const void* idx, const void* val,
-                                const void* x, void* y, int64_t n, int64_t k,
-                                int64_t m, int64_t ldx, int64_t ys_row,
-                                int64_t ys_col, int device, void* stream) {
-    return launch<double, double, double>(idx, val, x, y, n, k, m, ldx,
-                                          ys_row, ys_col, device, stream);
+                                const void* x, void* y, int64_t n,
+                                int64_t k, int64_t m, int64_t ldx,
+                                int64_t ys_row, int64_t ys_col, int device,
+                                void* stream) {
+    return launch<false, double, double, double>(
+        idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
+}
+
+extern "C" int ell_spmm_prev_f32_f32(const void* idx, const void* val,
+                                     const void* x, void* y, int64_t n,
+                                     int64_t k, int64_t m, int64_t ldx,
+                                     int64_t ys_row, int64_t ys_col,
+                                     int device, void* stream) {
+    return launch<true, float, float, float>(
+        idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
+}
+
+extern "C" int ell_spmm_prev_f32_bf16(const void* idx, const void* val,
+                                      const void* x, void* y, int64_t n,
+                                      int64_t k, int64_t m, int64_t ldx,
+                                      int64_t ys_row, int64_t ys_col,
+                                      int device, void* stream) {
+    return launch<true, float, __nv_bfloat16, float>(
+        idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
+}
+
+extern "C" int ell_spmm_prev_f32_f64(const void* idx, const void* val,
+                                     const void* x, void* y, int64_t n,
+                                     int64_t k, int64_t m, int64_t ldx,
+                                     int64_t ys_row, int64_t ys_col,
+                                     int device, void* stream) {
+    return launch<true, float, double, double>(
+        idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
+}
+
+extern "C" int ell_spmm_prev_f64_f64(const void* idx, const void* val,
+                                     const void* x, void* y, int64_t n,
+                                     int64_t k, int64_t m, int64_t ldx,
+                                     int64_t ys_row, int64_t ys_col,
+                                     int device, void* stream) {
+    return launch<true, double, double, double>(
+        idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
+}
+
+// design: 0 the previous design, 1 the kernel on the path; pair: 0 f32_f32,
+// 1 f32_bf16, 2 f32_f64, 3 f64_f64.  Fills out[4] as ``occupancy`` says;
+// nothing is launched.
+extern "C" int ell_spmm_occupancy(int design, int pair, int64_t m,
+                                  int device, int64_t* out) {
+    cudaError_t err = use_device(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (m <= 0 || design < 0 || design > 1) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const bool p = design == 0;
+    switch (pair) {
+        case 0: err = occupancy<float, float, float>(p, m, device, out); break;
+        case 1:
+            err = occupancy<float, __nv_bfloat16, float>(p, m, device, out);
+            break;
+        case 2:
+            err = occupancy<float, double, double>(p, m, device, out);
+            break;
+        case 3:
+            err = occupancy<double, double, double>(p, m, device, out);
+            break;
+        default: err = cudaErrorInvalidValue;
+    }
+    return static_cast<int>(err);
 }

@@ -69,9 +69,14 @@ _PIPELINED_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
 # the same with the chunk counter before the device
 _DRAWN_ARGS = _PIPELINED_ARGS[:6] + [ctypes.c_void_p] + _PIPELINED_ARGS[6:]
 # idx, val, x, y; n, K, m, row stride of x, y's row and column strides;
-# device; stream
+# device; stream (the previous design's entries take the same)
 _ELL_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6
              + [ctypes.c_int, ctypes.c_void_p])
+# design, instantiation, m, device, host int64[4]
+_ELL_OCCUPANCY_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                       ctypes.c_int, ctypes.c_void_p]
+_ELL_PAIRS = (('f32', 'f32'), ('f32', 'bf16'), ('f32', 'f64'),
+              ('f64', 'f64'))
 # (tile, operand) types of the BSR kernel's entries, and of its previous
 # design's
 _BSR_PAIRS = [(b, x) for b in ('f32', 'bf16') for x in ('f32', 'bf16')] \
@@ -81,6 +86,9 @@ _SIGNATURES = {
                  'dia_spmm_rows_bf16': _DIA_ARGS,
                  'dia_spmm_rows_f64_val32': _DIA_ARGS,
                  'dia_spmm_rows_f64_val64': _DIA_ARGS,
+                 'dia_spmm_rows_c128_val32': _DIA_ARGS,
+                 'dia_spmm_rows_c128_val64': _DIA_ARGS,
+                 'dia_spmm_rows_c128_val128': _DIA_ARGS,
                  'dia_spmm_rows_prev_f32': _DIA_ARGS,
                  'dia_spmm_rows_prev_bf16': _DIA_ARGS},
     'dia_spmm_ext': {'dia_spmm_rows_ext_f32': _EXT_ARGS,
@@ -100,9 +108,10 @@ _SIGNATURES = {
                        'dia_spmm_rows_tiles_prev_f32': _WINDOW_ARGS},
     'bsr_spmm': {'bsr_spmm_rows_%s%s_%s' % (prev, b, x): _BSR_ARGS
                  for prev in ('', 'prev_') for b, x in _BSR_PAIRS},
-    'ell_spmm': {'ell_spmm_%s_%s' % pair: _ELL_ARGS
-                 for pair in (('f32', 'f32'), ('f32', 'bf16'), ('f32', 'f64'),
-                              ('f64', 'f64'))},
+    'ell_spmm': dict(
+        {'ell_spmm_%s%s_%s' % ((prev,) + pair): _ELL_ARGS
+         for prev in ('', 'prev_') for pair in _ELL_PAIRS},
+        ell_spmm_occupancy=_ELL_OCCUPANCY_ARGS),
     'stream_scale': {'stream_scale_f32': _STREAM_ARGS,
                      'stream_scale_prev_f32': _STREAM_ARGS},
     'stream_probes': {

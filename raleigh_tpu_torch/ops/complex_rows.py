@@ -9,8 +9,10 @@ one with Ai's:
 
     x A = (xr Ar - xi Ai) + i (xr Ai + xi Ar).
 
-The kernels' wrappers use this on the card; their plain versions take
-complex tensors directly.  Products and sums are the real kernels'; the
+The kernels' wrappers use this on the card (the DIA kernel for c64
+blocks and real operands only: a c128 block has an instantiation of its
+own, ``csrc/dia_spmm.cu``); their plain versions take complex tensors
+directly.  Products and sums are the real kernels'; the
 sum of the two launches' halves is one more rounding for each entry of a
 complex-valued matrix's result.
 """

@@ -17,7 +17,13 @@ f64, the f64 instantiation) or raises; only a CPU tensor takes the plain
 version.  The kernel keeps the plain version's products and order of
 sums, so the two are equal bit for bit.  ``dia_matmat_rows_prev``
 launches the kernel's previous design from the same source, to be timed
-beside it.
+beside it.  A c128 operand with f32, f64 or c128 values goes through the
+kernel's complex instantiation, one launch that reads the interleaved
+complex storage directly (the products and sums in f64 by fused
+multiply-adds, within a few units of the last place of the plain
+version's); c64 blocks and real operands with complex values take the
+stacked route of ``ops/complex_rows.py`` (``dia_matmat_rows_complex_prev``,
+which c128 blocks took before the complex instantiation).
 
 Two more kernels compute the same function for f32 operands, each through
 an explicitly staged shared-memory window that reads x from device memory
@@ -70,11 +76,14 @@ from .complex_rows import complex_parts, complex_rows, result_dtype
 # and the previous designs of the production kernel per operand dtype and
 # of the two staged-window kernels.  The launches that apply a complex
 # operand or complex values (``ops/complex_rows.py``) count under keys of
-# their own, ``complex_`` and ``mesh_complex_`` before the real route's.
+# their own, ``complex_`` and ``mesh_complex_`` before the real route's,
+# and those of the complex instantiation under ``complex128_val32``,
+# ``_val64`` and ``_val128``, by the values' dtype.
 _ROUTES = ('float32', 'float64_val32', 'float64_val64')
 LAUNCHES = dict(
     {'float32': 0, 'bfloat16': 0, 'float64_val32': 0,
-     'float64_val64': 0, 'slide': 0, 'tiles': 0,
+     'float64_val64': 0, 'complex128_val32': 0, 'complex128_val64': 0,
+     'complex128_val128': 0, 'slide': 0, 'tiles': 0,
      'ext_float32': 0, 'ext_bfloat16': 0, 'ext_float64_val32': 0,
      'ext_float64_val64': 0, 'mesh_float32': 0, 'mesh_bfloat16': 0,
      'mesh_float64_val32': 0, 'mesh_float64_val64': 0,
@@ -107,6 +116,11 @@ _ENTRY = {torch.float32: ('float32', 'dia_spmm_rows_f32'),
                                            'dia_spmm_rows_f64_val32'),
           (torch.float64, torch.float64): ('float64_val64',
                                            'dia_spmm_rows_f64_val64')}
+# the complex instantiation (c128 operand), by the values' dtype
+_COMPLEX_ENTRY = {
+    torch.float32: ('complex128_val32', 'dia_spmm_rows_c128_val32'),
+    torch.float64: ('complex128_val64', 'dia_spmm_rows_c128_val64'),
+    torch.complex128: ('complex128_val128', 'dia_spmm_rows_c128_val128')}
 _PREV_ENTRY = {torch.float32: ('prev_float32', 'dia_spmm_rows_prev_f32'),
                torch.bfloat16: ('prev_bfloat16', 'dia_spmm_rows_prev_bf16')}
 _EXT_ENTRY = {torch.float32: ('ext_float32', 'dia_spmm_rows_ext_f32'),
@@ -185,15 +199,62 @@ def _check(val, x, offsets, f64=False):
 def dia_matmat_rows(val, x, offsets):
     """(m, n) = DIA matrix applied to the (m, n) row block ``x``, in x's
     dtype.  CUDA tensors go through the kernel, CPU tensors through
-    ``dia_matmat_rows_plain``.  A complex operand goes through the kernel
-    as one real block of its real and imaginary rows, complex values as
-    two launches, one with their real and one with their imaginary parts
-    (``ops/complex_rows.py``), counted under the ``complex_`` keys."""
-    if x.device.type == 'cuda' and (x.is_complex() or val.is_complex()):
-        return complex_rows(
-            lambda v, s: _dia_rows(_ENTRY, v, s, offsets, 'complex_'),
-            val, x)
+    ``dia_matmat_rows_plain``.  A c128 operand goes through the kernel's
+    complex instantiation (f32, f64 or c128 values; one launch, counted
+    under ``complex128_val32`` / ``_val64`` / ``_val128``), other complex
+    blocks through ``dia_matmat_rows_complex_prev``."""
+    if x.device.type != 'cpu' and (
+            x.dtype == torch.complex128
+            or (val.dtype == torch.complex128 and x.is_complex())):
+        return _dia_rows_complex(val, x, offsets)
+    if x.device.type != 'cpu' and (x.is_complex() or val.is_complex()):
+        return dia_matmat_rows_complex_prev(val, x, offsets)
     return _dia_rows(_ENTRY, val, x, offsets)
+
+
+def dia_matmat_rows_complex_prev(val, x, offsets):
+    """The stacked route of a complex block (``ops/complex_rows.py``): a
+    complex operand as one real block of its real and imaginary rows
+    through the real kernel, complex values as two launches, one with their
+    real and one with their imaginary parts, counted under the ``complex_``
+    keys.  c64 blocks and real operands with complex values take it; c128
+    blocks took it before the complex instantiation, and it stays callable
+    so that the two can be timed in turns on one card."""
+    if x.device.type == 'cpu':
+        return dia_matmat_rows_plain(val, x, offsets)
+    return complex_rows(
+        lambda v, s: _dia_rows(_ENTRY, v, s, offsets, 'complex_'), val, x)
+
+
+def _check_complex(val, x, offsets):
+    """Raise on what the complex instantiation does not take, and on a
+    device that is not a card."""
+    if not (val.device == x.device == offsets.device):
+        raise ValueError('val, x and offsets must share a device (got %s, '
+                         '%s, %s)' % (val.device, x.device, offsets.device))
+    if x.dtype != torch.complex128 or val.dtype not in _COMPLEX_ENTRY:
+        raise TypeError('the complex DIA kernel takes a c128 operand with '
+                        'f32, f64 or c128 values, not %s values with a %s '
+                        'operand' % (val.dtype, x.dtype))
+    if offsets.dtype != torch.int32:
+        raise TypeError('the DIA kernel takes int32 offsets (got %s)'
+                        % offsets.dtype)
+    if (val.dim() != 2 or x.dim() != 2 or offsets.dim() != 1
+            or val.shape[1] != x.shape[1]
+            or offsets.shape[0] != val.shape[0]):
+        raise ValueError('shape mismatch: val %s, x %s, offsets %s'
+                         % (tuple(val.shape), tuple(x.shape),
+                            tuple(offsets.shape)))
+    if not (val.is_contiguous() and x.is_contiguous()
+            and offsets.is_contiguous()):
+        raise ValueError('the DIA kernel takes contiguous tensors')
+    if x.device.type != 'cuda':
+        raise ValueError('no DIA apply for device %s' % x.device)
+
+
+def _dia_rows_complex(val, x, offsets):
+    _check_complex(val, x, offsets)
+    return _launch(*_COMPLEX_ENTRY[val.dtype], val, x, offsets)
 
 
 def dia_matmat_rows_prev(val, x, offsets):
@@ -210,18 +271,25 @@ def _dia_rows(entries, val, x, offsets, tag=''):
     if x.device.type != 'cuda':
         raise ValueError('no DIA apply for device %s' % x.device)
     _check(val, x, offsets, f64=entries is _ENTRY)
+    key, entry = entries[_entry_key(x.dtype, val.dtype)]
+    return _launch(tag + key, entry, val, x, offsets)
+
+
+def _launch(key, entry, val, x, offsets):
+    """One launch of the C entry ``entry`` on checked CUDA tensors, counted
+    under ``LAUNCHES[key]``."""
     y = torch.empty_like(x)
     m, n = x.shape
     if m == 0 or n == 0:
         return y
-    key, entry = entries[_entry_key(x.dtype, val.dtype)]
-    fn = getattr(_build.library(), entry)
     index = x.get_device()
-    err = fn(val.data_ptr(), x.data_ptr(), y.data_ptr(), offsets.data_ptr(),
-             val.shape[0], m, n, index, _build.current_stream(index))
+    err = getattr(_build.library(), entry)(
+        val.data_ptr(), x.data_ptr(), y.data_ptr(), offsets.data_ptr(),
+        val.shape[0], m, n, index, _build.current_stream(index))
     if err != 0:
-        raise RuntimeError('DIA kernel launch failed: CUDA error %d' % err)
-    LAUNCHES[tag + key] += 1
+        raise RuntimeError('DIA kernel launch failed (%s): CUDA error %d'
+                           % (entry, err))
+    LAUNCHES[key] += 1
     return y
 
 
