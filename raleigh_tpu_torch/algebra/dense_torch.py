@@ -40,6 +40,10 @@ Design:
     do not wait for the card.  Nothing here calls
     ``torch.cuda.synchronize``.
 
+  * Spans (``utils/profiling.py``).  Under a profiler each contract
+    operation that issues device work is a ``raleigh.dense.<name>`` span,
+    and each transfer to the host a ``raleigh.sync`` span inside it.
+
 Randomness: ``fill_random`` draws on the host with NumPy's global generator
 (uniform in [-1, 1)) and uploads — bit-identical to dense_numpy and
 dense_jax after ``numpy.random.seed``.
@@ -66,6 +70,7 @@ import torch
 
 from ..ops.spmm import storage_device
 from ..parallel.mesh import ShardedRows, _to
+from ..utils.profiling import span, spanned
 from .dense_numpy import _hadamard_like_fill
 
 # device->host transfers and host->device uploads since the last reset
@@ -106,7 +111,8 @@ def _host(t):
     if isinstance(t, ShardedRows):
         t = t.gather()
     COUNTS['to_host'] += 1
-    return t.detach().to('cpu', copy=True).numpy()
+    with span('raleigh.sync'):
+        return t.detach().to('cpu', copy=True).numpy()
 
 
 def _upload(a, dtype, device):
@@ -185,6 +191,7 @@ def _copy_into(dst, src):
     dst.copy_(src)
 
 
+@spanned('raleigh.dense.fetch')
 def fetch(*arrays):
     """Several small results (tensors, host arrays or None) on the host in
     one transfer: the tensors of one device are widened to a common type,
@@ -237,6 +244,7 @@ def stage_coeff(a, rows=None, cols=None):
     return _Staged(a)
 
 
+@spanned('raleigh.dense.combine')
 def combine(a, b):
     """Small-matrix product a @ b on b's device; ``a`` may be a host
     matrix, a staged one or a kept tensor.  b is cast to a's type, as in
@@ -249,12 +257,14 @@ def combine(a, b):
     return torch.matmul(a, b.to(a.dtype))
 
 
+@spanned('raleigh.dense.rootabs')
 def rootabs(a):
     if isinstance(a, torch.Tensor):
         return torch.sqrt(torch.abs(a.real if a.is_complex() else a))
     return np.sqrt(np.abs(np.asarray(a).real))
 
 
+@spanned('raleigh.dense.diag_ratio')
 def diag_ratio(a, b):
     """re(diag(a) / diag(b)), zero where diag(b) is exactly zero, without
     leaving the device: the core solver forms residuals with these
@@ -271,6 +281,7 @@ def diag_ratio(a, b):
     return torch.where(zero, torch.zeros_like(r), r)
 
 
+@spanned('raleigh.dense.conjugation_beta')
 def conjugation_beta(zay, zby, lmd_y, lmdz, sy, sz, dtype):
     """Jacobi-conjugation coefficients with the overflow guard, on the
     device when the Gram blocks were kept there (reference
@@ -384,9 +395,11 @@ class Vectors:
     def is_complex(self):
         return self._array.is_complex()
 
+    @spanned('raleigh.dense.all_data')
     def all_data(self):
         return _host(self._array[:self._nvec])
 
+    @spanned('raleigh.dense.data')
     def data(self, i=None):
         host = _host(self.device_data())
         return host if i is None else host[i]
@@ -396,6 +409,7 @@ class Vectors:
         f, k = self._sel
         return self._array[f:f + k]
 
+    @spanned('raleigh.dense.new_vectors')
     def new_vectors(self, arg=0, dim=None):
         if isinstance(arg, (np.ndarray, torch.Tensor)):
             if isinstance(arg, np.ndarray):
@@ -413,12 +427,14 @@ class Vectors:
         return Vectors(dim, arg, self.data_type(), compensated=self._comp,
                        device=self._array.device, sharding=self._sharding)
 
+    @spanned('raleigh.dense.clone')
     def clone(self):
         return Vectors(self)
 
     def reference(self):
         return Vectors(self, shallow=True)
 
+    @spanned('raleigh.dense.append')
     def append(self, other, axis=0):
         if axis == 0:
             mine = self._array[:self._nvec] if self._sel == (0, self._nvec) \
@@ -450,9 +466,11 @@ class Vectors:
 
     # ---- fills ----------------------------------------------------------
 
+    @spanned('raleigh.dense.zero')
     def zero(self):
         self.device_data().zero_()
 
+    @spanned('raleigh.dense.fill')
     def fill(self, value):
         w = self.device_data()
         if isinstance(value, numbers.Number):
@@ -470,6 +488,7 @@ class Vectors:
             v = v.broadcast_to(w.shape)
         _copy_into(w, v.to(w.dtype))
 
+    @spanned('raleigh.dense.fill_random')
     def fill_random(self):
         k = self.nvec()
         rows = np.zeros((k, self.dimension()), dtype=self.data_type())
@@ -477,6 +496,7 @@ class Vectors:
         self.device_data().copy_(_upload(rows, self._array.dtype,
                                          self._array.device))
 
+    @spanned('raleigh.dense.fill_orthogonal')
     def fill_orthogonal(self):
         k = self.nvec()
         a = np.zeros((k, self.dimension()), dtype=self.data_type())
@@ -507,6 +527,7 @@ class Vectors:
             return q.to(self._array.device, self._array.dtype)
         return _upload(np.asarray(q), self._array.dtype, self._array.device)
 
+    @spanned('raleigh.dense.copy')
     def copy(self, other, ind=None):
         if ind is None:
             assert self.nvec() == other.nvec()
@@ -526,6 +547,7 @@ class Vectors:
             dst = other._window(other._sel[0], k)
             dst.copy_(_as_layout(rows, dst))
 
+    @spanned('raleigh.dense.scale')
     def scale(self, s, multiply=False):
         w = self.device_data()
         c = self._coef(s, w.shape[0])
@@ -550,6 +572,7 @@ class Vectors:
             b = b.to(_WIDE[b.dtype])
         return a, b
 
+    @spanned('raleigh.dense.dots')
     def dots(self, other, transp=False, keep=False):
         k = self.nvec()
         a, b = self._pair(other, k, keep)
@@ -567,12 +590,14 @@ class Vectors:
             r = torch.cat([_to(p, a.device) for p in partials])
         return r if keep else _host(r)
 
+    @spanned('raleigh.dense.dot')
     def dot(self, other, keep=False):
         a, b = self._pair(other, other.nvec(), keep)
         r = _summed(a, [torch.matmul(_cj(q), p.T)
                         for p, q in zip(_parts(a), _parts(b))])
         return r if keep else _host(r)
 
+    @spanned('raleigh.dense.multiply')
     def multiply(self, q, output):
         assert output.nvec() == q.shape[1]
         qt = self._matrix(q)
@@ -587,6 +612,7 @@ class Vectors:
             else:
                 torch.matmul(qs.T, s, out=d)
 
+    @spanned('raleigh.dense.add')
     def add(self, other, s, q=None):
         w = self.device_data()
         o = _as_layout(other.device_data(), w)
@@ -607,6 +633,7 @@ class Vectors:
 
     # ---- backend extras -------------------------------------------------
 
+    @spanned('raleigh.dense.orthogonalize')
     def orthogonalize(self, other):
         ws = self.device_data()
         wo = _as_layout(other.device_data(), ws).to(ws.dtype)
@@ -616,6 +643,7 @@ class Vectors:
             ps.sub_(torch.matmul(_to(q, po.device).T, po))
         return self.new_vectors(_host(q))
 
+    @spanned('raleigh.dense.svd')
     def svd(self):
         """Economy SVD of the selected block: storage rows become the right
         singular vectors V^H, returns (sigma, conj(U)).  Gram matrix on the
@@ -658,6 +686,7 @@ class Vectors:
         u = u.astype(dt)
         return sigma.astype(real), (u.conj() if np.iscomplexobj(u) else u)
 
+    @spanned('raleigh.dense.apply')
     def apply(self, A, output, transp=False):
         A.apply(self, output, transp=transp)
 
@@ -690,6 +719,7 @@ class Matrix:
         else:
             raise ValueError('cannot build Matrix from %r' % type(arg))
 
+    @spanned('raleigh.dense.data')
     def data(self):
         return _host(self._data)
 
@@ -708,6 +738,7 @@ class Matrix:
     def order(self):
         return 'C_CONTIGUOUS'
 
+    @spanned('raleigh.dense.apply')
     def apply(self, x, y, transp=False):
         kx = x.nvec()
         assert y.nvec() == kx
@@ -738,6 +769,7 @@ class Matrix:
                                                     xs.parts)])
         _copy_into(y._window(f, kx), w)
 
+    @spanned('raleigh.dense.dots')
     def dots(self):
         v = Vectors(self, shallow=True)
         return v.dots(v)

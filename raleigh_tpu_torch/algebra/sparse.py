@@ -24,6 +24,7 @@ from ..ops.spmm import (_device_layout, _to_full_csr, rows_matmat_operands,
                         storage_device, torch_dtype)
 from ..parallel.mesh import ShardedRows
 from ..utils import verbosity
+from ..utils.profiling import span, spanned
 
 
 def _vec_data(x):
@@ -354,7 +355,13 @@ class Chebyshev:
         bytes.  ``None`` = auto: on when the matrix is DIA, the outer
         iteration is f32 and the recurrence's working set exceeds the
         device matrix's ``WINDOW_HBM_BYTES``; ELL and BSR matrices stream
-        bf16 only when asked."""
+        bf16 only when asked.  Each call of ``fn`` is one
+        ``raleigh.chebyshev`` span."""
+        fn, ops = self._recurrence(m, n, dtype, stream_bf16)
+        return spanned('raleigh.chebyshev')(fn), ops
+
+    def _recurrence(self, m, n=None, dtype=None, stream_bf16=None):
+        """``device_rows_operands`` outside a span."""
         dev = self.device_matrix()
         if n is None:
             n = dev.shape[0]
@@ -400,7 +407,7 @@ class Chebyshev:
         """The recurrence as a plain (m, n) -> (m, n) callable, iterating
         in the operand's dtype."""
         def run(x):
-            fn, ops = self.device_rows_operands(*x.shape, stream_bf16=False)
+            fn, ops = self._recurrence(*x.shape, stream_bf16=False)
             return fn(ops, x)
         return run
 
@@ -409,12 +416,15 @@ class Chebyshev:
         the device, in the operand's dtype, for a tensor or a
         ``dense_torch`` block (a sharded block shard by shard on a matrix
         split over its mesh, else gathered); on the host CSR for an
-        ndarray or a host block."""
+        ndarray or a host block.  A device apply, the recurrence's operands
+        included, is one ``raleigh.chebyshev`` span."""
         if isinstance(x, torch.Tensor):
-            y.copy_(self._device_fused_rows()(x))
+            with span('raleigh.chebyshev'):
+                y.copy_(self._device_fused_rows()(x))
             return
         if self.device_matrix() is not None and hasattr(x, 'device_data'):
-            y.fill(self._device_fused_rows()(x.device_data()))
+            with span('raleigh.chebyshev'):
+                y.fill(self._device_fused_rows()(x.device_data()))
             return
         theta = 0.5 * (self.hi + self.lo)
         delta = 0.5 * (self.hi - self.lo)

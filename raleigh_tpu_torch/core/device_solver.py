@@ -32,6 +32,7 @@ import torch
 from ..ops.spmm import (DiaMatrix, EllMatrix, storage_device,
                         torch_dtype)
 from ..parallel.mesh import ShardedRows, Sharding
+from ..utils.profiling import span, spanned
 
 
 def _gram(a, b):
@@ -95,7 +96,9 @@ def _eigh_small(h):
     f64, so f32 iterations resolve eigenvalue clusters that an all-f32
     Ritz step cannot."""
     wide = torch.complex128 if h.is_complex() else torch.float64
-    w, v = torch.linalg.eigh(h.to(wide))
+    hw = h.to(wide)
+    with span('raleigh.lobpcg.eigh'):
+        w, v = torch.linalg.eigh(hw)
     return w.to(h.real.dtype), v.to(h.dtype)
 
 
@@ -129,7 +132,8 @@ def _whiten_pair(block, bblock, eps_rel, sqrt_eps, dead0=None):
     Returns (whitened block, whitened B-image, dead mask (m,))."""
     g = _gram(block, bblock)
     g = 0.5 * (g + g.conj().transpose(0, 1))
-    w, v = torch.linalg.eigh(g)            # ascending, w >= 0 up to noise
+    with span('raleigh.lobpcg.eigh'):
+        w, v = torch.linalg.eigh(g)        # ascending, w >= 0 up to noise
     wmax = torch.clamp(w[-1], min=0.0)
     dead_g = w <= wmax * eps_rel
     inv = torch.where(dead_g, 0.0,
@@ -230,6 +234,13 @@ def _rows_matmat(op, sharding=None):
     return apply_rows
 
 
+def _host(t):
+    """The tensor ``t`` as a host array: one transfer, which waits for the
+    card, in a ``raleigh.sync`` span."""
+    with span('raleigh.sync'):
+        return t.cpu().numpy()
+
+
 def default_block(k, n):
     """Default iteration block for ``k`` wanted pairs: k plus slack,
     rounded up to a multiple of 8 (kept from the JAX package, so both
@@ -238,6 +249,7 @@ def default_block(k, n):
     return min(n, -(-m // 8) * 8)
 
 
+@spanned('raleigh.lobpcg')
 def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
            tol=1e-4, maxit=500, chunk=16, largest=False, x0=None,
            constraints=None, seed=1, dtype=torch.float32, verb=0,
@@ -285,6 +297,11 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
     Returns (lmd (k,), x (n, k), resid (k,), niter, status) as NumPy
     arrays, status 0 = converged, 2 = iteration limit, 3 = no search
     directions (reference core/solver.py:305-331).
+
+    Under a profiler the call is a ``raleigh.lobpcg`` span, each
+    iteration a ``raleigh.lobpcg.step`` span, each ``eigh`` a
+    ``raleigh.lobpcg.eigh`` span and each transfer to the host a
+    ``raleigh.sync`` span (``utils/profiling.py``).
     """
     if sharding is not None and not isinstance(sharding, Sharding):
         raise TypeError('lobpcg needs a parallel.mesh.Sharding for its '
@@ -421,7 +438,8 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
 
     def run_chunk(state, iters):
         for _ in range(iters):
-            state = step(*state)
+            with span('raleigh.lobpcg.step'):
+                state = step(*state)
         x, ax, bx, p, ap, bp, anorm = state
         # chunk exit: re-deflate and refresh the images so the host's
         # convergence decision sees trustworthy residuals
@@ -458,7 +476,7 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
     ap = _zeros_like(x)
     bp = p if opB is None else _zeros_like(x)
     anorm = torch.zeros((), dtype=real, device=device)
-    lam_h, resid_h = lam0.cpu().numpy(), r0.cpu().numpy()
+    lam_h, resid_h = _host(lam0), _host(r0)
     anorm_h = float(np.max(np.abs(lam_h)))
 
     state = (x, ax, bx, p, ap, bp, anorm)
@@ -471,9 +489,9 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
         iters = min(chunk, maxit - niter)
         new_state, lam, resid = run_chunk(state, iters)
         niter += iters
-        lam_t = lam.cpu().numpy()
-        resid_t = resid.cpu().numpy()
-        anorm_t = float(new_state[-1])
+        lam_t = _host(lam)
+        resid_t = _host(resid)
+        anorm_t = float(_host(new_state[-1]))
         if not (np.all(np.isfinite(lam_t)) and np.all(np.isfinite(resid_t))):
             # post-convergence noise blocks can degenerate when the caller
             # over-iterates far past the engine's accuracy floor: roll back
@@ -514,5 +532,5 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
     x = state[0][:k]
     if sharding is not None:
         x = x.gather()
-    return (np.asarray(lam_h[:k]), x.transpose(0, 1).cpu().numpy(),
+    return (np.asarray(lam_h[:k]), _host(x.transpose(0, 1)),
             np.asarray(resid_h[:k]), niter, status)

@@ -33,12 +33,14 @@ from ..core.device_solver import default_block, lobpcg
 from ..core.solver import (DefaultConvergenceCriteria, Options, Problem,
                            Solver)
 from ..ops.spmm import canonical_dtype, rows_matmat_operands
+from ..utils.profiling import span, spanned
 
 # the operators partial_hevp built, by (id of the matrix, device, value
 # dtype): each entry holds a weak reference to its matrix and goes with it
 _OPERATORS = {}
 
 
+@spanned('raleigh.partial_hevp')
 def partial_hevp(A, B=None, T=None, buckling=False, sigma=0, which=6,
                  tol=1e-4, verb=0, opt=None, arch=None, engine='auto',
                  device=None):
@@ -62,6 +64,10 @@ def partial_hevp(A, B=None, T=None, buckling=False, sigma=0, which=6,
 
     Returns (lmd, x, status): status 0 = converged, -1 = factorization
     too inaccurate (``(None, None, -1)``), other values as the Solver's.
+
+    Under a profiler the call is a ``raleigh.partial_hevp`` span, and the
+    core Solver's solve inside it a ``raleigh.core_solver`` span
+    (``utils/profiling.py``).
     """
     if opt is None:
         opt = Options()
@@ -221,7 +227,8 @@ def partial_hevp(A, B=None, T=None, buckling=False, sigma=0, which=6,
     opt.sigma = sigma_opt
 
     start = time.time()
-    status = evp_solver.solve(eigenvectors, opt, which=which)
+    with span('raleigh.core_solver'):
+        status = evp_solver.solve(eigenvectors, opt, which=which)
     if status < 0:
         return None, None, status
     solve_time = time.time() - start

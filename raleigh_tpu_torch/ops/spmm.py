@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import ShardedRows
+from ..utils.profiling import spanned
 from . import _build
 from .complex_rows import complex_rows, result_dtype
 from .spmm_pallas import bsr_matmat_rows
@@ -420,6 +421,7 @@ def _ell_check(idx, val, xt):
         raise ValueError('no ELL apply for device %s' % xt.device)
 
 
+@spanned('raleigh.spmm')
 def _ell_matmat(idx, val, xt, rows=False, tag=()):
     """(n, m) = A @ xt: y[i, :] = sum_k val[i, k] * xt[idx[i, k], :] for
     ELL arrays ``idx`` (n, K) int32 and ``val`` (n, K) and an (n_x, m)
@@ -429,14 +431,19 @@ def _ell_matmat(idx, val, xt, rows=False, tag=()):
     values).  CUDA tensors go through the kernel (``csrc/ell_spmm.cu``)
     or raise, CPU tensors through ``_ell_matmat_plain``; complex operands
     or values through the real kernel (``ops/complex_rows.py``), their
-    launches counted under ``tag``."""
+    launches counted under ``tag``.  One ``raleigh.spmm`` span a call."""
+    return _ell_apply(idx, val, xt, rows, tag)
+
+
+def _ell_apply(idx, val, xt, rows, tag):
+    """``_ell_matmat`` outside a span."""
     if xt.device.type == 'cpu':
         y = _ell_matmat_plain(idx, val, xt)
         return y.T.contiguous() if rows else y
     if xt.is_complex() or val.is_complex():
         y = complex_rows(
-            lambda v, s: _ell_matmat(idx, v, s.T.contiguous(), True,
-                                     ('complex',)), val, xt.T)
+            lambda v, s: _ell_apply(idx, v, s.T.contiguous(), True,
+                                    ('complex',)), val, xt.T)
         return y if rows else y.T.contiguous()
     _ell_check(idx, val, xt)
     key = (_ELL_NAMES[val.dtype], _ELL_NAMES[xt.dtype])

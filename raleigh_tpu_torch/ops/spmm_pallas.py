@@ -31,6 +31,7 @@ it.
 
 import torch
 
+from ..utils.profiling import spanned
 from . import _build
 from .complex_rows import complex_rows, result_dtype
 
@@ -131,14 +132,22 @@ def bsr_matmat_rows_prev(blocks, block_indptr, block_cols, x, n):
                      block_indptr, block_cols, x, n)
 
 
-def _bsr_rows(entry, counts, blocks, block_indptr, block_cols, x, n,
-              tag=()):
+@spanned('raleigh.spmm')
+def _bsr_rows(entry, counts, blocks, block_indptr, block_cols, x, n):
+    """One BSR apply through the C entry ``entry`` (a pattern of the two
+    type names), its launches counted in ``counts``: one ``raleigh.spmm``
+    span a call."""
+    return _bsr_apply(entry, counts, blocks, block_indptr, block_cols, x, n)
+
+
+def _bsr_apply(entry, counts, blocks, block_indptr, block_cols, x, n,
+               tag=()):
     if x.device.type == 'cpu':
         return bsr_matmat_rows_plain(blocks, block_indptr, block_cols, x, n)
     if x.is_complex() or blocks.is_complex():
         return complex_rows(
-            lambda b, s: _bsr_rows(entry, counts, b, block_indptr,
-                                   block_cols, s, n, ('complex',)),
+            lambda b, s: _bsr_apply(entry, counts, b, block_indptr,
+                                    block_cols, s, n, ('complex',)),
             blocks, x)
     if x.device.type != 'cuda':
         raise ValueError('no BSR apply for device %s' % x.device)

@@ -67,6 +67,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import spanned
 from . import _build
 from .complex_rows import complex_parts, complex_rows, result_dtype
 
@@ -252,6 +253,7 @@ def _check_complex(val, x, offsets):
         raise ValueError('no DIA apply for device %s' % x.device)
 
 
+@spanned('raleigh.spmm')
 def _dia_rows_complex(val, x, offsets):
     _check_complex(val, x, offsets)
     return _launch(*_COMPLEX_ENTRY[val.dtype], val, x, offsets)
@@ -265,6 +267,7 @@ def dia_matmat_rows_prev(val, x, offsets):
     return _dia_rows(_PREV_ENTRY, val, x, offsets)
 
 
+@spanned('raleigh.spmm')
 def _dia_rows(entries, val, x, offsets, tag=''):
     if x.device.type == 'cpu':
         return dia_matmat_rows_plain(val, x, offsets)
@@ -625,6 +628,7 @@ def dia_matmat_rows_mesh(vals, xs, plan):
     return _mesh_apply(vals, xs, plan, '')
 
 
+@spanned('raleigh.spmm')
 def _mesh_apply(vals, xs, plan, tag):
     """``dia_matmat_rows_mesh`` for real values and operand parts; the
     launches count under ``tag`` + the route's key (``mesh_float32``, say,

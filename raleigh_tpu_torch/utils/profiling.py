@@ -1,53 +1,61 @@
-"""Profiling helpers: per-phase wall timers and device traces.
+"""Profiling helpers: the program's spans and device traces.
 
-PyTorch port of ``raleigh_tpu/utils/profiling.py``.  The reference keeps
-ad-hoc operator-time counters (e.g. _OperatorSVD.time, reference
-interfaces/partial_svd.py:244-291); this module generalizes that into a
-named-timer registry and adds a ``torch.profiler`` trace of the host and
-the card for the device path.
+PyTorch port of ``raleigh_tpu/utils/profiling.py``.  ``device_trace``
+records a ``torch.profiler`` trace of the host and the card.  ``span`` and
+``spanned`` mark the program's layers in such a trace: each layer boundary
+of a solve (``partial_hevp``, the LOBPCG and its steps, the core Solver,
+the block algebra, the Chebyshev recurrence, the sparse applies, the
+transfers to the host) is a ``raleigh.*`` span, a host event of the same
+profiler session whose CUPTI records give the card's operations, on the
+same clock.  A span exists only while a profiler records: otherwise it
+costs one check and creates nothing.
 """
 
 import contextlib
+import functools
 import os
-import time
-from collections import defaultdict
+
+from torch._C._autograd import _profiler_enabled
+# the user-scope record function of ``torch.profiler.record_function``,
+# entered from C++: ``record_function`` enters and leaves through two
+# operator calls, which a running profiler records and times as well, and
+# a solve holds thousands of spans
+from torch._C._profiler import _RecordFunctionFast
+
+_OFF = contextlib.nullcontext()
 
 
-class Timers:
-    """Named accumulating wall timers."""
-
-    def __init__(self):
-        self.total = defaultdict(float)
-        self.count = defaultdict(int)
-
-    @contextlib.contextmanager
-    def __call__(self, name):
-        start = time.time()
-        try:
-            yield
-        finally:
-            self.total[name] += time.time() - start
-            self.count[name] += 1
-
-    def report(self):
-        lines = []
-        for name in sorted(self.total, key=self.total.get, reverse=True):
-            lines.append('%-28s %8.3f s  x%d'
-                         % (name, self.total[name], self.count[name]))
-        return '\n'.join(lines)
+def span(name):
+    """A context that marks its block as the span ``name`` in a running
+    ``torch.profiler`` trace; with no profiler recording, one shared null
+    context."""
+    if not _profiler_enabled():
+        return _OFF
+    return _RecordFunctionFast(name)
 
 
-timers = Timers()
+def spanned(name):
+    """Decorator: every call of the function is the span ``name``
+    (``span``)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _profiler_enabled():
+                return fn(*args, **kwargs)
+            with _RecordFunctionFast(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 @contextlib.contextmanager
 def device_trace(logdir):
-    """Trace the block with ``torch.profiler``: host activity, and the
-    card's kernels and copies where torch finds a card.  On leaving, the
-    trace is written to ``logdir`` (made if missing) as a Chrome trace,
-    ``trace.json``, which TensorBoard's profiler plugin and Perfetto read.
-    Yields the profiler, whose ``key_averages()`` give time by operator
-    and kernel."""
+    """Trace the block with ``torch.profiler``: host activity, the
+    program's spans, and the card's kernels and copies where torch finds a
+    card.  On leaving, the trace is written to ``logdir`` (made if missing)
+    as a Chrome trace, ``trace.json``, which TensorBoard's profiler plugin
+    and Perfetto read.  Yields the profiler, whose ``key_averages()`` give
+    time by operator, kernel and span."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -58,23 +66,3 @@ def device_trace(logdir):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, 'trace.json'))
-
-
-class TimedOperator:
-    """Wrap any operator with an accumulated apply-time counter
-    (parity with the reference's operator-time metric)."""
-
-    def __init__(self, op, name='operator'):
-        self.op = op
-        self.name = name
-        self.time = 0.0
-        self.calls = 0
-
-    def apply(self, x, y, **kw):
-        start = time.time()
-        self.op.apply(x, y, **kw)
-        self.time += time.time() - start
-        self.calls += 1
-
-    def __getattr__(self, item):
-        return getattr(self.op, item)

@@ -1,9 +1,8 @@
-"""The port's profiling helpers and face-image examples on the CPU, against
+"""The port's device trace and face-image examples on the CPU, against
 the JAX package's.
 
-``utils/profiling.py``: ``Timers`` and ``TimedOperator`` as
-``tests/test_utils.py:84`` holds the JAX package's, on a ``dense_torch``
-operator; ``device_trace`` writes a ``torch.profiler`` trace.
+``utils/profiling.py``: ``device_trace`` writes a ``torch.profiler`` trace
+(its spans: ``tests/test_torch_profiling.py``).
 ``examples/convert_images.py``: the same images, names and selections as
 the JAX package's converter on one synthetic folder (exact: NumPy only).
 ``examples/eigenimages.py``: ``ImageProbe``'s truncation errors and
@@ -27,8 +26,6 @@ from threadpoolctl import threadpool_limits
 
 from raleigh_tpu.examples import convert_images as jci
 from raleigh_tpu.examples import eigenimages as jei
-from raleigh_tpu.utils import profiling as jprof
-from raleigh_tpu_torch.algebra import dense_torch
 from raleigh_tpu_torch.core.solver import Options
 from raleigh_tpu_torch.examples import convert_images as tci
 from raleigh_tpu_torch.examples import eigenimages as tei
@@ -48,26 +45,6 @@ def _one_blas_thread():
     same reason, restored after each test."""
     with threadpool_limits(1):
         yield
-
-
-def test_timers_and_timed_operator():
-    """tests/test_utils.py:84 on the port: named timers, and an operator
-    wrapped with an apply-time counter that passes attributes through."""
-    for prof in (tprof, jprof):
-        t = prof.Timers()
-        with t('phase'):
-            pass
-        with t('phase'):
-            pass
-        assert t.count['phase'] == 2 and 'phase' in t.report()
-    A = dense_torch.Matrix(np.eye(8), device='cpu')
-    op = tprof.TimedOperator(A, 'apply')
-    x = dense_torch.Vectors(np.ones((2, 8)), device='cpu')
-    y = dense_torch.Vectors(8, 2, np.float64, device='cpu')
-    op.apply(x, y)
-    assert op.calls == 1 and op.time >= 0 and np.allclose(y.data(), 1)
-    assert op.shape() == (8, 8)
-    assert isinstance(tprof.timers, tprof.Timers)
 
 
 def test_device_trace_writes_a_trace(tmp_path):
