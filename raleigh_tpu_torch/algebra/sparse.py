@@ -339,6 +339,7 @@ class Chebyshev:
         self.lo = float(lo)
         self.hi = float(hi)
         self.degree = int(degree)
+        self.__rows = {}
 
     def device_matrix(self):
         return self.__dev_override or self.__op.device_matrix()
@@ -356,12 +357,10 @@ class Chebyshev:
         iteration is f32 and the recurrence's working set exceeds the
         device matrix's ``WINDOW_HBM_BYTES``; ELL and BSR matrices stream
         bf16 only when asked.  Each call of ``fn`` is one
-        ``raleigh.chebyshev`` span."""
-        fn, ops = self._recurrence(m, n, dtype, stream_bf16)
-        return spanned('raleigh.chebyshev')(fn), ops
-
-    def _recurrence(self, m, n=None, dtype=None, stream_bf16=None):
-        """``device_rows_operands`` outside a span."""
+        ``raleigh.chebyshev`` span, and ``fn.device_matrix`` is the matrix
+        it applies.  The same arguments give the same pair while the
+        device matrix keeps its layout, so that ``lobpcg`` finds the CUDA
+        graphs it captured with it again."""
         dev = self.device_matrix()
         if n is None:
             n = dev.shape[0]
@@ -371,6 +370,19 @@ class Chebyshev:
             ws = 2 * m * n * 4 + noff * n * 4
             stream_bf16 = (noff > 0 and dtype == torch.float32
                            and ws > dev.WINDOW_HBM_BYTES)
+        key = (m, n, dtype, stream_bf16,
+               getattr(dev, '_multi_device', bool)())
+        if key not in self.__rows:
+            fn, ops = self._recurrence(stream_bf16)
+            fn = spanned('raleigh.chebyshev')(fn)
+            fn.device_matrix = dev
+            self.__rows[key] = fn, ops
+        return self.__rows[key]
+
+    def _recurrence(self, stream_bf16):
+        """``device_rows_operands`` of any block shape outside a span, its
+        iterates in bfloat16 or not."""
+        dev = self.device_matrix()
         mat_fn, ops = rows_matmat_operands(dev)
         multi = getattr(dev, '_multi_device', None)
         sharded_apply = multi is not None and multi()
@@ -407,7 +419,7 @@ class Chebyshev:
         """The recurrence as a plain (m, n) -> (m, n) callable, iterating
         in the operand's dtype."""
         def run(x):
-            fn, ops = self._recurrence(*x.shape, stream_bf16=False)
+            fn, ops = self._recurrence(stream_bf16=False)
             return fn(ops, x)
         return run
 

@@ -4,9 +4,12 @@ PyTorch port of ``raleigh_tpu/core/device_solver.py``.  The whole
 iteration — SpMM, polynomial preconditioning, constraint
 orthogonalization, Gram matrices, the Rayleigh–Ritz eigenproblem of a
 (3m x 3m) matrix, basis update and residual norms — runs on the device.
-The JAX package compiles ``chunk`` iterations into one program; here they
-run as an eager loop, and the host still looks at the (m,) eigenvalues and
-residuals only once per chunk to decide termination.
+The JAX package compiles ``chunk`` iterations into one program; here each
+iteration is four pieces split at its three ``torch.linalg.eigh`` calls
+(whose info check waits for the card), and the host still looks at the
+(m,) eigenvalues and residuals only once per chunk to decide termination.
+On a card each piece runs as a CUDA graph replay, captured once per
+operator and shape (``_StepGraphs``); elsewhere the pieces run eagerly.
 
 Blocks are stored as (m, n) row-vector tensors, vectors as rows; the
 public contract stays column-major ((n, k) eigenvectors, (n, nc)
@@ -25,14 +28,28 @@ device matrix's values over the mesh to match.
 """
 
 import copy
+import weakref
 
 import numpy as np
 import torch
 
-from ..ops.spmm import (DiaMatrix, EllMatrix, storage_device,
+from ..ops import spmm, spmm_pallas, spmm_window
+from ..ops.spmm import (BsrMatrix, DiaMatrix, EllMatrix, storage_device,
                         torch_dtype)
 from ..parallel.mesh import ShardedRows, Sharding
 from ..utils.profiling import span, spanned
+
+# pieces of the step captured as CUDA graphs, replayed, and run eagerly
+GRAPH_COUNTS = {'captures': 0, 'replays': 0, 'eager_pieces': 0}
+# the device layouts whose applies (and Chebyshev recurrences) a step
+# captures: every launch they make is a kernel on torch's current stream
+_GRAPH_LAYOUTS = (DiaMatrix, EllMatrix, BsrMatrix)
+# the launch counters of those layouts' kernels, which count Python
+# calls: a replay adds the launches its capture counted
+_LAUNCH_COUNTERS = (spmm_window.LAUNCHES, spmm.ELL_LAUNCHES,
+                    spmm_pallas.LAUNCHES)
+# _StepGraphs by what a capture depends on (``_graph_key``)
+_GRAPHS = {}
 
 
 def _gram(a, b):
@@ -43,11 +60,12 @@ def _gram(a, b):
     return torch.matmul(a.conj(), b.transpose(0, 1))
 
 
-def _mixed(c, block):
-    """c @ block for a small matrix c: row blocks combine from the left."""
+def _mixed(c, block, out=None):
+    """c @ block for a small matrix c: row blocks combine from the left
+    (into ``out`` where given, for a plain tensor)."""
     if isinstance(block, ShardedRows):
         return block.mixed(c)
-    return torch.matmul(c, block)
+    return torch.matmul(c, block, out=out)
 
 
 def _row_dots(a, b):
@@ -89,17 +107,28 @@ def _zeros_like(block):
     return torch.zeros_like(block)
 
 
-def _eigh_small(h):
-    """Eigendecomposition of the (3m x 3m) Rayleigh–Ritz matrix, always
-    in float64: the reference solves its Ritz problem in float64 whatever
-    the vector dtype (core/solver.py:1437-1473), and the H100 has native
-    f64, so f32 iterations resolve eigenvalue clusters that an all-f32
-    Ritz step cannot."""
-    wide = torch.complex128 if h.is_complex() else torch.float64
-    hw = h.to(wide)
+def _eigh(a, out=None):
+    """``torch.linalg.eigh`` (into ``out`` where given), a
+    ``raleigh.lobpcg.eigh`` span: on a card its info check waits for the
+    card."""
     with span('raleigh.lobpcg.eigh'):
-        w, v = torch.linalg.eigh(hw)
-    return w.to(h.real.dtype), v.to(h.dtype)
+        return torch.linalg.eigh(a, out=out)
+
+
+def _ritz_wide(h):
+    """The (3m x 3m) Rayleigh–Ritz matrix as its eigh takes it, always in
+    float64: the reference solves its Ritz problem in float64 whatever the
+    vector dtype (core/solver.py:1437-1473), and the H100 has native f64,
+    so f32 iterations resolve eigenvalue clusters that an all-f32 Ritz
+    step cannot."""
+    return h.to(torch.complex128 if h.is_complex() else torch.float64)
+
+
+def _whiten_gram(block, bblock):
+    """The Hermitian part of the B-Gram matrix whose eigh whitens the
+    rows of ``block``."""
+    g = _gram(block, bblock)
+    return 0.5 * (g + g.conj().transpose(0, 1))
 
 
 def _bnorms(block, bblock):
@@ -130,10 +159,13 @@ def _whiten_pair(block, bblock, eps_rel, sqrt_eps, dead0=None):
     B-Gram matrix; near-dependent directions are zeroed and flagged.
 
     Returns (whitened block, whitened B-image, dead mask (m,))."""
-    g = _gram(block, bblock)
-    g = 0.5 * (g + g.conj().transpose(0, 1))
-    with span('raleigh.lobpcg.eigh'):
-        w, v = torch.linalg.eigh(g)        # ascending, w >= 0 up to noise
+    w, v = _eigh(_whiten_gram(block, bblock))
+    return _whitened(block, bblock, w, v, eps_rel, sqrt_eps, dead0)
+
+
+def _whitened(block, bblock, w, v, eps_rel, sqrt_eps, dead0=None):
+    """``_whiten_pair`` given the eigenpairs (w ascending, >= 0 up to
+    noise; v) of ``_whiten_gram(block, bblock)``."""
     wmax = torch.clamp(w[-1], min=0.0)
     dead_g = w <= wmax * eps_rel
     inv = torch.where(dead_g, 0.0,
@@ -249,6 +281,254 @@ def default_block(k, n):
     return min(n, -(-m // 8) * 8)
 
 
+class _Step:
+    """One LOBPCG iteration as four pieces, split at its three eigh calls:
+    ``gram_w`` (the state to W's B-Gram), ``gram_p`` (W's whitening to P's
+    B-Gram), ``ritz_matrix`` (P's whitening to the Rayleigh–Ritz matrix in
+    float64) and ``update`` (the Ritz vectors to the next state).  Each
+    piece but the first takes what the one before returned and the
+    eigenpairs of its matrix; calling the object runs the four eagerly.
+    ``matmat``, ``matmat_b`` and ``precond`` apply to (m, n) row blocks;
+    ``y``, ``ay``, ``by`` are the constraints and their images."""
+
+    def __init__(self, matmat, matmat_b, precond, y, ay, by, generalized,
+                 m, sign, eps_rel, sqrt_eps, device):
+        self.matmat, self.matmat_b, self.precond = matmat, matmat_b, precond
+        self.y, self.ay, self.by = y, ay, by
+        self.generalized = generalized
+        self.m, self.sign, self.device = m, sign, device
+        self.eps_rel, self.sqrt_eps = eps_rel, sqrt_eps
+
+    def __call__(self, state):
+        """The next state, each piece run eagerly in a
+        ``raleigh.lobpcg.piece`` span."""
+        args = state
+        for i, piece in enumerate(self.pieces()):
+            with span('raleigh.lobpcg.piece'):
+                out = piece(*args)
+            GRAPH_COUNTS['eager_pieces'] += 1
+            if i < 3:
+                args = (out[0],) + tuple(_eigh(out[1]))
+        return out
+
+    def pieces(self):
+        return self.gram_w, self.gram_p, self.ritz_matrix, self.update
+
+    def gram_w(self, x, ax, bx, p, ap, bp, anorm):
+        y, ay, by, sqrt_eps = self.y, self.ay, self.by, self.sqrt_eps
+        # re-deflate X against the constraints every iteration with exact
+        # image tracking: a leaked constraint direction with a more
+        # extreme eigenvalue is amplified by the Rayleigh–Ritz step
+        q = _gram(by, x)
+        x = x - _mixed(q.transpose(0, 1), y)
+        ax = ax - _mixed(q.transpose(0, 1), ay)
+        if self.generalized:
+            bx = bx - _mixed(q.transpose(0, 1), by)
+        else:
+            bx = x
+        lam = _row_dots(x, ax)
+        anorm = torch.maximum(anorm, lam.abs().max())
+        w = ax - _scaled(lam[:, None].to(x.dtype), bx)
+        w = self.precond(w).to(w.dtype)
+        # hierarchical B-orthonormalization: X is B-orthonormal;
+        # W ⊥_B Y, X; P ⊥_B Y, X, W.  Dead (noise or rank-deficient) rows
+        # are zeroed and masked out of the Rayleigh–Ritz selection.
+        w, _, dead_w = _normalize_drop_pair(w, w, sqrt_eps)
+        w = _ortho_against_pair(w, y, by)
+        w = _ortho_against_pair(w, x, bx)
+        bw = self.matmat_b(w)
+        w, bw, dead_w = _normalize_drop_pair(w, bw, sqrt_eps, dead_w)
+        return (x, ax, bx, p, anorm, w, bw, dead_w), _whiten_gram(w, bw)
+
+    def gram_p(self, carry, ew, vw):
+        x, ax, bx, p, anorm, w, bw, dead_w = carry
+        y, by, sqrt_eps = self.y, self.by, self.sqrt_eps
+        w, bw, dead_w = _whitened(w, bw, ew, vw, self.eps_rel, sqrt_eps,
+                                  dead_w)
+        aw = self.matmat(w)
+        p, _, dead_p = _normalize_drop_pair(p, p, sqrt_eps)
+        p = _ortho_against_pair(p, y, by)
+        p = _ortho_against_pair(p, x, bx)
+        p = _ortho_against_pair(p, w, bw)
+        bp = self.matmat_b(p)
+        p, bp, dead_p = _normalize_drop_pair(p, bp, sqrt_eps, dead_p)
+        return ((x, ax, bx, anorm, w, bw, aw, p, bp, dead_w, dead_p),
+                _whiten_gram(p, bp))
+
+    def ritz_matrix(self, carry, ep, vp):
+        x, ax, bx, anorm, w, bw, aw, p, bp, dead_w, dead_p = carry
+        m = self.m
+        p, bp, dead_p = _whitened(p, bp, ep, vp, self.eps_rel,
+                                  self.sqrt_eps, dead_p)
+        ap = self.matmat(p)
+        s = _cat((x, w, p))
+        a_s = _cat((ax, aw, ap))
+        h = _gram(s, a_s)
+        h = 0.5 * (h + h.conj().transpose(0, 1)) * self.sign
+        dead = torch.cat((torch.zeros(m, dtype=torch.bool,
+                                      device=self.device), dead_w, dead_p))
+        # push dead (zeroed) basis rows past the live spectrum, which is
+        # bounded by 3m * max|diag| for a B-orthonormal basis, so the Ritz
+        # selection never picks them
+        big = (torch.diagonal(h).abs().max() + 1.0) * (4.0 * s.shape[0])
+        h = h + torch.diag(torch.where(dead, big, 0.0).to(h.dtype))
+        return (s, a_s, bx, bw, bp, anorm, h), _ritz_wide(h)
+
+    def update(self, carry, eh, vh, into=None):
+        """The next state; with ``into`` (a state of plain tensors) written
+        into its tensors, which it returns."""
+        s, a_s, bx, bw, bp, anorm, h = carry
+        m = self.m
+        out = (None,) * 7 if into is None else into
+        _, c = eh.to(h.real.dtype), vh.to(h.dtype)
+        cm = c[:, :m]
+        xn = _mixed(cm.transpose(0, 1), s, out[0])
+        axn = _mixed(cm.transpose(0, 1), a_s, out[1])
+        # conjugate directions: the W/P components of the update
+        cwp = cm.clone()
+        cwp[:m] = 0
+        pn = _mixed(cwp.transpose(0, 1), s, out[3])
+        apn = _mixed(cwp.transpose(0, 1), a_s, out[4])
+        if self.generalized:
+            b_s = _cat((bx, bw, bp))
+            bxn = _mixed(cm.transpose(0, 1), b_s, out[2])
+            bpn = _mixed(cwp.transpose(0, 1), b_s, out[5])
+        else:
+            bxn, bpn = xn, pn
+        if into is not None:
+            anorm = into[6].copy_(anorm)
+        return xn, axn, bxn, pn, apn, bpn, anorm
+
+
+def _graphable(op, opB, precond, device, sharding, constraints, dtype):
+    """True where the step can run as CUDA graph replays: on a card, real
+    blocks, no sharding and no constraints, and the operator, ``opB`` and
+    a Chebyshev preconditioner's matrix (``precond[0].device_matrix``)
+    each a real device matrix of a layout in ``_GRAPH_LAYOUTS`` on one
+    device.  Anything else runs the pieces eagerly."""
+    if (device.type != 'cuda' or sharding is not None or dtype.is_complex
+            or (constraints is not None and np.size(constraints) > 0)):
+        return False
+    mats = [op] if opB is None else [op, opB]
+    if precond is not None:
+        mats.append(getattr(precond[0], 'device_matrix', None)
+                    if isinstance(precond, tuple) else None)
+    return all(isinstance(a, _GRAPH_LAYOUTS) and not a.dtype.is_complex
+               and not getattr(a, '_multi_device', bool)() for a in mats)
+
+
+def _step_graphs(objects, m, n, dtype, device, sign, state):
+    """The ``_StepGraphs`` of a step, made for ``state`` at the first call.
+    It is found again by the identities of ``objects`` (the operator,
+    ``opB`` and the preconditioner's function; None where absent), the
+    block's shape and dtype, the device, the Ritz selection's sign and the
+    TF32 mode, which captured cuBLAS calls keep; it is dropped with the
+    first of ``objects`` to die."""
+    key = (tuple(map(id, objects)), m, n, dtype, str(device), sign,
+           torch.backends.cuda.matmul.allow_tf32)
+    live = [o for o in objects if o is not None]
+    hit = _GRAPHS.get(key)
+    if hit is not None and all(r() is o for r, o in zip(hit.refs, live)):
+        return hit
+    made = _StepGraphs(state)
+    made.refs = [weakref.ref(o, lambda _r, k=key, kept=_GRAPHS:
+                             kept.pop(k, None)) for o in live]
+    _GRAPHS[key] = made
+    return made
+
+
+def _capture(pool, fn, *args, **kwargs):
+    """(graph, what the call returned) of ``fn(*args, **kwargs)`` captured
+    into a CUDA graph whose memory comes from ``pool``."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        out = fn(*args, **kwargs)
+    return graph, out
+
+
+class _StepGraphs:
+    """A ``_Step``'s four pieces as CUDA graphs in one memory pool, with
+    the three eigh calls run eagerly between their replays.  The state
+    lives in persistent tensors (``state``): ``run`` copies a state that
+    is not there into them, the first piece reads them and the last
+    writes the next state into them.  Each eigh reads the matrix its
+    piece left and writes into static tensors the next piece reads.  The
+    first ``run`` is eager, the second captures the pieces
+    (``raleigh.lobpcg.capture`` spans), replaying each once; every run
+    after replays them (``raleigh.lobpcg.replay`` spans), and each replay
+    adds to the kernels' launch counters what its capture counted."""
+
+    def __init__(self, state):
+        own = {}            # one tensor for each tensor of the state
+        for t in state:     # (bx is x, bp is p, without opB)
+            if id(t) not in own:
+                own[id(t)] = torch.empty_like(t)
+        self.state = tuple(own[id(t)] for t in state)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.warm = False
+        self.graphs = []        # (graph, launches it counted) per piece
+        self.mats = []          # the matrix each eigh reads
+        self.eigs = []          # the static (w, v) each eigh writes
+
+    def load(self, state):
+        """Copy ``state`` into ``self.state``, but for the tensors that
+        are already there."""
+        done = set()
+        for dst, src in zip(self.state, state):
+            if id(dst) not in done and dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+            done.add(id(dst))
+
+    def run(self, step, state):
+        """One iteration of ``step`` from ``state``.  The first call runs
+        it eagerly, so that kernels, cuBLAS and launch shapes are warm
+        before the second captures it; from the second on it returns
+        ``self.state``."""
+        if not self.warm:
+            self.warm = True
+            return step(state)
+        self.load(state)
+        if self.graphs:
+            for i, (graph, counted) in enumerate(self.graphs):
+                self._replay(graph, counted)
+                if i < 3:
+                    _eigh(self.mats[i], out=self.eigs[i])
+            return self.state
+        carry = None
+        for i, piece in enumerate(step.pieces()):
+            args = self.state if i == 0 else (carry, *self.eigs[i - 1])
+            kwargs = {'into': self.state} if i == 3 else {}
+            before = [dict(c) for c in _LAUNCH_COUNTERS]
+            with span('raleigh.lobpcg.capture'):
+                graph, out = _capture(self.pool, piece, *args, **kwargs)
+            counted = []
+            for counts, was in zip(_LAUNCH_COUNTERS, before):
+                counted.append({k: counts[k] - was[k] for k in counts
+                                if counts[k] != was[k]})
+                counts.update(was)
+            GRAPH_COUNTS['captures'] += 1
+            self.graphs.append((graph, counted))
+            self._replay(graph, counted)
+            if i < 3:
+                carry, mat = out
+                w = torch.empty(mat.shape[0], dtype=mat.real.dtype,
+                                device=mat.device)
+                v = torch.empty_like(mat).mT    # eigh's column-major layout
+                _eigh(mat, out=(w, v))
+                self.mats.append(mat)
+                self.eigs.append((w, v))
+        return self.state
+
+    @staticmethod
+    def _replay(graph, counted):
+        with span('raleigh.lobpcg.replay'):
+            graph.replay()
+        for counts, delta in zip(_LAUNCH_COUNTERS, counted):
+            for k, n in delta.items():
+                counts[k] += n
+        GRAPH_COUNTS['replays'] += 1
+
+
 @spanned('raleigh.lobpcg')
 def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
            tol=1e-4, maxit=500, chunk=16, largest=False, x0=None,
@@ -298,10 +578,21 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
     arrays, status 0 = converged, 2 = iteration limit, 3 = no search
     directions (reference core/solver.py:305-331).
 
+    On a card, with real blocks, no sharding and no constraints, and
+    operators and a Chebyshev preconditioner in DIA, ELL or BSR
+    (``_graphable``), each iteration after the first of the first call
+    runs as four CUDA graph replays with the three ``eigh`` calls between
+    them (``_StepGraphs``); the graphs are kept for later calls with the
+    same operators, shape, dtype and TF32 mode.  ``GRAPH_COUNTS`` counts
+    the pieces captured, replayed and run eagerly.
+
     Under a profiler the call is a ``raleigh.lobpcg`` span, each
-    iteration a ``raleigh.lobpcg.step`` span, each ``eigh`` a
-    ``raleigh.lobpcg.eigh`` span and each transfer to the host a
-    ``raleigh.sync`` span (``utils/profiling.py``).
+    iteration a ``raleigh.lobpcg.step`` span holding a span for each of
+    its four pieces (``raleigh.lobpcg.piece`` run eagerly,
+    ``raleigh.lobpcg.replay``, ``raleigh.lobpcg.capture``), each ``eigh``
+    a ``raleigh.lobpcg.eigh`` span and each transfer to the host a
+    ``raleigh.sync`` span (``utils/profiling.py``).  Spans inside a piece
+    fire where it runs eagerly or is captured, not at a replay.
     """
     if sharding is not None and not isinstance(sharding, Sharding):
         raise TypeError('lobpcg needs a parallel.mesh.Sharding for its '
@@ -375,71 +666,14 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
         y = spread(torch.zeros((0, n), dtype=dtype, device=device))
         ay = by = y
 
-    def step(x, ax, bx, p, ap, bp, anorm):
-        # re-deflate X against the constraints every iteration with exact
-        # image tracking: a leaked constraint direction with a more
-        # extreme eigenvalue is amplified by the Rayleigh–Ritz step
-        q = _gram(by, x)
-        x = x - _mixed(q.transpose(0, 1), y)
-        ax = ax - _mixed(q.transpose(0, 1), ay)
-        if opB is not None:
-            bx = bx - _mixed(q.transpose(0, 1), by)
-        else:
-            bx = x
-        lam = _row_dots(x, ax)
-        anorm = torch.maximum(anorm, lam.abs().max())
-        w = ax - _scaled(lam[:, None].to(x.dtype), bx)
-        w = apply_precond(w).to(w.dtype)
-        # hierarchical B-orthonormalization: X is B-orthonormal;
-        # W ⊥_B Y, X; P ⊥_B Y, X, W.  Dead (noise or rank-deficient) rows
-        # are zeroed and masked out of the Rayleigh–Ritz selection.
-        w, _, dead_w = _normalize_drop_pair(w, w, sqrt_eps)
-        w = _ortho_against_pair(w, y, by)
-        w = _ortho_against_pair(w, x, bx)
-        bw = matmat_b(w)
-        w, bw, dead_w = _normalize_drop_pair(w, bw, sqrt_eps, dead_w)
-        w, bw, dead_w = _whiten_pair(w, bw, eps_rel, sqrt_eps, dead_w)
-        aw = matmat(w)
-        p, _, dead_p = _normalize_drop_pair(p, p, sqrt_eps)
-        p = _ortho_against_pair(p, y, by)
-        p = _ortho_against_pair(p, x, bx)
-        p = _ortho_against_pair(p, w, bw)
-        bp = matmat_b(p)
-        p, bp, dead_p = _normalize_drop_pair(p, bp, sqrt_eps, dead_p)
-        p, bp, dead_p = _whiten_pair(p, bp, eps_rel, sqrt_eps, dead_p)
-        ap = matmat(p)
-        s = _cat((x, w, p))
-        a_s = _cat((ax, aw, ap))
-        h = _gram(s, a_s)
-        h = 0.5 * (h + h.conj().transpose(0, 1)) * sign
-        dead = torch.cat((torch.zeros(m, dtype=torch.bool, device=device),
-                          dead_w, dead_p))
-        # push dead (zeroed) basis rows past the live spectrum, which is
-        # bounded by 3m * max|diag| for a B-orthonormal basis, so the Ritz
-        # selection never picks them
-        big = (torch.diagonal(h).abs().max() + 1.0) * (4.0 * s.shape[0])
-        h = h + torch.diag(torch.where(dead, big, 0.0).to(h.dtype))
-        _, c = _eigh_small(h)
-        cm = c[:, :m]
-        xn = _mixed(cm.transpose(0, 1), s)
-        axn = _mixed(cm.transpose(0, 1), a_s)
-        # conjugate directions: the W/P components of the update
-        cwp = cm.clone()
-        cwp[:m] = 0
-        pn = _mixed(cwp.transpose(0, 1), s)
-        apn = _mixed(cwp.transpose(0, 1), a_s)
-        if opB is not None:
-            b_s = _cat((bx, bw, bp))
-            bxn = _mixed(cm.transpose(0, 1), b_s)
-            bpn = _mixed(cwp.transpose(0, 1), b_s)
-        else:
-            bxn, bpn = xn, pn
-        return xn, axn, bxn, pn, apn, bpn, anorm
+    step = _Step(matmat, matmat_b, apply_precond, y, ay, by, opB is not None,
+                 m, sign, eps_rel, sqrt_eps, device)
 
     def run_chunk(state, iters):
         for _ in range(iters):
             with span('raleigh.lobpcg.step'):
-                state = step(*state)
+                state = step(state) if graphs is None \
+                    else graphs.run(step, state)
         x, ax, bx, p, ap, bp, anorm = state
         # chunk exit: re-deflate and refresh the images so the host's
         # convergence decision sees trustworthy residuals
@@ -480,6 +714,11 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
     anorm_h = float(np.max(np.abs(lam_h)))
 
     state = (x, ax, bx, p, ap, bp, anorm)
+    graphs = None
+    if _graphable(op, opB, precond, device, sharding, constraints, dtype):
+        graphs = _step_graphs(
+            (op, opB, precond[0] if isinstance(precond, tuple) else precond),
+            m, n, dtype, device, sign, state)
     niter = 0
     status = 2
     restarts = 0

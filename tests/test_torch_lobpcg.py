@@ -167,3 +167,243 @@ def test_lobpcg_takes_a_bare_callable(lap, f64_default):
                                   device='cpu', **kw)
     assert st == st2 == 0 and it == it2
     assert _rel(lam2, lam) < 1e-12
+
+
+# ---- the step in pieces, and the rule that sends it to CUDA graphs ---------
+
+def _step_before(matmat, matmat_b, precond, y, ay, by, generalized, m, sign,
+                 eps_rel, sqrt_eps, device):
+    """The LOBPCG step as one function, as the port ran it before it was
+    split at its eigh calls: the reference the pieces are held to."""
+    from raleigh_tpu_torch.core.device_solver import (
+        _cat, _gram, _mixed, _normalize_drop_pair, _ortho_against_pair,
+        _row_dots, _scaled, _whiten_pair)
+
+    def eigh_small(h):
+        wide = torch.complex128 if h.is_complex() else torch.float64
+        w, v = torch.linalg.eigh(h.to(wide))
+        return w.to(h.real.dtype), v.to(h.dtype)
+
+    def step(x, ax, bx, p, ap, bp, anorm):
+        q = _gram(by, x)
+        x = x - _mixed(q.transpose(0, 1), y)
+        ax = ax - _mixed(q.transpose(0, 1), ay)
+        if generalized:
+            bx = bx - _mixed(q.transpose(0, 1), by)
+        else:
+            bx = x
+        lam = _row_dots(x, ax)
+        anorm = torch.maximum(anorm, lam.abs().max())
+        w = ax - _scaled(lam[:, None].to(x.dtype), bx)
+        w = precond(w).to(w.dtype)
+        w, _, dead_w = _normalize_drop_pair(w, w, sqrt_eps)
+        w = _ortho_against_pair(w, y, by)
+        w = _ortho_against_pair(w, x, bx)
+        bw = matmat_b(w)
+        w, bw, dead_w = _normalize_drop_pair(w, bw, sqrt_eps, dead_w)
+        w, bw, dead_w = _whiten_pair(w, bw, eps_rel, sqrt_eps, dead_w)
+        aw = matmat(w)
+        p, _, dead_p = _normalize_drop_pair(p, p, sqrt_eps)
+        p = _ortho_against_pair(p, y, by)
+        p = _ortho_against_pair(p, x, bx)
+        p = _ortho_against_pair(p, w, bw)
+        bp = matmat_b(p)
+        p, bp, dead_p = _normalize_drop_pair(p, bp, sqrt_eps, dead_p)
+        p, bp, dead_p = _whiten_pair(p, bp, eps_rel, sqrt_eps, dead_p)
+        ap = matmat(p)
+        s = _cat((x, w, p))
+        a_s = _cat((ax, aw, ap))
+        h = _gram(s, a_s)
+        h = 0.5 * (h + h.conj().transpose(0, 1)) * sign
+        dead = torch.cat((torch.zeros(m, dtype=torch.bool, device=device),
+                          dead_w, dead_p))
+        big = (torch.diagonal(h).abs().max() + 1.0) * (4.0 * s.shape[0])
+        h = h + torch.diag(torch.where(dead, big, 0.0).to(h.dtype))
+        _, c = eigh_small(h)
+        cm = c[:, :m]
+        xn = _mixed(cm.transpose(0, 1), s)
+        axn = _mixed(cm.transpose(0, 1), a_s)
+        cwp = cm.clone()
+        cwp[:m] = 0
+        pn = _mixed(cwp.transpose(0, 1), s)
+        apn = _mixed(cwp.transpose(0, 1), a_s)
+        if generalized:
+            b_s = _cat((bx, bw, bp))
+            bxn = _mixed(cm.transpose(0, 1), b_s)
+            bpn = _mixed(cwp.transpose(0, 1), b_s)
+        else:
+            bxn, bpn = xn, pn
+        return xn, axn, bxn, pn, apn, bpn, anorm
+    return step
+
+
+def _step_case(pencil, case, dtype=torch.float64):
+    """The arguments of a step on the small pencil (A alone unless
+    'generalized'), a Chebyshev preconditioner, and a random state whose
+    P is not 0: (step arguments, state)."""
+    a, b, x0 = pencil
+    n, m = a.shape[0], 8
+    dev = torch.device('cpu')
+    dm = device_sparse(a, dtype=np.float64, device='cpu')
+    lo, hi = spectral_bounds(a)
+    fn, ops = Chebyshev(a, lo, hi, degree=6, device='cpu') \
+        .device_rows_operands(m, n, dtype=dtype)
+    generalized = case == 'generalized'
+    bm = device_sparse(b, dtype=np.float64, device='cpu')
+
+    def matmat(v):
+        return dm.matmat_rows(v).to(v.dtype)
+
+    def matmat_b(v):
+        return bm.matmat_rows(v).to(v.dtype) if generalized else v
+
+    eps = torch.finfo(dtype).eps
+    gen = torch.Generator().manual_seed(5)
+    rows = torch.randn((2 * m + 4, n), generator=gen, dtype=dtype)
+    if case == 'constraints':
+        y = torch.linalg.qr(rows[2 * m:].T)[0].T.contiguous()
+    else:
+        y = torch.zeros((0, n), dtype=dtype)
+    x = torch.linalg.qr(rows[:m].T)[0].T.contiguous()
+    p = rows[m:2 * m] * 1e-2
+    bx = matmat_b(x)
+    state = (x, matmat(x), bx, p, matmat(p), matmat_b(p),
+             torch.zeros((), dtype=dtype))
+    args = (matmat, matmat_b, lambda w: fn(ops, w), y, matmat(y),
+            matmat_b(y), generalized, m, -1.0 if case == 'largest' else 1.0,
+            100 * eps, float(np.sqrt(eps)), dev)
+    return args, state
+
+
+@pytest.mark.parametrize('case', ['standard', 'generalized', 'constraints',
+                                  'largest'])
+def test_pieces_compose_to_the_step_before(pencil, case):
+    """The step's four pieces, run eagerly with an eigh between each two,
+    give the state the one-piece step gave, bit for bit; the state they
+    leave in ``into`` is the same again."""
+    from raleigh_tpu_torch.core import device_solver as ds
+    args, state = _step_case(pencil, case)
+    want = _step_before(*args)(*state)
+    before = ds.GRAPH_COUNTS['eager_pieces']
+    step = ds._Step(*args)
+    got = step(state)
+    assert ds.GRAPH_COUNTS['eager_pieces'] == before + 4
+    assert len(got) == len(want) == 7
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert not torch.equal(got[3], torch.zeros_like(got[3]))
+    # the last piece writing into a state of its own
+    into = tuple(torch.empty_like(t) for t in state)
+    pieces = step.pieces()
+    carry, mat = pieces[0](*state)
+    for piece in pieces[1:3]:
+        carry, mat = piece(carry, *torch.linalg.eigh(mat))
+    out = pieces[3](carry, *torch.linalg.eigh(mat), into=into)
+    assert all(o is i for o, i in zip(out, into) if case == 'generalized')
+    assert out[0] is into[0] and out[6] is into[6]
+    for g, w in zip(out, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize('case', ['cpu', 'sharded', 'constraints',
+                                  'complex'])
+def test_graph_rule_keeps_these_solves_eager(lap, case):
+    """The rule (``_graphable``) sends a solve on the CPU, one on
+    ``ShardedRows`` blocks, one with constraints and one on complex blocks
+    to the eager path, where the same solve without that feature on a card
+    would take graphs; the solve runs every piece eagerly, as
+    ``GRAPH_COUNTS`` shows."""
+    from raleigh_tpu_torch.core import device_solver as ds
+    from raleigh_tpu_torch.parallel.mesh import blockvec_sharding, make_mesh
+    a, exact, x0 = lap
+    n = a.shape[0]
+    lo, hi = spectral_bounds(a)
+    dm = device_sparse(a, device='cpu')
+    pre = Chebyshev(a, lo, hi, degree=6, device='cpu') \
+        .device_rows_operands(8, n)
+    rule = dict(op=dm, opB=None, precond=pre, device=torch.device('cuda'),
+                sharding=None, constraints=None, dtype=torch.float32)
+    assert ds._graphable(**rule)
+    kw = dict(tol=1e-4, maxit=64, x0=x0)
+    k = 4
+    if case == 'cpu':
+        rule['device'] = torch.device('cpu')
+    elif case == 'sharded':
+        rule['sharding'] = kw['sharding'] = blockvec_sharding(
+            make_mesh(2, ['cpu', 'cpu']))
+        pre = None
+    elif case == 'constraints':
+        rule['constraints'] = kw['constraints'] = \
+            np.linalg.eigh(a.toarray())[1][:, :2]
+    else:
+        rule['dtype'] = kw['dtype'] = torch.complex128
+        pre = None
+    assert not ds._graphable(**rule)
+    before = dict(ds.GRAPH_COUNTS)
+    lam, x, _, it, st = lobpcg(dm, k, precond=pre, **kw)
+    assert st == 0
+    want = exact[2:2 + k] if case == 'constraints' else exact[:k]
+    assert _rel(lam, want) < 1e-4
+    assert ds.GRAPH_COUNTS == dict(before,
+                                   eager_pieces=before['eager_pieces']
+                                   + 4 * it)
+
+
+def _stand_in_capture(pool, fn, *args, **kwargs):
+    """A CPU stand-in for ``device_solver._capture``: it runs the piece,
+    and its replay runs it again and copies what it returns into the
+    tensors the first run returned, as a CUDA graph's replay rewrites the
+    memory its capture left."""
+    def tensors(obj):
+        if isinstance(obj, torch.Tensor):
+            return [obj]
+        return [t for o in obj for t in tensors(o)] \
+            if isinstance(obj, tuple) else []
+
+    out = fn(*args, **kwargs)
+
+    class Graph:
+        @staticmethod
+        def replay():
+            for old, new in zip(tensors(out), tensors(fn(*args, **kwargs))):
+                if old is not new:
+                    old.copy_(new)
+    return Graph(), out
+
+
+@pytest.mark.parametrize('case', ['standard', 'generalized'])
+def test_graph_path_gives_the_eager_solve(pencil, f64_default, case,
+                                          monkeypatch):
+    """The graph path's data flow on the CPU, with the capture stood in
+    for (``_stand_in_capture``): the first call runs one iteration eagerly
+    and captures the four pieces at the second, a later call replays every
+    piece from its first iteration, and both give the eager solve's
+    eigenvalues, vectors and iterations bit for bit."""
+    from raleigh_tpu_torch.core import device_solver as ds
+    a, b, x0 = pencil
+    n = a.shape[0]
+    lo, hi = spectral_bounds(a)
+    ch = Chebyshev(a, lo, hi, degree=6, device='cpu')
+    dm = device_sparse(a, dtype=np.float64, device='cpu')
+    dB = device_sparse(b, dtype=np.float64, device='cpu') \
+        if case == 'generalized' else None
+    kw = dict(opB=dB, tol=1e-9, maxit=200, x0=x0, dtype=np.float64, chunk=5)
+    pre = ch.device_rows_operands(8, n, dtype=torch.float64)
+    assert ch.device_rows_operands(8, n, dtype=torch.float64) is pre
+    want = lobpcg(dm, 4, precond=pre, **kw)
+    monkeypatch.setattr(ds, '_graphable', lambda *args: True)
+    monkeypatch.setattr(ds, '_capture', _stand_in_capture)
+    monkeypatch.setattr(torch.cuda, 'graph_pool_handle', lambda: None)
+    monkeypatch.setattr(ds, '_GRAPHS', {})
+    counts = []
+    for _ in range(2):
+        before = dict(ds.GRAPH_COUNTS)
+        got = lobpcg(dm, 4, precond=pre, **kw)
+        counts.append({k: v - before[k] for k, v in ds.GRAPH_COUNTS.items()})
+        assert got[3] == want[3] and got[4] == want[4] == 0
+        for g, w in zip(got[:3], want[:3]):
+            assert np.array_equal(g, w)
+    it = want[3]
+    assert counts == [dict(captures=4, replays=4 * (it - 1), eager_pieces=4),
+                      dict(captures=0, replays=4 * it, eager_pieces=0)]
+    assert len(ds._GRAPHS) == 1
