@@ -11,7 +11,9 @@ configuration states it (``control`` in the workload file: 'tf32' lets
 the float32 matrix products run in TF32, 'f32' hands the core Solver
 float32 matrices); ``--fault`` plants one of ``faults.py``'s faults
 under the run.  ``--shapes`` counts the block width of every sparse
-apply of the two solves.  One JSON line a seed.
+apply of the two solves.  One JSON line a seed.  It reads a
+``partial_hevp`` solve (``which``, ``lmd``) and refuses a cell of any
+other task.
 """
 
 import argparse
@@ -61,6 +63,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     import torch
     cell = harness.Cell(args.workload)
+    if cell.task_name != 'partial_hevp':
+        raise SystemExit('calibrate reads which and lmd: a partial_hevp '
+                         'tool, and %s runs task %s'
+                         % (args.workload, cell.task_name))
     control = cell.workload['control'] if args.control else None
     for seed in args.seeds:
         with (faults.FAULTS[args.fault]() if args.fault

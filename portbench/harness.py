@@ -2,16 +2,14 @@
 measured window of whole solves (or a traced run of a few), the
 comparison with the plain reference, and the result's line.
 
-The program is reached through its public entry points alone
-(``partial_hevp``, ``Chebyshev``, ``spectral_bounds``).  Every solve of a
-window is the same call on the same inputs; its wall ends in the host
-arrays ``partial_hevp`` returns.
+What a cell runs is its task (``tasks/<name>.py``): the program's set-up
+and its solve, reached through the program's public entry points alone,
+the inputs' statistics, and the checks against the reference.  Every
+solve of a window is the same call on the same inputs; its wall ends in
+the host arrays that call returns.
 """
 
-import contextlib
 import gc
-import io
-import re
 import time
 from types import SimpleNamespace
 
@@ -19,18 +17,11 @@ import numpy as np
 
 from . import judge, registry, tracing
 
-_ITERATIONS = re.compile(r'iterations: (\d+), solve time:')
-# eigenvector sets kept from a window for the residual check, drawn from
-# the seed
+# the task of a workload that names none
+DEFAULT_TASK = 'partial_hevp'
+# solves whose large answers (``x``) a window keeps for the checks that
+# need them (the eigenvectors' residuals), drawn from the seed
 SAMPLED_SOLVES = 3
-
-
-def problem_stats(problem):
-    """What the rooflines need of the inputs: n, A's nonzeros, and B's
-    nonzeros (None without B)."""
-    b = problem['B']
-    return {'n': int(problem['A'].shape[0]), 'nnz': int(problem['A'].nnz),
-            'nnz_b': None if b is None else int(b.nnz)}
 
 
 class Cell:
@@ -42,65 +33,13 @@ class Cell:
         self.workload = registry.load('workloads', name, root)
         self.config = registry.load('configs', self.workload['config'], root)
         self.params = dict(self.config['params'], **(params or {}))
+        self.task_name = self.workload.get('task', DEFAULT_TASK)
+        self.task = registry.module('tasks', self.task_name, root)
 
     def make(self, seed):
         """The inputs of run seed ``seed``."""
         maker = registry.module('makers', self.config['maker'], self.root)
         return maker.make(self.params, seed)
-
-    def reference(self, problem, device):
-        spec = self.config['reference']
-        ref = registry.module('references', spec['name'], self.root)
-        return ref.eigenvalues(problem, self.workload['which'], spec, device)
-
-
-class Program:
-    """The program's set-up of one problem and its solve.  It holds copies
-    of the inputs, so that dropping it frees whatever the program built
-    from them.  ``control`` puts the program on its lower-precision path:
-    'tf32' lets its float32 matrix products run in TF32, 'f32' gives it
-    float32 matrices, so that its core Solver iterates in float32."""
-
-    def __init__(self, cell, problem, device=None, control=None):
-        from raleigh_tpu_torch import Chebyshev, spectral_bounds
-        wl = cell.workload
-        self.a = problem['A'].copy()
-        self.b = None if problem['B'] is None else problem['B'].copy()
-        cheb = wl['chebyshev']
-        lo, hi = spectral_bounds(self.a)
-        if 'lo_ratio' in cheb:
-            lo = hi * cheb['lo_ratio']
-        self.t = Chebyshev(self.a, lo, hi, degree=cheb['degree'],
-                           device=device)
-        self.a_in, self.b_in = self.a, self.b
-        if control == 'f32':
-            self.a_in = self.a.astype(np.float32)
-            self.b_in = None if self.b is None else self.b.astype(np.float32)
-        elif control not in (None, 'tf32'):
-            raise ValueError('unknown control %r' % (control,))
-        self.control = control
-        self.kw = dict(which=wl['which'], tol=wl['tol'], engine=wl['engine'],
-                       device=device)
-
-    def solve(self):
-        """One ``partial_hevp`` call: SimpleNamespace(lmd, x, status,
-        iterations), its printed lines captured."""
-        from raleigh_tpu_torch import partial_hevp
-        import torch
-        out = io.StringIO()
-        tf32 = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = self.control == 'tf32'
-        try:
-            with contextlib.redirect_stdout(out):
-                lmd, x, status = partial_hevp(self.a_in, B=self.b_in,
-                                              T=self.t, **self.kw)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        found = _ITERATIONS.findall(out.getvalue())
-        return SimpleNamespace(lmd=lmd, x=x, status=status,
-                               iterations=int(found[-1]) if found else None)
 
 
 def _free():
@@ -116,17 +55,10 @@ def _memory_peak():
             if torch.cuda.is_initialized() else 0)
 
 
-def judged(cell, problem, solves, device):
-    """(numbers, failed, reasons) of ``solves`` against the plain
-    reference of ``problem``, worked out on ``device``."""
-    ref = cell.reference(problem, device)
-    return judge.judge(problem, cell.workload['which'], solves, ref, device)
-
-
 def window(program, seconds, seed):
     """Whole solves until ``seconds`` have passed, the last one finished:
-    (walls, window seconds, solves), every solve's eigenvalues kept and
-    the eigenvectors of ``SAMPLED_SOLVES`` solves drawn from the seed
+    (walls, window seconds, solves), every solve kept and the large
+    answers (``x``) of ``SAMPLED_SOLVES`` solves drawn from the seed
     (reservoir sampling)."""
     rng = np.random.default_rng([seed, 1])
     walls, solves = [], []
@@ -172,9 +104,11 @@ def run(cell, seed, seconds, trace, t_process, device=None, peaks=None,
     the cell's end-to-end metrics, or with ``trace`` its per-layer ones)
     and the check lines.  ``t_process`` is the process's start on
     ``time.time()``'s clock; ``device`` None is the card; ``control``
-    puts the program on its lower-precision path (``Program``).  The
-    record's ``phases`` holds the seconds of each part of the set-up."""
+    puts the program on its lower-precision path (the task's
+    ``Program``).  The record's ``phases`` holds the seconds of each part
+    of the set-up."""
     import torch
+    task = cell.task
     phases = {'to inputs': time.time() - t_process}
     # the core Solver draws its start block from NumPy's global generator
     np.random.seed(seed % 2 ** 32)
@@ -183,12 +117,12 @@ def run(cell, seed, seconds, trace, t_process, device=None, peaks=None,
     problem = cell.make(seed)
     phases['inputs'] = time.time() - t
     t = time.time()
-    program = Program(cell, problem, device, control)
+    program = task.Program(cell, problem, device, control)
     phases['program'] = time.time() - t
     t = time.time()
     program.solve()                              # warm-up: builds, loads
     phases['warm-up'] = time.time() - t
-    record = SimpleNamespace(cell=cell.workload, stats=problem_stats(problem),
+    record = SimpleNamespace(cell=cell.workload, stats=task.stats(problem),
                              problem=problem, peaks=peaks, walls=[],
                              window_s=None, setup_s=None, trace=None,
                              phases=phases)
@@ -202,15 +136,15 @@ def run(cell, seed, seconds, trace, t_process, device=None, peaks=None,
     memory = _memory_peak()
     del program
     _free()
-    numbers, failed, reasons = judged(cell, problem, solves,
-                                      device or 'cuda')
-    correct, lines = judge.verdict(numbers, failed,
-                                   cell.workload['limits'])
+    numbers, failed, reasons = task.judge(cell, problem, solves,
+                                          device or 'cuda')
+    correct, lines = judge.verdict(numbers, failed, cell.workload['limits'],
+                                   task.NUMBERS)
     record.iterations = [s.iterations for s in solves[1:]] if trace \
         else [s.iterations for s in solves]
     return SimpleNamespace(record=record, numbers=numbers, failed=failed,
                            reasons=reasons, attempted=len(solves),
-                           solves=solves,
+                           solves=solves, names=task.NUMBERS,
                            correct=correct, lines=lines, memory=memory)
 
 
@@ -239,7 +173,8 @@ def _number(value):
 
 def result(out, metrics_, device, trace):
     """The result's line as a dict, its keys in the order the line
-    prints them; the compared numbers with their limits come last."""
+    prints them; the compared numbers with their limits come last, in
+    the order of the task's ``NUMBERS``."""
     line = {'correct': bool(out.correct), 'attempted': out.attempted,
             'failed': out.failed, 'metrics': metrics_, 'device': device}
     if trace:
@@ -248,6 +183,6 @@ def result(out, metrics_, device, trace):
         line['breakdown'] = t.breakdown()
     line['checks'] = {name: {'value': _number(out.numbers.get(name)),
                              'limit': out.record.cell['limits'].get(name)}
-                      for name in judge.NUMBERS}
+                      for name in out.names}
     line['checks']['failed_solves'] = {'value': out.failed, 'limit': 0}
     return line

@@ -10,6 +10,7 @@ from types import SimpleNamespace
 import numpy as np
 
 from portbench import harness, judge, registry
+from portbench.tasks import partial_hevp
 
 
 def test_the_forbidden_names_are_compared_whole():
@@ -78,32 +79,36 @@ def test_the_traced_line(run_tiny):
 
 def _sound(cell, seed=3):
     problem = cell.make(seed)
-    program = harness.Program(cell, problem, 'cpu')
+    program = partial_hevp.Program(cell, problem, 'cpu')
     solve = program.solve()
-    return cell, problem, solve, cell.reference(problem, 'cpu')
+    return cell, problem, solve, partial_hevp.reference(cell, problem, 'cpu')
+
+
+def _correct(numbers, failed, limits):
+    return judge.verdict(numbers, failed, limits, partial_hevp.NUMBERS)[0]
 
 
 def test_the_reference_refuses_an_altered_pair(tiny_cell):
     cell, problem, s, ref = _sound(tiny_cell('shipsec1_fe.lobpcg6'))
     k, limits = cell.workload['which'], cell.workload['limits']
-    numbers, failed, _ = judge.judge(problem, k, [s], ref, 'cpu')
-    assert judge.verdict(numbers, failed, limits)[0] is True
+    numbers, failed, _ = partial_hevp.compare(problem, k, [s], ref, 'cpu')
+    assert _correct(numbers, failed, limits) is True
     lmd = s.lmd.copy()
     lmd[2] *= 1 + 10 * limits['eig_err']
     bent = SimpleNamespace(lmd=lmd, x=s.x, status=0, iterations=16)
-    numbers, failed, _ = judge.judge(problem, k, [bent], ref, 'cpu')
+    numbers, failed, _ = partial_hevp.compare(problem, k, [bent], ref, 'cpu')
     assert numbers['eig_err'] > limits['eig_err']
-    assert judge.verdict(numbers, failed, limits)[0] is False
+    assert _correct(numbers, failed, limits) is False
     x = s.x.copy()
     x[:, 1] = np.roll(x[:, 1], 1)
     bent = SimpleNamespace(lmd=s.lmd, x=x, status=0, iterations=16)
-    numbers, failed, _ = judge.judge(problem, k, [bent], ref, 'cpu')
+    numbers, failed, _ = partial_hevp.compare(problem, k, [bent], ref, 'cpu')
     assert numbers['resid'] > limits['resid']
-    assert judge.verdict(numbers, failed, limits)[0] is False
+    assert _correct(numbers, failed, limits) is False
     short = SimpleNamespace(lmd=s.lmd[:k - 1], x=s.x, status=0,
                             iterations=16)
-    numbers, failed, _ = judge.judge(problem, k, [short], ref, 'cpu')
-    assert failed == 1 and judge.verdict(numbers, failed, limits)[0] is False
+    numbers, failed, _ = partial_hevp.compare(problem, k, [short], ref, 'cpu')
+    assert failed == 1 and _correct(numbers, failed, limits) is False
 
 
 def test_the_reference_agrees_with_a_dense_solve(tiny_cell):

@@ -54,9 +54,8 @@ def test_the_block_width_of_every_apply(tiny_cell, name):
     """The device LOBPCG applies every operator to blocks of ``block``
     vectors; the core Solver to ``block`` and, as pairs converge, fewer
     (the mix is in PERF.md); never more."""
-    from portbench import harness
     cell = tiny_cell(name)
-    program = harness.Program(cell, cell.make(4), 'cpu')
+    program = cell.task.Program(cell, cell.make(4), 'cpu')
     with calibrate.counting_shapes() as shapes:
         program.solve()
     widths = {int(key.split('m=')[1]) for key in shapes}

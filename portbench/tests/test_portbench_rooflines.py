@@ -5,6 +5,7 @@ import pytest
 
 from portbench import harness, registry
 from portbench.rooflines import e1, k1, share
+from portbench.tasks import partial_hevp
 from portbench.tracing import Trace
 
 BW = 3.35e12
@@ -76,12 +77,12 @@ def test_share_sums_bounds_over_times():
 def test_problem_stats_count_the_inputs():
     cell = harness.Cell('lap3d_1p28m.lobpcg4', params={'grid': [6, 7, 8]})
     p = cell.make(5)
-    assert harness.problem_stats(p) == {
+    assert partial_hevp.stats(p) == {
         'n': 336, 'nnz': 7 * 336 - 2 * (56 + 48 + 42), 'nnz_b': None}
     assert k1.populated_diagonals(p['A']) == 7
     cell = harness.Cell('shipsec1_fe.lobpcg6', params={'nc': 6})
     p = cell.make(5)
-    stats = harness.problem_stats(p)
+    stats = partial_hevp.stats(p)
     assert stats['nnz'] == stats['nnz_b'] == p['A'].nnz
 
 

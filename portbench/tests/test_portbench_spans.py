@@ -107,14 +107,16 @@ def test_every_reader_has_its_entry():
 
 @pytest.mark.gpu
 def test_the_spans_share_the_device_clock(card, tiny_cell):
-    """A traced solve of the FE LOBPCG cell on the card: each E1 launch is
-    one ``raleigh.spmm`` span, every E1 kernel starts after the start of
-    the span that launched it (launches and kernels keep their order on
-    the one stream), and no span of the program appears among the device
-    operations."""
+    """A traced solve of the FE core Solver cell on the card, whose every
+    sparse apply is an eager E1 launch (f32 x f64 in the recurrence, f64 x
+    f64 for K and M; the device LOBPCG replays its applies in CUDA graphs,
+    where no span fires): each E1 launch is one ``raleigh.spmm`` span,
+    every E1 kernel starts after the start of the span that launched it
+    (launches and kernels keep their order on the one stream), and no
+    span of the program appears among the device operations."""
     from portbench import harness
-    cell = tiny_cell('shipsec1_fe.lobpcg6')
-    program = harness.Program(cell, cell.make(2 ** 31 + 29))
+    cell = tiny_cell('shipsec1_fe.core6')
+    program = cell.task.Program(cell, cell.make(2 ** 31 + 29))
     program.solve()
     trace, solves = harness.traced(program, 1)
     assert solves[-1].status == 0
