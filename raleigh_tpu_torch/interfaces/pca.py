@@ -23,9 +23,11 @@ import numpy.linalg as nla
 
 from ..core.solver import Options
 from ..algebra.dense import data_matrix
+from ..utils.profiling import spanned
 from .lra import LowerRankApproximation
 
 
+@spanned('raleigh.pca')
 def pca(A, npc=-1, tol=0, have=None, batch_size=None, verb=0, arch=None,
         norm='f', mpc=-1, svtol=1e-3, opt=None, method='auto', device=None):
     """PCA of the dataset whose samples are the rows of A.
@@ -49,6 +51,8 @@ def pca(A, npc=-1, tol=0, have=None, batch_size=None, verb=0, arch=None,
     modes); 'auto' (default) picks 'subspace' for every non-interactive
     mode on the card (``arch`` None, 'gpu' or 'cuda') and 'jacobi'
     otherwise.
+
+    Under a profiler the call is the span ``raleigh.pca``.
     """
     if opt is None:
         opt = Options()

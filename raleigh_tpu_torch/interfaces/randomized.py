@@ -32,13 +32,64 @@ per-shard GEMMs whose partial sums ``ShardedRows._reduce`` adds on the
 first shard's device; the subspace iteration runs there; the mean and the
 right factors (``comps``) stay split, shard by shard, until they are
 fetched (``fetch=False`` returns them as ``ShardedRows``).
+
+Spans and counts (``utils/profiling.py``).  Under a profiler each public
+engine call is a ``raleigh.subspace`` span, and inside it
+``raleigh.subspace.gram`` (the centred Gram), ``raleigh.subspace.iterate``
+(each product and QR of the subspace iteration), ``raleigh.subspace.rr``
+(the last product, ``eigh`` and the rotation) and
+``raleigh.subspace.factors`` (the right factors); each fetch to the host
+or wait for the card is a ``raleigh.sync`` span.  ``COUNTS`` counts always:
+engine calls (a streaming call counts its stages too), matrix products,
+QR factorizations, ``eigh`` calls and the bytes ``_host`` fetches;
+``reset_counts`` sets them back to 0.
 """
+
+import functools
 
 import numpy as np
 import torch
 
 from ..ops.spmm import storage_device
 from ..parallel.mesh import ShardedRows, _to
+from ..utils.profiling import span, spanned
+
+# engine calls, matrix products, QRs, eigh calls and bytes fetched to the
+# host since the last reset
+COUNTS = {'calls': 0, 'products': 0, 'qr': 0, 'eigh': 0,
+          'to_host_bytes': 0}
+
+
+def reset_counts():
+    for key in COUNTS:
+        COUNTS[key] = 0
+
+
+def _engine(fn):
+    """A public engine: each call counted and, under a profiler, the span
+    ``raleigh.subspace``."""
+    inner = spanned('raleigh.subspace')(fn)
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        COUNTS['calls'] += 1
+        return inner(*args, **kwargs)
+    return call
+
+
+def _mm(x, y):
+    COUNTS['products'] += 1
+    return torch.matmul(x, y)
+
+
+def _qr(x):
+    COUNTS['qr'] += 1
+    return torch.linalg.qr(x)[0]
+
+
+def _eigh(x):
+    COUNTS['eigh'] += 1
+    return torch.linalg.eigh(x)
 
 
 def _data(a, device):
@@ -73,25 +124,30 @@ def _finished(*ts):
     """Wait for the devices to finish ``ts`` (the JAX engines'
     ``block_until_ready``); a ``ShardedRows`` waits for each of its
     shards' devices."""
-    for dev in {p.device for t in ts for p in _parts(t) if p.is_cuda}:
-        torch.cuda.synchronize(dev)
+    with span('raleigh.sync'):
+        for dev in {p.device for t in ts for p in _parts(t) if p.is_cuda}:
+            torch.cuda.synchronize(dev)
     return ts
 
 
 def _host(*ts):
-    return tuple((t.gather() if isinstance(t, ShardedRows) else t)
-                 .cpu().numpy() for t in ts)
+    with span('raleigh.sync'):
+        out = tuple((t.gather() if isinstance(t, ShardedRows) else t)
+                    .cpu().numpy() for t in ts)
+    COUNTS['to_host_bytes'] += sum(x.nbytes for x in out)
+    return out
 
 
 def _gram_about(a, mean):
     """G = As As^T for As = A - e mean (any row vector ``mean``), without
     materializing As: A A^T - r e^T - e r^T + |mean|^2 with r = A mean."""
-    r = torch.matmul(a, mean)
+    r = _mm(a, mean)
     mu2 = torch.dot(mean, mean)
-    g = torch.matmul(a, a.T)
+    g = _mm(a, a.T)
     return g.sub_(r[:, None]).sub_(r[None, :]).add_(mu2)
 
 
+@spanned('raleigh.subspace.factors')
 def _right_factors(a, mean, u, sigma):
     """(trans, comps) of the centered data from its left factor u:
     comps = (As^T u / sigma)^T, again without As.  Feature-split data give
@@ -101,10 +157,10 @@ def _right_factors(a, mean, u, sigma):
         parts = []
         for p, mu in zip(a.parts, mean.parts):
             ud = _to(u, p.device)
-            atu = torch.matmul(p.T, ud) - mu[:, None] * _to(su, p.device)
+            atu = _mm(p.T, ud) - mu[:, None] * _to(su, p.device)
             parts.append(_scaled_factors(atu, ud, _to(sigma, p.device))[1])
         return u * sigma[None, :], ShardedRows(parts, a.sharding, dim=1)
-    atu = torch.matmul(a.T, u)
+    atu = _mm(a.T, u)
     atu = atu - mean[:, None] * torch.sum(u, dim=0)[None, :]
     return _scaled_factors(atu, u, sigma)
 
@@ -125,6 +181,7 @@ def _subspace_pca_gram(a, q, npc, iters):
     return (mean,) + _finalize_from_gram(a, mean, u, lmd, npc)
 
 
+@_engine
 def subspace_pca(a, npc, oversample=64, iters=6, seed=1, fetch=True,
                  device=None):
     """One-call PCA: returns (mean (1, n), trans (m, npc), comps (npc, n))
@@ -157,6 +214,7 @@ def _deliver(mean, trans, comps, fetch):
     return _host(mean, trans, comps)
 
 
+@spanned('raleigh.subspace.gram')
 def _centered_gram(a):
     """G = As As^T for As = A - e mean, and the mean, without
     materializing As.  For feature-split data each shard's products are
@@ -166,9 +224,9 @@ def _centered_gram(a):
         mean = torch.mean(a, dim=0)
         return _gram_about(a, mean), mean
     means = [torch.mean(p, dim=0) for p in a.parts]
-    r = a._reduce([torch.matmul(p, mu) for p, mu in zip(a.parts, means)])
+    r = a._reduce([_mm(p, mu) for p, mu in zip(a.parts, means)])
     mu2 = a._reduce([torch.dot(mu, mu) for mu in means])
-    g = a._reduce([torch.matmul(p, p.T) for p in a.parts])
+    g = a._reduce([_mm(p, p.T) for p in a.parts])
     g = g.sub_(r[:, None]).sub_(r[None, :]).add_(mu2)
     return g, ShardedRows(means, a.sharding, dim=0)
 
@@ -178,11 +236,13 @@ def _gram_subspace(G, q, iters):
     matrix from the (m, l) starting block ``q``; returns descending
     (lmd (l,), U (m, l))."""
     for _ in range(int(iters) + 1):
-        q, _ = torch.linalg.qr(torch.matmul(G, q))
-    s = torch.matmul(q.T, torch.matmul(G, q))
-    s = 0.5 * (s + s.T)
-    lmd, w = torch.linalg.eigh(s)                    # ascending
-    u = torch.matmul(q, w.flip(1))
+        with span('raleigh.subspace.iterate'):
+            q = _qr(_mm(G, q))
+    with span('raleigh.subspace.rr'):
+        s = _mm(q.T, _mm(G, q))
+        s = 0.5 * (s + s.T)
+        lmd, w = _eigh(s)                            # ascending
+        u = _mm(q, w.flip(1))
     return torch.clamp(lmd.flip(0), min=0.0), u
 
 
@@ -304,6 +364,7 @@ def _clamp_rank(k, max_npc):
     return max(k, 1)
 
 
+@_engine
 def subspace_pca_tol(a, tol, norm='f', max_npc=-1, iters=6, seed=1,
                      fetch=True, verb=0, device=None):
     """Tolerance-driven device PCA: grow the iterated subspace until the
@@ -323,6 +384,7 @@ def subspace_pca_tol(a, tol, norm='f', max_npc=-1, iters=6, seed=1,
     return _deliver(mean, trans, comps, fetch)
 
 
+@spanned('raleigh.subspace.gram')
 def _update_gram(mean0, trans0, comps0, a1):
     """Gram matrix of the pooled centered stack [A0; A1] where
     A0 ~= e mean0 + L0 R0 is known only through its factors (R0 rows
@@ -335,17 +397,17 @@ def _update_gram(mean0, trans0, comps0, a1):
     d = mean0 - mean
 
     L0 = trans0
-    rd = torch.matmul(comps0, d)                         # (k0,)
+    rd = _mm(comps0, d)                                  # (k0,)
     dd = torch.dot(d, d)
-    g00 = torch.matmul(L0, L0.T)
-    t0 = torch.matmul(L0, rd)                            # (m0,)
+    g00 = _mm(L0, L0.T)
+    t0 = _mm(L0, rd)                                     # (m0,)
     g00 = g00 + t0[:, None] + t0[None, :] + dd
 
-    w = torch.matmul(comps0, a1.T)                       # (k0, m1)
-    rmu = torch.matmul(comps0, mean)                     # (k0,)
-    a1d = torch.matmul(a1, d)                            # (m1,)
+    w = _mm(comps0, a1.T)                                # (k0, m1)
+    rmu = _mm(comps0, mean)                              # (k0,)
+    a1d = _mm(a1, d)                                     # (m1,)
     dmu = torch.dot(d, mean)
-    g01 = torch.matmul(L0, w) - torch.matmul(L0, rmu)[:, None] \
+    g01 = _mm(L0, w) - _mm(L0, rmu)[:, None] \
         + a1d[None, :] - dmu
 
     g11 = _gram_about(a1, mean)
@@ -354,6 +416,7 @@ def _update_gram(mean0, trans0, comps0, a1):
     return G, mean, d
 
 
+@spanned('raleigh.subspace.factors')
 def _finalize_update(trans0, comps0, a1, mean, d, u, lmd, npc):
     """comps for the pooled stack: As^T U assembled from the old factors
     and the new rows, never materializing A0."""
@@ -361,15 +424,16 @@ def _finalize_update(trans0, comps0, a1, mean, d, u, lmd, npc):
     u = u[:, :npc]
     sigma = torch.sqrt(torch.clamp(lmd[:npc], min=0.0))
     u0, u1 = u[:m0], u[m0:]
-    ltu = torch.matmul(trans0.T, u0)                     # (k0, npc)
-    asu = torch.matmul(comps0.T, ltu)                    # (n, npc)
+    ltu = _mm(trans0.T, u0)                              # (k0, npc)
+    asu = _mm(comps0.T, ltu)                             # (n, npc)
     asu = asu + d[:, None] * torch.sum(u0, dim=0)[None, :]
-    asu = asu + torch.matmul(a1.T, u1)
+    asu = asu + _mm(a1.T, u1)
     asu = asu - mean[:, None] * torch.sum(u1, dim=0)[None, :]
     trans, comps = _scaled_factors(asu, u, sigma)
     return trans, comps, sigma
 
 
+@_engine
 def subspace_pca_update(have, a1, npc=-1, tol=0, norm='f', max_npc=-1,
                         iters=6, seed=1, verb=0, device=None):
     """Device warm-start update: fold the new rows ``a1`` into a previous
@@ -412,6 +476,7 @@ def subspace_pca_update(have, a1, npc=-1, tol=0, norm='f', max_npc=-1,
     return _host(mean.reshape(1, -1), trans, comps)
 
 
+@_engine
 def subspace_pca_stream(a, batch_size, npc=-1, tol=0, norm='f',
                         max_npc=-1, iters=6, seed=1, verb=0, device=None):
     """Streaming device PCA: compute on the first batch of rows, then
@@ -438,6 +503,7 @@ def subspace_pca_stream(a, batch_size, npc=-1, tol=0, norm='f',
     return mean, trans, comps
 
 
+@_engine
 def randomized_svd(a, k, oversample=16, iters=4, seed=1, device=None):
     """Randomized truncated SVD (Halko-Martinsson-Tropp style): returns
     host arrays (u, sigma, vt)."""
@@ -451,12 +517,12 @@ def randomized_svd(a, k, oversample=16, iters=4, seed=1, device=None):
 def _rand_svd(a, q, k, iters):
     """Range finder from the (n, l) starting block ``q``, ``iters`` power
     iterations with QR in between, then the SVD of the projected block."""
-    q = torch.matmul(a, q)
+    q = _mm(a, q)
     for _ in range(int(iters)):
-        q, _ = torch.linalg.qr(q)
-        q = torch.matmul(a, torch.matmul(a.T, q))
-    q, _ = torch.linalg.qr(q)
-    b = torch.matmul(q.T, a)                             # (l, n)
+        with span('raleigh.subspace.iterate'):
+            q = _mm(a, _mm(a.T, _qr(q)))
+    q = _qr(q)
+    b = _mm(q.T, a)                                      # (l, n)
     ub, s, vt = torch.linalg.svd(b, full_matrices=False)
-    u = torch.matmul(q, ub)
+    u = _mm(q, ub)
     return u[:, :k], s[:k], vt[:k]

@@ -4,8 +4,9 @@ PyTorch port of ``raleigh_tpu/utils/profiling.py``.  ``device_trace``
 records a ``torch.profiler`` trace of the host and the card.  ``span`` and
 ``spanned`` mark the program's layers in such a trace: each layer boundary
 of a solve (``partial_hevp``, the LOBPCG and its steps, the core Solver,
-the block algebra, the Chebyshev recurrence, the sparse applies, the
-transfers to the host) is a ``raleigh.*`` span, a host event of the same
+the block algebra, the Chebyshev recurrence, the sparse applies, ``pca``
+and the subspace engine's steps, the transfers to the host) is a
+``raleigh.*`` span, a host event of the same
 profiler session whose CUPTI records give the card's operations, on the
 same clock.  A span exists only while a profiler records: otherwise it
 costs one check and creates nothing.
