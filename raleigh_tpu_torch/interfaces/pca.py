@@ -52,6 +52,11 @@ def pca(A, npc=-1, tol=0, have=None, batch_size=None, verb=0, arch=None,
     mode on the card (``arch`` None, 'gpu' or 'cuda') and 'jacobi'
     otherwise.
 
+    The factors come back as NumPy arrays.  From the card the subspace
+    engine fetches them into pinned host memory from PyTorch's caching
+    host allocator: each array owns its block, and a block freed with its
+    array is kept for reuse by a later fetch of the same size.
+
     Under a profiler the call is the span ``raleigh.pca``.
     """
     if opt is None:

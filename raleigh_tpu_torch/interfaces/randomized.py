@@ -41,8 +41,16 @@ engine call is a ``raleigh.subspace`` span, and inside it
 ``raleigh.subspace.factors`` (the right factors); each fetch to the host
 or wait for the card is a ``raleigh.sync`` span.  ``COUNTS`` counts always:
 engine calls (a streaming call counts its stages too), matrix products,
-QR factorizations, ``eigh`` calls and the bytes ``_host`` fetches;
-``reset_counts`` sets them back to 0.
+QR factorizations, ``eigh`` calls, the bytes ``_host`` fetches and, of
+those, the bytes fetched through pinned memory; ``reset_counts`` sets them
+back to 0.
+
+Host results.  The engines that return host arrays copy them from the
+card into pinned host memory from PyTorch's caching host allocator, every
+copy queued before one wait; each array is a NumPy view of its own pinned
+block, which lives as long as the array.  A dropped array's block is kept
+for a later fetch of the same size, so a caller that drops its previous
+result pins no new pages.  Data on the CPU comes back as ``.cpu().numpy()``.
 """
 
 import functools
@@ -54,10 +62,11 @@ from ..ops.spmm import storage_device
 from ..parallel.mesh import ShardedRows, _to
 from ..utils.profiling import span, spanned
 
-# engine calls, matrix products, QRs, eigh calls and bytes fetched to the
-# host since the last reset
+# engine calls, matrix products, QRs, eigh calls, bytes fetched to the
+# host and, of those, bytes fetched through pinned memory since the last
+# reset
 COUNTS = {'calls': 0, 'products': 0, 'qr': 0, 'eigh': 0,
-          'to_host_bytes': 0}
+          'to_host_bytes': 0, 'pinned_bytes': 0}
 
 
 def reset_counts():
@@ -120,21 +129,36 @@ def _parts(t):
     return t.parts if isinstance(t, ShardedRows) else [t]
 
 
+def _wait(ts):
+    """Wait for the CUDA devices that hold ``ts`` (each shard's device
+    for a ``ShardedRows``)."""
+    for dev in {p.device for t in ts for p in _parts(t) if p.is_cuda}:
+        torch.cuda.synchronize(dev)
+
+
 def _finished(*ts):
     """Wait for the devices to finish ``ts`` (the JAX engines'
-    ``block_until_ready``); a ``ShardedRows`` waits for each of its
-    shards' devices."""
+    ``block_until_ready``)."""
     with span('raleigh.sync'):
-        for dev in {p.device for t in ts for p in _parts(t) if p.is_cuda}:
-            torch.cuda.synchronize(dev)
+        _wait(ts)
     return ts
 
 
 def _host(*ts):
+    """``ts`` as NumPy arrays, a ``ShardedRows`` gathered first.  A CUDA
+    tensor is copied into a pinned block of PyTorch's caching host
+    allocator, all copies queued before one wait; a CPU tensor is
+    ``.cpu().numpy()``."""
     with span('raleigh.sync'):
-        out = tuple((t.gather() if isinstance(t, ShardedRows) else t)
-                    .cpu().numpy() for t in ts)
+        ts = [t.gather() if isinstance(t, ShardedRows) else t for t in ts]
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                .copy_(t, non_blocking=True) if t.is_cuda else t.cpu()
+                for t in ts]
+        _wait(ts)
+        out = tuple(h.numpy() for h in host)
     COUNTS['to_host_bytes'] += sum(x.nbytes for x in out)
+    COUNTS['pinned_bytes'] += sum(x.nbytes for x, t in zip(out, ts)
+                                  if t.is_cuda)
     return out
 
 

@@ -233,11 +233,12 @@ def test_no_span_opens_without_a_profiler(data, monkeypatch):
 
 def test_the_counts_of_one_call(data):
     """One pca call: one engine call, 13 products (A mean, A A^T, 8 G q,
-    q^T (G q), q w, A^T u), 7 QRs, one eigh, and the factors' bytes."""
+    q^T (G q), q w, A^T u), 7 QRs, one eigh, and the factors' bytes,
+    none of them through pinned memory on the CPU."""
     randomized.reset_counts()
     _pca(data)
     assert randomized.COUNTS == {
         'calls': 1, 'products': 13, 'qr': 7, 'eigh': 1,
-        'to_host_bytes': 4 * (N + M * NPC + NPC * N)}
+        'to_host_bytes': 4 * (N + M * NPC + NPC * N), 'pinned_bytes': 0}
     randomized.reset_counts()
     assert set(randomized.COUNTS.values()) == {0}
