@@ -18,51 +18,47 @@ carries on, and no wrapper gives way to its plain version on the card.
    time the card could take (``bound``).
    * DIA SpMM of lap3d(100,100,128) (n = 1,280,000) with m = 16 in f32 and
      bf16 operands, and lap3d 50^3 (n = 125,000) with m = 24, through the
-     kernel and through its previous design (``dia_matmat_rows_prev``, in
-     the same source): both equal to the plain version bit for bit, and
-     timed in turns with it and the library call.  Two controls, the
+     kernel: equal to the plain version bit for bit, and timed in turns
+     with it and the library call.  Two controls, the
      plain version with a bf16 running sum and with each product rounded
      to bf16, must fail the entrywise bf16 bound (one bf16 rounding on
      either side plus the f32 summation error bound, ``bf16_excess``).
    * The stream kernel ``y = a x`` on 32 x 1,277,952 f32, on an unaligned
-     view and on a tail, and its previous design (``stream_scale_prev``)
-     against ``torch.mul``: exact equality; both timed in turns with it.
+     view and on a tail, against ``torch.mul``: exact equality; timed in
+     turns with it.
      The kernel's rate is the card's stream rate as the port measures it.
    * BSR SpMM of the finite-element flagship in the mesher's order
      (``shipsec_like(relabel=False)``, n = 139,179, bs = 128, m = 16 and
      24) in the four instantiations (f32 or bf16 tiles, f32 or bf16
-     operand), through the kernel and its previous design
-     (``bsr_matmat_rows_prev``), timed in turns with the plain version and
-     the library calls; and of a small girder with n not a multiple of
+     operand), through the kernel, timed in turns with the plain version
+     and the library calls; and of a small girder with n not a multiple of
      bs = 64 (the 16-byte path) or bs = 5 (the general path), m = 24 and
      one block row emptied.  Tolerance entrywise (``bsr_excess``): twice the
      f32 summation error bound of the entry's L terms, plus one rounding
      on either side for a bf16 result.  Two controls, a bf16 running sum
      over the tiles and bf16 products, must fail it.
    * The ELL kernel (``csrc/ell_spmm.cu``, in the JAX package a jitted
-     ``lax.scan``) and its previous design (``_ell_matmat_prev``, the same
-     source) on the same flagship in both orderings (``phase_ell``):
+     ``lax.scan``) on the same flagship in both orderings (``phase_ell``):
      f32 values with an f32 operand at m = 8, 16, 32, a bf16 operand at
      m = 16, an f64 operand at m = 8 with f32 and with f64 values, and a
      c128 operand at m = 8 (the complex route, one f64 launch over the
      stacked rows).  Tolerance entrywise (``ell_excess``): twice the
      summation error bound of a row's K terms in the sum type, plus one
-     bf16 rounding on either side for a bf16 result; both designs sum in
+     bf16 rounding on either side for a bf16 result; the kernel sums in
      the plain version's order, so exact equality is reported as well.
      Two controls, a bf16 running sum and bf16 products, must fail the
-     bound.  Both designs timed in turns with the plain version,
+     bound.  The kernel timed in turns with the plain version,
      ``torch.sparse.mm`` on the CSR tensor of the same type and the
      row-layout apply (the (n, m) copy of the operand, then the launch),
-     with each design's registers a thread and resident blocks an SM.
+     with its registers a thread and resident blocks an SM.
    * The f64 instantiations of the DIA kernel (f64 operand, f32 or f64
      values) on lap3d(100,100,128), equal to the plain version bit for
-     bit, and of the BSR kernel (f64 operand, f32 or f64 tiles) and its
-     previous design (``bsr_matmat_rows_prev``) on the FE flagship in the
-     mesher's order, within ``F64_SUM_TOL`` of the largest |entry| (f64
-     sums in another order), at the core fields' block size and at m = 16,
-     timed in turns with the plain version and ``torch.sparse.mm`` on the
-     f64 CSR tensor (the BSR kernel also with its previous design and an
-     f64 ``torch.sparse_bsr_tensor``).
+     bit, and of the BSR kernel (f64 operand, f32 or f64 tiles) on the FE
+     flagship in the mesher's order, within ``F64_SUM_TOL`` of the largest
+     |entry| (f64 sums in another order), at the core fields' block size
+     and at m = 16, timed in turns with the plain version and
+     ``torch.sparse.mm`` on the f64 CSR tensor (the BSR kernel also with
+     an f64 ``torch.sparse_bsr_tensor``).
    * The f64 instantiations of the mesh DIA kernel (f64 operand, f32 or
      f64 values) on lap3d(100,100,128) in 8 shards of the card at the core
      block size: one launch for a sharded apply, within ``F64_SUM_TOL`` of
@@ -78,24 +74,20 @@ carries on, and no wrapper gives way to its plain version on the card.
      rows); c128 operands at the core block size, within ``F64_SUM_TOL``
      of the plain version on the complex tensors; timed in turns with it
      and ``torch.sparse.mm`` on the complex CSR.
-   * The two staged-window DIA kernels (sliding window, tile ring) and
-     their previous designs (``dia_matmat_rows_slide_prev``,
-     ``dia_matmat_rows_tiles_prev``, in the same sources) at the tile
-     sweep's shape, lap3d(100,100,128) * 0.125 with m = 32 and m = 16 f32
+   * The two staged-window DIA kernels (sliding window, tile ring) at the
+     tile sweep's shape, lap3d(100,100,128) * 0.125 with m = 32 and m = 16 f32
      rows, at every tile size the sweep runs.  Tolerance entrywise
      (``window_excess``): twice the f32 summation error bound of the
-     entry's terms; the control, a bf16 running sum, must fail it.  All
-     four keep the plain version's order of summation, so exact equality
-     is reported as well, with the launch plan of each new kernel (cluster
-     size, clusters that fit the card at once, rows per block, val chunk).
-     At the row tile the kernel, its previous design, the plain version
-     and K1 are timed in turns.
+     entry's terms; the control, a bf16 running sum, must fail it.  Both
+     keep the plain version's order of summation, so exact equality is
+     reported as well, with the launch plan of each kernel (cluster size,
+     clusters that fit the card at once, rows per block, val chunk).  At
+     the row tile the kernel, the plain version and K1 are timed in
+     turns.
    * The tiled (per_step 1 and 4) and pipelined (depth 2 and 4) stream
      kernels on 32 x 1,277,952 f32 at every tile size the copy sweep runs,
-     and the pipelined kernel's previous design
-     (``stream_scale_pipelined_prev``), against ``torch.mul``: exact
-     equality; the pipelined kernel timed in turns with its previous
-     design and ``torch.mul``.
+     against ``torch.mul``: exact equality; the pipelined kernel timed in
+     turns with ``torch.mul``.
    * The copy kernel: ``hbm2hbm`` on 32 x 1,277,952 f32 at tile 32,768 and
      as one tile, ``copy_lanes`` of a shard's halo (16 x 10,000 lanes out of
      16 x 160,000) and of its body into the slots of an extended operand,
@@ -105,20 +97,18 @@ carries on, and no wrapper gives way to its plain version on the card.
      ``torch._foreach_copy_``), f32 and bf16: exact equality.
    * The mesh DIA kernel on lap3d(100,100,128) cut in 8 and in 2 shards,
      m = 16, f32 and bf16: one sharded apply as a user makes it is one
-     launch and no copy; every shard, through the mesh entry and through
-     the one-piece entry (the per-shard route over copied extended
-     operands), against the plain version over the piece table
-     (``window_excess`` / ``bf16_excess``; the controls must fail), and
+     launch and no copy; every shard, through the mesh entry, against
+     the plain version over the piece table (``window_excess`` /
+     ``bf16_excess``; the controls must fail), and
      equal to the unsharded kernel's apply, bit for bit.  Times of the
-     kernel's wrapper, of the whole sharded apply, of the unsharded kernel
-     and of the per-shard route (one copy launch per run, as the previous
-     design made them, and one batched copy launch), in turns.  The shards
-     share the one card: no scaling measurement.
+     kernel's wrapper, of the whole sharded apply and of the unsharded
+     kernel, in turns.  The shards share the one card: no scaling
+     measurement.
 3. The main paths as a user calls them, with no device argument, each
    driven with every launch counter set to 0 just before it and read just
    after.
    Each solver field must take the iterations of the records
-   (``ITERATIONS``), and no previous design may launch on any path.
+   (``ITERATIONS``).
    * ``partial_hevp`` with a degree-12 Chebyshev preconditioner on
      lap3d(100,100,128), 4 smallest to 5e-5, checked against the analytic
      eigenvalues (1e-3 relative) with both DIA launch counters > 0; then
@@ -237,9 +227,9 @@ carries on, and no wrapper gives way to its plain version on the card.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel's launches on its path, error against plain, times and bound
-(the mesh rows also the time of a whole sharded apply, of the unsharded
-kernel and of the per-shard route beside it; a case of the copy kernel
-that no path runs keeps 0 launches, with ``off_path`` saying why).
+(the mesh rows also the time of a whole sharded apply and of the
+unsharded kernel beside it; a case of a kernel that no path runs keeps 0
+launches, with ``off_path`` saying why).
 
     python3 chip_smoke.py --profile
 
@@ -281,15 +271,10 @@ ELL = ('raleigh_tpu_torch/csrc/ell_spmm.cu', 'raleigh_tpu/ops/spmm.py:463')
 # of 16 between host checks)
 ITERATIONS = {(100, 100, 128): 32, (50, 50, 50): 16, 'FE-BSR': 16,
               'FE-ELL': 16, 'sharded': 32}
-# sources whose kernel was redesigned, the previous design kept beside it
-# (its ``_prev`` entries run in phase 2 only, timed in turns with the new)
+# sources whose kernels were redesigned on the card: phase 1 prints each
+# kernel's registers, static shared memory and spills
 REDESIGNED = ('dia_spmm', 'bsr_spmm', 'stream_scale', 'stream_probes',
               'dia_spmm_slide', 'dia_spmm_tiles', 'ell_spmm')
-OFF_PATH_PREV = ('the previous design, kept to be timed in turns with the '
-                 'kernel on the path; no solver path launches it')
-# the previous designs of the staged-window kernels, by sweep variant
-PREVIOUS_WINDOW = {'slide': lambda sw: sw.dia_matmat_rows_slide_prev,
-                   'tiles': lambda sw: sw.dia_matmat_rows_tiles_prev}
 # the sharded main path: shards of the one card, and its field
 SHARDS = 8
 SHARDED_AGREE = 1e-5
@@ -373,8 +358,8 @@ def bound(nbytes, flops, peak=PEAK_F32):
 
 def turns(fns, reps):
     """{name: ms} for a dict of callables, each timed twice, in turns: in
-    the dict's order, then in the reverse order (plain, kernel, previous,
-    previous, kernel, plain, ...); the best of the two.  An entry that is
+    the dict's order, then in the reverse order (plain, kernel, library,
+    library, kernel, plain, ...); the best of the two.  An entry that is
     None stays None."""
     names = [k for k, fn in fns.items() if fn is not None]
     best = {k: None for k in fns}
@@ -521,10 +506,10 @@ def bf16_controls(torch, val, x, offsets):
 
 
 def phase_kernels(torch, np, lap3d, DiaMatrix, sw):
-    """The DIA kernel, its previous design and the plain version at the
-    main path's shapes, equal bit for bit, timed in turns with the library
-    call; returns the rows of both designs at the lap3d(100,100,128)
-    shape, the lap3d 50^3 m = 24 times as extra keys."""
+    """The DIA kernel and the plain version at the main path's shapes,
+    equal bit for bit, timed in turns with the library call; returns the
+    kernel's rows at the lap3d(100,100,128) shape, the lap3d 50^3 m = 24
+    times as extra keys."""
     rows = {}
     gen = torch.Generator('cuda').manual_seed(0)
     cases = [((100, 100, 128), 16, torch.float32),
@@ -541,24 +526,18 @@ def phase_kernels(torch, np, lap3d, DiaMatrix, sw):
         n = dm.shape[0]
         x = torch.randn((m, n), generator=gen, device='cuda').to(dt)
         yk = sw.dia_matmat_rows(dm.val, x, dm.offsets_t)
-        yprev = sw.dia_matmat_rows_prev(dm.val, x, dm.offsets_t)
         yp = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
         torch.cuda.synchronize()
         key = str(dt).replace('torch.', '')
-        for what, y in (('kernel', yk), ('previous design', yprev)):
-            if y.dtype != dt or y.shape != (m, n):
-                fail('%s output %s %s' % (what, y.dtype, tuple(y.shape)))
-            if not torch.isfinite(y.float()).all():
-                fail('%s vs plain %s %s m=%d: non-finite' % (what, grid, key,
-                                                             m))
-        # the kernels keep the plain version's products and order of sums
+        if yk.dtype != dt or yk.shape != (m, n):
+            fail('kernel output %s %s' % (yk.dtype, tuple(yk.shape)))
+        if not torch.isfinite(yk.float()).all():
+            fail('kernel vs plain %s %s m=%d: non-finite' % (grid, key, m))
+        # the kernel keeps the plain version's products and order of sums
         if not torch.equal(yk, yp):
             fail('kernel vs plain %s %s m=%d: not equal bit for bit (max '
                  'abs %.3e)' % (grid, key, m,
                                 (yk.float() - yp.float()).abs().max()))
-        if not torch.equal(yk, yprev):
-            fail('kernel vs its previous design %s %s m=%d: not equal bit '
-                 'for bit' % (grid, key, m))
         diff = 0.0
         if dt == torch.bfloat16:
             for name, yc in bf16_controls(torch, dm.val, x,
@@ -573,12 +552,10 @@ def phase_kernels(torch, np, lap3d, DiaMatrix, sw):
                                                      cworst, crel))
                 if cworst <= 1:
                     fail('the bf16 bound passes the control (%s)' % name)
-        del yk, yprev, yp
+        del yk, yp
         fns = {'plain': lambda: sw.dia_matmat_rows_plain(dm.val, x,
                                                          dm.offsets_t),
                'kernel': lambda: sw.dia_matmat_rows(dm.val, x, dm.offsets_t),
-               'prev': lambda: sw.dia_matmat_rows_prev(dm.val, x,
-                                                       dm.offsets_t),
                'library': (library_spmm_fn(torch, csrs[grid], x)
                            if dt == torch.float32 else None)}
         t = turns(fns, 50)
@@ -586,81 +563,57 @@ def phase_kernels(torch, np, lap3d, DiaMatrix, sw):
         nbytes = noff * n * 4 + noff * 4 + 2 * m * n * x.element_size()
         flops = 2 * m * sum(n - abs(o) for o in dm.offsets)
         bound_ms, bound_by = bound(nbytes, flops)
-        print('dia_spmm lap3d%s n=%d m=%d %s: equal to plain and to the '
-              'previous design bit for bit; kernel %.4f ms (%.0f GB/s), '
-              'previous design %.4f ms (%.0f GB/s), %.2fx; plain %.4f ms, '
-              'torch.sparse.mm %s, bound %.4f ms (%s), in turns'
+        print('dia_spmm lap3d%s n=%d m=%d %s: equal to plain bit for bit; '
+              'kernel %.4f ms (%.0f GB/s); plain %.4f ms, torch.sparse.mm '
+              '%s, bound %.4f ms (%s), in turns'
               % (grid, n, m, key, t['kernel'], nbytes / t['kernel'] / 1e6,
-                 t['prev'], nbytes / t['prev'] / 1e6,
-                 t['prev'] / t['kernel'], t['plain'], fmt_ms(t['library']),
-                 bound_ms, bound_by))
-        tag = 'f32' if key == 'float32' else 'bf16'
+                 t['plain'], fmt_ms(t['library']), bound_ms, bound_by))
+        name = 'dia_spmm_rows_' + ('f32' if key == 'float32' else 'bf16')
         if grid == (100, 100, 128):
-            for name, ms in (('dia_spmm_rows_' + tag, t['kernel']),
-                             ('dia_spmm_rows_prev_' + tag, t['prev'])):
-                rows[name] = dict(
-                    name=name, route='cuda', source=DIA[0], replaces=DIA[1],
-                    launches=0, max_abs_err=diff, ms=ms,
-                    plain_ms=t['plain'], bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=t['library'],
-                    bytes=nbytes)
-            rows['dia_spmm_rows_' + tag]['prev_ms'] = t['prev']
-            rows['dia_spmm_rows_prev_' + tag]['off_path'] = OFF_PATH_PREV
+            rows[name] = dict(
+                name=name, route='cuda', source=DIA[0], replaces=DIA[1],
+                launches=0, max_abs_err=diff, ms=t['kernel'],
+                plain_ms=t['plain'], bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=t['library'], bytes=nbytes)
         else:
-            for name in ('dia_spmm_rows_' + tag, 'dia_spmm_rows_prev_' + tag):
-                rows[name]['lap3d50_m24_ms'] = (
-                    t['kernel'] if 'prev' not in name else t['prev'])
+            rows[name]['lap3d50_m24_ms'] = t['kernel']
     return rows
 
 
 def phase_stream(torch, st):
-    """The stream kernel and its previous design against ``torch.mul``
-    (exact equality) at the reference's shape, on an unaligned view and on
-    a tail, timed in turns with ``torch.mul``; returns the rows of both
-    designs.  The kernel's rate is the card's stream rate as the port
-    measures it."""
+    """The stream kernel against ``torch.mul`` (exact equality) at the
+    reference's shape, on an unaligned view and on a tail, timed in turns
+    with ``torch.mul``; returns the kernel's row.  The kernel's rate is
+    the card's stream rate as the port measures it."""
     gen = torch.Generator('cuda').manual_seed(1)
     x = torch.randn(st.REFERENCE_SHAPE, generator=gen, device='cuda')
     a = st.REFERENCE_SCALE
     # an unaligned view takes the 4-byte path and the scalar tail
     odd = x.reshape(-1)[1:1000004]
     yp = st.stream_scale_plain(x, a)
-    diffs = {}
-    for label, fn in (('stream kernel', st.stream_scale),
-                      ('its previous design', st.stream_scale_prev)):
-        yk = fn(x, a)
-        torch.cuda.synchronize()
-        diff = diffs[fn] = (yk - yp).abs().max().item()
-        if not torch.equal(yk, yp):
-            fail('%s differs from torch.mul (max abs %.3e)' % (label, diff))
-        if not torch.equal(fn(odd.clone(), a), st.stream_scale_plain(odd, a)):
-            fail('%s differs from torch.mul on an odd length' % label)
-        del yk
-    del yp
+    yk = st.stream_scale(x, a)
+    torch.cuda.synchronize()
+    diff = (yk - yp).abs().max().item()
+    if not torch.equal(yk, yp):
+        fail('stream kernel differs from torch.mul (max abs %.3e)' % diff)
+    if not torch.equal(st.stream_scale(odd.clone(), a),
+                       st.stream_scale_plain(odd, a)):
+        fail('stream kernel differs from torch.mul on an odd length')
+    del yk, yp
     t = turns({'plain': lambda: st.stream_scale_plain(x, a),
-               'kernel': lambda: st.stream_scale(x, a),
-               'prev': lambda: st.stream_scale_prev(x, a)}, 50)
+               'kernel': lambda: st.stream_scale(x, a)}, 50)
     nbytes = 2 * x.numel() * 4
     bound_ms, bound_by = bound(nbytes, x.numel())
-    print('stream_scale %s f32: kernel and previous design equal to '
-          'torch.mul; kernel %.4f ms (%.0f GB/s), previous design %.4f ms '
-          '(%.0f GB/s), %.3fx; torch.mul %.4f ms (%.0f GB/s), bound %.4f ms '
-          '(%s), in turns'
+    print('stream_scale %s f32: kernel equal to torch.mul; kernel %.4f ms '
+          '(%.0f GB/s); torch.mul %.4f ms (%.0f GB/s), bound %.4f ms (%s), '
+          'in turns'
           % (tuple(x.shape), t['kernel'], nbytes / t['kernel'] / 1e6,
-             t['prev'], nbytes / t['prev'] / 1e6, t['prev'] / t['kernel'],
              t['plain'], nbytes / t['plain'] / 1e6, bound_ms, bound_by))
-    rows = {}
-    for name, ms, fn in (
-            ('stream_scale_f32', t['kernel'], st.stream_scale),
-            ('stream_scale_prev_f32', t['prev'], st.stream_scale_prev)):
-        rows[name] = dict(name=name, route='cuda', source=STREAM[0],
-                          replaces=STREAM[1], launches=0,
-                          max_abs_err=diffs[fn], ms=ms, plain_ms=t['plain'], bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=t['plain'],
-                          bytes=nbytes)
-    rows['stream_scale_f32']['prev_ms'] = t['prev']
-    rows['stream_scale_prev_f32']['off_path'] = OFF_PATH_PREV
-    return rows
+    return {'stream_scale_f32': dict(
+        name='stream_scale_f32', route='cuda', source=STREAM[0],
+        replaces=STREAM[1], launches=0, max_abs_err=diff, ms=t['kernel'],
+        plain_ms=t['plain'], bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=t['plain'], bytes=nbytes)}
 
 
 def bsr_excess(torch, sp, bm, x, got, want):
@@ -719,16 +672,11 @@ def bsr_controls(torch, bm, x):
     return {'bf16 running sum': out(run), 'bf16 products': out(prod)}
 
 
-def check_bsr(torch, sp, bm, x, name, prev=False):
-    """One BSR kernel apply (``prev``: through the previous design)
-    against the plain version: dtype, shape, finiteness and the entrywise
-    bound; returns (max abs error, worst ratio to the bound, the plain
-    version's result)."""
-    if prev:
-        yk = sp.bsr_matmat_rows_prev(bm.blocks, bm.block_indptr_t,
-                                     bm.block_cols, x, bm.shape[0])
-    else:
-        yk = bm.matmat_rows(x)
+def check_bsr(torch, sp, bm, x, name):
+    """One BSR kernel apply against the plain version: dtype, shape,
+    finiteness and the entrywise bound; returns (max abs error, worst ratio
+    to the bound, the plain version's result)."""
+    yk = bm.matmat_rows(x)
     yp = sp.bsr_matmat_rows_plain(bm.blocks, bm.block_indptr_t,
                                   bm.block_cols, x, bm.shape[0])
     torch.cuda.synchronize()
@@ -744,11 +692,10 @@ def check_bsr(torch, sp, bm, x, name, prev=False):
 
 
 def phase_bsr(torch, np, sp, BsrMatrix, fe, k_nat):
-    """The BSR kernel and its previous design against the plain version:
-    the flagship in the mesher's order in the four instantiations at m = 16
-    and m = 24, with controls and times in turns, and awkward small shapes
-    (the 16-byte path and the general path).  Returns the rows of both
-    designs."""
+    """The BSR kernel against the plain version: the flagship in the
+    mesher's order in the four instantiations at m = 16 and m = 24, with
+    controls and times in turns, and awkward small shapes (the 16-byte
+    path and the general path).  Returns the kernel's rows."""
     rows = {}
     gen = torch.Generator('cuda').manual_seed(2)
     n = k_nat.shape[0]
@@ -774,9 +721,6 @@ def phase_bsr(torch, np, sp, BsrMatrix, fe, k_nat):
                 x = xs[m] if xkey == 'f32' else xs[m].to(torch.bfloat16)
                 label = '%s m=%d' % (name, m)
                 diff, worst, yp = check_bsr(torch, sp, bm, x, label)
-                pdiff, pworst, _ = check_bsr(torch, sp, bm, x,
-                                             label + ' (previous design)',
-                                             prev=True)
                 if bkey == 'f32' and m == 16:
                     for cname, yc in bsr_controls(torch, bm, x).items():
                         cworst, cshare = bsr_excess(torch, sp, bm, x, yc, yp)
@@ -794,8 +738,6 @@ def phase_bsr(torch, np, sp, BsrMatrix, fe, k_nat):
                     'plain': lambda: sp.bsr_matmat_rows_plain(
                         bm.blocks, bm.block_indptr_t, bm.block_cols, x, n),
                     'kernel': lambda: bm.matmat_rows(x),
-                    'prev': lambda: sp.bsr_matmat_rows_prev(
-                        bm.blocks, bm.block_indptr_t, bm.block_cols, x, n),
                     'csr': (library_spmm_fn(torch, k_nat, x)
                             if (bkey, xkey) == ('f32', 'f32') else None),
                     'bsr_tensor': (library_bsr_fn(torch, bm, x)
@@ -809,35 +751,23 @@ def phase_bsr(torch, np, sp, BsrMatrix, fe, k_nat):
                 bound_ms, bound_by = bound(nbytes, flops)
                 lib = min((v for v in (t['csr'], t['bsr_tensor'])
                            if v is not None), default=None)
-                print('%s n=%d: max abs err %.3e (worst %.3f of the bound; '
-                      'previous design %.3e, %.3f), kernel %.4f ms (%.0f '
-                      'GB/s, %.2f Gnnz/s), previous design %.4f ms (%.0f '
-                      'GB/s), %.2fx; plain %.4f ms, torch.sparse.mm on CSR '
-                      '%s, sparse_bsr_tensor product %s, bound %.4f ms (%s), '
-                      'in turns'
-                      % (label, n, diff, worst, pdiff, pworst, t['kernel'],
+                print('%s n=%d: max abs err %.3e (worst %.3f of the bound), '
+                      'kernel %.4f ms (%.0f GB/s, %.2f Gnnz/s); plain %.4f '
+                      'ms, torch.sparse.mm on CSR %s, sparse_bsr_tensor '
+                      'product %s, bound %.4f ms (%s), in turns'
+                      % (label, n, diff, worst, t['kernel'],
                          nbytes / t['kernel'] / 1e6, bm.nnz / t['kernel'] / 1e6,
-                         t['prev'], nbytes / t['prev'] / 1e6,
-                         t['prev'] / t['kernel'], t['plain'],
-                         fmt_ms(t['csr']), fmt_ms(t['bsr_tensor']), bound_ms,
-                         bound_by))
+                         t['plain'], fmt_ms(t['csr']),
+                         fmt_ms(t['bsr_tensor']), bound_ms, bound_by))
                 if m == 16:
-                    for rname, ms, err in ((name, t['kernel'], diff),
-                                           (name.replace('rows_',
-                                                         'rows_prev_'),
-                                            t['prev'], pdiff)):
-                        rows[rname] = dict(
-                            name=rname, route='cuda', source=BSR[0],
-                            replaces=BSR[1], launches=0, max_abs_err=err,
-                            ms=ms, plain_ms=t['plain'], bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=lib, bytes=nbytes)
-                    rows[name]['prev_ms'] = t['prev']
-                    rows[name.replace('rows_', 'rows_prev_')]['off_path'] = \
-                        OFF_PATH_PREV
+                    rows[name] = dict(
+                        name=name, route='cuda', source=BSR[0],
+                        replaces=BSR[1], launches=0, max_abs_err=diff,
+                        ms=t['kernel'], plain_ms=t['plain'],
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=lib, bytes=nbytes)
                 else:
                     rows[name]['m24_ms'] = t['kernel']
-                    rows[name.replace('rows_', 'rows_prev_')]['m24_ms'] = \
-                        t['prev']
     del mats, bm, xs
 
     # awkward shapes: n not a multiple of bs, m past one row group, one
@@ -903,24 +833,22 @@ ELL_CASES = (
 
 
 def phase_ell(torch, np, ell, EllMatrix, k_rel, k_nat):
-    """The ELL kernel (``csrc/ell_spmm.cu``) and its previous design
-    (``_ell_matmat_prev``, the same source) against the plain version on
+    """The ELL kernel (``csrc/ell_spmm.cu``) against the plain version on
     the FE flagship in both orderings (the FE-ELL field's relabelled order
     first, then the mesher's), every instantiation (``ELL_CASES``), the
     complex route (a c128 operand over f32 values: one launch of the f64
-    instantiation over the stacked rows; no previous design) included.
-    Tolerance entrywise (``ell_excess``): twice the summation error bound
-    of a row's K terms in the sum type (plus one bf16 rounding on either
-    side for a bf16 result); whether each design also equals the plain
-    version bit for bit (both sum in its order, one FMA a term) is
-    printed.  At f32, m = 16 two controls (a bf16 running sum, bf16
-    products) must fail the bound.  The kernel and its previous design
-    ((n, m) operand and result: the launch alone), the plain version and
-    ``torch.sparse.mm`` on the CSR tensor are timed in turns, the
-    row-layout apply a solver makes (the (n, m) copy of its operand, then
-    the launch) beside them; each design's registers a thread and
-    resident blocks an SM at the shape are printed.  Returns the rows of
-    both designs, those of the relabelled order."""
+    instantiation over the stacked rows) included.  Tolerance entrywise
+    (``ell_excess``): twice the summation error bound of a row's K terms
+    in the sum type (plus one bf16 rounding on either side for a bf16
+    result); whether the kernel also equals the plain version bit for bit
+    (it sums in its order, one FMA a term) is printed.  At f32, m = 16 two
+    controls (a bf16 running sum, bf16 products) must fail the bound.  The
+    kernel ((n, m) operand and result: the launch alone), the plain
+    version and ``torch.sparse.mm`` on the CSR tensor are timed in turns,
+    the row-layout apply a solver makes (the (n, m) copy of its operand,
+    then the launch) beside them; the kernel's registers a thread and
+    resident blocks an SM at the shape are printed.  Returns the kernel's
+    rows, those of the relabelled order."""
     rows = {}
     gen = torch.Generator('cuda').manual_seed(21)
     for order, k in (('relabelled', k_rel), ("mesher's order", k_nat)):
@@ -956,31 +884,18 @@ def phase_ell(torch, np, ell, EllMatrix, k_rel, k_nat):
                 fail('%s: %d launches under %s for one apply, not 1'
                      % (label, ell.ELL_LAUNCHES[key] - before, key))
             want = ell._ell_matmat_plain(idx, val, xt)
-            designs = {'kernel': got}
-            if not cplx:
-                before = ell.ELL_PREV_LAUNCHES[key]
-                designs['previous design'] = ell._ell_matmat_prev(idx, val,
-                                                                  xt)
-                torch.cuda.synchronize()
-                if ell.ELL_PREV_LAUNCHES[key] - before != 1:
-                    fail('%s: %d launches of the previous design for one '
-                         'apply, not 1'
-                         % (label, ell.ELL_PREV_LAUNCHES[key] - before))
-            checks = {}
-            for what, y in designs.items():
-                if y.dtype != xt.dtype or y.shape != xt.shape:
-                    fail('%s: %s output %s %s' % (label, what, y.dtype,
-                                                   tuple(y.shape)))
-                if not torch.isfinite(torch.view_as_real(y) if y.is_complex()
-                                      else y.float()).all():
-                    fail('%s: non-finite %s output' % (label, what))
-                worst, share = ell_excess(torch, ell, idx, val, xt, y, want)
-                if worst > 1:
-                    fail('%s: %s, %.3e of the entries beyond the bound '
-                         '(worst %.2f times it)' % (label, what, share,
-                                                     worst))
-                checks[what] = ((y - want).abs().max().item(), worst,
-                                torch.equal(y, want))
+            if got.dtype != xt.dtype or got.shape != xt.shape:
+                fail('%s: kernel output %s %s' % (label, got.dtype,
+                                                  tuple(got.shape)))
+            if not torch.isfinite(torch.view_as_real(got) if got.is_complex()
+                                  else got.float()).all():
+                fail('%s: non-finite kernel output' % label)
+            worst, share = ell_excess(torch, ell, idx, val, xt, got, want)
+            if worst > 1:
+                fail('%s: %.3e of the entries beyond the bound (worst %.2f '
+                     'times it)' % (label, share, worst))
+            diff = (got - want).abs().max().item()
+            equal = torch.equal(got, want)
             if name == 'ell_spmm_f32_f32' and m == 16:
                 for cname, yc in ell_controls(torch, idx, val, xt).items():
                     cworst, cshare = ell_excess(torch, ell, idx, val, xt, yc,
@@ -990,13 +905,11 @@ def phase_ell(torch, np, ell, EllMatrix, k_rel, k_nat):
                           % (cname, label, cshare, cworst))
                     if cworst <= 1:
                         fail('the ELL bound passes the control (%s)' % cname)
-            del got, want, designs
+            del got, want
             x_rows = xt.T.contiguous()
             t = turns({
                 'plain': lambda: ell._ell_matmat_plain(idx, val, xt),
                 'kernel': lambda: ell._ell_matmat(idx, val, xt),
-                'prev': None if cplx else
-                lambda: ell._ell_matmat_prev(idx, val, xt),
                 'rows': lambda: ell._ell_matmat_rows(idx, val, x_rows),
                 'library': library_ell_fn(torch, k, xt, libdt)}, 20)
             del x_rows
@@ -1008,59 +921,33 @@ def phase_ell(torch, np, ell, EllMatrix, k_rel, k_nat):
                                        PEAK_F64 if wide else PEAK_F32)
             # a complex apply launches the f64 instantiation on 2m rows
             pair, mk = (('f32', 'f64'), 2 * m) if cplx else (key, m)
-            fits = {d: ell.ell_occupancy(d, *pair, mk)
-                    for d in ell.ELL_DESIGNS[cplx:]}
-            print('%s n=%d: %s; kernel %.4f ms (%.0f GB/s, %.2f Gnnz/s), '
-                  'previous design %s, row-layout apply (copy and launch) '
-                  '%.4f ms; plain %.4f ms (%.1fx), torch.sparse.mm on %s CSR '
-                  '%s, bound %.4f ms (%s), in turns; %s'
-                  % (label, n, '; '.join(
-                      '%s max abs err %.3e (worst %.3f of the bound; %s plain '
-                      'bit for bit)' % (what, d, w, 'equal to' if e else
-                                        'not equal to')
-                      for what, (d, w, e) in checks.items()),
-                     t['kernel'], nbytes / t['kernel'] / 1e6,
-                     em.nnz / t['kernel'] / 1e6, fmt_ms(t['prev']),
+            fit = ell.ell_occupancy(*pair, mk)
+            print('%s n=%d: max abs err %.3e (worst %.3f of the bound; %s '
+                  'plain bit for bit); kernel %.4f ms (%.0f GB/s, %.2f '
+                  'Gnnz/s), row-layout apply (copy and launch) %.4f ms; '
+                  'plain %.4f ms (%.1fx), torch.sparse.mm on %s CSR %s, '
+                  'bound %.4f ms (%s), in turns; %d registers, %d blocks of '
+                  '%d threads an SM, %d bytes local'
+                  % (label, n, diff, worst,
+                     'equal to' if equal else 'not equal to', t['kernel'],
+                     nbytes / t['kernel'] / 1e6, em.nnz / t['kernel'] / 1e6,
                      t['rows'], t['plain'], t['plain'] / t['kernel'], libdt,
-                     fmt_ms(t['library']), bound_ms, bound_by, '; '.join(
-                         '%s design: %d registers, %d blocks of %d threads an '
-                         'SM, %d bytes local'
-                         % (d, f['registers'], f['blocks_per_sm'],
-                            f['threads'], f['local_bytes'])
-                         for d, f in fits.items())))
-            prev_name = name.replace('ell_spmm_', 'ell_spmm_prev_')
+                     fmt_ms(t['library']), bound_ms, bound_by,
+                     fit['registers'], fit['blocks_per_sm'], fit['threads'],
+                     fit['local_bytes']))
             if name in rows and order == 'relabelled':
                 rows[name]['m%d_ms' % m] = t['kernel']
-                if not cplx:
-                    rows[name]['m%d_prev_ms' % m] = t['prev']
-                    rows[prev_name]['m%d_ms' % m] = t['prev']
             elif name in rows:
                 rows[name].setdefault('mesher_order_ms', t['kernel'])
-                if not cplx:
-                    rows[name].setdefault('mesher_order_prev_ms', t['prev'])
-                    rows[prev_name].setdefault('mesher_order_ms', t['prev'])
             else:
                 rows[name] = dict(
                     name=name, route='cuda', source=ELL[0],
-                    replaces=ELL[1], launches=0,
-                    max_abs_err=checks['kernel'][0], ms=t['kernel'],
-                    plain_ms=t['plain'], bound_ms=bound_ms,
+                    replaces=ELL[1], launches=0, max_abs_err=diff,
+                    ms=t['kernel'], plain_ms=t['plain'], bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=t['library'], m=m,
                     rows_ms=t['rows'], bytes=nbytes,
-                    registers=fits['kernel']['registers'],
-                    blocks_per_sm=fits['kernel']['blocks_per_sm'])
-                if not cplx:
-                    rows[name]['prev_ms'] = t['prev']
-                    rows[prev_name] = dict(
-                        name=prev_name, route='cuda', source=ELL[0],
-                        replaces=ELL[1], launches=0,
-                        max_abs_err=checks['previous design'][0],
-                        ms=t['prev'], plain_ms=t['plain'],
-                        bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=t['library'], m=m, bytes=nbytes,
-                        registers=fits['previous']['registers'],
-                        blocks_per_sm=fits['previous']['blocks_per_sm'],
-                        off_path=OFF_PATH_PREV)
+                    registers=fit['registers'],
+                    blocks_per_sm=fit['blocks_per_sm'])
             del xt
         del mats, em, idx, val
         torch.cuda.empty_cache()
@@ -1131,10 +1018,10 @@ def window_excess(torch, sw, val, x, offsets, got, want, terms=None):
 
 def phase_variants(torch, np, lap3d, DiaMatrix, sw, st, wt, gs):
     """The staged-window DIA kernels against the plain version at the tile
-    sweep's shape, each timed in turns with its previous design and
-    ``torch.sparse.mm`` at every tile the sweep runs, and the tiled and
-    pipelined stream kernels against ``torch.mul`` at the copy sweep's, at
-    every tile the sweeps run.  Returns the kernel rows."""
+    sweep's shape, each timed in turns with ``torch.sparse.mm`` at every
+    tile the sweep runs, and the tiled and pipelined stream kernels against
+    ``torch.mul`` at the copy sweep's, at every tile the sweeps run.
+    Returns the kernel rows."""
     rows = {}
     gen = torch.Generator('cuda').manual_seed(3)
     csr = (lap3d(*wt.GRID, 1.0, 1.0, 1.0) * wt.SCALE).tocsr()
@@ -1161,171 +1048,121 @@ def phase_variants(torch, np, lap3d, DiaMatrix, sw, st, wt, gs):
         flops = 2 * m * sum(n - abs(o) for o in dm.offsets)
         bound_ms, bound_by = bound(nbytes, flops)
         for name, src in (('slide', SLIDE), ('tiles', TILES)):
-            designs = {'kernel': sw.VARIANTS[name],
-                       'prev': PREVIOUS_WINDOW[name](sw)}
-            sweep = {'kernel': 0.0, 'prev': 0.0, 'library': 0.0}
+            kernel = sw.VARIANTS[name]
+            sweep = {'kernel': 0.0, 'library': 0.0}
             for tile in wt.DEFAULT_TILES[name]:
-                diffs, equal = {}, {}
-                for design, fn in designs.items():
-                    yk = fn(dm.val, x, dm.offsets, tile)
-                    torch.cuda.synchronize()
-                    what = '%s%s tile %d m=%d' % (
-                        name, ' (previous design)' if design == 'prev'
-                        else '', tile, m)
-                    if yk.dtype != torch.float32 or yk.shape != (m, n):
-                        fail('%s output %s %s' % (what, yk.dtype,
-                                                  tuple(yk.shape)))
-                    if not torch.isfinite(yk).all():
-                        fail('%s: non-finite output' % what)
-                    worst, share = window_excess(torch, sw, dm.val, x,
-                                                 dm.offsets_t, yk, yp)
-                    if worst > 1:
-                        fail('%s: %.3e of the entries beyond the bound '
-                             '(worst %.2f times it)' % (what, share, worst))
-                    diffs[design] = (yk - yp).abs().max().item()
-                    equal[design] = torch.equal(yk, yp)
-                    del yk
+                yk = kernel(dm.val, x, dm.offsets, tile)
+                torch.cuda.synchronize()
+                what = '%s tile %d m=%d' % (name, tile, m)
+                if yk.dtype != torch.float32 or yk.shape != (m, n):
+                    fail('%s output %s %s' % (what, yk.dtype,
+                                              tuple(yk.shape)))
+                if not torch.isfinite(yk).all():
+                    fail('%s: non-finite output' % what)
+                worst, share = window_excess(torch, sw, dm.val, x,
+                                             dm.offsets_t, yk, yp)
+                if worst > 1:
+                    fail('%s: %.3e of the entries beyond the bound (worst '
+                         '%.2f times it)' % (what, share, worst))
+                diff = (yk - yp).abs().max().item()
+                equal = torch.equal(yk, yp)
+                del yk
                 plan = sw.window_launch_plan(name, dm.val, x, dm.offsets,
                                              tile)
                 row_tile = tile == ROW_TILE[name]
                 t = turns({
                     'plain': (lambda: sw.dia_matmat_rows_plain(
                         dm.val, x, dm.offsets_t)) if row_tile else None,
-                    'kernel': lambda: designs['kernel'](dm.val, x,
-                                                        dm.offsets, tile),
-                    'prev': lambda: designs['prev'](dm.val, x, dm.offsets,
-                                                    tile),
+                    'kernel': lambda: kernel(dm.val, x, dm.offsets, tile),
                     'k1': (lambda: sw.dia_matmat_rows(
                         dm.val, x, dm.offsets_t)) if row_tile else None,
                     'library': library}, 50)
                 for k in sweep:
                     sweep[k] += per_tile * (t[k] or float('nan'))
                 print('dia_spmm %s tile %d n=%d m=%d: kernel %.4f ms, '
-                      'previous design %.4f ms (%.3fx), torch.sparse.mm '
-                      '%s, in turns; max abs err %.3e%s, previous '
-                      'design %.3e%s; launch: clusters of %d blocks (%d '
-                      'fit the card at once), %d per segment, %d '
-                      'segments, %d blocks of %d rows, %s, %s%s' % (
-                          name, tile, n, m, t['kernel'], t['prev'],
-                          t['prev'] / t['kernel'], fmt_ms(t['library']),
-                          diffs['kernel'],
-                          ' (equal to plain bit for bit)'
-                          if equal['kernel'] else '', diffs['prev'],
-                          ' (equal to plain bit for bit)'
-                          if equal['prev'] else '', plan['cluster'],
-                          plan['active_clusters'],
+                      'torch.sparse.mm %s, in turns; max abs err %.3e%s; '
+                      'launch: clusters of %d blocks (%d fit the card at '
+                      'once), %d per segment, %d segments, %d blocks of %d '
+                      'rows, %s, %s' % (
+                          name, tile, n, m, t['kernel'],
+                          fmt_ms(t['library']), diff,
+                          ' (equal to plain bit for bit)' if equal else '',
+                          plan['cluster'], plan['active_clusters'],
                           plan['clusters_per_segment'], plan['segments'],
                           plan['blocks'], plan['rows'],
                           'val chunks of %d lanes multicast' % plan['chunk']
                           if plan['chunk'] else 'val from device memory',
                           'bulk copies' if plan['bulk'] else
-                          'per-thread copies',
-                          '' if t['kernel'] <= t['prev'] else
-                          '; SLOWER than the previous design'))
+                          'per-thread copies'))
                 if not row_tile:
                     continue
                 key = 'dia_spmm_rows_%s_f32' % name + (
                     '' if m == wt.M else '_m%d' % m)
-                print('%s tile %d n=%d m=%d: kernel %.4f ms (%.0f GB/s), '
-                      'previous design %.4f ms (%.0f GB/s), %.3fx; K1 %.4f '
-                      'ms; plain %.4f ms, torch.sparse.mm %s, bound %.4f ms '
-                      '(%s), in turns'
+                print('%s tile %d n=%d m=%d: kernel %.4f ms (%.0f GB/s); K1 '
+                      '%.4f ms; plain %.4f ms, torch.sparse.mm %s, bound '
+                      '%.4f ms (%s), in turns'
                       % (key, tile, n, m, t['kernel'],
-                         nbytes / t['kernel'] / 1e6, t['prev'],
-                         nbytes / t['prev'] / 1e6, t['prev'] / t['kernel'],
-                         t['k1'], t['plain'], fmt_ms(t['library']),
-                         bound_ms, bound_by))
-                for design in designs:
-                    row = key if design == 'kernel' else key.replace(
-                        '_f32', '_prev_f32', 1)
-                    rows[row] = dict(
-                        name=row, route='cuda', source=src[0],
-                        replaces=src[1], launches=0,
-                        max_abs_err=diffs[design], ms=t[design],
-                        plain_ms=t['plain'], bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=t['library'],
-                        bytes=nbytes, k1_ms=t['k1'])
-                rows[key]['prev_ms'] = t['prev']
+                         nbytes / t['kernel'] / 1e6, t['k1'], t['plain'],
+                         fmt_ms(t['library']), bound_ms, bound_by))
+                rows[key] = dict(
+                    name=key, route='cuda', source=src[0], replaces=src[1],
+                    launches=0, max_abs_err=diff, ms=t['kernel'],
+                    plain_ms=t['plain'], bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=t['library'],
+                    bytes=nbytes, k1_ms=t['k1'])
                 rows[key].update({k: plan[k] for k in (
                     'cluster', 'active_clusters', 'rows', 'chunk')})
-                rows[key.replace('_f32', '_prev_f32', 1)]['off_path'] = \
-                    OFF_PATH_PREV
             tiles = wt.DEFAULT_TILES[name]
             print('%s sweep at m=%d (tiles %s, %d launches each): kernel '
-                  '%.2f ms, previous design %.2f ms, torch.sparse.mm %.2f '
-                  'ms; the kernel loses %.2f ms to its bound'
+                  '%.2f ms, torch.sparse.mm %.2f ms; the kernel loses %.2f '
+                  'ms to its bound'
                   % (name, m, ', '.join(map(str, tiles)), per_tile,
-                     sweep['kernel'], sweep['prev'], sweep['library'],
+                     sweep['kernel'], sweep['library'],
                      sweep['kernel'] - per_tile * len(tiles) * bound_ms))
         del x, yp
     del dm
 
     x = torch.randn(st.REFERENCE_SHAPE, generator=gen, device='cuda')
     a = st.REFERENCE_SCALE
-    # (row name, source, tiles, row tile, per_step, kernel, previous design)
+    # (row name, source, tiles, row tile, per_step, kernel)
     probes = [('stream_scale_tiled_per_step%d' % ps, TILED, gs.TILED_TILES,
                ROW_TILE['tiled'], ps,
-               lambda xs, t, ps=ps: st.stream_scale_tiled(xs, a, t, ps), None)
+               lambda xs, t, ps=ps: st.stream_scale_tiled(xs, a, t, ps))
               for ps in (1, 4)]
     probes += [('stream_scale_pipelined_depth%d' % d, PIPELINED,
                 gs.PIPELINED_TILES, ROW_TILE['pipelined'], 1,
-                lambda xs, t, d=d: st.stream_scale_pipelined(xs, a, t, d),
-                lambda xs, t, d=d: st.stream_scale_pipelined_prev(xs, a, t,
-                                                                  d))
+                lambda xs, t, d=d: st.stream_scale_pipelined(xs, a, t, d))
                for d in st.PIPELINE_DEPTHS]
-    for key, src, tiles, row_tile, per_step, fn, prev in probes:
-        designs = {'kernel': fn, 'prev': prev}
+    for key, src, tiles, row_tile, per_step, fn in probes:
         for tile in tiles:
             # whole blocks only: the copy sweep trims n the same way
             cut = x.shape[1] - x.shape[1] % (tile * per_step)
             xs = x if cut == x.shape[1] else x[:, :cut].contiguous()
             yp = st.stream_scale_plain(xs, a)
-            diffs = {}
-            for design, f in designs.items():
-                if f is None:
-                    continue
-                yk = f(xs, tile)
-                torch.cuda.synchronize()
-                diffs[design] = (yk - yp).abs().max().item()
-                if not torch.equal(yk, yp):
-                    fail('%s%s tile %d differs from torch.mul (max abs '
-                         '%.3e)' % (key, ' (previous design)'
-                                    if design == 'prev' else '', tile,
-                                    diffs[design]))
-                del yk
-            del yp
+            yk = fn(xs, tile)
+            torch.cuda.synchronize()
+            diff = (yk - yp).abs().max().item()
+            if not torch.equal(yk, yp):
+                fail('%s tile %d differs from torch.mul (max abs %.3e)'
+                     % (key, tile, diff))
+            del yk, yp
             if tile != row_tile:
                 continue
             t = turns({'plain': lambda: st.stream_scale_plain(xs, a),
-                       'kernel': lambda: fn(xs, tile),
-                       'prev': None if prev is None
-                       else lambda: prev(xs, tile)}, 50)
+                       'kernel': lambda: fn(xs, tile)}, 50)
             nbytes = 2 * xs.numel() * 4
             bound_ms, bound_by = bound(nbytes, xs.numel())
             print('%s tile %d %s f32: equal to torch.mul at every tile of '
-                  '%s%s, kernel %.4f ms (%.0f GB/s)%s, torch.mul %.4f ms '
-                  '(%.0f GB/s), bound %.4f ms (%s), in turns'
-                  % (key, tile, tuple(xs.shape), tiles,
-                     '' if prev is None else ', so is the previous design',
-                     t['kernel'], nbytes / t['kernel'] / 1e6,
-                     '' if prev is None else
-                     ', previous design %.4f ms (%.0f GB/s), %.3fx'
-                     % (t['prev'], nbytes / t['prev'] / 1e6,
-                        t['prev'] / t['kernel']),
-                     t['plain'], nbytes / t['plain'] / 1e6, bound_ms,
-                     bound_by))
-            for design in diffs:
-                name = key if design == 'kernel' else key.replace(
-                    'pipelined_', 'pipelined_prev_')
-                rows[name] = dict(
-                    name=name, route='cuda', source=src[0], replaces=src[1],
-                    launches=0, max_abs_err=diffs[design], ms=t[design],
-                    plain_ms=t['plain'], bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=t['plain'], bytes=nbytes)
-            if prev is not None:
-                rows[key]['prev_ms'] = t['prev']
-                rows[key.replace('pipelined_', 'pipelined_prev_')][
-                    'off_path'] = OFF_PATH_PREV
+                  '%s, kernel %.4f ms (%.0f GB/s), torch.mul %.4f ms (%.0f '
+                  'GB/s), bound %.4f ms (%s), in turns'
+                  % (key, tile, tuple(xs.shape), tiles, t['kernel'],
+                     nbytes / t['kernel'] / 1e6, t['plain'],
+                     nbytes / t['plain'] / 1e6, bound_ms, bound_by))
+            rows[key] = dict(
+                name=key, route='cuda', source=src[0], replaces=src[1],
+                launches=0, max_abs_err=diff, ms=t['kernel'],
+                plain_ms=t['plain'], bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=t['plain'], bytes=nbytes)
     return rows
 
 
@@ -1479,78 +1316,11 @@ def assembly_copies(torch, st, gen, dt):
     return {name: row}
 
 
-def ext_controls(torch, val, x_ext, offsets, halo_lo, n):
-    """The extended-operand apply done wrong in two ways a kernel could be:
-    a bf16 running sum, and each product rounded to bf16 before an f32
-    sum."""
-    m = x_ext.shape[0]
-    run = torch.zeros((m, n), dtype=torch.bfloat16, device=x_ext.device)
-    prod = torch.zeros((m, n), dtype=torch.float32, device=x_ext.device)
-    for k, off in enumerate(offsets.tolist()):
-        term = val[k] * x_ext[:, halo_lo + off:halo_lo + off + n]
-        run = (run + term).to(torch.bfloat16)           # rounds to bf16
-        prod += term.to(torch.bfloat16)
-    return {'bf16 running sum': run, 'bf16 products': prod.to(torch.bfloat16)}
-
-
-def per_shard_route(torch, sw, st, val, plan, xs, batched):
-    """The sharded apply as the previous design made it, rebuilt from the
-    mesh kernel's one-piece entry: an extended operand per shard assembled
-    by ``copy_lanes`` one run at a time (``batched``: all runs in one
-    ``copy_lanes_many`` launch), then one launch per shard.  Returns the
-    shards' results and their extended operands."""
-    from raleigh_tpu_torch.parallel.mesh import ring_runs
-    lo, hi = plan.lo, plan.hi
-    widths = [p.shape[1] for p in xs.parts]
-    exts, pairs = [], []
-    for part, runs in zip(xs.parts, ring_runs(widths, lo, hi)):
-        if runs is None:
-            exts.append(None)
-            continue
-        ext = torch.empty((part.shape[0], lo + part.shape[1] + hi),
-                          dtype=part.dtype, device=part.device)
-        for pos, take, j, at in runs:
-            pairs.append((ext[:, pos:pos + take],
-                          xs.parts[j][:, at:at + take]))
-        exts.append(ext)
-    if batched:
-        st.copy_lanes_many(pairs)
-    else:
-        for dst, src in pairs:
-            st.copy_lanes(dst, src)
-    return [torch.empty_like(own) if ext is None else
-            sw.dia_matmat_rows_ext(v, ext, plan.offsets_on(v.device), lo,
-                                   v.shape[1], reach=(lo, hi))
-            for v, ext, own in zip(val.parts, exts, xs.parts)], exts
-
-
-@contextlib.contextmanager
-def previous_design(torch, sw, st):
-    """Inside the block every sharded DIA apply takes the per-shard route
-    with one copy launch per run (``per_shard_route``), as the previous
-    design did."""
-    from raleigh_tpu_torch.ops import spmm
-    from raleigh_tpu_torch.parallel.mesh import ShardedRows
-    inner = spmm._dia_sharded_apply
-
-    def route(val, plan, x):
-        back = x.sharding
-        parts, _ = per_shard_route(torch, sw, st, val, plan,
-                                   x.resplit(val.sharding), False)
-        return ShardedRows(parts, val.sharding).resplit(back)
-    spmm._dia_sharded_apply = route
-    try:
-        yield
-    finally:
-        spmm._dia_sharded_apply = inner
-
-
 def phase_ext(torch, np, lap3d, DiaMatrix, sw, st, k1_rows):
     """The mesh DIA kernel at the sharded main path's shapes:
     lap3d(100,100,128) cut in 8 and in 2 shards of the one card, through
-    the mesh entry (one launch for all shards) and the one-piece entry
-    (the per-shard route over copied extended operands).  Returns its rows
-    (the cut in 8)."""
+    the mesh entry (one launch for all shards).  Returns its rows (the cut
+    in 8)."""
     from raleigh_tpu_torch.core.device_solver import shard_operator
     from raleigh_tpu_torch.parallel.mesh import (ShardedRows,
                                                  blockvec_sharding, make_mesh)
@@ -1559,7 +1329,6 @@ def phase_ext(torch, np, lap3d, DiaMatrix, sw, st, k1_rows):
     a = lap3d(100, 100, 128, 1.0, 1.0, 1.0)
     whole = DiaMatrix(a, dtype=np.float32)
     n, noff, m = whole.shape[0], len(whole.offsets), 16
-    lo, hi = max(0, -min(whole.offsets)), max(0, max(whole.offsets))
     for shards in (SHARDS, 2):
         mesh = make_mesh(shards)
         dm = shard_operator(DiaMatrix(a, dtype=np.float32), mesh)
@@ -1586,36 +1355,36 @@ def phase_ext(torch, np, lap3d, DiaMatrix, sw, st, k1_rows):
             if not torch.equal(ym.gather(), y1):
                 fail('%d shards, %s: the mesh apply differs from the '
                      'unsharded kernel\'s' % (shards, key))
-            # the mesh kernel against its plain version, shard by shard
+            # the mesh kernel against its plain version, shard by shard; a
+            # shard's terms sum_k |val_k x| are the whole matrix's at its
+            # lanes
             yp = sw.dia_matmat_rows_mesh_plain(vals, xs.parts, plan)
-            route, exts = per_shard_route(torch, sw, st, dm.val, plan, xs,
-                                          batched=True)
+            terms_all = sw.dia_matmat_rows_plain(
+                whole.val.abs(), x.float().abs(), whole.offsets_t)
             worst_all, diff_all = 0.0, 0.0
-            for i, (v, ext) in enumerate(zip(vals, exts)):
+            start = 0
+            for i, v in enumerate(vals):
                 n_i = v.shape[1]
-                terms = sw.dia_matmat_rows_ext_plain(
-                    v.abs(), ext.float().abs(), offs, lo, n_i)
-                for what, got in (('mesh', ym.parts[i]),
-                                  ('one-piece', route[i])):
-                    if got.dtype != dt or got.shape != (m, n_i):
-                        fail('%s entry output %s %s'
-                             % (what, got.dtype, tuple(got.shape)))
-                    if not torch.isfinite(got.float()).all():
-                        fail('%s entry: non-finite output on shard %d'
-                             % (what, i))
-                    worst, share = excess(torch, sw, v, None, offs, got,
-                                          yp[i], terms=terms)
-                    if worst > 1:
-                        fail('%s entry vs plain, %d shards, shard %d, %s: '
-                             '%.3e of the entries beyond the bound (worst '
-                             '%.2f times it)' % (what, shards, i, key, share,
-                                                 worst))
-                    worst_all = max(worst_all, worst)
-                    diff_all = max(diff_all, (got.float() - yp[i].float())
-                                   .abs().max().item())
+                terms = terms_all[:, start:start + n_i]
+                got = ym.parts[i]
+                if got.dtype != dt or got.shape != (m, n_i):
+                    fail('mesh entry output %s %s'
+                         % (got.dtype, tuple(got.shape)))
+                if not torch.isfinite(got.float()).all():
+                    fail('mesh entry: non-finite output on shard %d' % i)
+                worst, share = excess(torch, sw, v, None, offs, got, yp[i],
+                                      terms=terms)
+                if worst > 1:
+                    fail('mesh entry vs plain, %d shards, shard %d, %s: '
+                         '%.3e of the entries beyond the bound (worst %.2f '
+                         'times it)' % (shards, i, key, share, worst))
+                worst_all = max(worst_all, worst)
+                diff_all = max(diff_all, (got.float() - yp[i].float())
+                               .abs().max().item())
                 if i == 0 and shards == SHARDS:
-                    for name, yc in ext_controls(torch, v, ext, offs, lo,
-                                                 n_i).items():
+                    for name, yc in bf16_controls(torch, whole.val, x,
+                                                  whole.offsets_t).items():
+                        yc = yc[:, :n_i]
                         if dt == torch.float32 and name != 'bf16 running sum':
                             continue
                         cworst, cshare = excess(torch, sw, v, None, offs, yc,
@@ -1627,28 +1396,17 @@ def phase_ext(torch, np, lap3d, DiaMatrix, sw, st, k1_rows):
                         if cworst <= 1:
                             fail('the %s bound passes the control (%s)'
                                  % (key, name))
-                del terms
-            if not torch.equal(torch.cat(route, dim=1), y1):
-                fail('%d shards, %s: the per-shard route differs from the '
-                     'unsharded kernel\'s' % (shards, key))
-            del ym, yp, route, exts, y1
+                start += n_i
+            del ym, yp, terms_all, y1
 
             # in turns: the mesh kernel's wrapper against its plain
-            # version; the whole sharded apply against K1, against the
-            # per-shard route with its 24 copy launches (the previous
-            # design) and with one batched copy launch
+            # version; the whole sharded apply against K1
             tk, tp = in_turns(
                 lambda: sw.dia_matmat_rows_mesh(vals, xs.parts, plan),
                 lambda: sw.dia_matmat_rows_mesh_plain(vals, xs.parts, plan),
                 20)
             t_apply, t_k1 = in_turns(lambda: dm.matmat_rows(xs),
                                      lambda: whole.matmat_rows(x), 100)
-            t_route, t_apply2 = in_turns(
-                lambda: per_shard_route(torch, sw, st, dm.val, plan, xs,
-                                        False),
-                lambda: dm.matmat_rows(xs), 50)
-            t_batched = time_ms(lambda: per_shard_route(
-                torch, sw, st, dm.val, plan, xs, True), 50)
             # K1's work: a shard's halo lanes are its neighbours' own lanes,
             # read once as a whole-matrix apply reads them
             nbytes = noff * n * 4 + noff * 4 + 2 * m * n * x.element_size()
@@ -1658,25 +1416,21 @@ def phase_ext(torch, np, lap3d, DiaMatrix, sw, st, k1_rows):
             lib = k1_rows['dia_spmm_rows_f32']['library_ms'] \
                 if dt == torch.float32 else None
             print('%s lap3d(100,100,128) in %d shards, m=%d: one launch, '
-                  'max abs err %.3e (worst %.3f of the bound; the one-piece '
-                  'entry too), equal to the unsharded kernel bit for bit; '
-                  'kernel %.4f ms (%.0f GB/s), plain %.4f ms, bound %.4f ms '
-                  '(%s); whole sharded apply %.4f / %.4f ms, unsharded kernel '
-                  '%.4f ms; per-shard route with %d copy launches %.4f ms, '
-                  'with one batched copy launch %.4f ms; torch.sparse.mm of '
-                  'the whole matrix %s [one card: no scaling measurement]'
+                  'max abs err %.3e (worst %.3f of the bound), equal to the '
+                  'unsharded kernel bit for bit; kernel %.4f ms (%.0f GB/s), '
+                  'plain %.4f ms, bound %.4f ms (%s); whole sharded apply '
+                  '%.4f ms, unsharded kernel %.4f ms; torch.sparse.mm of the '
+                  'whole matrix %s [one card: no scaling measurement]'
                   % (name, shards, m, diff_all, worst_all, tk,
                      nbytes / tk / 1e6, tp, bound_ms, bound_by, t_apply,
-                     t_apply2, t_k1, 3 * shards, t_route, t_batched,
-                     fmt_ms(lib)))
+                     t_k1, fmt_ms(lib)))
             if shards == SHARDS:
                 rows[name] = dict(
                     name=name, route='cuda', source=EXT[0], replaces=EXT[1],
                     launches=0, max_abs_err=diff_all, ms=tk, plain_ms=tp,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
                     bytes=nbytes, shards=shards, apply_ms=t_apply,
-                    k1_ms=t_k1, per_shard_route_ms=t_route,
-                    per_shard_batched_ms=t_batched)
+                    k1_ms=t_k1)
             del xs, x
         del dm, plan, vals
     return rows
@@ -1707,8 +1461,6 @@ def phase_sweeps(mods, rows, card, wt, gs):
                           ([name, '--m', '16'],
                            'dia_spmm_rows_%s_f32_m16' % name)):
             drive(wt.main, argv, sw.LAUNCHES, name, row)
-            rows[row.replace('_f32', '_prev_f32', 1)]['launches'] = \
-                sw.LAUNCHES['prev_' + name]
     drive(gs.main, ['blockspec'], st.LAUNCHES, 'tiled',
           'stream_scale_tiled_per_step1')
     drive(gs.main, ['blockspec4'], st.LAUNCHES, 'tiled',
@@ -1717,8 +1469,6 @@ def phase_sweeps(mods, rows, card, wt, gs):
         drive(gs.main, ['manual%d' % depth], st.LAUNCHES,
               'pipelined_depth%d' % depth,
               'stream_scale_pipelined_depth%d' % depth)
-        rows['stream_scale_pipelined_prev_depth%d' % depth]['launches'] = \
-            st.LAUNCHES['pipelined_prev_depth%d' % depth]
     drive(gs.main, ['spans', 'torch'], st.LAUNCHES, 'float32', None)
     drive(gs.main, ['hbm2hbm'], st.LAUNCHES, 'copy_lanes',
           'copy_lanes_hbm2hbm')
@@ -1903,10 +1653,6 @@ def phase_lap3d(torch, np, mods, rows, card, profile=False):
                 fail('main path skipped a kernel: launches %s' % launches)
             rows['dia_spmm_rows_f32']['launches'] = launches['float32']
             rows['dia_spmm_rows_bf16']['launches'] = launches['bfloat16']
-            rows['dia_spmm_rows_prev_f32']['launches'] = \
-                sw.LAUNCHES['prev_float32']
-            rows['dia_spmm_rows_prev_bf16']['launches'] = \
-                sw.LAUNCHES['prev_bfloat16']
         err = check_solution(np, name, lmd, x, st, exact, limit)
         lmd, x, st, its2, warm, lob, _ = hevp_call(
             torch, partial_hevp, a, T=ch, which=which, tol=tol)
@@ -1995,20 +1741,6 @@ def phase_sharded(torch, np, mods, rows, card, main_field, k_rel,
     (lmd, x, _, its2, status), warm = run()
     check_solution(np, name, lmd, x, status, exact, 1e-3)
     check_iterations(name, 'sharded', (its, its2))
-    # the previous design's warm solve in turns with this one's
-    walls = {'mesh': [warm], 'per-shard': []}
-    for design in ('per-shard', 'per-shard', 'mesh'):
-        with contextlib.ExitStack() as stack:
-            if design == 'per-shard':
-                stack.enter_context(previous_design(torch, sw, st))
-            (lmd2, x2, _, its3, status), wall = run()
-        check_solution(np, name + ' (%s design)' % design, lmd2, x2, status,
-                       exact, 1e-3)
-        walls[design].append(wall)
-    print('%s: warm lobpcg wall in turns, mesh design %s s, per-shard design '
-          '(24 copy and 8 one-piece launches per apply) %s s [%s]'
-          % (name, ' / '.join('%.3f' % t for t in walls['mesh']),
-             ' / '.join('%.3f' % t for t in walls['per-shard']), card))
     print('%s: status 0, %d iterations (warm run %d; unsharded %d), max rel '
           'eigenvalue error %.2e, within %.2e of the unsharded field; set-up '
           '(DIA, split, Chebyshev) %.3f s; lobpcg wall cold %.3f s, warm '
@@ -2020,9 +1752,6 @@ def phase_sharded(torch, np, mods, rows, card, main_field, k_rel,
              len(applies), json.dumps(main_field['launches']), card))
     if profile:
         profile_run(torch, run, card)
-        print('the same solve, per-shard design:')
-        with previous_design(torch, sw, st):
-            profile_run(torch, run, card)
     del dm, ch
     torch.cuda.empty_cache()
 
@@ -2127,9 +1856,6 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
         if set(launches) != {('f32', 'f32')}:
             fail('%s: ELL launches %s, not the f32 kernel alone'
                  % (name, launches))
-        if any(ell.ELL_PREV_LAUNCHES.values()):
-            fail('%s launched the previous ELL design: %s'
-                 % (name, ell.ELL_PREV_LAUNCHES))
         return out, launches[('f32', 'f32')]
 
     (lmd, x, st, its, cold, _, _), launches = ell_solve()
@@ -2138,8 +1864,6 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
     check_pencil(np, name, k_rel, m_rel, lmd, x, st, which)
     check_iterations(name, 'FE-ELL', (its, its2))
     rows['ell_spmm_f32_f32']['launches'] = launches2
-    rows['ell_spmm_prev_f32_f32']['launches'] = \
-        ell.ELL_PREV_LAUNCHES[('f32', 'f32')]
     print('%s: K in %s, status 0, %d iterations (warm run %d), relative '
           'residual %.2e, lambda %s; Chebyshev set-up %.3f s; partial_hevp '
           'wall cold %.3f s, warm %.3f s (LOBPCG %.3f s, rest %.3f s); ELL '
@@ -2166,13 +1890,10 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in ell.ELL_LAUNCHES.items() if v}
-    if (any(plain.values()) or launches.get(('f32', 'bf16'), 0) <= 0
-            or any(ell.ELL_PREV_LAUNCHES.values())):
-        fail('%s: ELL launches %s, previous design %s, plain calls %s'
-             % (label, launches, ell.ELL_PREV_LAUNCHES, plain))
+    if any(plain.values()) or launches.get(('f32', 'bf16'), 0) <= 0:
+        fail('%s: ELL launches %s, plain calls %s'
+             % (label, launches, plain))
     rows['ell_spmm_f32_bf16']['launches'] = launches[('f32', 'bf16')]
-    rows['ell_spmm_prev_f32_bf16']['launches'] = \
-        ell.ELL_PREV_LAUNCHES[('f32', 'bf16')]
     bf_lmd, rel = check_pencil(np, label, k_rel, m_rel, lmd, x, st, which)
     agree = float(np.abs(bf_lmd / ell_lmd - 1).max())
     if agree > FE_AGREE:
@@ -2231,8 +1952,6 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
         # path: f32 tiles and operands of the field itself, the others of
         # the variant built to drive them
         rows['bsr_spmm_rows_%s_%s' % key]['launches'] = launches[key]
-        rows['bsr_spmm_rows_prev_%s_%s' % key]['launches'] = \
-            sp.PREV_LAUNCHES[key]
         bsr_lmd, rel = check_pencil(np, label, k_nat, m_nat, lmd, x, st,
                                     which)
         agree = float(np.abs(bsr_lmd / ell_lmd - 1).max())
@@ -2271,7 +1990,6 @@ def phase_stream_rate(mods, rows, card):
     if launches <= 0:
         fail('stream_rate skipped the stream kernel')
     rows['stream_scale_f32']['launches'] = launches
-    rows['stream_scale_prev_f32']['launches'] = st.LAUNCHES['prev_float32']
     print('stream_rate(): %.0f GB/s read + write over %d launches [%s]'
           % (rate / 1e9, launches, card))
     return rate
@@ -2281,13 +1999,11 @@ def phase_wide(torch, np, lap3d, DiaMatrix, BsrMatrix, sw, sp, k_nat):
     """The f64 instantiations of the DIA and BSR kernels (f64 operand; f32
     or f64 values or tiles) against their plain versions on the same
     inputs: the DIA kernel on lap3d(100,100,128) equal bit for bit, the
-    BSR kernel and its previous design on the FE flagship in the mesher's
-    order within ``F64_SUM_TOL`` of the largest |entry|; timed in turns
-    with the plain version and ``torch.sparse.mm`` on the f64 CSR tensor
-    (for the BSR kernel also its previous design and an f64
-    ``torch.sparse_bsr_tensor``) at the core fields' block size
-    ``CORE_BLOCK`` and at m = 16.  Returns their rows (the previous BSR
-    design's too)."""
+    BSR kernel on the FE flagship in the mesher's order within
+    ``F64_SUM_TOL`` of the largest |entry|; timed in turns with the plain
+    version and ``torch.sparse.mm`` on the f64 CSR tensor (for the BSR
+    kernel also an f64 ``torch.sparse_bsr_tensor``) at the core fields'
+    block size ``CORE_BLOCK`` and at m = 16.  Returns their rows."""
     rows = {}
     gen = torch.Generator('cuda').manual_seed(9)
     csr = lap3d(100, 100, 128, 1.0, 1.0, 1.0)
@@ -2342,32 +2058,25 @@ def phase_wide(torch, np, lap3d, DiaMatrix, BsrMatrix, sw, sp, k_nat):
                              exact=True)}
     for tkey, bm in mats.items():
         name = 'bsr_spmm_rows_%s_f64' % tkey
-        pname = 'bsr_spmm_rows_prev_%s_f64' % tkey
         args = (bm.blocks, bm.block_indptr_t, bm.block_cols)
         for m in (CORE_BLOCK, 16):
             x = torch.randn((m, n), generator=gen, device='cuda',
                             dtype=torch.float64)
             yp = sp.bsr_matmat_rows_plain(*args, x, n)
-            diffs = {}
-            for label, apply in ((name, sp.bsr_matmat_rows),
-                                 (pname, sp.bsr_matmat_rows_prev)):
-                yk = apply(*args, x, n)
-                torch.cuda.synchronize()
-                if yk.dtype != torch.float64 or not torch.isfinite(yk).all():
-                    fail('%s m=%d: output %s, or not finite'
-                         % (label, m, yk.dtype))
-                diffs[label] = (yk - yp).abs().max().item()
-                rel = diffs[label] / yp.abs().max().item()
-                if rel > F64_SUM_TOL:
-                    fail('%s vs plain m=%d: %.2e of the largest entry > %.0e'
-                         % (label, m, rel, F64_SUM_TOL))
-                del yk
-            rel = diffs[name] / yp.abs().max().item()
-            del yp
+            yk = sp.bsr_matmat_rows(*args, x, n)
+            torch.cuda.synchronize()
+            if yk.dtype != torch.float64 or not torch.isfinite(yk).all():
+                fail('%s m=%d: output %s, or not finite'
+                     % (name, m, yk.dtype))
+            diff = (yk - yp).abs().max().item()
+            rel = diff / yp.abs().max().item()
+            if rel > F64_SUM_TOL:
+                fail('%s vs plain m=%d: %.2e of the largest entry > %.0e'
+                     % (name, m, rel, F64_SUM_TOL))
+            del yk, yp
             t = turns({'plain': lambda: sp.bsr_matmat_rows_plain(*args, x,
                                                                  n),
                        'kernel': lambda: sp.bsr_matmat_rows(*args, x, n),
-                       'prev': lambda: sp.bsr_matmat_rows_prev(*args, x, n),
                        'csr': library_spmm_fn(torch, k_nat, x, 'float64'),
                        'bsr': library_bsr_fn(torch, bm, x)}, 20)
             nbytes = (bm.blocks.numel() * bm.blocks.element_size()
@@ -2376,30 +2085,23 @@ def phase_wide(torch, np, lap3d, DiaMatrix, BsrMatrix, sw, sp, k_nat):
             flops = 2 * bm.blocks.numel() * m
             bound_ms, bound_by = bound(nbytes, flops, PEAK_F64_MMA)
             print('%s flagship n=%d m=%d: %.2e of the largest entry from '
-                  'plain; kernel %.4f ms (%.0f GB/s), previous design %.4f '
-                  'ms (%.2fx), plain %.4f ms, torch.sparse.mm (f64 CSR) %s, '
-                  'f64 BSR tensor %s, bound %.4f ms (%s), in turns'
+                  'plain; kernel %.4f ms (%.0f GB/s), plain %.4f ms, '
+                  'torch.sparse.mm (f64 CSR) %s, f64 BSR tensor %s, bound '
+                  '%.4f ms (%s), in turns'
                   % (name, n, m, rel, t['kernel'],
-                     nbytes / t['kernel'] / 1e6, t['prev'],
-                     t['prev'] / t['kernel'], t['plain'], fmt_ms(t['csr']),
+                     nbytes / t['kernel'] / 1e6, t['plain'], fmt_ms(t['csr']),
                      fmt_ms(t['bsr']), bound_ms, bound_by))
             if m == CORE_BLOCK:
-                for rname, ms in ((name, t['kernel']), (pname, t['prev'])):
-                    rows[rname] = dict(
-                        name=rname, route='cuda', source=BSR[0],
-                        replaces=BSR[1], launches=0,
-                        max_abs_err=diffs[rname], ms=ms,
-                        plain_ms=t['plain'], bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=t['csr'],
-                        library_bsr_ms=t['bsr'], m=m, bytes=nbytes)
-                rows[name]['prev_ms'] = t['prev']
-                rows[pname]['off_path'] = OFF_PATH_PREV
+                rows[name] = dict(
+                    name=name, route='cuda', source=BSR[0], replaces=BSR[1],
+                    launches=0, max_abs_err=diff, ms=t['kernel'],
+                    plain_ms=t['plain'], bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=t['csr'],
+                    library_bsr_ms=t['bsr'], m=m, bytes=nbytes)
             else:
-                for rname, ms in ((name, t['kernel']), (pname, t['prev'])):
-                    rows[rname].update(m16_ms=ms, m16_bound_ms=bound_ms,
-                                       m16_plain_ms=t['plain'],
-                                       m16_library_ms=t['csr'])
-                rows[name]['m16_prev_ms'] = t['prev']
+                rows[name].update(m16_ms=t['kernel'], m16_bound_ms=bound_ms,
+                                  m16_plain_ms=t['plain'],
+                                  m16_library_ms=t['csr'])
     rows['bsr_spmm_rows_f64_f64']['off_path'] = (
         'f64 tiles come with a BSR operator built with exact f64 values, '
         'which partial_hevp builds only for a matrix that device_sparse '
@@ -2511,9 +2213,8 @@ def complex_chain(np, n):
 # blocks on a DIA matrix took before the complex instantiation
 OFF_PATH_STACKED = (
     'the stacked route (ops/complex_rows.py over the f64 instantiation), '
-    'kept to be timed in turns with the complex instantiation; only c64 '
-    'blocks and real operands with complex values take it, on no field\'s '
-    'path')
+    'timed in turns with the complex instantiation; only c64 blocks and '
+    'real operands with complex values take it, on no field\'s path')
 
 
 def phase_complex_kernels(torch, np, sw, sp, DiaMatrix, BsrMatrix, k_nat):
@@ -2524,7 +2225,7 @@ def phase_complex_kernels(torch, np, sw, sp, DiaMatrix, BsrMatrix, k_nat):
     ``COMPLEX_N``: one launch of ``dia_spmm_rows_c128_val128``), and on
     B's pattern with real f64 and f32 values (|B|: ``_val64``,
     ``_val32``), each timed in turns with the stacked route it replaced
-    (``dia_matmat_rows_complex_prev``: two f64 launches over the stacked
+    (``dia_matmat_rows_complex_stacked``: two f64 launches over the stacked
     real and imaginary rows for c128 values, one for real values); K5 on
     the FE flagship in the mesher's order with f32 tiles (one f64 launch
     over the stacked rows).  Timed in turns with the plain version and
@@ -2548,8 +2249,8 @@ def phase_complex_kernels(torch, np, sw, sp, DiaMatrix, BsrMatrix, k_nat):
                 csr, nb, lambda x: sw.dia_matmat_rows(val, x, dm.offsets_t),
                 lambda x: sw.dia_matmat_rows_plain(val, x, dm.offsets_t),
                 sw.LAUNCHES, 1,
-                lambda x: sw.dia_matmat_rows_complex_prev(val, x,
-                                                          dm.offsets_t),
+                lambda x: sw.dia_matmat_rows_complex_stacked(val, x,
+                                                             dm.offsets_t),
                 (stacked_key, stacked_launches),
                 len(dm.offsets) * nb * val.element_size()
                 + len(dm.offsets) * 4, flops_per_term * terms)
@@ -2605,7 +2306,8 @@ def phase_complex_kernels(torch, np, sw, sp, DiaMatrix, BsrMatrix, k_nat):
             errs[what] = (diff, rel)
         del got, want, outs
         t = turns({'plain': lambda: plain(x), 'kernel': lambda: kern(x),
-                   'prev': None if stacked is None else lambda: stacked(x),
+                   'stacked': None if stacked is None
+                   else lambda: stacked(x),
                    'library': library_spmm_fn(torch, csr, x, 'complex128')},
                   20)
         nbytes = matrix_bytes + 2 * m * n * 16
@@ -2617,7 +2319,8 @@ def phase_complex_kernels(torch, np, sw, sp, DiaMatrix, BsrMatrix, k_nat):
               % (name, n, m, launches, 'es' if launches > 1 else '',
                  '; '.join('%s %.2e of the largest entry from plain'
                            % (what, rel) for what, (_, rel) in errs.items()),
-                 t['kernel'], nbytes / t['kernel'] / 1e6, fmt_ms(t['prev']),
+                 t['kernel'], nbytes / t['kernel'] / 1e6,
+                 fmt_ms(t['stacked']),
                  t['plain'], fmt_ms(t['library']), bound_ms, bound_by))
         rows[name] = dict(
             name=name, route='cuda', source=src[0], replaces=src[1],
@@ -2625,15 +2328,15 @@ def phase_complex_kernels(torch, np, sw, sp, DiaMatrix, BsrMatrix, k_nat):
             plain_ms=t['plain'], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=t['library'], m=m, bytes=nbytes)
         if stacked is not None:
-            rows[name]['prev_ms'] = t['prev']
+            rows[name]['stacked_ms'] = t['stacked']
         if name == 'dia_spmm_rows_c128_val128':
             # the stacked route on the complex field's B, as it ran there
             # before the complex instantiation
             rows['dia_spmm_rows_complex_f64_val64'] = dict(
                 rows[name], name='dia_spmm_rows_complex_f64_val64',
-                max_abs_err=errs['stacked route'][0], ms=t['prev'],
+                max_abs_err=errs['stacked route'][0], ms=t['stacked'],
                 off_path=OFF_PATH_STACKED)
-            del rows['dia_spmm_rows_complex_f64_val64']['prev_ms']
+            del rows['dia_spmm_rows_complex_f64_val64']['stacked_ms']
         del x
     for name in ('dia_spmm_rows_c128_val64', 'dia_spmm_rows_c128_val32'):
         rows[name]['off_path'] = (
@@ -2849,8 +2552,6 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
             fail('FE-BSR core: the f64 BSR kernel was skipped')
         for key in (('f32', 'f64'), ('f64', 'f64')):
             rows['bsr_spmm_rows_%s_%s' % key]['launches'] = sp.LAUNCHES[key]
-            rows['bsr_spmm_rows_prev_%s_%s' % key]['launches'] = \
-                sp.PREV_LAUNCHES[key]
         print('core 5, engine=\'core\' FE flagship (mesher order) which=6 '
               'tol=1e-4, BSR Chebyshev degree 32: status 0, %d iterations, '
               'residual %.2e (limit %.0e); wall %.2f s (solve %.2f s); f64 '
@@ -2897,13 +2598,8 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
         if min(launches[('f32', 'f64')], launches[('f64', 'f64')]) <= 0:
             fail('FE-ELL core: an f64 ELL instantiation was skipped: %s'
                  % ell_launches(ell))
-        if any(ell.ELL_PREV_LAUNCHES.values()):
-            fail('FE-ELL core launched the previous ELL design: %s'
-                 % ell.ELL_PREV_LAUNCHES)
         for key in (('f32', 'f64'), ('f64', 'f64')):
             rows['ell_spmm_%s_%s' % key]['launches'] = launches[key]
-            rows['ell_spmm_prev_%s_%s' % key]['launches'] = \
-                ell.ELL_PREV_LAUNCHES[key]
         print('core 5b, engine=\'core\' FE flagship (relabelled) which=6 '
               'tol=1e-4, its own Chebyshev degree 32 (EllMatrix): status 0, '
               '%d iterations, residual %.2e (limit %.0e); wall %.2f s (solve '

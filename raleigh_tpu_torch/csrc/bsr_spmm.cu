@@ -18,11 +18,11 @@
 // (nblocks*bs*bs*b bytes) for 2*nblocks*bs*bs*m flops.  At the FE-BSR shape
 // (10,602 tiles of 128^2, m = 16) that is 0.213 ms of f32 tiles or 0.109 ms
 // of bf16 tiles at 3.35 TB/s, and 0.083 ms of f32 FMA at 67 TFLOP/s.  The
-// previous design (kept below as bsr_spmm_rows_prev_*) took 0.378 ms for
-// either tile type on an H100, and 1.8 times as long at m = 24: its own
-// instructions bounded it, not memory.  Each of its threads owned one tile
-// row, staged every chunk through registers (a scalar load and a
-// st.shared per value) and fed 16 FMA with 5 shared-memory reads.
+// previous design, now the general path below, took 0.378 ms for either
+// tile type on an H100, and 1.8 times as long at m = 24: its own
+// instructions bounded it, not memory.  Each of its threads owns one tile
+// row, stages every chunk through registers (a scalar load and a st.shared
+// per value) and feeds 16 FMA with 5 shared-memory reads.
 //
 // What this design does about it:
 //   * A warp owns the block row's 128-row slab and 16 operand rows; each
@@ -53,7 +53,7 @@
 //     rows takes a half-width register tile.
 //   * The 16-byte path needs bs * sizeof(tile) % 16 == 0 and a 16-byte
 //     aligned tile base.  Any other shape (bs = 3, 5, ...) takes the
-//     previous design below, which has no alignment limit.
+//     general path below, which has no alignment limit.
 //   * Index arithmetic is 64-bit; bs, m and n have no size limits (bs over
 //     128 takes several row slabs).
 // What is left, as measured (PERF.md): f32 FMA are about half of the
@@ -68,10 +68,10 @@
 // of f64 tiles at 3.35 TB/s.  Its 2*nblocks*bs*bs*m flops, 2.78 GFLOP at
 // m = 8 and 5.56 at m = 16, take 0.082 / 0.164 ms on the CUDA cores' 34
 // TFLOP/s of f64 FMA, and 0.041 / 0.083 ms on the f64 tensor cores' 67.
-// Its previous design (kept below as bsr_spmm_rows_prev_*_f64) was the
-// f32 previous design widened, a thread a tile row: 0.64 ms at m = 8 or
-// 16 with either tile type, so neither bytes nor the FMA bounded it but
-// its own instructions (16 FMA for 9 shared reads, two barriers a chunk).
+// Its previous design, now the f64 general path below, is the f32 general
+// path widened, a thread a tile row: 0.64 ms at m = 8 or 16 with either
+// tile type, so neither bytes nor the FMA bounded it but its own
+// instructions (16 FMA for 9 shared reads, two barriers a chunk).
 //
 // What the f64 design does about it (namespace wide):
 //   * The products run on the f64 tensor cores, mma.sync m16n8k4 (an
@@ -95,7 +95,7 @@
 //   * The widening (cvt.f64.f32, 16 a clock an SM) and the MMA run beside
 //     the copies; bytes of tiles are what is left.
 //   * The 16-byte path needs bs * sizeof(tile) % 16 == 0 and a 16-byte
-//     aligned tile base; any other shape takes the previous design, which
+//     aligned tile base; any other shape takes the general path, which
 //     takes any bs and alignment.
 // What is left, as measured (PERF.md): at m = 8 with f32 tiles 1.13 times
 // the tiles' time at the card's measured stream rate; with f32 tiles the
@@ -451,9 +451,9 @@ bsr_rows_kernel(const TB* __restrict__ blocks, const int* __restrict__ indptr,
 }
 
 template <typename TB, typename TX>
-int launch_prev(const void* blocks, const void* indptr, const void* cols,
-                const void* x, void* y, int64_t bs, int64_t m, int64_t n,
-                int device, void* stream);
+int launch_general(const void* blocks, const void* indptr,
+                   const void* cols, const void* x, void* y, int64_t bs,
+                   int64_t m, int64_t n, int device, void* stream);
 
 template <typename TB, typename TX>
 int launch(const void* blocks, const void* indptr, const void* cols,
@@ -463,8 +463,8 @@ int launch(const void* blocks, const void* indptr, const void* cols,
     if ((bs * static_cast<int64_t>(sizeof(TB))) % 16 != 0
             || reinterpret_cast<uintptr_t>(blocks) % 16 != 0) {
         // the general path: no 16-byte rows to copy
-        return launch_prev<TB, TX>(blocks, indptr, cols, x, y, bs, m, n,
-                                   device, stream);
+        return launch_general<TB, TX>(blocks, indptr, cols, x, y, bs, m,
+                                      n, device, stream);
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -495,15 +495,14 @@ int launch(const void* blocks, const void* indptr, const void* cols,
     return static_cast<int>(cudaGetLastError());
 }
 
-// ---- the previous design, timed beside the kernel above -----------------
+// ---- the general path ---------------------------------------------------
 //
 // One thread a tile row, 16 operand rows a block, chunks of 32 columns
 // staged through registers into shared memory.  It takes any bs and any
-// alignment, so it is also the general path of the kernel above; its own
-// entry points (bsr_spmm_rows_prev_*) are launched only by chip_smoke.py,
-// through ops/spmm_pallas.py::bsr_matmat_rows_prev.
+// alignment: the kernel above hands it the tiles it cannot copy in 16-byte
+// rows.
 
-namespace prev {
+namespace general {
 
 constexpr int kThreads = 128;   // tile rows per thread block (one a thread)
 constexpr int kRows = 16;       // operand rows per thread block
@@ -649,25 +648,23 @@ int launch(const void* blocks, const void* indptr, const void* cols,
     return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace prev
+}  // namespace general
 
 template <typename TB, typename TX>
-int launch_prev(const void* blocks, const void* indptr, const void* cols,
-                const void* x, void* y, int64_t bs, int64_t m, int64_t n,
-                int device, void* stream) {
-    return prev::launch<TB, TX>(blocks, indptr, cols, x, y, bs, m, n,
-                                device, stream);
+int launch_general(const void* blocks, const void* indptr,
+                   const void* cols, const void* x, void* y, int64_t bs,
+                   int64_t m, int64_t n, int device, void* stream) {
+    return general::launch<TB, TX>(blocks, indptr, cols, x, y, bs, m, n,
+                                   device, stream);
 }
 
-// ---- the f64 instantiation's previous design -----------------------------
+// ---- the f64 instantiation's general path --------------------------------
 //
-// The previous design above widened: f64 operand and sums, f32 or f64
-// tiles, a thread a tile row.  It takes any bs and any alignment, so it is
-// also the general path of the f64 kernel below; its own entry points
-// (bsr_spmm_rows_prev_*_f64) are launched only by chip_smoke.py, through
-// ops/spmm_pallas.py::bsr_matmat_rows_prev.
+// The general path above widened: f64 operand and sums, f32 or f64 tiles,
+// a thread a tile row.  It takes any bs and any alignment: the f64 kernel
+// below hands it the tiles it cannot copy in 16-byte rows.
 
-namespace wide_prev {
+namespace wide_general {
 
 constexpr int kThreads = 128;   // tile rows per thread block (one a thread)
 constexpr int kRows = 16;       // operand rows per thread block
@@ -684,7 +681,7 @@ __device__ __forceinline__ double to_f64(float v) {
 __device__ __forceinline__ double to_f64(double v) { return v; }
 
 // Global loads of chunk c of a block row into registers, as in the
-// previous design, zero where the tile, the operand block or the matrix
+// general path, zero where the tile, the operand block or the matrix
 // ends.
 template <typename TB>
 __device__ __forceinline__ void fetch_chunk(
@@ -807,7 +804,7 @@ int launch(const void* blocks, const void* indptr, const void* cols,
     return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace wide_prev
+}  // namespace wide_general
 
 // ---- the f64 instantiation on the path ----------------------------------
 
@@ -1007,8 +1004,8 @@ int launch(const void* blocks, const void* indptr, const void* cols,
     if ((bs * static_cast<int64_t>(sizeof(TB))) % 16 != 0
             || reinterpret_cast<uintptr_t>(blocks) % 16 != 0) {
         // the general path: no 16-byte rows to copy
-        return wide_prev::launch<TB, TX>(blocks, indptr, cols, x, y, bs, m,
-                                         n, device, stream);
+        return wide_general::launch<TB, TX>(blocks, indptr, cols, x, y, bs,
+                                            m, n, device, stream);
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1050,18 +1047,10 @@ int launch(const void* blocks, const void* indptr, const void* cols,
                             stream);                                        \
     }
 
-// entry points: bsr_spmm_rows_<block type>_<operand type>, and the
-// previous design's bsr_spmm_rows_prev_<block type>_<operand type>
+// entry points: bsr_spmm_rows_<block type>_<operand type>
 BSR_ENTRY(bsr_spmm_rows_f32_f32, launch, float, float)
 BSR_ENTRY(bsr_spmm_rows_f32_bf16, launch, float, __nv_bfloat16)
 BSR_ENTRY(bsr_spmm_rows_bf16_f32, launch, __nv_bfloat16, float)
 BSR_ENTRY(bsr_spmm_rows_bf16_bf16, launch, __nv_bfloat16, __nv_bfloat16)
 BSR_ENTRY(bsr_spmm_rows_f32_f64, wide::launch, float, double)
 BSR_ENTRY(bsr_spmm_rows_f64_f64, wide::launch, double, double)
-BSR_ENTRY(bsr_spmm_rows_prev_f32_f32, launch_prev, float, float)
-BSR_ENTRY(bsr_spmm_rows_prev_f32_bf16, launch_prev, float, __nv_bfloat16)
-BSR_ENTRY(bsr_spmm_rows_prev_bf16_f32, launch_prev, __nv_bfloat16, float)
-BSR_ENTRY(bsr_spmm_rows_prev_bf16_bf16, launch_prev, __nv_bfloat16,
-          __nv_bfloat16)
-BSR_ENTRY(bsr_spmm_rows_prev_f32_f64, wide_prev::launch, float, double)
-BSR_ENTRY(bsr_spmm_rows_prev_f64_f64, wide_prev::launch, double, double)

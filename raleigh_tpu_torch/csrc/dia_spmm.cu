@@ -18,7 +18,7 @@
 // bytes (b = 4 for f32, 2 for bf16) for 2*noff*m*n flops: 200 MB in f32
 // and 118 MB in bf16 at the main path's shape (lap3d 100x100x128:
 // n = 1.28e6, m = 16, noff = 7), 0.060 / 0.035 ms at 3.35 TB/s.  The
-// previous design (kept below as dia_spmm_rows_prev_*) took 0.113 ms in
+// previous design (PERF.md; deleted since) took 0.113 ms in
 // f32 and 0.105 ms in bf16 on an H100: 41% fewer bytes bought 7% less
 // time, so its time followed its load instructions and their round
 // trips, not bytes.  Each of its threads owned one lane and walked the
@@ -559,78 +559,9 @@ int launch(const void* val, const void* x, void* y, const void* offsets,
 
 }  // namespace cplx
 
-// ---- the previous design, timed beside the kernel above -----------------
-//
-// Threads along the lanes, one lane each, 8 operand rows a block, the
-// diagonals in a run-time loop with a range check.  Launched only by
-// chip_smoke.py, through ops/spmm_window.py::dia_matmat_rows_prev.
-
-namespace prev {
-
-constexpr int kThreads = 256;
-constexpr int kRows = 8;
-
-// Block b covers row group b % groups and lane tile b / groups.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dia_rows_kernel(const float* __restrict__ val, const T* __restrict__ x,
-                T* __restrict__ y, const int* __restrict__ offsets,
-                int64_t noff, int64_t m, int64_t n, int64_t groups) {
-    const int64_t b = blockIdx.x;
-    const int64_t r0 = (b % groups) * kRows;
-    const int64_t i = (b / groups) * kThreads + threadIdx.x;
-    if (i >= n) return;
-    const int64_t left = m - r0;
-    const int rows = left < kRows ? static_cast<int>(left) : kRows;
-
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-
-    const T* xr = x + r0 * n;
-    for (int64_t k = 0; k < noff; ++k) {
-        const int64_t j = i + static_cast<int64_t>(offsets[k]);
-        if (j < 0 || j >= n) continue;
-        const float v = val[k * n + i];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-            if (r < rows) {
-                acc[r] = __fadd_rn(acc[r],
-                                   __fmul_rn(v, to_f32(xr[r * n + j])));
-            }
-        }
-    }
-
-    T* yr = y + r0 * n + i;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-        if (r < rows) store(yr + r * n, acc[r]);
-    }
-}
-
-template <typename T>
-int launch(const void* val, const void* x, void* y, const void* offsets,
-           int64_t noff, int64_t m, int64_t n, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int64_t groups = (m + kRows - 1) / kRows;
-    const int64_t blocks = groups * ((n + kThreads - 1) / kThreads);
-    if (blocks <= 0 || blocks > 0x7fffffffLL) {
-        return static_cast<int>(cudaErrorInvalidConfiguration);
-    }
-    dia_rows_kernel<T><<<static_cast<unsigned int>(blocks), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(val), static_cast<const T*>(x),
-        static_cast<T*>(y), static_cast<const int*>(offsets), noff, m, n,
-        groups);
-    return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace prev
-
 }  // namespace
 
-// entry points: the kernel, and its previous design (dia_spmm_rows_prev_*)
+// entry points
 extern "C" int dia_spmm_rows_f32(const void* val, const void* x, void* y,
                                  const void* offsets, int64_t noff,
                                  int64_t m, int64_t n, int device,
@@ -686,20 +617,4 @@ extern "C" int dia_spmm_rows_c128_val128(const void* val, const void* x,
                                          int device, void* stream) {
     return cplx::launch<double2>(val, x, y, offsets, noff, m, n, device,
                                  stream);
-}
-
-extern "C" int dia_spmm_rows_prev_f32(const void* val, const void* x,
-                                      void* y, const void* offsets,
-                                      int64_t noff, int64_t m, int64_t n,
-                                      int device, void* stream) {
-    return prev::launch<float>(val, x, y, offsets, noff, m, n, device,
-                               stream);
-}
-
-extern "C" int dia_spmm_rows_prev_bf16(const void* val, const void* x,
-                                       void* y, const void* offsets,
-                                       int64_t noff, int64_t m, int64_t n,
-                                       int device, void* stream) {
-    return prev::launch<__nv_bfloat16>(val, x, y, offsets, noff, m, n,
-                                       device, stream);
 }

@@ -16,10 +16,10 @@
 //
 // What bounds it: memory, noff*n*4 + 2*m*n*4 bytes for 2*noff*m*n flops
 // (0.060 ms at the tile sweep's shape, lap3d 100x100x128, m = 16, on an
-// H100).  The previous design (kept below as dia_spmm_rows_slide_prev_f32)
-// held two rows a block at T = 4,096 (110 KB of window a row), read val
-// from L2 in every block, copied x with 4-byte cp.async fenced by two
-// block barriers a tile, and took 0.2429 ms.
+// H100).  The previous design (PERF.md; deleted since) held two rows a
+// block at T = 4,096 (110 KB of window a row), read val from L2 in every
+// block, copied x with 4-byte cp.async fenced by two block barriers a
+// tile, and took 0.2429 ms.
 //
 // What this design does about it (chosen on the H100 among variants that
 // the comments below name):
@@ -83,10 +83,6 @@
 // T = 16,384 no stage of 800 lanes fits beside the window and val comes
 // from device memory: 0.2850 ms against the previous design's 0.2965.
 //
-// dia_spmm_rows_slide_prev_f32 keeps the previous design, to be timed in
-// turns with this one; no path launches it: persistent blocks of 1,024
-// threads, a block per row group and segment, 4-byte cp.async into the
-// window, two block barriers a tile, val read by every row group.
 // The kernels allocate nothing and do not synchronise the device.  Each
 // entry point returns cudaGetLastError() after its launch.
 
@@ -292,169 +288,10 @@ cudaError_t run(bool vec, int rows, const Call& a, cudaStream_t stream,
                        : dispatch<true, false>(rows, a, stream, query);
 }
 
-// ---- the previous design, timed beside the kernel above -----------------
-//
-// Launched only by chip_smoke.py, through
-// ops/spmm_window.py::dia_matmat_rows_slide_prev.
-
-namespace prev {
-
-constexpr int kThreads = 1024;
-constexpr int kBatch = 8;
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
-}
-
-// Starts the copies of lanes [g0, g1), clipped to [0, n), of `rows` operand
-// rows into their circular windows of `cap` lanes; lane g0 lands at window
-// index p0 < cap, and g1 - g0 <= cap.
-template <int kRows>
-__device__ __forceinline__ void fetch(float* win, int cap, const float* xr,
-                                      int64_t n, int rows, int64_t g0,
-                                      int64_t g1, int p0) {
-    const int64_t a = g0 < 0 ? 0 : g0;
-    const int64_t b = g1 < n ? g1 : n;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-        if (r < rows) {
-            const float* src = xr + r * n;
-            float* dst = win + r * cap;
-            for (int64_t g = a + threadIdx.x; g < b; g += kThreads) {
-                int p = p0 + static_cast<int>(g - g0);
-                if (p >= cap) p -= cap;
-                cp_async4(dst + p, src + g);
-            }
-        }
-    }
-}
-
-// Block b covers row group b % groups and lane segment b / groups.  Every
-// thread commits one cp.async group per tile, empty after the segment's last
-// fetch, so that wait_group<1> always means "this tile's window has landed".
-template <int kRows>
-__global__ void __launch_bounds__(kThreads)
-slide_kernel(const float* __restrict__ val, const float* __restrict__ x,
-             float* __restrict__ y, Offsets offs, int noff, int64_t m,
-             int64_t n, int tile, int lo, int hi, int64_t seg_len,
-             int64_t groups) {
-    extern __shared__ __align__(16) float win[];
-    const int cap = lo + hi + 2 * tile;
-    const int64_t b = blockIdx.x;
-    const int64_t r0 = (b % groups) * kRows;
-    const int64_t seg0 = (b / groups) * seg_len;
-    const int64_t seg1 = seg0 + seg_len < n ? seg0 + seg_len : n;
-    const int64_t left = m - r0;
-    const int rows = left < kRows ? static_cast<int>(left) : kRows;
-    const float* xr = x + r0 * n;
-
-    fetch<kRows>(win, cap, xr, n, rows, seg0 - lo, seg0 + tile + hi, 0);
-    cp_async_commit();
-    int wbase = 0;      // window index of lane t0 - lo
-    for (int64_t t0 = seg0; t0 < seg1; t0 += tile) {
-        if (t0 + tile < seg1) {
-            // the T lanes the next tile adds; their slots held lanes the
-            // previous tile was the last to read
-            int p = wbase + tile + lo + hi;
-            if (p >= cap) p -= cap;
-            fetch<kRows>(win, cap, xr, n, rows, t0 + tile + hi,
-                         t0 + 2 * static_cast<int64_t>(tile) + hi, p);
-        }
-        cp_async_commit();
-        cp_async_wait<1>();
-        __syncthreads();
-        for (int jj = threadIdx.x; jj < tile; jj += kThreads) {
-            const int64_t i = t0 + jj;
-            if (i >= seg1) break;
-            float acc[kRows];
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-            // kBatch diagonals at a time: their loads of val are started
-            // together, then summed in order; p < 0 marks a term that is
-            // not summed (past the diagonals, or outside [0, n))
-            for (int k0 = 0; k0 < noff; k0 += kBatch) {
-                float v[kBatch];
-                int p[kBatch];
-#pragma unroll
-                for (int u = 0; u < kBatch; ++u) {
-                    const int k = k0 + u;
-                    const int off = k < noff ? offs.v[k] : 0;
-                    const int64_t g = i + off;
-                    const bool in = k < noff && g >= 0 && g < n;
-                    v[u] = in ? val[k * n + i] : 0.0f;
-                    int q = wbase + jj + off + lo;
-                    if (q >= cap) q -= cap;
-                    p[u] = in ? q : -1;
-                }
-#pragma unroll
-                for (int u = 0; u < kBatch; ++u) {
-                    if (p[u] >= 0) {
-#pragma unroll
-                        for (int r = 0; r < kRows; ++r) {
-                            if (r < rows) {
-                                acc[r] = __fadd_rn(
-                                    acc[r],
-                                    __fmul_rn(v[u], win[r * cap + p[u]]));
-                            }
-                        }
-                    }
-                }
-            }
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-                if (r < rows) y[(r0 + r) * n + i] = acc[r];
-            }
-        }
-        __syncthreads();
-        wbase += tile;
-        if (wbase >= cap) wbase -= cap;
-    }
-}
-
-template <int kRows>
-cudaError_t launch(const float* val, const float* x, float* y,
-                   const Offsets& offs, int noff, int64_t m, int64_t n,
-                   int tile, int lo, int hi, int sms, cudaStream_t stream) {
-    const size_t smem = static_cast<size_t>(kRows)
-        * (static_cast<size_t>(lo) + hi + 2 * static_cast<size_t>(tile))
-        * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        slide_kernel<kRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, slide_kernel<kRows>, kThreads, smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    // one wave: as many segments as keep every resident block busy
-    const int64_t groups = (m + kRows - 1) / kRows;
-    const int64_t tiles = (n + tile - 1) / tile;
-    int64_t segments = static_cast<int64_t>(sms) * per_sm / groups;
-    if (segments < 1) segments = 1;
-    const int64_t per_segment = (tiles + segments - 1) / segments;
-    segments = (tiles + per_segment - 1) / per_segment;
-    const int64_t blocks = groups * segments;
-    if (blocks <= 0 || blocks > 0x7fffffffLL) {
-        return cudaErrorInvalidConfiguration;
-    }
-    slide_kernel<kRows><<<static_cast<unsigned int>(blocks), kThreads, smem,
-                          stream>>>(val, x, y, offs, noff, m, n, tile, lo,
-                                    hi, per_segment * tile, groups);
-    return cudaGetLastError();
-}
-
-}  // namespace prev
-
 // The checks both entry points make: offsets to `offs`, and the reach to
-// the left and right, each rounded up to a multiple of `round`.
+// the left and right, each rounded up to a multiple of 4.
 cudaError_t read_offsets(const int* offsets, int64_t noff, int64_t tile,
-                         int64_t round, Offsets* offs, int* lo, int* hi) {
+                         Offsets* offs, int* lo, int* hi) {
     if (noff < 0 || noff > kMaxOffsets || tile < 1 || tile > 0x3fffffffLL) {
         return cudaErrorInvalidValue;
     }
@@ -466,8 +303,8 @@ cudaError_t read_offsets(const int* offsets, int64_t noff, int64_t tile,
         if (-off > l) l = -off;
         if (off > h) h = off;
     }
-    l = (l + round - 1) / round * round;
-    h = (h + round - 1) / round * round;
+    l = (l + 3) / 4 * 4;
+    h = (h + 3) / 4 * 4;
     if (l + h + 2 * tile > 0x3fffffffLL) return cudaErrorInvalidValue;
     *lo = static_cast<int>(l);
     *hi = static_cast<int>(h);
@@ -491,7 +328,7 @@ extern "C" int dia_spmm_rows_slide_f32(const void* val, const void* x,
     Call a = {static_cast<const float*>(val), static_cast<const float*>(x),
               static_cast<float*>(y), {}, static_cast<int>(noff), m, n,
               static_cast<int>(tile), static_cast<int>(chunk), 0, 0};
-    cudaError_t err = read_offsets(offsets, noff, tile, 4, &a.offs, &a.lo,
+    cudaError_t err = read_offsets(offsets, noff, tile, &a.offs, &a.lo,
                                    &a.hi);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (!chunk_ok(chunk)) return static_cast<int>(cudaErrorInvalidValue);
@@ -517,7 +354,7 @@ extern "C" int dia_spmm_rows_slide_plan(const int* offsets, int64_t noff,
     Call a = {nullptr, nullptr, nullptr, {}, static_cast<int>(noff), m, n,
               static_cast<int>(tile), bulk ? static_cast<int>(chunk) : 0, 0,
               0};
-    cudaError_t err = read_offsets(offsets, noff, tile, 4, &a.offs, &a.lo,
+    cudaError_t err = read_offsets(offsets, noff, tile, &a.offs, &a.lo,
                                    &a.hi);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (!chunk_ok(chunk)) return static_cast<int>(cudaErrorInvalidValue);
@@ -528,43 +365,4 @@ extern "C" int dia_spmm_rows_slide_plan(const int* offsets, int64_t noff,
     if (err != cudaSuccess) return static_cast<int>(err);
     report_plan(p, plan);
     return static_cast<int>(cudaSuccess);
-}
-
-// The previous design.  rows: 1, 2, 4 or 8; rows * (lo + hi + 2 * tile) * 4
-// bytes of shared memory must fit a block, lo and hi the reach to the left
-// and right.
-extern "C" int dia_spmm_rows_slide_prev_f32(const void* val, const void* x,
-                                            void* y, const int* offsets,
-                                            int64_t noff, int64_t m,
-                                            int64_t n, int64_t tile,
-                                            int rows, int device,
-                                            void* stream) {
-    if (m <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-    Offsets offs;
-    int l = 0, h = 0;
-    cudaError_t err = read_offsets(offsets, noff, tile, 1, &offs, &l, &h);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int sms = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const float* v = static_cast<const float*>(val);
-    const float* xf = static_cast<const float*>(x);
-    float* yf = static_cast<float*>(y);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int t = static_cast<int>(tile);
-    const int k = static_cast<int>(noff);
-    switch (rows) {
-        case 1: return static_cast<int>(prev::launch<1>(
-                    v, xf, yf, offs, k, m, n, t, l, h, sms, s));
-        case 2: return static_cast<int>(prev::launch<2>(
-                    v, xf, yf, offs, k, m, n, t, l, h, sms, s));
-        case 4: return static_cast<int>(prev::launch<4>(
-                    v, xf, yf, offs, k, m, n, t, l, h, sms, s));
-        case 8: return static_cast<int>(prev::launch<8>(
-                    v, xf, yf, offs, k, m, n, t, l, h, sms, s));
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
 }

@@ -33,7 +33,7 @@
 // loads its row's idx and val (G lanes a row, below): at m = 16, 356 MB
 // more through L1.  Both pass through the SMs' load path.
 //
-// What paced the previous design (kept below as ell_spmm_prev_*; 0.0827 ms
+// What paced the previous design (PERF.md; deleted since; 0.0827 ms
 // at that shape on an H100, 2.6 times the bound, and as long at m = 8 as
 // at m = 16): a thread walked its row in steps of 8 entries, and a step's
 // idx and val loads had to land before its 8 gathers could issue and the
@@ -377,89 +377,8 @@ bool wide_operand(const void* x, int64_t m, int64_t ldx) {
         && reinterpret_cast<uintptr_t>(x) % 16 == 0;
 }
 
-// ---- the previous design, timed beside the kernel above -----------------
-//
-// One lane group a row, 256 threads a block, one block for each 256 / G
-// rows (blockIdx.y the column chunk); each step's 8 idx and val loads
-// before the step's gathers, nothing of the next step in flight.
-// Launched only by chip_smoke.py and benches/bench_ell.py, through
-// ops/spmm.py::_ell_matmat_prev.
-
-namespace prev {
-
-template <typename TV, typename TX, typename TA, int V>
-__global__ void __launch_bounds__(kThreads)
-ell_rows_kernel(const int32_t* __restrict__ idx, const TV* __restrict__ val,
-                const TX* __restrict__ x, TX* __restrict__ y, Walk w) {
-    const int lane = threadIdx.x;
-    const int64_t row = static_cast<int64_t>(blockIdx.x) * w.rows
-        + (lane >> w.g_log2);
-    const int64_t col = (static_cast<int64_t>(blockIdx.y) << w.g_log2) * V
-        + static_cast<int64_t>(lane & ((1 << w.g_log2) - 1)) * V;
-    if (row >= w.n || col >= w.m) return;
-
-    const int32_t* ip = idx + row * w.k;
-    const TV* vp = val + row * w.k;
-    const TX* xc = x + col;
-    TA acc[V];
-#pragma unroll
-    for (int c = 0; c < V; ++c) acc[c] = TA(0);
-
-    if (w.vec_entries) {
-        for (int64_t kk = 0; kk < w.k; kk += kStep) {
-            int32_t j[kStep];
-            TA v[kStep];
-            load_idx8(ip + kk, j);
-            load_val8(vp + kk, v);
-            typename Raw<TX, V>::type raw[kStep];
-#pragma unroll
-            for (int e = 0; e < kStep; ++e) {
-                raw[e] = load_x<TX, V>(xc
-                                       + static_cast<int64_t>(j[e]) * w.ldx);
-            }
-#pragma unroll
-            for (int e = 0; e < kStep; ++e) {
-                TA xv[V];
-                widen<TX, TA, V>(raw[e], xv);
-#pragma unroll
-                for (int c = 0; c < V; ++c) {
-                    acc[c] = fmadd(v[e], xv[c], acc[c]);
-                }
-            }
-        }
-    } else {
-        row_sum_scalar<TV, TX, TA, V>(ip, vp, xc, w.k, w.ldx, acc);
-    }
-    store_row<TX, TA, V>(y, row, col, w.ys_row, w.ys_col, acc);
-}
-
-template <typename TV, typename TX, typename TA, int V>
-int launch_v(const void* idx, const void* val, const void* x, void* y,
-             int64_t n, int64_t k, int64_t m, int64_t ldx, int64_t ys_row,
-             int64_t ys_col, int, void* stream) {
-    const Walk w = walk(idx, val, n, k, m, ldx, ys_row, ys_col, V);
-    const int64_t blocks = (n + w.rows - 1) / w.rows;
-    if (blocks > 0x7fffffffLL || w.chunks > 65535) {
-        return static_cast<int>(cudaErrorInvalidConfiguration);
-    }
-    const dim3 grid(static_cast<unsigned int>(blocks),
-                    static_cast<unsigned int>(w.chunks));
-    prev::ell_rows_kernel<TV, TX, TA, V>
-        <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const int32_t*>(idx), static_cast<const TV*>(val),
-            static_cast<const TX*>(x), static_cast<TX*>(y), w);
-    return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace prev
-
-using Launch = int (*)(const void*, const void*, const void*, void*,
-                       int64_t, int64_t, int64_t, int64_t, int64_t, int64_t,
-                       int, void*);
-
-// Either design (kPrev: the previous one) at V values a lane: 16 bytes
-// where the operand's rows allow, else one.
-template <bool kPrev, typename TV, typename TX, typename TA>
+// At V values a lane: 16 bytes where the operand's rows allow, else one.
+template <typename TV, typename TX, typename TA>
 int launch(const void* idx, const void* val, const void* x, void* y,
            int64_t n, int64_t k, int64_t m, int64_t ldx, int64_t ys_row,
            int64_t ys_col, int device, void* stream) {
@@ -467,32 +386,23 @@ int launch(const void* idx, const void* val, const void* x, void* y,
     if (err != cudaSuccess) return static_cast<int>(err);
     if (n <= 0 || m <= 0) return static_cast<int>(cudaSuccess);
     constexpr int kVec = 16 / static_cast<int>(sizeof(TX));
-    Launch go;
     if (wide_operand<TX>(x, m, ldx)) {
-        go = kPrev ? prev::launch_v<TV, TX, TA, kVec>
-                   : launch_v<TV, TX, TA, kVec>;
-    } else {
-        go = kPrev ? prev::launch_v<TV, TX, TA, 1> : launch_v<TV, TX, TA, 1>;
+        return launch_v<TV, TX, TA, kVec>(idx, val, x, y, n, k, m, ldx,
+                                          ys_row, ys_col, device, stream);
     }
-    return go(idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
+    return launch_v<TV, TX, TA, 1>(idx, val, x, y, n, k, m, ldx, ys_row,
+                                   ys_col, device, stream);
 }
 
 // out: registers a thread, resident blocks an SM, threads a block, local
 // (spill) bytes a thread, for an operand of m columns that are whole
 // 16-byte vectors when m allows.
 template <typename TV, typename TX, typename TA>
-cudaError_t occupancy(bool prev_design, int64_t m, int device, int64_t* out) {
+cudaError_t occupancy(int64_t m, int device, int64_t* out) {
     constexpr int kVec = 16 / static_cast<int>(sizeof(TX));
-    const bool wide = m % kVec == 0;
-    const void* fn = prev_design
-        ? (wide ? reinterpret_cast<const void*>(
-                      prev::ell_rows_kernel<TV, TX, TA, kVec>)
-                : reinterpret_cast<const void*>(
-                      prev::ell_rows_kernel<TV, TX, TA, 1>))
-        : (wide ? reinterpret_cast<const void*>(
-                      ell_rows_kernel<TV, TX, TA, kVec>)
-                : reinterpret_cast<const void*>(
-                      ell_rows_kernel<TV, TX, TA, 1>));
+    const void* fn = m % kVec == 0
+        ? reinterpret_cast<const void*>(ell_rows_kernel<TV, TX, TA, kVec>)
+        : reinterpret_cast<const void*>(ell_rows_kernel<TV, TX, TA, 1>);
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, fn);
     if (err != cudaSuccess) return err;
@@ -508,14 +418,13 @@ cudaError_t occupancy(bool prev_design, int64_t m, int device, int64_t* out) {
 
 }  // namespace
 
-// entry points: ell_spmm_<value type>_<operand type>, and the previous
-// design's ell_spmm_prev_<value type>_<operand type>
+// entry points: ell_spmm_<value type>_<operand type>
 extern "C" int ell_spmm_f32_f32(const void* idx, const void* val,
                                 const void* x, void* y, int64_t n,
                                 int64_t k, int64_t m, int64_t ldx,
                                 int64_t ys_row, int64_t ys_col, int device,
                                 void* stream) {
-    return launch<false, float, float, float>(
+    return launch<float, float, float>(
         idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
 }
 
@@ -524,7 +433,7 @@ extern "C" int ell_spmm_f32_bf16(const void* idx, const void* val,
                                  int64_t k, int64_t m, int64_t ldx,
                                  int64_t ys_row, int64_t ys_col, int device,
                                  void* stream) {
-    return launch<false, float, __nv_bfloat16, float>(
+    return launch<float, __nv_bfloat16, float>(
         idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
 }
 
@@ -533,7 +442,7 @@ extern "C" int ell_spmm_f32_f64(const void* idx, const void* val,
                                 int64_t k, int64_t m, int64_t ldx,
                                 int64_t ys_row, int64_t ys_col, int device,
                                 void* stream) {
-    return launch<false, float, double, double>(
+    return launch<float, double, double>(
         idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
 }
 
@@ -542,68 +451,24 @@ extern "C" int ell_spmm_f64_f64(const void* idx, const void* val,
                                 int64_t k, int64_t m, int64_t ldx,
                                 int64_t ys_row, int64_t ys_col, int device,
                                 void* stream) {
-    return launch<false, double, double, double>(
+    return launch<double, double, double>(
         idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
 }
 
-extern "C" int ell_spmm_prev_f32_f32(const void* idx, const void* val,
-                                     const void* x, void* y, int64_t n,
-                                     int64_t k, int64_t m, int64_t ldx,
-                                     int64_t ys_row, int64_t ys_col,
-                                     int device, void* stream) {
-    return launch<true, float, float, float>(
-        idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
-}
-
-extern "C" int ell_spmm_prev_f32_bf16(const void* idx, const void* val,
-                                      const void* x, void* y, int64_t n,
-                                      int64_t k, int64_t m, int64_t ldx,
-                                      int64_t ys_row, int64_t ys_col,
-                                      int device, void* stream) {
-    return launch<true, float, __nv_bfloat16, float>(
-        idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
-}
-
-extern "C" int ell_spmm_prev_f32_f64(const void* idx, const void* val,
-                                     const void* x, void* y, int64_t n,
-                                     int64_t k, int64_t m, int64_t ldx,
-                                     int64_t ys_row, int64_t ys_col,
-                                     int device, void* stream) {
-    return launch<true, float, double, double>(
-        idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
-}
-
-extern "C" int ell_spmm_prev_f64_f64(const void* idx, const void* val,
-                                     const void* x, void* y, int64_t n,
-                                     int64_t k, int64_t m, int64_t ldx,
-                                     int64_t ys_row, int64_t ys_col,
-                                     int device, void* stream) {
-    return launch<true, double, double, double>(
-        idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
-}
-
-// design: 0 the previous design, 1 the kernel on the path; pair: 0 f32_f32,
-// 1 f32_bf16, 2 f32_f64, 3 f64_f64.  Fills out[4] as ``occupancy`` says;
-// nothing is launched.
-extern "C" int ell_spmm_occupancy(int design, int pair, int64_t m,
-                                  int device, int64_t* out) {
+// pair: 0 f32_f32, 1 f32_bf16, 2 f32_f64, 3 f64_f64.  Fills out[4] as
+// ``occupancy`` says; nothing is launched.
+extern "C" int ell_spmm_occupancy(int pair, int64_t m, int device,
+                                  int64_t* out) {
     cudaError_t err = use_device(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (m <= 0 || design < 0 || design > 1) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const bool p = design == 0;
+    if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
     switch (pair) {
-        case 0: err = occupancy<float, float, float>(p, m, device, out); break;
+        case 0: err = occupancy<float, float, float>(m, device, out); break;
         case 1:
-            err = occupancy<float, __nv_bfloat16, float>(p, m, device, out);
+            err = occupancy<float, __nv_bfloat16, float>(m, device, out);
             break;
-        case 2:
-            err = occupancy<float, double, double>(p, m, device, out);
-            break;
-        case 3:
-            err = occupancy<double, double, double>(p, m, device, out);
-            break;
+        case 2: err = occupancy<float, double, double>(m, device, out); break;
+        case 3: err = occupancy<double, double, double>(m, device, out); break;
         default: err = cudaErrorInvalidValue;
     }
     return static_cast<int>(err);

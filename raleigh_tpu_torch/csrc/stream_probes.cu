@@ -44,14 +44,6 @@
 // the block's loop once the chunks before it are done.  The last block to
 // finish sets the counter back to 0 for the next launch.
 //
-// stream_scale_pipelined_prev_f32 keeps the previous design of the same
-// probe, to be timed in turns with the new one; no path launches it: block
-// b takes chunks b, b + grid, ..., every thread copies its share of a chunk
-// with 16-byte cp.async into `depth` rotating stages, two block barriers a
-// chunk, and stores the scaled values from registers.  depth is a template
-// parameter of both (the previous design's cp.async.wait_group takes a
-// compile-time count).
-//
 // What bounds all of them: memory, 8 bytes per element.  The kernels
 // allocate nothing and do not synchronise the device.  Each entry point
 // returns cudaGetLastError() after its launch.
@@ -182,71 +174,16 @@ pipelined_kernel(const float* __restrict__ x, float* __restrict__ y,
     }
 }
 
-// ---- the previous design of the pipelined probe -------------------------
-
-__device__ __forceinline__ void cp_async16(float4* smem_dst,
-                                           const float4* src) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(smem_addr(smem_dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
-}
-
-// Starts the copy of this block's k-th chunk into stage k % kDepth.
+// One persistent grid of as many blocks as fit the SMs with the stages'
+// shared memory each, at most nchunks.
 template <int kDepth>
-__device__ __forceinline__ void start_chunk(const float4* __restrict__ x,
-                                            float4* stages, int64_t first,
-                                            int64_t k, int tile4) {
-    const float4* src = x + (first + k * gridDim.x) * tile4;
-    float4* dst = stages + (k % kDepth) * tile4;
-    for (int i = threadIdx.x; i < tile4; i += kThreads) {
-        cp_async16(dst + i, src + i);
-    }
-}
-
-// Every thread commits one group per chunk slot, empty past the block's last
-// chunk, so that wait_group<kDepth - 1> always means "chunk k has landed".
-template <int kDepth>
-__global__ void __launch_bounds__(kThreads)
-pipelined_prev_kernel(const float4* __restrict__ x, float4* __restrict__ y,
-                      float a, int64_t nchunks, int tile4) {
-    extern __shared__ __align__(16) float4 stages[];
-    const int64_t first = blockIdx.x;
-    if (first >= nchunks) return;
-    const int64_t mine = (nchunks - first + gridDim.x - 1) / gridDim.x;
-    for (int s = 0; s < kDepth - 1; ++s) {
-        if (s < mine) start_chunk<kDepth>(x, stages, first, s, tile4);
-        cp_async_commit();
-    }
-    for (int64_t k = 0; k < mine; ++k) {
-        // the stage this refills was drained in the previous iteration
-        if (k + kDepth - 1 < mine) {
-            start_chunk<kDepth>(x, stages, first, k + kDepth - 1, tile4);
-        }
-        cp_async_commit();
-        cp_async_wait<kDepth - 1>();
-        __syncthreads();
-        const float4* src = stages + (k % kDepth) * tile4;
-        float4* dst = y + (first + k * gridDim.x) * tile4;
-        for (int i = threadIdx.x; i < tile4; i += kThreads) {
-            dst[i] = scaled(src[i], a);
-        }
-        __syncthreads();
-    }
-}
-
-// Launches `kernel` on a persistent grid of as many blocks as fit the SMs
-// with `smem` bytes of dynamic shared memory each, at most nchunks.
-template <typename Kernel, typename... Args>
-cudaError_t launch_persistent(Kernel kernel, size_t smem, int64_t nchunks,
-                              int sms, cudaStream_t stream, Args... args) {
+cudaError_t launch_pipelined(const float* x, float* y, float a,
+                             int64_t nchunks, int64_t tile,
+                             unsigned long long* counter, int sms,
+                             cudaStream_t stream) {
+    const size_t smem = static_cast<size_t>(kDepth)
+                        * (tile * sizeof(float) + kStageExtraBytes);
+    auto kernel = pipelined_kernel<kDepth>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -259,65 +196,12 @@ cudaError_t launch_persistent(Kernel kernel, size_t smem, int64_t nchunks,
     int64_t blocks = static_cast<int64_t>(sms) * per_sm;
     if (blocks > nchunks) blocks = nchunks;
     kernel<<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
-        args...);
+        x, y, a, nchunks, static_cast<int>(tile), counter);
     return cudaGetLastError();
-}
-
-template <int kDepth>
-cudaError_t launch_pipelined(const float* x, float* y, float a,
-                             int64_t nchunks, int64_t tile,
-                             unsigned long long* counter, int sms,
-                             cudaStream_t stream) {
-    const size_t smem = static_cast<size_t>(kDepth)
-                        * (tile * sizeof(float) + kStageExtraBytes);
-    return launch_persistent(pipelined_kernel<kDepth>, smem, nchunks, sms,
-                             stream, x, y, a, nchunks,
-                             static_cast<int>(tile), counter);
-}
-
-template <int kDepth>
-cudaError_t launch_pipelined_prev(const float* x, float* y, float a,
-                                  int64_t nchunks, int64_t tile,
-                                  unsigned long long*, int sms,
-                                  cudaStream_t stream) {
-    const size_t smem = static_cast<size_t>(kDepth) * tile * sizeof(float);
-    return launch_persistent(pipelined_prev_kernel<kDepth>, smem, nchunks,
-                             sms, stream, reinterpret_cast<const float4*>(x),
-                             reinterpret_cast<float4*>(y), a, nchunks,
-                             static_cast<int>(tile / 4));
 }
 
 bool aligned16(const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-using PipelinedLaunch = cudaError_t (*)(const float*, float*, float, int64_t,
-                                        int64_t, unsigned long long*, int,
-                                        cudaStream_t);
-
-// The checks both pipelined entry points make, then launch2 or launch4 by
-// depth.
-int pipelined(const void* x, void* y, float a, int64_t count, int64_t tile,
-              int depth, void* counter, int device, void* stream,
-              PipelinedLaunch launch2, PipelinedLaunch launch4) {
-    if (count <= 0) return static_cast<int>(cudaSuccess);
-    if (tile <= 0 || tile % 4 != 0 || count % tile != 0 || !aligned16(x)
-            || !aligned16(y) || tile > 0x7fffffffLL / 4) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const PipelinedLaunch launch = depth == 2 ? launch2
-                                   : depth == 4 ? launch4 : nullptr;
-    if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int sms = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(launch(
-        static_cast<const float*>(x), static_cast<float*>(y), a,
-        count / tile, tile, static_cast<unsigned long long*>(counter), sms,
-        static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -352,17 +236,22 @@ extern "C" int stream_scale_pipelined_f32(const void* x, void* y, float a,
                                           int64_t count, int64_t tile,
                                           int depth, void* counter,
                                           int device, void* stream) {
-    if (counter == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return pipelined(x, y, a, count, tile, depth, counter, device, stream,
-                     launch_pipelined<2>, launch_pipelined<4>);
-}
-
-// The same through the previous design, each block taking chunks b,
-// b + grid, ...; needs depth * tile * 4 bytes of shared memory.
-extern "C" int stream_scale_pipelined_prev_f32(const void* x, void* y,
-                                               float a, int64_t count,
-                                               int64_t tile, int depth,
-                                               int device, void* stream) {
-    return pipelined(x, y, a, count, tile, depth, nullptr, device, stream,
-                     launch_pipelined_prev<2>, launch_pipelined_prev<4>);
+    if (count <= 0) return static_cast<int>(cudaSuccess);
+    if (tile <= 0 || tile % 4 != 0 || count % tile != 0 || !aligned16(x)
+            || !aligned16(y) || tile > 0x7fffffffLL / 4 || counter == nullptr
+            || (depth != 2 && depth != 4)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const auto launch = depth == 2 ? launch_pipelined<2>
+                                   : launch_pipelined<4>;
+    return static_cast<int>(launch(
+        static_cast<const float*>(x), static_cast<float*>(y), a,
+        count / tile, tile, static_cast<unsigned long long*>(counter), sms,
+        static_cast<cudaStream_t>(stream)));
 }

@@ -19,11 +19,8 @@
 // an SM) slower still.  Arrays that are not 16-byte aligned take the same
 // spans with 4-byte accesses; the last count % 4 elements always do.
 //
-// stream_scale_prev_f32 keeps the previous design (the fixed grid-stride
-// loop), to be timed in turns with the new one; no path launches it.
-//
-// The kernels allocate nothing and do not synchronise.  The entry points
-// return cudaGetLastError() after their launches.
+// The kernel allocates nothing and does not synchronise.  The entry point
+// returns cudaGetLastError() after its launches.
 
 #include <cstdint>
 
@@ -32,9 +29,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-// the previous design's loads in flight a thread, and its fixed grid
-constexpr int kUnroll = 4;
-constexpr int kBlocksPerSm = 16;
 
 template <typename V>
 __device__ __forceinline__ V scaled(V v, float a);
@@ -69,87 +63,25 @@ cudaError_t launch(const V* x, V* y, float a, int64_t count,
     return cudaGetLastError();
 }
 
-// The previous design: y[i] = a * x[i] for i < count by a grid-stride loop.
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-stride_kernel(const V* __restrict__ x, V* __restrict__ y, float a,
-              int64_t count) {
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-    int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-    for (; i + (kUnroll - 1) * stride < count; i += kUnroll * stride) {
-        V v[kUnroll];
-#pragma unroll
-        for (int k = 0; k < kUnroll; ++k) v[k] = x[i + k * stride];
-#pragma unroll
-        for (int k = 0; k < kUnroll; ++k) y[i + k * stride] = scaled(v[k], a);
-    }
-    for (; i < count; i += stride) y[i] = scaled(x[i], a);
-}
-
-template <typename V>
-cudaError_t launch_prev(const V* x, V* y, float a, int64_t count, int sms,
-                        cudaStream_t stream) {
-    if (count <= 0) return cudaSuccess;
-    int64_t blocks = (count + kThreads * kUnroll - 1) / (kThreads * kUnroll);
-    const int64_t most = static_cast<int64_t>(sms) * kBlocksPerSm;
-    if (blocks > most) blocks = most;
-    stride_kernel<V><<<static_cast<unsigned int>(blocks), kThreads, 0,
-                       stream>>>(x, y, a, count);
-    return cudaGetLastError();
-}
-
-// The whole array through kernel(V = float4) where both pointers are
-// 16-byte aligned, then its count % 4 tail through kernel(V = float);
-// all of it through kernel(V = float) where they are not.
-template <typename Float4Launch, typename FloatLaunch>
-int scale_all(const void* x, void* y, int64_t count, Float4Launch vec,
-              FloatLaunch one) {
-    const float* xf = static_cast<const float*>(x);
-    float* yf = static_cast<float*>(y);
-    const bool aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0
-                          && reinterpret_cast<uintptr_t>(y) % 16 == 0);
-    if (!aligned) return static_cast<int>(one(xf, yf, count));
-    const int64_t vecs = count / 4;
-    cudaError_t err = vec(reinterpret_cast<const float4*>(xf),
-                          reinterpret_cast<float4*>(yf), vecs);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(one(xf + 4 * vecs, yf + 4 * vecs,
-                                count - 4 * vecs));
-}
-
 }  // namespace
 
+// The whole array through the kernel at V = float4 where both pointers are
+// 16-byte aligned, then its count % 4 tail at V = float; all of it at
+// V = float where they are not.
 extern "C" int stream_scale_f32(const void* x, void* y, float a,
                                 int64_t count, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
+    const float* xf = static_cast<const float*>(x);
+    float* yf = static_cast<float*>(y);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return scale_all(
-        x, y, count,
-        [&](const float4* xv, float4* yv, int64_t n) {
-            return launch<float4>(xv, yv, a, n, s);
-        },
-        [&](const float* xv, float* yv, int64_t n) {
-            return launch<float>(xv, yv, a, n, s);
-        });
-}
-
-extern "C" int stream_scale_prev_f32(const void* x, void* y, float a,
-                                     int64_t count, int device,
-                                     void* stream) {
-    cudaError_t err = cudaSetDevice(device);
+    const bool aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0
+                          && reinterpret_cast<uintptr_t>(y) % 16 == 0);
+    if (!aligned) return static_cast<int>(launch<float>(xf, yf, a, count, s));
+    const int64_t vecs = count / 4;
+    err = launch<float4>(reinterpret_cast<const float4*>(xf),
+                         reinterpret_cast<float4*>(yf), a, vecs, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    int sms = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return scale_all(
-        x, y, count,
-        [&](const float4* xv, float4* yv, int64_t n) {
-            return launch_prev<float4>(xv, yv, a, n, sms, s);
-        },
-        [&](const float* xv, float* yv, int64_t n) {
-            return launch_prev<float>(xv, yv, a, n, sms, s);
-        });
+    return static_cast<int>(launch<float>(xf + 4 * vecs, yf + 4 * vecs, a,
+                                          count - 4 * vecs, s));
 }

@@ -41,10 +41,7 @@ _DIA_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
              + [ctypes.c_int, ctypes.c_void_p])
 _BSR_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3
              + [ctypes.c_int, ctypes.c_void_p])
-# val, x, y, host offsets; noff, m, n, tile; rows per block, device; stream
-_WINDOW_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4
-                + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-# the clustered ones: val, x, y, host offsets; noff, m, n, tile, chunk; rows
+# val, x, y, host offsets; noff, m, n, tile, chunk; rows
 # per block, device; stream
 _CLUSTER_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5
                  + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -62,23 +59,20 @@ _TABLE_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 # x, y, a, count; device; stream
 _STREAM_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
                 ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-# x, y, a, count, tile, depth, device, stream
-_PIPELINED_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-# the same with the chunk counter before the device
-_DRAWN_ARGS = _PIPELINED_ARGS[:6] + [ctypes.c_void_p] + _PIPELINED_ARGS[6:]
+# x, y, a, count, tile, depth, chunk counter, device, stream
+_DRAWN_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+               ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+               ctypes.c_int, ctypes.c_void_p]
 # idx, val, x, y; n, K, m, row stride of x, y's row and column strides;
-# device; stream (the previous design's entries take the same)
+# device; stream
 _ELL_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6
              + [ctypes.c_int, ctypes.c_void_p])
-# design, instantiation, m, device, host int64[4]
-_ELL_OCCUPANCY_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-                       ctypes.c_int, ctypes.c_void_p]
+# instantiation, m, device, host int64[4]
+_ELL_OCCUPANCY_ARGS = [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_void_p]
 _ELL_PAIRS = (('f32', 'f32'), ('f32', 'bf16'), ('f32', 'f64'),
               ('f64', 'f64'))
-# (tile, operand) types of the BSR kernel's entries, and of its previous
-# design's
+# (tile, operand) types of the BSR kernel's entries
 _BSR_PAIRS = [(b, x) for b in ('f32', 'bf16') for x in ('f32', 'bf16')] \
     + [('f32', 'f64'), ('f64', 'f64')]
 _SIGNATURES = {
@@ -88,9 +82,7 @@ _SIGNATURES = {
                  'dia_spmm_rows_f64_val64': _DIA_ARGS,
                  'dia_spmm_rows_c128_val32': _DIA_ARGS,
                  'dia_spmm_rows_c128_val64': _DIA_ARGS,
-                 'dia_spmm_rows_c128_val128': _DIA_ARGS,
-                 'dia_spmm_rows_prev_f32': _DIA_ARGS,
-                 'dia_spmm_rows_prev_bf16': _DIA_ARGS},
+                 'dia_spmm_rows_c128_val128': _DIA_ARGS},
     'dia_spmm_ext': {'dia_spmm_rows_ext_f32': _EXT_ARGS,
                      'dia_spmm_rows_ext_bf16': _EXT_ARGS,
                      'dia_spmm_rows_ext_f64_val32': _EXT_ARGS,
@@ -101,26 +93,21 @@ _SIGNATURES = {
                      'dia_spmm_mesh_f64_val64': _TABLE_ARGS},
     'copy_lanes': {'copy_lanes_many': _TABLE_ARGS},
     'dia_spmm_slide': {'dia_spmm_rows_slide_f32': _CLUSTER_ARGS,
-                       'dia_spmm_rows_slide_plan': _PLAN_ARGS,
-                       'dia_spmm_rows_slide_prev_f32': _WINDOW_ARGS},
+                       'dia_spmm_rows_slide_plan': _PLAN_ARGS},
     'dia_spmm_tiles': {'dia_spmm_rows_tiles_f32': _CLUSTER_ARGS,
-                       'dia_spmm_rows_tiles_plan': _PLAN_ARGS,
-                       'dia_spmm_rows_tiles_prev_f32': _WINDOW_ARGS},
-    'bsr_spmm': {'bsr_spmm_rows_%s%s_%s' % (prev, b, x): _BSR_ARGS
-                 for prev in ('', 'prev_') for b, x in _BSR_PAIRS},
-    'ell_spmm': dict(
-        {'ell_spmm_%s%s_%s' % ((prev,) + pair): _ELL_ARGS
-         for prev in ('', 'prev_') for pair in _ELL_PAIRS},
-        ell_spmm_occupancy=_ELL_OCCUPANCY_ARGS),
-    'stream_scale': {'stream_scale_f32': _STREAM_ARGS,
-                     'stream_scale_prev_f32': _STREAM_ARGS},
+                       'dia_spmm_rows_tiles_plan': _PLAN_ARGS},
+    'bsr_spmm': {'bsr_spmm_rows_%s_%s' % pair: _BSR_ARGS
+                 for pair in _BSR_PAIRS},
+    'ell_spmm': dict({'ell_spmm_%s_%s' % pair: _ELL_ARGS
+                      for pair in _ELL_PAIRS},
+                     ell_spmm_occupancy=_ELL_OCCUPANCY_ARGS),
+    'stream_scale': {'stream_scale_f32': _STREAM_ARGS},
     'stream_probes': {
         # x, y, a, count, chunk, device, stream
         'stream_scale_tiled_f32': [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int64,
             ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
-        'stream_scale_pipelined_f32': _DRAWN_ARGS,
-        'stream_scale_pipelined_prev_f32': _PIPELINED_ARGS},
+        'stream_scale_pipelined_f32': _DRAWN_ARGS},
 }
 
 _loaded = {}

@@ -364,20 +364,14 @@ _ELL_PAIRS = [('f32', 'f32'), ('f32', 'bf16'), ('f32', 'f64'),
 # ELL kernel launches per (value dtype, operand dtype), counted where the
 # kernel is launched.  The launches of a complex apply count under (value
 # dtype, operand dtype, 'complex'), the dtypes those of the real parts it
-# launches with.  ELL_PREV_LAUNCHES: the same for the previous design
-# (``_ell_matmat_prev``), which no path launches.
+# launches with.
 ELL_LAUNCHES = {key: 0 for key in _ELL_PAIRS + [
     pair + ('complex',) for pair in _ELL_PAIRS if pair[1] != 'bf16']}
-ELL_PREV_LAUNCHES = {key: 0 for key in _ELL_PAIRS}
-
-# the designs ``ell_occupancy`` reports on
-ELL_DESIGNS = ('previous', 'kernel')
 
 
 def reset_launches():
-    for counts in (ELL_LAUNCHES, ELL_PREV_LAUNCHES):
-        for key in counts:
-            counts[key] = 0
+    for key in ELL_LAUNCHES:
+        ELL_LAUNCHES[key] = 0
 
 
 def _ell_matmat_plain(idx, val, xt):
@@ -447,29 +441,12 @@ def _ell_apply(idx, val, xt, rows, tag):
         return y if rows else y.T.contiguous()
     _ell_check(idx, val, xt)
     key = (_ELL_NAMES[val.dtype], _ELL_NAMES[xt.dtype])
-    return _ell_launch('ell_spmm_%s_%s' % key, idx, val, xt, rows,
-                       ELL_LAUNCHES, key + tag)
+    return _ell_launch(idx, val, xt, rows, key, tag)
 
 
-def _ell_matmat_prev(idx, val, xt, rows=False):
-    """``_ell_matmat`` of real tensors through the kernel's previous design
-    (one block for each 256 / G rows, each step's idx and val loaded before
-    its gathers, nothing of the next step in flight), kept in the same
-    source so that the two can be timed in turns on one card; counted in
-    ``ELL_PREV_LAUNCHES``, and no path calls it.  Equal to ``_ell_matmat``
-    bit for bit."""
-    if xt.device.type == 'cpu':
-        y = _ell_matmat_plain(idx, val, xt)
-        return y.T.contiguous() if rows else y
-    _ell_check(idx, val, xt)
-    key = (_ELL_NAMES[val.dtype], _ELL_NAMES[xt.dtype])
-    return _ell_launch('ell_spmm_prev_%s_%s' % key, idx, val, xt, rows,
-                       ELL_PREV_LAUNCHES, key)
-
-
-def _ell_launch(entry, idx, val, xt, rows, counts, key):
-    """One launch of the C entry ``entry`` on checked CUDA tensors, counted
-    under ``counts[key]``."""
+def _ell_launch(idx, val, xt, rows, key, tag):
+    """One launch of the instantiation ``key`` (value, operand names) on
+    checked CUDA tensors, counted under ``ELL_LAUNCHES[key + tag]``."""
     n, k = idx.shape
     m = xt.shape[1]
     y = torch.empty((m, n) if rows else (n, m), dtype=xt.dtype,
@@ -478,28 +455,30 @@ def _ell_launch(entry, idx, val, xt, rows, counts, key):
         return y
     index = xt.get_device()
     ys_row, ys_col = (1, n) if rows else (m, 1)
+    entry = 'ell_spmm_%s_%s' % key
     err = getattr(_build.library(), entry)(
         idx.data_ptr(), val.data_ptr(), xt.data_ptr(), y.data_ptr(), n, k,
         m, m, ys_row, ys_col, index, _build.current_stream(index))
     if err != 0:
         raise RuntimeError('ELL kernel launch failed (%s): CUDA error %d'
                            % (entry, err))
-    counts[key] += 1
+    ELL_LAUNCHES[key + tag] += 1
     return y
 
 
-def ell_occupancy(design, values, operand, m, device=None):
-    """{'registers', 'blocks_per_sm', 'threads', 'local_bytes'} of an ELL
-    design (one of ``ELL_DESIGNS``) for m operand columns, as the card's
-    runtime reports them; nothing is launched."""
+def ell_occupancy(values, operand, m, device=None):
+    """{'registers', 'blocks_per_sm', 'threads', 'local_bytes'} of the ELL
+    kernel's instantiation for ``values`` and ``operand`` (names such as
+    'f32') at m operand columns, as the card's runtime reports them;
+    nothing is launched."""
     device = storage_device(device)
     if device.type != 'cuda':
         raise ValueError('ELL occupancy needs a CUDA device, not %s'
                          % device)
     out = (ctypes.c_int64 * 4)()
     err = _build.library().ell_spmm_occupancy(
-        ELL_DESIGNS.index(design), _ELL_PAIRS.index((values, operand)), m,
-        device.index or 0, ctypes.addressof(out))
+        _ELL_PAIRS.index((values, operand)), m, device.index or 0,
+        ctypes.addressof(out))
     if err != 0:
         raise RuntimeError('ell_spmm_occupancy failed: CUDA error %d' % err)
     return dict(zip(('registers', 'blocks_per_sm', 'threads',

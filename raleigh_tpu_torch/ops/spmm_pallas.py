@@ -24,9 +24,6 @@ kernel as one real block of its real and imaginary rows, complex tiles as
 two launches, one with their real and one with their imaginary parts
 (``ops/complex_rows.py``); the plain version takes complex tensors as
 they are.
-``bsr_matmat_rows_prev`` launches the kernel's previous design from the
-same source (every instantiation, the f64 ones too), to be timed beside
-it.
 """
 
 import torch
@@ -43,19 +40,16 @@ _PAIRS = [(b, x) for b in ('f32', 'bf16') for x in ('f32', 'bf16')]
 _WIDE_PAIRS = [('f32', 'f64'), ('f64', 'f64')]
 
 # kernel launches per (block dtype, operand dtype), counted where the
-# kernel is launched; PREV_LAUNCHES the same for the previous design.  The
-# launches of a complex apply count under (block dtype, operand dtype,
-# 'complex'), the dtypes those of the real parts it launches with.
-_KEYS = _PAIRS + _WIDE_PAIRS + [key + ('complex',)
-                                for key in [('f32', 'f32')] + _WIDE_PAIRS]
-LAUNCHES = {key: 0 for key in _KEYS}
-PREV_LAUNCHES = {key: 0 for key in _KEYS}
+# kernel is launched.  The launches of a complex apply count under (block
+# dtype, operand dtype, 'complex'), the dtypes those of the real parts it
+# launches with.
+LAUNCHES = {key: 0 for key in _PAIRS + _WIDE_PAIRS + [
+    key + ('complex',) for key in [('f32', 'f32')] + _WIDE_PAIRS]}
 
 
 def reset_launches():
-    for counts in (LAUNCHES, PREV_LAUNCHES):
-        for key in counts:
-            counts[key] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def bsr_matmat_rows_plain(blocks, block_indptr, block_cols, x, n):
@@ -85,8 +79,9 @@ def bsr_matmat_rows_plain(blocks, block_indptr, block_cols, x, n):
 
 
 def _check(blocks, block_indptr, block_cols, x, n):
-    """Raise on what the kernel (or its previous design, which has the
-    same instantiations) does not take."""
+    """Raise on what the kernel does not take: tensors on two devices, a
+    (block, operand) dtype pair with no instantiation, indices that are not
+    int32, shapes that do not fit one another, strided tensors."""
     devices = {t.device for t in (blocks, block_indptr, block_cols, x)}
     if len(devices) != 1:
         raise ValueError('blocks, block_indptr, block_cols and x must share '
@@ -114,40 +109,23 @@ def _check(blocks, block_indptr, block_cols, x, n):
         raise ValueError('the BSR kernel takes contiguous tensors')
 
 
+@spanned('raleigh.spmm')
 def bsr_matmat_rows(blocks, block_indptr, block_cols, x, n):
     """(m, n) = BSR matrix applied to the (m, n) row block ``x``, in x's
     dtype.  CUDA tensors go through the kernel, CPU tensors through
-    ``bsr_matmat_rows_plain``."""
-    return _bsr_rows('bsr_spmm_rows_%s_%s', LAUNCHES, blocks, block_indptr,
-                     block_cols, x, n)
+    ``bsr_matmat_rows_plain``.  One ``raleigh.spmm`` span a call."""
+    return _bsr_apply(blocks, block_indptr, block_cols, x, n)
 
 
-def bsr_matmat_rows_prev(blocks, block_indptr, block_cols, x, n):
-    """``bsr_matmat_rows`` through the kernel's previous design (one
-    thread a tile row, chunks staged through registers; with an f64
-    operand its f64 FMA on the CUDA cores), kept in the same source so
-    that the two can be timed in turns on one card; no solver path calls
-    it."""
-    return _bsr_rows('bsr_spmm_rows_prev_%s_%s', PREV_LAUNCHES, blocks,
-                     block_indptr, block_cols, x, n)
-
-
-@spanned('raleigh.spmm')
-def _bsr_rows(entry, counts, blocks, block_indptr, block_cols, x, n):
-    """One BSR apply through the C entry ``entry`` (a pattern of the two
-    type names), its launches counted in ``counts``: one ``raleigh.spmm``
-    span a call."""
-    return _bsr_apply(entry, counts, blocks, block_indptr, block_cols, x, n)
-
-
-def _bsr_apply(entry, counts, blocks, block_indptr, block_cols, x, n,
-               tag=()):
+def _bsr_apply(blocks, block_indptr, block_cols, x, n, tag=()):
+    """``bsr_matmat_rows`` outside a span, its launches counted in
+    ``LAUNCHES`` under the dtype names and ``tag``."""
     if x.device.type == 'cpu':
         return bsr_matmat_rows_plain(blocks, block_indptr, block_cols, x, n)
     if x.is_complex() or blocks.is_complex():
         return complex_rows(
-            lambda b, s: _bsr_apply(entry, counts, b, block_indptr,
-                                    block_cols, s, n, ('complex',)),
+            lambda b, s: _bsr_apply(b, block_indptr, block_cols, s, n,
+                                    ('complex',)),
             blocks, x)
     if x.device.type != 'cuda':
         raise ValueError('no BSR apply for device %s' % x.device)
@@ -157,12 +135,12 @@ def _bsr_apply(entry, counts, blocks, block_indptr, block_cols, x, n,
     if m == 0 or n == 0:
         return y
     key = (_NAMES[blocks.dtype], _NAMES[x.dtype])
-    fn = getattr(_build.library(), entry % key)
+    fn = getattr(_build.library(), 'bsr_spmm_rows_%s_%s' % key)
     index = x.get_device()
     err = fn(blocks.data_ptr(), block_indptr.data_ptr(),
              block_cols.data_ptr(), x.data_ptr(), y.data_ptr(),
              blocks.shape[1], m, n, index, _build.current_stream(index))
     if err != 0:
         raise RuntimeError('BSR kernel launch failed: CUDA error %d' % err)
-    counts[key + tag] += 1
+    LAUNCHES[key + tag] += 1
     return y

@@ -15,15 +15,13 @@ the same device.  On a CUDA tensor the wrapper launches the kernel (x f32
 or bf16 with val f32; or x f64, the core Solver's blocks, with val f32 or
 f64, the f64 instantiation) or raises; only a CPU tensor takes the plain
 version.  The kernel keeps the plain version's products and order of
-sums, so the two are equal bit for bit.  ``dia_matmat_rows_prev``
-launches the kernel's previous design from the same source, to be timed
-beside it.  A c128 operand with f32, f64 or c128 values goes through the
-kernel's complex instantiation, one launch that reads the interleaved
-complex storage directly (the products and sums in f64 by fused
-multiply-adds, within a few units of the last place of the plain
-version's); c64 blocks and real operands with complex values take the
-stacked route of ``ops/complex_rows.py`` (``dia_matmat_rows_complex_prev``,
-which c128 blocks took before the complex instantiation).
+sums, so the two are equal bit for bit.  A c128 operand with f32, f64 or
+c128 values goes through the kernel's complex instantiation, one launch
+that reads the interleaved complex storage directly (the products and
+sums in f64 by fused multiply-adds, within a few units of the last place
+of the plain version's); c64 blocks and real operands with complex values
+take the stacked route of ``ops/complex_rows.py``
+(``dia_matmat_rows_complex_stacked``).
 
 Two more kernels compute the same function for f32 operands, each through
 an explicitly staged shared-memory window that reads x from device memory
@@ -46,9 +44,6 @@ windows, or a bulk copy cannot take the shape, val comes from device
 memory instead.  ``window_launch_plan`` says which branch and plan a call
 takes (cluster size, clusters that fit the card at once, rows per block,
 val chunk).
-``dia_matmat_rows_slide_prev`` and ``dia_matmat_rows_tiles_prev`` launch
-their previous designs from the same sources, to be timed beside them; no
-path calls them.
 
 ``dia_matmat_rows_mesh`` (``csrc/dia_spmm_ext.cu``) replaces
 ``build_dia_window_ring_ext``, the per-shard kernel of the mesh-partitioned
@@ -73,9 +68,8 @@ from .complex_rows import complex_parts, complex_rows, result_dtype
 
 # kernel launches, counted where the kernel is launched: the production
 # kernel per operand dtype, the two staged-window kernels, the mesh
-# kernel per operand dtype through its one-piece entry and its mesh entry,
-# and the previous designs of the production kernel per operand dtype and
-# of the two staged-window kernels.  The launches that apply a complex
+# kernel per operand dtype through its one-piece entry and its mesh entry.
+# The launches that apply a complex
 # operand or complex values (``ops/complex_rows.py``) count under keys of
 # their own, ``complex_`` and ``mesh_complex_`` before the real route's,
 # and those of the complex instantiation under ``complex128_val32``,
@@ -87,9 +81,7 @@ LAUNCHES = dict(
      'complex128_val128': 0, 'slide': 0, 'tiles': 0,
      'ext_float32': 0, 'ext_bfloat16': 0, 'ext_float64_val32': 0,
      'ext_float64_val64': 0, 'mesh_float32': 0, 'mesh_bfloat16': 0,
-     'mesh_float64_val32': 0, 'mesh_float64_val64': 0,
-     'prev_float32': 0, 'prev_bfloat16': 0, 'prev_slide': 0,
-     'prev_tiles': 0},
+     'mesh_float64_val32': 0, 'mesh_float64_val64': 0},
     **{pre + key: 0 for pre in ('complex_', 'mesh_complex_')
        for key in _ROUTES})
 
@@ -122,8 +114,6 @@ _COMPLEX_ENTRY = {
     torch.float32: ('complex128_val32', 'dia_spmm_rows_c128_val32'),
     torch.float64: ('complex128_val64', 'dia_spmm_rows_c128_val64'),
     torch.complex128: ('complex128_val128', 'dia_spmm_rows_c128_val128')}
-_PREV_ENTRY = {torch.float32: ('prev_float32', 'dia_spmm_rows_prev_f32'),
-               torch.bfloat16: ('prev_bfloat16', 'dia_spmm_rows_prev_bf16')}
 _EXT_ENTRY = {torch.float32: ('ext_float32', 'dia_spmm_rows_ext_f32'),
               torch.bfloat16: ('ext_bfloat16', 'dia_spmm_rows_ext_bf16'),
               (torch.float64, torch.float32): (
@@ -167,19 +157,19 @@ def dia_matmat_rows_plain(val, x, offsets):
     return y.to(result_dtype(val.dtype, x.dtype))
 
 
-def _check(val, x, offsets, f64=False):
-    """Raise on what the kernel does not take; ``f64``: the entries have an
-    f64 instantiation (f64 x with f32 or f64 values)."""
+def _check(val, x, offsets):
+    """Raise on what the kernel does not take: an f32 or bf16 operand takes
+    f32 values, an f64 operand f32 or f64 values."""
     if not (val.device == x.device == offsets.device):
         raise ValueError('val, x and offsets must share a device (got %s, '
                          '%s, %s)' % (val.device, x.device, offsets.device))
-    if f64 and x.dtype == torch.float64:
+    if x.dtype == torch.float64:
         if val.dtype not in (torch.float32, torch.float64):
             raise TypeError('the f64 DIA kernel takes f32 or f64 values, '
                             'not %s' % val.dtype)
     elif x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError('the DIA kernel takes f32 or bf16 operands%s, not %s'
-                        % (' (or f64)' if f64 else '', x.dtype))
+        raise TypeError('the DIA kernel takes f32, bf16 or f64 operands, '
+                        'not %s' % x.dtype)
     elif val.dtype != torch.float32:
         raise TypeError('the DIA kernel takes f32 values with an f32 or '
                         'bf16 operand (got %s)' % val.dtype)
@@ -203,28 +193,27 @@ def dia_matmat_rows(val, x, offsets):
     ``dia_matmat_rows_plain``.  A c128 operand goes through the kernel's
     complex instantiation (f32, f64 or c128 values; one launch, counted
     under ``complex128_val32`` / ``_val64`` / ``_val128``), other complex
-    blocks through ``dia_matmat_rows_complex_prev``."""
+    blocks through ``dia_matmat_rows_complex_stacked``."""
     if x.device.type != 'cpu' and (
             x.dtype == torch.complex128
             or (val.dtype == torch.complex128 and x.is_complex())):
         return _dia_rows_complex(val, x, offsets)
     if x.device.type != 'cpu' and (x.is_complex() or val.is_complex()):
-        return dia_matmat_rows_complex_prev(val, x, offsets)
-    return _dia_rows(_ENTRY, val, x, offsets)
+        return dia_matmat_rows_complex_stacked(val, x, offsets)
+    return _dia_rows(val, x, offsets)
 
 
-def dia_matmat_rows_complex_prev(val, x, offsets):
+def dia_matmat_rows_complex_stacked(val, x, offsets):
     """The stacked route of a complex block (``ops/complex_rows.py``): a
     complex operand as one real block of its real and imaginary rows
     through the real kernel, complex values as two launches, one with their
     real and one with their imaginary parts, counted under the ``complex_``
-    keys.  c64 blocks and real operands with complex values take it; c128
-    blocks took it before the complex instantiation, and it stays callable
-    so that the two can be timed in turns on one card."""
+    keys.  The route of c64 blocks and of real operands with complex
+    values; it takes c128 blocks too."""
     if x.device.type == 'cpu':
         return dia_matmat_rows_plain(val, x, offsets)
     return complex_rows(
-        lambda v, s: _dia_rows(_ENTRY, v, s, offsets, 'complex_'), val, x)
+        lambda v, s: _dia_rows(v, s, offsets, 'complex_'), val, x)
 
 
 def _check_complex(val, x, offsets):
@@ -259,22 +248,14 @@ def _dia_rows_complex(val, x, offsets):
     return _launch(*_COMPLEX_ENTRY[val.dtype], val, x, offsets)
 
 
-def dia_matmat_rows_prev(val, x, offsets):
-    """``dia_matmat_rows`` through the kernel's previous design (one lane
-    a thread, a run-time loop over the diagonals), kept in the same source
-    so that the two can be timed in turns on one card; no solver path
-    calls it.  Equal to ``dia_matmat_rows`` bit for bit."""
-    return _dia_rows(_PREV_ENTRY, val, x, offsets)
-
-
 @spanned('raleigh.spmm')
-def _dia_rows(entries, val, x, offsets, tag=''):
+def _dia_rows(val, x, offsets, tag=''):
     if x.device.type == 'cpu':
         return dia_matmat_rows_plain(val, x, offsets)
     if x.device.type != 'cuda':
         raise ValueError('no DIA apply for device %s' % x.device)
-    _check(val, x, offsets, f64=entries is _ENTRY)
-    key, entry = entries[_entry_key(x.dtype, val.dtype)]
+    _check(val, x, offsets)
+    key, entry = _ENTRY[_entry_key(x.dtype, val.dtype)]
     return _launch(tag + key, entry, val, x, offsets)
 
 
@@ -686,21 +667,6 @@ def _mesh_apply(vals, xs, plan, tag):
     return out
 
 
-def _rows_per_block(m, lanes, what):
-    """The most operand rows (of ``ROWS_PER_BLOCK``, no more than m needs)
-    whose windows of ``lanes`` f32 lanes each fit one block's shared
-    memory; raises when one row does not fit.  The previous designs'
-    rule: they keep no stage of val."""
-    for rows in ROWS_PER_BLOCK:
-        fits = rows * lanes * 4 <= _build.SMEM_PER_BLOCK
-        if fits and (rows == 1 or rows < 2 * m):
-            return rows
-    raise ValueError('%s: one row\'s window of %d lanes takes %d bytes of '
-                     'shared memory; a block has %d'
-                     % (what, lanes, lanes * 4,
-                        _build.SMEM_PER_BLOCK))
-
-
 def _bulk(val, x, tile):
     """Whether a clustered staged-window kernel takes its bulk-copy branch
     for these operands (the C entry decides the same): n and ``tile``
@@ -762,18 +728,14 @@ def _check_staged(val, x, offsets):
                          % (MAX_WINDOW_OFFSETS, len(offsets)))
 
 
-def _staged(entry, key, val, x, offsets, tile, lanes, prev=False):
+def _staged(entry, key, val, x, offsets, tile, lanes):
     """Checks, then the staged-window kernel ``entry`` with as many rows
-    per block as ``lanes`` window lanes per row allow (``prev``: the
-    previous design, without a stage of val), or the plain version for CPU
-    tensors."""
+    per block and val lanes a stage as ``lanes`` window lanes per row allow
+    (``_window_plan``), or the plain version for CPU tensors."""
     _check_staged(val, x, offsets)
     m, n = x.shape
-    if prev:
-        rows = _rows_per_block(m, lanes, key)
-    else:
-        rows, chunk = _window_plan(m, lanes, len(offsets),
-                                   _bulk(val, x, tile), key)
+    rows, chunk = _window_plan(m, lanes, len(offsets), _bulk(val, x, tile),
+                               key)
     if x.device.type == 'cpu':
         return dia_matmat_rows_plain(val, x, offsets)
     y = torch.empty_like(x)
@@ -781,12 +743,10 @@ def _staged(entry, key, val, x, offsets, tile, lanes, prev=False):
         return y
     host_offsets = (ctypes.c_int * len(offsets))(*offsets)
     index = x.get_device()
-    args = [val.data_ptr(), x.data_ptr(), y.data_ptr(), host_offsets,
-            len(offsets), m, n, tile]
-    if not prev:
-        args.append(chunk)
     err = getattr(_build.library(), entry)(
-        *args, rows, index, _build.current_stream(index))
+        val.data_ptr(), x.data_ptr(), y.data_ptr(), host_offsets,
+        len(offsets), m, n, tile, chunk, rows, index,
+        _build.current_stream(index))
     if err != 0:
         raise RuntimeError('%s DIA kernel launch failed: CUDA error %d'
                            % (key, err))
@@ -802,12 +762,12 @@ def _host_offsets(offsets, tile):
     return tuple(int(o) for o in offsets), tile
 
 
-def _reach(offsets, round_to):
+def _reach(offsets):
     """The offsets' extent to the left plus to the right, each rounded up
-    to a multiple of ``round_to``."""
+    to a multiple of 4 lanes, as the sliding-window kernel rounds them."""
     lo = max(0, -min(offsets, default=0))
     hi = max(0, max(offsets, default=0))
-    return -(-lo // round_to) * round_to + -(-hi // round_to) * round_to
+    return -(-lo // 4) * 4 + -(-hi // 4) * 4
 
 
 def dia_matmat_rows_slide(val, x, offsets, tile):
@@ -819,18 +779,7 @@ def dia_matmat_rows_slide(val, x, offsets, tile):
     do not fit a block's shared memory, raises ``ValueError``."""
     offsets, tile = _host_offsets(offsets, tile)
     return _staged('dia_spmm_rows_slide_f32', 'slide', val, x, offsets, tile,
-                   _reach(offsets, 4) + 2 * tile)
-
-
-def dia_matmat_rows_slide_prev(val, x, offsets, tile):
-    """``dia_matmat_rows_slide`` through the kernel's previous design (a
-    block per row group and segment, per-thread copies, val read by every
-    row group), kept in the same source so that the two can be timed in
-    turns on one card; no path calls it.  Its window holds reach + 2 * tile
-    lanes, the reach not rounded."""
-    offsets, tile = _host_offsets(offsets, tile)
-    return _staged('dia_spmm_rows_slide_prev_f32', 'prev_slide', val, x,
-                   offsets, tile, _reach(offsets, 1) + 2 * tile, prev=True)
+                   _reach(offsets) + 2 * tile)
 
 
 def _tile_ring_offsets(offsets, tile):
@@ -852,16 +801,6 @@ def dia_matmat_rows_tiles(val, x, offsets, tile):
                    4 * tile)
 
 
-def dia_matmat_rows_tiles_prev(val, x, offsets, tile):
-    """``dia_matmat_rows_tiles`` through the kernel's previous design (a
-    block per row group and run of tiles, per-thread copies, val read by
-    every row group), kept in the same source so that the two can be timed
-    in turns on one card; no path calls it."""
-    offsets, tile = _tile_ring_offsets(offsets, tile)
-    return _staged('dia_spmm_rows_tiles_prev_f32', 'prev_tiles', val, x,
-                   offsets, tile, 4 * tile, prev=True)
-
-
 def window_launch_plan(variant, val, x, offsets, tile):
     """The launch ``VARIANTS[variant]`` ('slide' or 'tiles') takes for these
     operands on the card, asked of its C entry without a launch: a dict of
@@ -874,7 +813,7 @@ def window_launch_plan(variant, val, x, offsets, tile):
     _check_staged(val, x, offsets)
     if x.device.type != 'cuda':
         raise ValueError('a launch plan is a card\'s, not %s' % x.device)
-    lanes = 4 * tile if variant == 'tiles' else _reach(offsets, 4) + 2 * tile
+    lanes = 4 * tile if variant == 'tiles' else _reach(offsets) + 2 * tile
     bulk = _bulk(val, x, tile)
     rows, chunk = _window_plan(x.shape[0], lanes, len(offsets), bulk,
                                variant)

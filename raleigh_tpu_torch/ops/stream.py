@@ -14,11 +14,6 @@ grid stride, and one persistent grid whose blocks pipeline their chunks
 through 2 or 4 shared-memory stages with bulk copies of the Tensor Memory
 Accelerator.
 
-``stream_scale_prev`` and ``stream_scale_pipelined_prev`` launch the
-previous designs of the stream kernel (a fixed grid-stride loop) and of the
-pipelined probe (per-thread ``cp.async``), kept in the same sources to be
-timed in turns with the new ones; no path calls them.
-
 ``copy_lanes_many``, ``copy_lanes`` and ``hbm2hbm`` (``csrc/copy_lanes.cu``)
 replace ``benches/bench_grid_shapes.py::build_hbm2hbm``, the copy with no
 arithmetic and no on-chip buffer: a batch of strided 2-D copies between
@@ -51,13 +46,10 @@ PIPELINE_DEPTHS = (2, 4)
 # tile * 4 bytes, tile a multiple of 4, keeps both 8-byte aligned
 PIPELINE_STAGE_EXTRA_BYTES = 16
 
-# kernel launches, counted where the kernel is launched: the stream kernel
-# and its previous design, the tiled one, the pipelined one and its
-# previous design per depth, and the copy kernel
-LAUNCHES = {'float32': 0, 'prev_float32': 0, 'tiled': 0,
-            'pipelined_depth2': 0, 'pipelined_depth4': 0,
-            'pipelined_prev_depth2': 0, 'pipelined_prev_depth4': 0,
-            'copy_lanes': 0}
+# kernel launches, counted where the kernel is launched: the stream
+# kernel, the tiled one, the pipelined one per depth, and the copy kernel
+LAUNCHES = {'float32': 0, 'tiled': 0, 'pipelined_depth2': 0,
+            'pipelined_depth4': 0, 'copy_lanes': 0}
 
 # element sizes the copy kernel moves one element at a time where 16-byte
 # accesses do not fit
@@ -74,7 +66,8 @@ def stream_scale_plain(x, a):
     return torch.mul(x, a)
 
 
-def _stream_scale(x, a, entry, key):
+def stream_scale(x, a):
+    """``a * x`` for a contiguous f32 tensor, as a new tensor."""
     if x.device.type == 'cpu':
         return stream_scale_plain(x, a)
     if x.device.type != 'cuda':
@@ -87,25 +80,14 @@ def _stream_scale(x, a, entry, key):
     if x.numel() == 0:
         return y
     stream = _build.current_stream(x.get_device())
-    err = getattr(_build.library(), entry)(
+    err = _build.library().stream_scale_f32(
         x.data_ptr(), y.data_ptr(), float(a), x.numel(), x.get_device(),
         stream)
     if err != 0:
         raise RuntimeError('stream kernel launch failed: CUDA error %d'
                            % err)
-    LAUNCHES[key] += 1
+    LAUNCHES['float32'] += 1
     return y
-
-
-def stream_scale(x, a):
-    """``a * x`` for a contiguous f32 tensor, as a new tensor."""
-    return _stream_scale(x, a, 'stream_scale_f32', 'float32')
-
-
-def stream_scale_prev(x, a):
-    """``stream_scale`` through the kernel's previous design (a fixed grid
-    of 16 blocks an SM striding over the array), to be timed beside it."""
-    return _stream_scale(x, a, 'stream_scale_prev_f32', 'prev_float32')
 
 
 def _check_probe(x, chunk, what):
@@ -173,9 +155,14 @@ def _chunk_counter(device, stream):
     return _COUNTERS[key].data_ptr()
 
 
-def _pipelined(x, a, tile, depth, entry, key, drawn):
-    """``entry`` launched for ``depth`` stages of ``tile`` elements, with a
-    chunk counter if the design draws its chunks (``drawn``)."""
+def stream_scale_pipelined(x, a, tile, depth):
+    """``a * x`` for a contiguous f32 tensor, as a new tensor, by one
+    persistent grid whose blocks draw chunks of ``tile`` elements from a
+    counter and stream them through ``depth`` (2 or 4) rotating
+    shared-memory stages, each filled and drained by a bulk copy.  The row
+    length must be a multiple of ``tile``, and
+    ``pipeline_smem_bytes(tile, depth)`` must fit a block's shared
+    memory."""
     tile, depth = int(tile), int(depth)
     if depth not in PIPELINE_DEPTHS:
         raise ValueError('depth must be one of %s, got %d'
@@ -193,36 +180,14 @@ def _pipelined(x, a, tile, depth, entry, key, drawn):
     if x.numel() == 0:
         return y
     stream = _build.current_stream(x.get_device())
-    counter = (_chunk_counter(x.device, stream),) if drawn else ()
-    err = getattr(_build.library(), entry)(
+    err = _build.library().stream_scale_pipelined_f32(
         x.data_ptr(), y.data_ptr(), float(a), x.numel(), tile, depth,
-        *counter, x.get_device(), stream)
+        _chunk_counter(x.device, stream), x.get_device(), stream)
     if err != 0:
         raise RuntimeError('pipelined stream kernel launch failed: CUDA '
                            'error %d' % err)
-    LAUNCHES[key % depth] += 1
+    LAUNCHES['pipelined_depth%d' % depth] += 1
     return y
-
-
-def stream_scale_pipelined(x, a, tile, depth):
-    """``a * x`` for a contiguous f32 tensor, as a new tensor, by one
-    persistent grid whose blocks draw chunks of ``tile`` elements from a
-    counter and stream them through ``depth`` (2 or 4) rotating
-    shared-memory stages, each filled and drained by a bulk copy.  The row
-    length must be a multiple of ``tile``, and
-    ``pipeline_smem_bytes(tile, depth)`` must fit a block's shared
-    memory."""
-    return _pipelined(x, a, tile, depth, 'stream_scale_pipelined_f32',
-                      'pipelined_depth%d', True)
-
-
-def stream_scale_pipelined_prev(x, a, tile, depth):
-    """``stream_scale_pipelined`` through the probe's previous design
-    (block b takes chunks b, b + grid, ...; every thread copies its share
-    of a chunk with 16-byte ``cp.async``), to be timed beside it; the same
-    checks."""
-    return _pipelined(x, a, tile, depth, 'stream_scale_pipelined_prev_f32',
-                      'pipelined_prev_depth%d', False)
 
 
 def copy_lanes_plain(dst, src):

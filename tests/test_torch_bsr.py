@@ -208,8 +208,8 @@ def test_empty_block_row_and_tail(pencil):
 
 def test_wrapper_uses_plain_version_only_on_cpu(pencil):
     """A CPU tensor takes the plain version and counts no launch; a tensor
-    on another device is refused, never computed elsewhere; what the kernel
-    cannot take is refused by name."""
+    on another device is refused, never computed elsewhere; the counters
+    reset to 0."""
     k, _ = pencil
     n = k.shape[0]
     bm = BsrMatrix(k, bs=64, device='cpu')
@@ -227,53 +227,58 @@ def test_wrapper_uses_plain_version_only_on_cpu(pencil):
                                    ('f64', 'f64'), ('f64', 'f64', 'complex')]
     with pytest.raises(ValueError, match='device'):
         sp.bsr_matmat_rows(*args, x.to('meta'), n)
-    # the checks the wrapper makes before a launch
-    sp._check(*args, x, n)
-    # an f64 operand takes f32 or f64 tiles (the f64 instantiation), not
-    # bf16 ones; the previous design has exactly the same instantiations,
-    # the two f64 pairs among them, and the same check
-    sp._check(*args, x.double(), n)
-    sp._check(bm.blocks.double(), *args[1:], x.double(), n)
-    with pytest.raises(TypeError, match='float64'):
-        sp._check(bm.blocks.bfloat16(), *args[1:], x.double(), n)
-    assert sorted(sp.PREV_LAUNCHES) == sorted(sp.LAUNCHES)
-    with pytest.raises(TypeError, match='int32'):
-        sp._check(bm.blocks, bm.block_indptr_t.long(), bm.block_cols, x, n)
-    with pytest.raises(ValueError, match='shape'):
-        sp._check(*args, x[:, :-1].contiguous(), n)
-    with pytest.raises(ValueError, match='contiguous'):
-        sp._check(*args, torch.from_numpy(_block(8, n, 6, np.float32)).T, n)
-    with pytest.raises(ValueError, match='device'):
-        sp._check(bm.blocks.to('meta'), bm.block_indptr_t, bm.block_cols,
-                  x, n)
+    sp.LAUNCHES[('f32', 'f32')] = 3
+    sp.LAUNCHES[('f32', 'f64', 'complex')] = 2
+    sp.reset_launches()
+    assert not any(sp.LAUNCHES.values())
 
 
-def test_previous_design_wrapper_on_cpu(pencil):
-    """The previous K5 design's wrapper, kept to be timed beside the
-    kernel: on a CPU tensor the plain version (within 1e-6 of SciPy), no
-    launch counted; ``reset_launches`` zeroes both designs' counters;
-    another device refused."""
+# (make the kernel's blocks, block_indptr, block_cols, x, n from good ones,
+# error, message): one case for each refusal of ``spmm_pallas._check``
+BSR_BAD = {
+    'devices differ': (lambda b, p, c, x, n: (b.to('meta'), p, c, x, n),
+                       ValueError, 'share a device'),
+    'bf16 tiles, f64 operand': (
+        lambda b, p, c, x, n: (b.bfloat16(), p, c, x.double(), n),
+        TypeError, 'bfloat16 blocks with a torch.float64 operand'),
+    'f16 operand': (lambda b, p, c, x, n: (b, p, c, x.half(), n),
+                    TypeError, 'float32 blocks with a torch.float16'),
+    'int64 block_indptr': (lambda b, p, c, x, n: (b, p.long(), c, x, n),
+                           TypeError, 'int32'),
+    'int64 block_cols': (lambda b, p, c, x, n: (b, p, c.long(), x, n),
+                         TypeError, 'int32'),
+    'non-square blocks': (
+        lambda b, p, c, x, n: (b[:, :, :-1].contiguous(), p, c, x, n),
+        ValueError, 'shape mismatch'),
+    'operand width': (
+        lambda b, p, c, x, n: (b, p, c, x[:, :-1].contiguous(), n),
+        ValueError, 'shape mismatch'),
+    'block_cols count': (lambda b, p, c, x, n: (b, p, c[:-1], x, n),
+                         ValueError, 'shape mismatch'),
+    'block_indptr length': (lambda b, p, c, x, n: (b, p[:-1], c, x, n),
+                            ValueError, 'shape mismatch'),
+    'strided operand': (
+        lambda b, p, c, x, n: (b, p, c, x.T.contiguous().T, n),
+        ValueError, 'contiguous'),
+}
+
+
+@pytest.mark.parametrize('case', list(BSR_BAD))
+def test_bsr_check_refuses(pencil, case):
+    """The BSR kernel's checks refuse, by name, what it does not take; the
+    good operands pass them: f32 tiles with an f32 operand, and an f64
+    operand with f32 or f64 tiles (the f64 instantiation)."""
     k, _ = pencil
     n = k.shape[0]
     bm = BsrMatrix(k, bs=64, device='cpu')
-    x = _block(n, 8, 6, np.float32)
+    x = torch.from_numpy(_block(n, 8, 6, np.float32))
     args = (bm.blocks, bm.block_indptr_t, bm.block_cols)
-    y = sp.bsr_matmat_rows_prev(*args, torch.from_numpy(x), n)
-    assert torch.equal(y, sp.bsr_matmat_rows_plain(*args,
-                                                   torch.from_numpy(x), n))
-    assert _rel(y.numpy(), (k @ x.T.astype(np.float64)).T) < 1e-6
-    xd = torch.from_numpy(x.astype(np.float64))
-    assert torch.equal(sp.bsr_matmat_rows_prev(*args, xd, n),
-                       sp.bsr_matmat_rows_plain(*args, xd, n))
-    assert sorted(sp.PREV_LAUNCHES) == sorted(sp.LAUNCHES)
-    assert set(sp._PAIRS + sp._WIDE_PAIRS) < set(sp.PREV_LAUNCHES)
-    sp.PREV_LAUNCHES[('f32', 'f32')] = 3
-    sp.PREV_LAUNCHES[('f32', 'f64')] = 2
-    sp.reset_launches()
-    assert not any(sp.PREV_LAUNCHES.values())
-    assert not any(sp.LAUNCHES.values())
-    with pytest.raises(ValueError, match='device'):
-        sp.bsr_matmat_rows_prev(*args, torch.from_numpy(x).to('meta'), n)
+    sp._check(*args, x, n)
+    sp._check(*args, x.double(), n)
+    sp._check(bm.blocks.double(), *args[1:], x.double(), n)
+    make, err, match = BSR_BAD[case]
+    with pytest.raises(err, match=match):
+        sp._check(*make(*args, x, n))
 
 
 def test_chebyshev_over_bsr_matches_jax(pencil, f64_default):

@@ -97,7 +97,7 @@ def test_blocks_take_their_route(monkeypatch, xdt, vdt, route):
     instantiation; c64 blocks and real operands with complex values to the
     stacked route; real blocks to the real kernel."""
     taken = []
-    for name in ('_dia_rows_complex', 'dia_matmat_rows_complex_prev',
+    for name in ('_dia_rows_complex', 'dia_matmat_rows_complex_stacked',
                  '_dia_rows'):
         monkeypatch.setattr(sw, name, lambda *a, name=name, **k:
                             taken.append(name))
@@ -106,7 +106,7 @@ def test_blocks_take_their_route(monkeypatch, xdt, vdt, route):
     offs = torch.empty((3,), dtype=torch.int32, device='meta')
     sw.dia_matmat_rows(val, x, offs)
     assert taken == [{'native': '_dia_rows_complex',
-                      'stacked': 'dia_matmat_rows_complex_prev',
+                      'stacked': 'dia_matmat_rows_complex_stacked',
                       'real': '_dia_rows'}[route]]
 
 
@@ -162,11 +162,11 @@ def test_launch_keys_reset():
 
 
 def test_stacked_route_on_cpu_is_plain(no_library):
-    """The stacked route's entry, kept to be timed beside the kernel, is
-    the plain version on CPU tensors."""
+    """The stacked route's entry, the route of c64 blocks, is the plain
+    version on CPU tensors."""
     val, x, offs = _case(50, [-3, 0, 3], 5, 'c128', seed=3)
     before = dict(sw.LAUNCHES)
-    assert torch.equal(sw.dia_matmat_rows_complex_prev(val, x, offs),
+    assert torch.equal(sw.dia_matmat_rows_complex_stacked(val, x, offs),
                        sw.dia_matmat_rows_plain(val, x, offs))
     assert sw.LAUNCHES == before
 
@@ -218,7 +218,7 @@ def test_kernel_matches_the_stacked_route(cuda, values):
     offsets = [-132, -12, -1, 0, 1, 12, 132]
     val, x, offs = _case(n, offsets, 8, values, seed=5, device=cuda)
     before = dict(sw.LAUNCHES)
-    stacked = sw.dia_matmat_rows_complex_prev(val, x, offs)
+    stacked = sw.dia_matmat_rows_complex_stacked(val, x, offs)
     torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in sw.LAUNCHES.items()
              if v != before[k]}

@@ -1,9 +1,8 @@
 """The port's ELL apply (``raleigh_tpu_torch/ops/spmm.py::_ell_matmat``,
 kernel ``csrc/ell_spmm.cu``) against the JAX package's ``_ell_matmat`` on
 the CPU, where the wrapper takes the kernel's plain PyTorch version; the
-checks of the wrapper and of the previous design's (``_ell_matmat_prev``);
-and, marked ``gpu`` (they skip without a card), the kernel against its
-plain version and against its previous design on the card.
+checks of the wrapper; and, marked ``gpu`` (they skip without a card), the
+kernel against its plain version on the card.
 
 Tolerance, entrywise (``chip_smoke.ell_excess``): twice the summation error
 bound of a row's K terms, 2 K u sum_k |val[i, k] x[idx[i, k], r]| with
@@ -297,47 +296,6 @@ def test_wrapper_uses_plain_version_only_on_cpu(girder, monkeypatch):
     assert not any(spmm.ELL_LAUNCHES.values())
 
 
-@pytest.mark.parametrize('case', list(BAD))
-def test_previous_wrapper_refuses_before_any_launch(girder, monkeypatch,
-                                                    case):
-    """``_ell_matmat_prev`` refuses what the kernel does not take as
-    ``_ell_matmat`` does, before the library is asked for and with no
-    launch counted."""
-    def no_library():
-        raise AssertionError('the library was asked for')
-    monkeypatch.setattr(_build, 'library', no_library)
-    em = EllMatrix(girder, device='cpu')
-    x = torch.ones((girder.shape[0], 8), dtype=torch.float32)
-    make, err, match = BAD[case]
-    idx, val, xt = make(em.idx, em.val, x)
-    before = dict(spmm.ELL_PREV_LAUNCHES)
-    with pytest.raises(err, match=match):
-        spmm._ell_matmat_prev(idx, val, xt)
-    assert spmm.ELL_PREV_LAUNCHES == before
-
-
-@pytest.mark.parametrize('rows', [False, True])
-def test_previous_wrapper_is_plain_on_cpu(girder, monkeypatch, rows):
-    """On CPU tensors the previous design's wrapper is the plain version
-    (either layout), never loads the library and counts no launch; the
-    counters reset with the others."""
-    def no_library():
-        raise AssertionError('the library was asked for')
-    monkeypatch.setattr(_build, 'library', no_library)
-    em = EllMatrix(girder, device='cpu')
-    xt = torch.from_numpy(np.random.default_rng(10).standard_normal(
-        (girder.shape[0], 8)).astype(np.float32))
-    before = dict(spmm.ELL_PREV_LAUNCHES)
-    y = spmm._ell_matmat_prev(em.idx, em.val, xt, rows=rows)
-    want = spmm._ell_matmat_plain(em.idx, em.val, xt)
-    assert torch.equal(y, want.T if rows else want)
-    assert spmm.ELL_PREV_LAUNCHES == before
-    assert set(spmm.ELL_PREV_LAUNCHES) == set(PAIRS)
-    spmm.ELL_PREV_LAUNCHES[('f32', 'f32')] += 1
-    spmm.reset_launches()
-    assert not any(spmm.ELL_PREV_LAUNCHES.values())
-
-
 @pytest.mark.parametrize('control', ['bf16 running sum', 'bf16 products'])
 def test_chip_smoke_ell_bound_rejects_bf16_sums(girder, control):
     """The entrywise bound chip_smoke holds the kernel to: the plain
@@ -393,33 +351,6 @@ def test_kernel_matches_plain(cuda, pair, m):
     assert torch.all(got[::5] == 0)
     rows = spmm._ell_matmat_rows(idx, val, xt.T.contiguous())
     assert rows.is_contiguous() and torch.equal(rows, got.T)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize('k', [8, 40, 512])
-@pytest.mark.parametrize('m', [1, 8, 12, 16, 32, 33, 64])
-@pytest.mark.parametrize('pair', PAIRS, ids=['_'.join(p) for p in PAIRS])
-def test_kernel_equals_the_previous_design(cuda, pair, m, k):
-    """The kernel equals its previous design bit for bit, in both layouts,
-    at n = 1,001 (a multiple of no tile's rows) with rows of degree 0 and a
-    hub row of degree K (K = 8, 40 and 512), and both stay within the
-    bound of the plain version.  Each launch is counted under its design's
-    counter."""
-    idx, val, xt = _kernel_case(cuda, pair, 1001, k, m, seed=k + m)
-    before = spmm.ELL_PREV_LAUNCHES[pair]
-    want = spmm._ell_matmat_prev(idx, val, xt)
-    torch.cuda.synchronize()
-    assert spmm.ELL_PREV_LAUNCHES[pair] == before + 1
-    plain = spmm._ell_matmat_plain(idx, val, xt)
-    assert _excess(idx, val, xt, want, plain)[0] <= 1
-    assert torch.all(want[::5] == 0)
-    before = spmm.ELL_LAUNCHES[pair]
-    got = spmm._ell_matmat(idx, val, xt)
-    rows = spmm._ell_matmat(idx, val, xt, rows=True)
-    torch.cuda.synchronize()
-    assert spmm.ELL_LAUNCHES[pair] == before + 2
-    assert torch.equal(got, want)
-    assert rows.is_contiguous() and torch.equal(rows, want.T)
 
 
 @pytest.mark.gpu

@@ -1,8 +1,7 @@
 """The CUDA kernels (DIA SpMM in its three structures and over an extended
-operand, BSR SpMM, stream scale in its three structures, the previous
-designs of six of them, the strided copy)
-against their plain PyTorch versions on the card, and the mesh path on a
-mesh of several shards of the one card.
+operand, BSR SpMM, stream scale in its three structures, the strided
+copy) against their plain PyTorch versions on the card, and the mesh path
+on a mesh of several shards of the one card.
 
 Marked ``gpu``: without a CUDA device every test here skips (the fixture
 decides, so every pytest-xdist worker collects the same tests).  Run on a
@@ -10,25 +9,21 @@ machine with a card:  python -m pytest tests/test_torch_gpu.py
 (add --noconftest where jax is not installed: tests/conftest.py imports
 it).
 
-Tolerances: the DIA kernel and its previous design keep the plain
-version's products and order of sums: exact equality.  Older DIA cases:
+Tolerances: the DIA kernel keeps the plain version's products and order
+of sums: exact equality.  Older DIA cases:
 f32, 1e-6 of the largest |entry| of the plain result (both
 accumulate in f32); bf16, the entrywise bound of ``chip_smoke.bf16_excess``
 (one bf16 rounding on either side plus the f32 summation error bound),
 which a bf16 running sum or bf16 products fail.  BSR: the entrywise bound
 of ``chip_smoke.bsr_excess`` (twice the f32 summation error bound of an
 entry's terms, plus one rounding on either side for a bf16 result), for
-the kernel on its 16-byte and its general path and for its previous
-design.  Stream
-kernels: exact equality with ``torch.mul``.  The f64 instantiation of the
-DIA kernel: exact equality with its plain version; of the BSR kernel and
-its previous design: 1e-13 of the largest |entry| (f64 sums in another
-order), against the plain version and each other.  The
-staged-window DIA kernels
-and their previous designs keep the plain version's order of summation:
-exact equality, on the bulk-copy path and on the per-thread copy branch.
-The copy
-kernel, one copy or a batch: exact equality with ``Tensor.copy_``.  The mesh
+the kernel on its 16-byte and its general path.  Stream kernels: exact
+equality with ``torch.mul``.  The f64 instantiation of the DIA kernel:
+exact equality with its plain version; of the BSR kernel: 1e-13 of the
+largest |entry| (f64 sums in another order) against the plain version.
+The staged-window DIA kernels keep the plain version's order of
+summation: exact equality, on the bulk-copy path and on the per-thread
+copy branch.  The copy kernel, one copy or a batch: exact equality with ``Tensor.copy_``.  The mesh
 DIA kernel, through its one-piece entry and its mesh entry: the entrywise
 bounds of ``chip_smoke.window_excess`` and ``bf16_excess`` against its
 plain version, and exact equality with the unsharded kernel (it adds a
@@ -121,27 +116,23 @@ def test_kernel_matches_plain(cuda, shape, dtype):
     # lap3d's stencil at an aligned size
     (8 * 8 * 16, [-64, -8, -1, 0, 1, 8, 64]),
 ])
-def test_kernel_equals_plain_and_its_previous_design(cuda, n, offsets,
-                                                     dtype):
-    """Random diagonals: the kernel equals its plain version and its
-    previous design bit for bit (both keep the plain version's products
-    and order of sums), for m = 1, 5, 16, 24 and 40; one launch each."""
+def test_kernel_equals_plain(cuda, n, offsets, dtype):
+    """Random diagonals: the kernel equals its plain version bit for bit
+    (it keeps the plain version's products and order of sums), for m = 1,
+    5, 16, 24 and 40; one launch each."""
     offs, val = _banded(n, offsets, 3)
     dm = DiaMatrix.from_arrays(offs, val, device=cuda)
     key = str(dtype).replace('torch.', '')
     g = torch.Generator(cuda).manual_seed(n)
     for m in (1, 5, 16, 24, 40):
         x = torch.randn((m, n), generator=g, device=cuda).to(dtype)
-        before = sw.LAUNCHES[key], sw.LAUNCHES['prev_' + key]
+        before = sw.LAUNCHES[key]
         y = sw.dia_matmat_rows(dm.val, x, dm.offsets_t)
-        yprev = sw.dia_matmat_rows_prev(dm.val, x, dm.offsets_t)
         want = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
         torch.cuda.synchronize()
-        assert (sw.LAUNCHES[key], sw.LAUNCHES['prev_' + key]) == \
-            (before[0] + 1, before[1] + 1)
+        assert sw.LAUNCHES[key] == before + 1
         assert y.dtype == dtype and y.shape == x.shape
         assert torch.equal(y, want), m
-        assert torch.equal(yprev, want), m
 
 
 def test_kernel_on_unaligned_views_equals_plain(cuda):
@@ -186,8 +177,6 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         sw.dia_matmat_rows(dm.val.bfloat16(), x.double(), dm.offsets_t)
     with pytest.raises(TypeError):
         sw.dia_matmat_rows(dm.val.double(), x, dm.offsets_t)
-    with pytest.raises(TypeError):
-        sw.dia_matmat_rows_prev(dm.val, x.double(), dm.offsets_t)
     with pytest.raises(ValueError, match='contiguous'):
         sw.dia_matmat_rows(dm.val, torch.randn((dm.shape[0], 8),
                                                device=cuda).T, dm.offsets_t)
@@ -236,14 +225,13 @@ def test_bsr_kernel_matches_plain(cuda, bs, m, tiles, operand):
 @pytest.mark.parametrize('operand', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('tiles', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('bs', [3, 5, 48, 64, 128, 160])
-def test_bsr_kernel_and_its_previous_design_on_both_paths(cuda, bs, tiles,
-                                                          operand):
+def test_bsr_kernel_on_both_paths(cuda, bs, tiles, operand):
     """The girder cut to n = 2,794, a multiple of no block size here, with
     one block row emptied: bs = 3 and 5 take the general path (a row of
     tiles is no multiple of 16 bytes), 48 to 160 the 16-byte path; m = 1,
     5, 16, 24 and 40 (a half row group, one, one and a half, two and a
-    half).  The kernel and its previous design within the entrywise bound
-    of the plain version, the empty block row zero, one launch each."""
+    half).  The kernel within the entrywise bound of the plain version,
+    the empty block row zero, one launch each."""
     import scipy.sparse as scs
     k = fe_pencil(9, 3, 0.1, seed=2, which='k')[:2794, :2794]
     n = k.shape[0]
@@ -261,17 +249,15 @@ def test_bsr_kernel_and_its_previous_design_on_both_paths(cuda, bs, tiles,
     for m in (1, 5, 16, 24, 40):
         x = torch.randn((m, n), generator=g, device=cuda).to(operand)
         want = sp.bsr_matmat_rows_plain(*args, x, n)
-        for apply, counts in ((sp.bsr_matmat_rows, sp.LAUNCHES),
-                              (sp.bsr_matmat_rows_prev, sp.PREV_LAUNCHES)):
-            before = counts[key]
-            y = apply(*args, x, n)
-            torch.cuda.synchronize()
-            assert counts[key] == before + 1
-            assert y.dtype == operand and y.shape == x.shape
-            assert torch.isfinite(y.float()).all()
-            worst, _ = cs.bsr_excess(torch, sp, bm, x, y, want)
-            assert worst <= 1, (apply.__name__, m)
-            assert torch.all(y[:, 2 * bs:3 * bs] == 0)
+        before = sp.LAUNCHES[key]
+        y = sp.bsr_matmat_rows(*args, x, n)
+        torch.cuda.synchronize()
+        assert sp.LAUNCHES[key] == before + 1
+        assert y.dtype == operand and y.shape == x.shape
+        assert torch.isfinite(y.float()).all()
+        worst, _ = cs.bsr_excess(torch, sp, bm, x, y, want)
+        assert worst <= 1, m
+        assert torch.all(y[:, 2 * bs:3 * bs] == 0)
 
 
 @pytest.mark.parametrize('n, offsets', [(1000, (-31, -1, 0, 1, 31)),
@@ -309,9 +295,8 @@ def test_f64_kernel_equals_plain(cuda, n, offsets, m, values):
 @pytest.mark.parametrize('tiles', [torch.float32, torch.float64])
 def test_bsr_f64_kernel_matches_plain(cuda, bs, aligned, tiles):
     """The f64 instantiation of the BSR kernel (f64 operand, f32 or f64
-    tiles, f64 sums on the tensor cores) and its previous design against
-    the plain version and against each other, within 1e-13 of the largest
-    |entry| (f64 sums in other orders): the girder (n = 2,796, a multiple
+    tiles, f64 sums on the tensor cores) against the plain version, within
+    1e-13 of the largest |entry| (f64 sums in another order): the girder (n = 2,796, a multiple
     of no block size here) with one block row emptied; bs = 128, 64, 16
     and 160 (two slabs) on the 16-byte path, bs = 5 and 160 at a tile base
     4 or 8 bytes off (the general path); m = 1, 3, 8, 9, 16 and 24 (one n8
@@ -342,21 +327,14 @@ def test_bsr_f64_kernel_matches_plain(cuda, bs, aligned, tiles):
                           dtype=torch.float64)[1:].reshape(m, n))
         for x in xs:
             want = sp.bsr_matmat_rows_plain(*args, x, n)
-            got = {}
-            for apply, counts in ((sp.bsr_matmat_rows, sp.LAUNCHES),
-                                  (sp.bsr_matmat_rows_prev,
-                                   sp.PREV_LAUNCHES)):
-                before = counts[key]
-                got[apply] = y = apply(*args, x, n)
-                torch.cuda.synchronize()
-                assert counts[key] == before + 1
-                assert y.dtype == torch.float64 and y.shape == x.shape
-                rel = ((y - want).abs().max() / want.abs().max()).item()
-                assert rel < 1e-13, (apply.__name__, m)
-                assert torch.all(y[:, 2 * bs:3 * bs] == 0)
-            new, prev = got.values()
-            assert ((new - prev).abs().max()
-                    / want.abs().max()).item() < 1e-13
+            before = sp.LAUNCHES[key]
+            y = sp.bsr_matmat_rows(*args, x, n)
+            torch.cuda.synchronize()
+            assert sp.LAUNCHES[key] == before + 1
+            assert y.dtype == torch.float64 and y.shape == x.shape
+            rel = ((y - want).abs().max() / want.abs().max()).item()
+            assert rel < 1e-13, m
+            assert torch.all(y[:, 2 * bs:3 * bs] == 0)
 
 
 def test_bsr_kernel_refuses_what_it_cannot_take(cuda):
@@ -366,16 +344,12 @@ def test_bsr_kernel_refuses_what_it_cannot_take(cuda):
     x = torch.randn((8, n), device=cuda)
     args = (bm.blocks, bm.block_indptr_t, bm.block_cols)
     # an f64 operand takes f32 or f64 tiles (the f64 instantiation), not
-    # bf16 tiles; the previous design takes exactly the same pairs
+    # bf16 tiles
     with pytest.raises(TypeError, match='float64'):
         sp.bsr_matmat_rows(bm.blocks.bfloat16(), *args[1:], x.double(), n)
-    with pytest.raises(TypeError, match='float64'):
-        sp.bsr_matmat_rows_prev(bm.blocks.bfloat16(), *args[1:], x.double(),
-                                n)
-    assert sorted(sp.PREV_LAUNCHES) == sorted(sp.LAUNCHES)
-    before = sp.PREV_LAUNCHES[('f32', 'f64')]
-    sp.bsr_matmat_rows_prev(*args, x.double(), n)
-    assert sp.PREV_LAUNCHES[('f32', 'f64')] == before + 1
+    before = sp.LAUNCHES[('f32', 'f64')]
+    sp.bsr_matmat_rows(*args, x.double(), n)
+    assert sp.LAUNCHES[('f32', 'f64')] == before + 1
     with pytest.raises(ValueError, match='contiguous'):
         sp.bsr_matmat_rows(*args, torch.randn((n, 8), device=cuda).T, n)
     with pytest.raises(ValueError, match='shape'):
@@ -417,23 +391,12 @@ def test_stream_kernel_equals_torch_mul(cuda, count, offset):
         st.stream_scale(x.double(), 2.0)
 
 
-def _staged_design(variant, design):
-    """(wrapper, launch key) of a staged-window kernel or of its previous
-    design."""
-    if design == 'kernel':
-        return sw.VARIANTS[variant], variant
-    return ({'slide': sw.dia_matmat_rows_slide_prev,
-             'tiles': sw.dia_matmat_rows_tiles_prev}[variant],
-            'prev_' + variant)
-
-
 def _launched(before):
     """{launch key: launches since ``before``} of the keys that moved."""
     return {k: v - before[k] for k, v in sw.LAUNCHES.items()
             if v != before[k]}
 
 
-@pytest.mark.parametrize('design', ['kernel', 'previous'])
 @pytest.mark.parametrize('variant', ['slide', 'tiles'])
 @pytest.mark.parametrize('shape,m,tile', [
     ((8, 8, 16), 8, 256),       # aligned n, two rows of tiles
@@ -443,13 +406,11 @@ def _launched(before):
     ((30, 30, 31), 16, 4096),   # two row groups
     ((6, 6, 6), 1, 5000),       # one tile wider than the vector
 ])
-def test_staged_window_kernels_equal_plain(cuda, variant, shape, m, tile,
-                                           design):
-    """The sliding-window and tile-ring kernels and their previous designs
-    against the plain version at odd shapes: they sum the diagonals in its
-    order, so they are equal bit for bit; one launch, under the design's
-    own key."""
-    fn, key = _staged_design(variant, design)
+def test_staged_window_kernels_equal_plain(cuda, variant, shape, m, tile):
+    """The sliding-window and tile-ring kernels against the plain version
+    at odd shapes: they sum the diagonals in its order, so they are equal
+    bit for bit; one launch, under the kernel's own key."""
+    fn, key = sw.VARIANTS[variant], variant
     dm = DiaMatrix(lap3d(*shape, 1.0, 1.0, 1.0), device=cuda)
     g = torch.Generator(cuda).manual_seed(3)
     x = torch.randn((m, dm.shape[0]), generator=g, device=cuda)
@@ -469,14 +430,12 @@ def test_staged_window_kernels_fill_ragged_clusters(cuda, variant, tile, m):
     one row group a block: m = 1 (a cluster of one block), 5 and 33 (rows
     that fill no whole cluster; the blocks past m read every val chunk and
     compute nothing), on the bulk-copy path with a stage of val: equal to
-    the plain version and to the previous design bit for bit."""
+    the plain version bit for bit."""
     dm = DiaMatrix(lap3d(30, 30, 31, 1.0, 1.0, 1.0), device=cuda)
     g = torch.Generator(cuda).manual_seed(m)
     x = torch.randn((m, dm.shape[0]), generator=g, device=cuda)
     y = sw.VARIANTS[variant](dm.val, x, dm.offsets, tile)
     plan = sw.window_launch_plan(variant, dm.val, x, dm.offsets, tile)
-    yprev = _staged_design(variant, 'previous')[0](dm.val, x, dm.offsets,
-                                                   tile)
     want = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
     torch.cuda.synchronize()
     assert plan['rows'] == 1 and plan['bulk'], plan
@@ -486,29 +445,23 @@ def test_staged_window_kernels_fill_ragged_clusters(cuda, variant, tile, m):
     assert plan['blocks'] == (plan['segments'] * plan['clusters_per_segment']
                               * plan['cluster']), plan
     assert torch.equal(y, want)
-    assert torch.equal(yprev, want)
 
 
-def _largest_tile(variant, design, offsets, m, bulk, staged=None):
-    """The widest tile whose windows (and, for the kernel on the bulk-copy
-    branch, the val stages it keeps) fit a block's shared memory, of those
-    where the kernel keeps a stage of val (``staged``), keeps none, or
-    either (None)."""
+def _largest_tile(variant, offsets, m, bulk, staged=None):
+    """The widest tile whose windows (and, on the bulk-copy branch, the val
+    stages the kernel keeps) fit a block's shared memory, of those where
+    the kernel keeps a stage of val (``staged``), keeps none, or either
+    (None)."""
     def fits(tile):
         if variant == 'tiles':
             lanes = 4 * tile
         else:
-            lanes = sw._reach(offsets, 4 if design == 'kernel' else 1) \
-                + 2 * tile
+            lanes = sw._reach(offsets) + 2 * tile
         try:
-            if design == 'kernel':
-                chunk = sw._window_plan(m, lanes, len(offsets), bulk,
-                                        variant)[1]
-                return staged is None or (chunk > 0) == staged
-            sw._rows_per_block(m, lanes, variant)
+            chunk = sw._window_plan(m, lanes, len(offsets), bulk, variant)[1]
         except ValueError:
             return False
-        return True
+        return staged is None or (chunk > 0) == staged
 
     lo, hi = 1, 1 << 16
     while lo + 1 < hi:
@@ -517,7 +470,6 @@ def _largest_tile(variant, design, offsets, m, bulk, staged=None):
     return lo
 
 
-@pytest.mark.parametrize('design', ['kernel', 'previous'])
 @pytest.mark.parametrize('variant', ['slide', 'tiles'])
 @pytest.mark.parametrize('case,shape,m,tile', [
     ('n % 4', (7, 9, 11), 5, None),       # n = 693
@@ -525,14 +477,14 @@ def _largest_tile(variant, design, offsets, m, bulk, staged=None):
     ('view', (30, 30, 31), 16, None),     # x 4 bytes into its storage
     ('view', (30, 30, 31), 16, 1000),
 ])
-def test_staged_window_kernels_per_thread_copy_branch(cuda, variant, design,
-                                                      case, shape, m, tile):
+def test_staged_window_kernels_per_thread_copy_branch(cuda, variant, case,
+                                                      shape, m, tile):
     """Shapes a bulk copy cannot take, n not a multiple of 4 and an operand
     one element into its storage, go through the kernels' per-thread copy
     branch (a cluster of one block, no stage of val), at a tile of many and
     at the widest tile whose windows fit: equal to the plain version bit
     for bit.  One lane wider is refused before any launch."""
-    fn, key = _staged_design(variant, design)
+    fn, key = sw.VARIANTS[variant], variant
     dm = DiaMatrix(lap3d(*shape, 1.0, 1.0, 1.0), device=cuda)
     n = dm.shape[0]
     g = torch.Generator(cuda).manual_seed(5)
@@ -544,16 +496,15 @@ def test_staged_window_kernels_per_thread_copy_branch(cuda, variant, design,
         assert n % 4
     widest = tile is None
     if widest:
-        tile = _largest_tile(variant, design, dm.offsets, m, bulk=False)
+        tile = _largest_tile(variant, dm.offsets, m, bulk=False)
     before = dict(sw.LAUNCHES)
     y = fn(dm.val, x, dm.offsets, tile)
     want = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
     torch.cuda.synchronize()
     assert _launched(before) == {key: 1}
-    if design == 'kernel':
-        plan = sw.window_launch_plan(variant, dm.val, x, dm.offsets, tile)
-        assert not plan['bulk'] and plan['chunk'] == 0, plan
-        assert plan['cluster'] == 1, plan
+    plan = sw.window_launch_plan(variant, dm.val, x, dm.offsets, tile)
+    assert not plan['bulk'] and plan['chunk'] == 0, plan
+    assert plan['cluster'] == 1, plan
     assert torch.equal(y, want)
     if widest:
         with pytest.raises(ValueError, match='shared memory'):
@@ -571,8 +522,8 @@ def test_staged_window_kernels_at_the_widest_bulk_tile(cuda, variant):
     g = torch.Generator(cuda).manual_seed(7)
     x = torch.randn((16, dm.shape[0]), generator=g, device=cuda)
     want = sw.dia_matmat_rows_plain(dm.val, x, dm.offsets_t)
-    staged = _largest_tile(variant, 'kernel', dm.offsets, 16, True, True)
-    widest = _largest_tile(variant, 'kernel', dm.offsets, 16, True)
+    staged = _largest_tile(variant, dm.offsets, 16, True, True)
+    widest = _largest_tile(variant, dm.offsets, 16, True)
     assert staged < widest
     for tile, stage in ((staged - staged % 4, True),
                         (widest - widest % 4, False),
@@ -676,7 +627,6 @@ def test_pipelined_stream_kernel_equals_torch_mul(cuda, m, n, tile, depth):
 _EDGE_TILE = {2: 29052, 4: 14524}
 
 
-@pytest.mark.parametrize('design', ['kernel', 'previous'])
 @pytest.mark.parametrize('depth', [2, 4])
 @pytest.mark.parametrize('m,n,tile', [
     (5, 4000, 4),               # 5,000 chunks of 16 bytes, the bulk minimum
@@ -684,9 +634,8 @@ _EDGE_TILE = {2: 29052, 4: 14524}
     (3, 40 * 52, 52),           # fewer chunks than blocks
     (2, None, None),            # depth * tile at the shared-memory edge
 ])
-def test_pipelined_stream_designs_at_their_edges(cuda, m, n, tile, depth,
-                                                 design):
-    """The pipelined kernel and its previous design equal ``torch.mul`` on
+def test_pipelined_stream_designs_at_their_edges(cuda, m, n, tile, depth):
+    """The pipelined kernel equals ``torch.mul`` on
     the bulk copy's smallest chunk, on many chunks per block with an
     uneven share, and at the largest tile whose ``depth`` stages and their
     barriers fit a block's shared memory (four tiles a row); one tile more
@@ -696,10 +645,7 @@ def test_pipelined_stream_designs_at_their_edges(cuda, m, n, tile, depth,
         n = 4 * tile
         assert (st.pipeline_smem_bytes(tile, depth) <= _build.SMEM_PER_BLOCK
                 < st.pipeline_smem_bytes(tile + 4, depth))
-    fn, key = {'kernel': (st.stream_scale_pipelined, 'pipelined_depth%d'),
-               'previous': (st.stream_scale_pipelined_prev,
-                            'pipelined_prev_depth%d')}[design]
-    key %= depth
+    fn, key = st.stream_scale_pipelined, 'pipelined_depth%d' % depth
     g = torch.Generator(cuda).manual_seed(depth)
     x = torch.randn((m, n), generator=g, device=cuda)
     before = st.LAUNCHES[key]
@@ -711,20 +657,6 @@ def test_pipelined_stream_designs_at_their_edges(cuda, m, n, tile, depth,
         wider = torch.zeros((1, 2 * (tile + 4)), device=cuda)
         with pytest.raises(ValueError, match='shared memory'):
             fn(wider, 2.0, tile + 4, depth)
-
-
-@pytest.mark.parametrize('count,offset', [(1 << 20, 0), (1000003, 0),
-                                          (1000003, 1), (3, 0)])
-def test_previous_stream_design_equals_torch_mul(cuda, count, offset):
-    """The stream kernel's previous design, on the cases of the kernel's
-    own test: 16-byte aligned and not, with and without a tail."""
-    g = torch.Generator(cuda).manual_seed(1)
-    x = torch.randn(count + offset, generator=g, device=cuda)[offset:]
-    before = st.LAUNCHES['prev_float32']
-    y = st.stream_scale_prev(x, st.REFERENCE_SCALE)
-    torch.cuda.synchronize()
-    assert torch.equal(y, torch.mul(x, st.REFERENCE_SCALE))
-    assert st.LAUNCHES['prev_float32'] == before + 1
 
 
 def test_stream_probes_refuse_what_they_cannot_take(cuda):

@@ -136,8 +136,9 @@ def test_device_sparse_steering():
 
 
 def test_wrapper_uses_plain_version_only_on_cpu(lap):
-    """A CPU tensor takes the plain version and counts no launch; a tensor
-    on another device is refused, never computed elsewhere."""
+    """A CPU tensor takes the plain version (within 1e-6 of the JAX
+    package's DIA apply) and counts no launch; a tensor on another device
+    is refused, never computed elsewhere."""
     a, x = lap
     dm = DiaMatrix(a, device='cpu')
     before = dict(sw.LAUNCHES)
@@ -145,28 +146,57 @@ def test_wrapper_uses_plain_version_only_on_cpu(lap):
     y = sw.dia_matmat_rows(dm.val, xt, dm.offsets_t)
     assert torch.equal(y, sw.dia_matmat_rows_plain(dm.val, xt,
                                                     dm.offsets_t))
-    assert sw.LAUNCHES == before
-    with pytest.raises(ValueError, match='device'):
-        sw.dia_matmat_rows(dm.val, xt.to('meta'), dm.offsets_t)
-
-
-def test_previous_design_wrapper_on_cpu(lap):
-    """The previous K1 design's wrapper, kept to be timed beside the
-    kernel: on a CPU tensor the plain version (within 1e-6 of the JAX
-    package's DIA apply), no launch counted, another device refused."""
-    a, x = lap
-    dm = DiaMatrix(a, device='cpu')
-    before = dict(sw.LAUNCHES)
-    xt = torch.from_numpy(x)
-    y = sw.dia_matmat_rows_prev(dm.val, xt, dm.offsets_t)
-    assert torch.equal(y, sw.dia_matmat_rows_plain(dm.val, xt,
-                                                    dm.offsets_t))
     jd = JaxDia(a)
     want = np.asarray(_dia_matmat_rows(jd.val, jnp.asarray(x), jd.offsets))
     assert _rel(y.numpy(), want) < 1e-6
     assert sw.LAUNCHES == before
     with pytest.raises(ValueError, match='device'):
-        sw.dia_matmat_rows_prev(dm.val, xt.to('meta'), dm.offsets_t)
+        sw.dia_matmat_rows(dm.val, xt.to('meta'), dm.offsets_t)
+
+
+# (make the kernel's val, x, offsets from good ones, error, message): one
+# case for each refusal of ``spmm_window._check``
+DIA_BAD = {
+    'devices differ': (lambda v, x, o: (v.to('meta'), x, o), ValueError,
+                       'share a device'),
+    'f16 operand': (lambda v, x, o: (v, x.half(), o), TypeError,
+                    'f32, bf16 or f64 operands'),
+    'f32 operand, bf16 values': (lambda v, x, o: (v.bfloat16(), x, o),
+                                 TypeError, 'f32 values with an f32 or bf16'),
+    'f32 operand, f64 values': (lambda v, x, o: (v.double(), x, o),
+                                TypeError, 'f32 values with an f32 or bf16'),
+    'f64 operand, bf16 values': (
+        lambda v, x, o: (v.bfloat16(), x.double(), o), TypeError,
+        'f64 DIA kernel takes f32 or f64 values'),
+    'int64 offsets': (lambda v, x, o: (v, x, o.long()), TypeError,
+                      'int32 offsets'),
+    '1-D operand': (lambda v, x, o: (v, x[0], o), ValueError,
+                    'shape mismatch'),
+    'val and x widths differ': (
+        lambda v, x, o: (v[:, :-1].contiguous(), x, o), ValueError,
+        'shape mismatch'),
+    'offsets count': (lambda v, x, o: (v, x, o[:-1]), ValueError,
+                      'shape mismatch'),
+    'strided operand': (lambda v, x, o: (v, x.T.contiguous().T, o),
+                        ValueError, 'contiguous'),
+}
+
+
+@pytest.mark.parametrize('case', list(DIA_BAD))
+def test_dia_check_refuses(lap, case):
+    """The DIA kernel's checks refuse, by name, what it does not take; the
+    good operands pass them: f32 and bf16 operands with f32 values, an f64
+    operand with f32 or f64 values."""
+    a, x = lap
+    dm = DiaMatrix(a, device='cpu')
+    xt = torch.from_numpy(x)
+    sw._check(dm.val, xt, dm.offsets_t)
+    sw._check(dm.val, xt.bfloat16(), dm.offsets_t)
+    sw._check(dm.val, xt.double(), dm.offsets_t)
+    sw._check(dm.val.double(), xt.double(), dm.offsets_t)
+    make, err, match = DIA_BAD[case]
+    with pytest.raises(err, match=match):
+        sw._check(*make(dm.val, xt, dm.offsets_t))
 
 
 def test_sparse_symmetric_matrix_and_operator(lap):

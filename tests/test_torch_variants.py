@@ -118,12 +118,6 @@ def test_staged_window_checks_run_on_the_cpu():
     with pytest.raises(ValueError, match='at most'):
         sw.dia_matmat_rows_slide(torch.zeros((200, N)), x,
                                  tuple(range(200)), TILE)
-    # rows per block: as many as fit, no more than the operand needs
-    assert sw._rows_per_block(32, 20000 + 2 * 4096, 'slide') == 2
-    assert sw._rows_per_block(32, 20000 + 2 * 8192, 'slide') == 1
-    assert sw._rows_per_block(32, 4 * 10240, 'tiles') == 1
-    assert sw._rows_per_block(5, 1000, 'slide') == 8
-    assert sw._rows_per_block(2, 1000, 'slide') == 2
 
 
 @pytest.mark.parametrize('variant,arg', [('tiled', 1), ('tiled', 4),
@@ -165,67 +159,16 @@ def test_stream_probe_checks_run_on_the_cpu():
     # these tiles, the stages and their barriers do not; 4 elements less do
     for depth, edge in ((2, 29052), (4, 14524)):
         assert depth * (edge + 4) * 4 <= _build.SMEM_PER_BLOCK
-        for fn in (st.stream_scale_pipelined, st.stream_scale_pipelined_prev):
-            with pytest.raises(ValueError, match='shared memory'):
-                fn(torch.zeros((1, 2 * (edge + 4))), 2.0, edge + 4, depth)
-            xe = torch.ones((1, 2 * edge))
-            assert torch.equal(fn(xe, 2.0, edge, depth), 2 * xe)
+        with pytest.raises(ValueError, match='shared memory'):
+            st.stream_scale_pipelined(torch.zeros((1, 2 * (edge + 4))), 2.0,
+                                      edge + 4, depth)
+        xe = torch.ones((1, 2 * edge))
+        assert torch.equal(st.stream_scale_pipelined(xe, 2.0, edge, depth),
+                           2 * xe)
     with pytest.raises(ValueError, match='contiguous'):
         st.stream_scale_pipelined(x[:, :500], 2.0, 4, 2)
     with pytest.raises(TypeError, match='f32'):
         st.stream_scale_tiled(x.double(), 2.0, 8)
-
-
-@pytest.mark.parametrize('design', ['stream', 'pipelined'])
-def test_previous_stream_designs_run_their_plain_version_on_the_cpu(design):
-    """The wrappers of the previous designs take the plain version on the
-    CPU, count no launch, and raise where their new design's wrapper
-    raises."""
-    x = torch.from_numpy(
-        np.random.RandomState(5).standard_normal((M, N)).astype(np.float32))
-    before = dict(st.LAUNCHES)
-    if design == 'stream':
-        got = st.stream_scale_prev(x, st.REFERENCE_SCALE)
-        with pytest.raises(ValueError, match='device'):
-            st.stream_scale_prev(x.to('meta'), 2.0)
-    else:
-        got = st.stream_scale_pipelined_prev(x, st.REFERENCE_SCALE, 128, 4)
-        with pytest.raises(ValueError, match='depth'):
-            st.stream_scale_pipelined_prev(x, 2.0, 128, 3)
-        with pytest.raises(ValueError, match='multiple of tile'):
-            st.stream_scale_pipelined_prev(x, 2.0, 100, 2)
-    assert torch.equal(got, torch.mul(x, st.REFERENCE_SCALE))
-    assert st.LAUNCHES == before
-
-
-@pytest.mark.parametrize('variant', ['slide', 'tiles'])
-def test_previous_staged_window_designs_run_their_plain_version_on_the_cpu(
-        variant):
-    """The wrappers of the staged-window kernels' previous designs take the
-    plain version on the CPU, equal to the new designs' wrappers there,
-    count no launch, and raise where the new wrappers raise."""
-    offsets, val = _stencil('lap3d')
-    tv = torch.from_numpy(val)
-    x = torch.from_numpy(
-        np.random.RandomState(5).standard_normal((M, N)).astype(np.float32))
-    prev = {'slide': sw.dia_matmat_rows_slide_prev,
-            'tiles': sw.dia_matmat_rows_tiles_prev}[variant]
-    before = dict(sw.LAUNCHES)
-    got = prev(tv, x, offsets, TILE)
-    assert torch.equal(got, sw.VARIANTS[variant](tv, x, offsets, TILE))
-    assert torch.equal(got, sw.dia_matmat_rows_plain(tv, x, offsets))
-    with pytest.raises(ValueError, match='shared memory'):
-        prev(tv, x, offsets, 40000)
-    with pytest.raises(ValueError, match='at least 1'):
-        prev(tv, x, offsets, 0)
-    with pytest.raises(TypeError, match='f32'):
-        prev(tv, x.bfloat16(), offsets, TILE)
-    with pytest.raises(ValueError, match='contiguous'):
-        prev(tv, torch.zeros((N, M)).T, offsets, TILE)
-    if variant == 'tiles':
-        with pytest.raises(ValueError, match='<= tile'):
-            prev(tv, x, offsets, 32)
-    assert sw.LAUNCHES == before
 
 
 def test_clustered_window_plan_on_the_cpu():
@@ -260,21 +203,17 @@ def test_clustered_window_plan_on_the_cpu():
     assert sw._window_plan(16, 1152, 128, True, 'slide') == (8, 0)
     # where no stage fits, two rows share the val they read
     assert plan('slide', 4096, bulk=True, noff=40) == (2, 0)
-    # the per-thread branch keeps no stage: two rows at tile 4,096, as the
-    # previous designs
+    # the per-thread branch keeps no stage: two rows at tile 4,096
     assert plan('slide', 4096, bulk=False) == (2, 0)
     assert plan('tiles', 10240, bulk=False) == (1, 0)
-    assert sw._rows_per_block(32, 20000 + 2 * 4096, 'slide') == 2
     # 14,512 lanes a tile and the barriers fill a block; 14,513 do not
     assert plan('tiles', 14512) == (1, 0)
     for bulk in (True, False):
         with pytest.raises(ValueError, match='shared memory'):
             plan('tiles', 14513, bulk=bulk)
-    # the slide kernel rounds the reach to 4 lanes a side, its previous
-    # design does not
-    assert sw._reach((-10000, -1, 0, 1, 10000), 4) == 20000
-    assert sw._reach((-3, 0, 5), 4) == 12
-    assert sw._reach((-3, 0, 5), 1) == 8
+    # the slide kernel rounds the reach to 4 lanes a side
+    assert sw._reach((-10000, -1, 0, 1, 10000)) == 20000
+    assert sw._reach((-3, 0, 5)) == 12
 
 
 def test_window_sweep_runs_on_the_cpu_when_asked(capsys):
