@@ -51,6 +51,14 @@ carries on, and no wrapper gives way to its plain version on the card.
      ``torch.sparse.mm`` on the CSR tensor of the same type and the
      row-layout apply (the (n, m) copy of the operand, then the launch),
      with its registers a thread and resident blocks an SM.
+   * The Chebyshev step kernel (``ell_step_kernel`` in
+     ``csrc/ell_spmm.cu``: a degree step of the recurrence on an ELL
+     matrix in one launch, ``phase_ell_step``) on the relabelled flagship
+     at the two FE cells' shapes (f32 values with f32 iterates at m = 16,
+     with f64 iterates at m = 8): a first, a middle and a last step equal
+     to the recurrence's eager step (the ELL kernel and its passes) and to
+     the plain step bit for bit; a middle step timed in turns with the
+     eager step and the plain step, beside its byte bound.
    * The f64 instantiations of the DIA kernel (f64 operand, f32 or f64
      values) on lap3d(100,100,128), equal to the plain version bit for
      bit, and of the BSR kernel (f64 operand, f32 or f64 tiles) on the FE
@@ -116,8 +124,8 @@ carries on, and no wrapper gives way to its plain version on the card.
    * FE-ELL: the vibration pencil K x = lambda M x of ``shipsec_like()``
      through ``partial_hevp`` (degree-32 Chebyshev on [hi 1e-4, hi], 6
      smallest to 1e-4); both matrices land in ``EllMatrix``; 16
-     iterations, ELL kernel launches (f32 only) > 0, no plain version of
-     a kernel run, no BSR launch; then the same pencil through ``lobpcg``
+     iterations, ELL kernel and Chebyshev step kernel launches (f32
+     only) > 0, no plain version of a kernel run, no BSR launch; then the same pencil through ``lobpcg``
      with bf16 Chebyshev iterates (the ELL kernel's bf16-operand
      instantiation), its eigenvalues within 1e-3 of FE-ELL's.
    * FE-BSR: the same mesh in the mesher's order through ``lobpcg`` on
@@ -169,9 +177,10 @@ carries on, and no wrapper gives way to its plain version on the card.
      the residual limit of the FE fields, f64 BSR kernel launches > 0
      (with ``--profile``, the f64 BSR kernel's share of device time).
    * Core 5b: the same on the relabelled flagship with its own Chebyshev,
-     which lands in ``EllMatrix``: the residual limit, and launches > 0 of
-     the ELL kernel's f64 instantiations (f32 values in the recurrence,
-     the operator's f64 values).
+     which lands in ``EllMatrix``: the residual limit, launches > 0 of the
+     ELL kernel's f64 x f64 instantiation (the operator's f64 values) and
+     of the Chebyshev step kernel's f32 x f64 one (the recurrence's f32
+     values), and none of the ELL kernel's f32 x f64 one.
    Every core field prints its ELL launches (core 3's and core 5's
    operator K is ELL).
    * Sharded core 4: core 4's problem on the ``Solver`` with f64
@@ -951,10 +960,111 @@ def phase_ell(torch, np, ell, EllMatrix, k_rel, k_nat):
             del xt
         del mats, em, idx, val
         torch.cuda.empty_cache()
+    rows['ell_spmm_f32_f64']['off_path'] = (
+        'the f32 x f64 applies are the Chebyshev recurrence\'s, whose '
+        'steps run in the step kernel (ell_step_f32_f64); held against '
+        'its plain version above')
     rows['ell_spmm_complex_f32_f64']['off_path'] = (
         'no field here has a complex block on an ELL operator (the complex '
         'field\'s B is tridiagonal, so DIA); the route is held against its '
         'plain version above')
+    return rows
+
+
+# the Chebyshev step kernel's cases in phase_ell_step: (row name, value
+# dtype, iterate dtype, m), the finite-element cells' shapes
+ELL_STEP_CASES = (('ell_step_f32_f32', 'float32', 'float32', 16),
+                  ('ell_step_f32_f64', 'float32', 'float64', CORE_BLOCK))
+
+
+def eager_step(ell, idx, val, d, r, y, c1, c2, first, last):
+    """The Chebyshev recurrence's own eager step
+    (``algebra/sparse.py::_eager_step``) on (m, n) blocks with the ELL
+    apply (the (n, m) copy and the ELL kernel, then the passes): (d', r',
+    y'), None where the last step leaves it."""
+    from raleigh_tpu_torch.algebra.sparse import _eager_step
+    d, r, y = _eager_step(lambda ops, x: ell._ell_matmat_rows(*ops, x),
+                          (idx, val), d, r, None if first else y, c1, c2)
+    return (None, None, y) if last else (d, r, y)
+
+
+def phase_ell_step(torch, np, ell, EllMatrix, k_rel):
+    """The Chebyshev step kernel (``ell_step_kernel`` in
+    ``csrc/ell_spmm.cu``) on the FE flagship in the field's (relabelled)
+    order at the two cells' shapes (``ELL_STEP_CASES``): a first, a middle
+    and a last step equal to the eager step (``eager_step``) and to the
+    plain step bit for bit, one launch each; then a middle step timed in
+    turns with the eager step it replaces (the ELL kernel and its passes)
+    and the plain step, beside its byte bound: A's nonzeros as values and
+    int32 columns, the row pointer, d read, r and y read and written, d'
+    written.  Returns the kernel's rows."""
+    rows = {}
+    em = EllMatrix(k_rel, device='cuda')
+    idx, val = em.idx, em.val
+    n = em.shape[0]
+    gen = torch.Generator('cuda').manual_seed(25)
+    c1, c2 = 0.8123456789012345, 1.2345678901234567
+    for name, vdt, xdt, m in ELL_STEP_CASES:
+        dtype = getattr(torch, xdt)
+        key = ('f32', xdt.replace('float', 'f'))
+        label = '%s m=%d' % (name, m)
+        d, r, y = (torch.randn((m, n), generator=gen, device='cuda',
+                               dtype=torch.float64).to(dtype)
+                   for _ in range(3))
+        for first, last in ((True, False), (False, False), (False, True)):
+            want = eager_step(ell, idx, val, d, r, y, c1, c2, first, last)
+            outs = []
+            for step in (ell._ell_step, ell._ell_step_plain):
+                dt, rt, yt = (t.T.contiguous() for t in (d, r, y))
+                d_next = torch.full_like(dt, float('nan'))
+                before = ell.ELL_STEP_LAUNCHES[key]
+                step(idx, val, dt, d_next, rt, yt, c1, c2, first, last)
+                launched = ell.ELL_STEP_LAUNCHES[key] - before
+                if launched != (step is ell._ell_step):
+                    fail('%s: %d launches counted for one step'
+                         % (label, launched))
+                outs.append((None, None, yt.T) if last
+                            else (d_next.T, rt.T, yt.T))
+            torch.cuda.synchronize()
+            for got, what in zip(outs, ('kernel', 'plain step')):
+                for g, w in zip(got, want):
+                    if (g is None) != (w is None) or (
+                            g is not None and not torch.equal(g, w)):
+                        fail('%s (first %s, last %s): the %s is not the '
+                             'eager step bit for bit'
+                             % (label, first, last, what))
+        dt, rt, yt = (t.T.contiguous() for t in (d, r, y))
+        d_next = torch.empty_like(dt)
+        t = turns({
+            'plain': lambda: ell._ell_step_plain(idx, val, dt, d_next, rt,
+                                                 yt, c1, c2, False, False),
+            'kernel': lambda: ell._ell_step(idx, val, dt, d_next, rt, yt,
+                                            c1, c2, False, False),
+            'eager': lambda: eager_step(ell, idx, val, d, r, y, c1, c2,
+                                        False, False)}, 20)
+        size = torch.tensor([], dtype=dtype).element_size()
+        nbytes = (em.nnz * (val.element_size() + 4) + (n + 1) * 4
+                  + 6 * n * m * size)
+        bound_ms, bound_by = bound(nbytes, 2 * em.nnz * m + 6 * n * m,
+                                   PEAK_F64 if size == 8 else PEAK_F32)
+        print('%s n=%d: equal to the eager step and to the plain step bit '
+              'for bit (first, middle, last); kernel %.4f ms (%.0f GB/s, '
+              '%.1f%% of the bound), eager step (copy, ELL kernel, passes) '
+              '%.4f ms (%.2fx), plain step %.4f ms, bound %.4f ms (%s, '
+              '%.1f MB), in turns'
+              % (label, n, t['kernel'], nbytes / t['kernel'] / 1e6,
+                 100 * bound_ms / t['kernel'], t['eager'],
+                 t['eager'] / t['kernel'], t['plain'], bound_ms, bound_by,
+                 nbytes / 1e6))
+        rows[name] = dict(
+            name=name, route='cuda', source=ELL[0],
+            replaces='none: the eager Chebyshev step on an ELL matrix',
+            launches=0, max_abs_err=0.0, ms=t['kernel'],
+            plain_ms=t['plain'], eager_ms=t['eager'], bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, m=m, bytes=nbytes)
+        del d, r, y, dt, rt, yt, d_next
+    del em, idx, val
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1856,21 +1966,27 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
         if set(launches) != {('f32', 'f32')}:
             fail('%s: ELL launches %s, not the f32 kernel alone'
                  % (name, launches))
-        return out, launches[('f32', 'f32')]
+        steps = {k: v for k, v in ell.ELL_STEP_LAUNCHES.items() if v}
+        if set(steps) != {('f32', 'f32')}:
+            fail('%s: Chebyshev step launches %s, not the f32 kernel alone'
+                 % (name, steps))
+        return out, launches[('f32', 'f32')], steps[('f32', 'f32')]
 
-    (lmd, x, st, its, cold, _, _), launches = ell_solve()
+    (lmd, x, st, its, cold, _, _), launches, _ = ell_solve()
     ell_lmd, rel = check_pencil(np, name, k_rel, m_rel, lmd, x, st, which)
-    (lmd, x, st, its2, warm, lob, _), launches2 = ell_solve()
+    (lmd, x, st, its2, warm, lob, _), launches2, steps = ell_solve()
     check_pencil(np, name, k_rel, m_rel, lmd, x, st, which)
     check_iterations(name, 'FE-ELL', (its, its2))
     rows['ell_spmm_f32_f32']['launches'] = launches2
+    rows['ell_step_f32_f32']['launches'] = steps
     print('%s: K in %s, status 0, %d iterations (warm run %d), relative '
           'residual %.2e, lambda %s; Chebyshev set-up %.3f s; partial_hevp '
           'wall cold %.3f s, warm %.3f s (LOBPCG %.3f s, rest %.3f s); ELL '
-          'kernel launches %d (cold %d), no plain version [%s]'
+          'kernel launches %d (cold %d), Chebyshev step launches %d, no '
+          'plain version [%s]'
           % (name, layout, its, its2, rel, np.array2string(
               ell_lmd, precision=6), setup, cold, warm, lob, warm - lob,
-             launches2, launches, card))
+             launches2, launches, steps, card))
     if profile:
         profile_run(torch, lambda: hevp_call(
             torch, partial_hevp, k_rel, B=m_rel, T=ch, which=which, tol=tol),
@@ -2358,7 +2474,8 @@ def counting_plain_calls(sw, sp, ell):
     names = {'dia': (sw, 'dia_matmat_rows_plain'),
              'mesh': (sw, '_mesh_shard_plain'),
              'bsr': (sp, 'bsr_matmat_rows_plain'),
-             'ell': (ell, '_ell_matmat_plain')}
+             'ell': (ell, '_ell_matmat_plain'),
+             'ell_step': (ell, '_ell_step_plain')}
     calls = dict.fromkeys(names, 0)
     inner = {key: getattr(mod, attr) for key, (mod, attr) in names.items()}
 
@@ -2595,18 +2712,24 @@ def phase_core(torch, np, mods, rows, card, pencils, profile=False):
         if not res <= FE_RESIDUAL_LIMIT:
             fail('FE-ELL core: residual %.2e' % res)
         launches = dict(ell.ELL_LAUNCHES)
-        if min(launches[('f32', 'f64')], launches[('f64', 'f64')]) <= 0:
-            fail('FE-ELL core: an f64 ELL instantiation was skipped: %s'
+        steps = ell.ELL_STEP_LAUNCHES[('f32', 'f64')]
+        if launches[('f64', 'f64')] <= 0 or steps <= 0:
+            fail('FE-ELL core: the f64 ELL kernel or the f32 x f64 '
+                 'Chebyshev step was skipped: %s, steps %s'
+                 % (ell_launches(ell), ell.ELL_STEP_LAUNCHES))
+        if launches[('f32', 'f64')]:
+            fail('FE-ELL core: the recurrence launched the ELL kernel: %s'
                  % ell_launches(ell))
-        for key in (('f32', 'f64'), ('f64', 'f64')):
-            rows['ell_spmm_%s_%s' % key]['launches'] = launches[key]
+        rows['ell_spmm_f64_f64']['launches'] = launches[('f64', 'f64')]
+        rows['ell_step_f32_f64']['launches'] = steps
         print('core 5b, engine=\'core\' FE flagship (relabelled) which=6 '
               'tol=1e-4, its own Chebyshev degree 32 (EllMatrix): status 0, '
               '%d iterations, residual %.2e (limit %.0e); wall %.2f s (solve '
-              '%.2f s); ELL launches %s; %.2f host transfers per iteration '
-              '[%s]' % (its, res, FE_RESIDUAL_LIMIT, wall, solve_s,
-                        ell_launches(ell),
-                        dense_torch.COUNTS['to_host'] / its, card))
+              '%.2f s); ELL launches %s, Chebyshev step launches %d; %.2f '
+              'host transfers per iteration [%s]'
+              % (its, res, FE_RESIDUAL_LIMIT, wall, solve_s,
+                 ell_launches(ell), steps,
+                 dense_torch.COUNTS['to_host'] / its, card))
         del te
     if any(plain.values()):
         fail('the core phase ran plain versions of the kernels: %s' % plain)
@@ -3177,6 +3300,7 @@ def main():
     rows.update(phase_bsr(torch, np, sp, BsrMatrix, fe, pencils[1][0]))
     rows.update(phase_ell(torch, np, ell, EllMatrix, pencils[0][0],
                           pencils[1][0]))
+    rows.update(phase_ell_step(torch, np, ell, EllMatrix, pencils[0][0]))
     rows.update(phase_wide(torch, np, lap3d, DiaMatrix, BsrMatrix, sw, sp,
                            pencils[1][0]))
     rows.update(phase_mesh_wide(torch, np, lap3d, DiaMatrix, sw))

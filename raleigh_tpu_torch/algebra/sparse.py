@@ -21,7 +21,7 @@ import scipy.sparse as scs
 import torch
 
 from ..ops.spmm import (_device_layout, _to_full_csr, rows_matmat_operands,
-                        storage_device, torch_dtype)
+                        rows_step_operands, storage_device, torch_dtype)
 from ..parallel.mesh import ShardedRows
 from ..utils import verbosity
 from ..utils.profiling import span, spanned
@@ -312,6 +312,15 @@ def spectral_bounds(matrix, iters=20, seed=7):
     return lo, hi
 
 
+def _eager_step(mat_fn, ops, d, r, y, c1, c2):
+    """One degree step of the Chebyshev recurrence as eager ops on (m, n)
+    blocks, ``mat_fn(ops, d)`` the apply and y None before the first step:
+    (d', r', y')."""
+    y = d if y is None else y + d
+    r = r - mat_fn(ops, d).to(d.dtype)
+    return c1 * d + c2 * r, r, y
+
+
 class Chebyshev:
     """Polynomial (Chebyshev) approximation to A^-1 on [lo, hi] applied by
     a short SpMM recurrence: every application is ``degree`` SpMMs on the
@@ -381,15 +390,27 @@ class Chebyshev:
 
     def _recurrence(self, stream_bf16):
         """``device_rows_operands`` of any block shape outside a span, its
-        iterates in bfloat16 or not."""
+        iterates in bfloat16 or not.  Where the device matrix has a step
+        kernel (``ops/spmm.py::rows_step_operands``: an ``EllMatrix`` left
+        whole, iterates not in bfloat16) and it takes the block (real f32
+        or f64), each degree step is one launch, with the eager step's
+        result bit for bit; every other matrix and block takes the eager
+        step (``_eager_step``)."""
         dev = self.device_matrix()
         mat_fn, ops = rows_matmat_operands(dev)
+        step_fn = rows_step_operands(dev, stream_bf16)
         multi = getattr(dev, '_multi_device', None)
         sharded_apply = multi is not None and multi()
         theta = 0.5 * (self.hi + self.lo)
         delta = 0.5 * (self.hi - self.lo)
         sigma1 = theta / delta
-        degree = self.degree
+        # each step's (c1, c2) of d' = c1 d + c2 r'
+        coefficients = []
+        rho = 1.0 / sigma1
+        for _ in range(self.degree):
+            rho_new = 1.0 / (2.0 * sigma1 - rho)
+            coefficients.append((rho * rho_new, 2.0 * rho_new / delta))
+            rho = rho_new
 
         def fn(ops, x):
             if isinstance(x, ShardedRows) and not sharded_apply:
@@ -399,18 +420,17 @@ class Chebyshev:
                 return ShardedRows.split(fn(ops, x.gather()), x.sharding)
             x_in = x
             x = x.contiguous()
+            if step_fn is not None:
+                y = step_fn(ops, x, theta, coefficients)
+                if y is not None:
+                    return y
             if stream_bf16:
                 x = x.to(torch.bfloat16)
-            rho = 1.0 / sigma1
             d = x / theta
             r = x
             y = None
-            for _ in range(degree):
-                y = d if y is None else y + d
-                r = r - mat_fn(ops, d).to(x.dtype)
-                rho_new = 1.0 / (2.0 * sigma1 - rho)
-                d = (rho * rho_new) * d + (2.0 * rho_new / delta) * r
-                rho = rho_new
+            for c1, c2 in coefficients:
+                d, r, y = _eager_step(mat_fn, ops, d, r, y, c1, c2)
             return y.to(x_in.dtype)
 
         return fn, ops

@@ -47,7 +47,7 @@ _GRAPH_LAYOUTS = (DiaMatrix, EllMatrix, BsrMatrix)
 # the launch counters of those layouts' kernels, which count Python
 # calls: a replay adds the launches its capture counted
 _LAUNCH_COUNTERS = (spmm_window.LAUNCHES, spmm.ELL_LAUNCHES,
-                    spmm_pallas.LAUNCHES)
+                    spmm.ELL_STEP_LAUNCHES, spmm_pallas.LAUNCHES)
 # _StepGraphs by what a capture depends on (``_graph_key``)
 _GRAPHS = {}
 

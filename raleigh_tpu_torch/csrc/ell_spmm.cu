@@ -74,8 +74,43 @@
 // row's idx and val, more registers), and six blocks an SM (spills).
 // Index arithmetic is 64-bit.  The kernels allocate nothing and do not
 // synchronise.  Each entry point returns cudaGetLastError() after its
-// launch; ell_spmm_occupancy reports either design's registers and
-// resident blocks an SM at a shape.
+// launch; ell_spmm_occupancy reports E1's registers and resident blocks an
+// SM at a shape.
+//
+// The Chebyshev step (ell_step_kernel, entries ell_step_<value>_<operand>).
+// Replaces no TPU kernel: one degree step of the recurrence of
+// algebra/sparse.py::Chebyshev, which the JAX package leaves to XLA's
+// fusion and eager PyTorch runs as an (n, m) copy, E1 and five passes over
+// the block.  With the iterates d, r, y held in the (n, m) layout E1
+// gathers from (row stride m), a launch computes for every row i and
+// column c
+//
+//     t = sum_k val[i, k] * d[idx[i, k], c]     (E1's row sum, E1's order)
+//     r' = r - t,  y' = d (first step) or y + d,  d' = c1 d + c2 r'
+//
+// each operation rounded once to the iterate's type and none contracted
+// into an FMA (__fsub_rn, __fadd_rn, __fmul_rn and their f64 twins), so
+// that it equals the eager step bit for bit: t is E1's result, and c1, c2
+// arrive as doubles and are rounded to the iterate's type as PyTorch
+// rounds a Python float against a tensor of that type.  r and y are
+// updated in place (only a row's own lanes touch them); d' goes to a
+// second buffer, since other blocks gather d during the launch.  The last
+// step writes y' alone and gathers nothing (r' and d' would be dropped).
+// Pairs: (f32, f32), (f32, f64), (f64, f64); no bf16 operand (bf16
+// iterates stream through E1's eager step).
+//
+// What bounds it: idx, val and the row pointer of A's nonzeros (63.1 MB at
+// the finite-element flagship's 7,819,533), d read once, r and y read, r',
+// y' and d' written: at n = 139,179 and an 8.9 MB block ((16, n) f32 or
+// (8, n) f64) that is 116.5 MB a step, 0.0348 ms at 3.35 TB/s, against
+// 133.6 MB of eager passes besides E1's own launch.  What the design does
+// about it: E1's walk, lane groups and persistent grid; the row's own d is
+// loaded as a 16-byte vector before its gathers are issued, and r and y
+// after its row sum, each with normal loads (not evict-first, so that the
+// four 8.9 MB iterates stay in L2 while idx and val stream through).  r and
+// y loaded before the gathers as well held 8 more registers across the
+// row sum (80 a thread, and a 16-byte spill for f64 lanes) and took 1.7% to
+// 3% longer on the H100 (PERF.md).
 
 #include <cstdint>
 
@@ -283,6 +318,116 @@ ell_rows_kernel(const int32_t* __restrict__ idx, const TV* __restrict__ val,
     }
 }
 
+// One rounding an operation, never contracted into an FMA.
+__device__ __forceinline__ float sub_rn(float a, float b) {
+    return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+    return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+    return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+    return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+    return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+    return __dmul_rn(a, b);
+}
+
+// V values of a row's own lanes (p 16-byte aligned for V > 1): a normal
+// load, since the launch writes the same lanes afterwards
+template <typename TX, int V>
+__device__ __forceinline__ typename Raw<TX, V>::type load_own(const TX* p) {
+    using R = typename Raw<TX, V>::type;
+    return *reinterpret_cast<const R*>(p);
+}
+
+template <typename TX, int V>
+__device__ __forceinline__ void store_own(TX* p, const TX (&v)[V]) {
+    if constexpr (V == 1) {
+        *p = v[0];
+    } else if constexpr (sizeof(TX) == 4) {
+        *reinterpret_cast<uint4*>(p) = make_uint4(
+            __float_as_uint(v[0]), __float_as_uint(v[1]),
+            __float_as_uint(v[2]), __float_as_uint(v[3]));
+    } else {
+        *reinterpret_cast<uint4*>(p) = make_uint4(
+            static_cast<unsigned int>(__double2loint(v[0])),
+            static_cast<unsigned int>(__double2hiint(v[0])),
+            static_cast<unsigned int>(__double2loint(v[1])),
+            static_cast<unsigned int>(__double2hiint(v[1])));
+    }
+}
+
+// One Chebyshev degree step (the source note): E1's walk and row sums over
+// the gathered d, the step's update as their epilogue.  d, d_next, r, y are
+// (n, m) with row stride w.ldx = m; r and y are updated in place.
+template <typename TV, typename TX, typename TA, int V>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+ell_step_kernel(const int32_t* __restrict__ idx, const TV* __restrict__ val,
+                const TX* __restrict__ d, TX* __restrict__ d_next,
+                TX* __restrict__ r, TX* __restrict__ y, TX c1, TX c2,
+                Walk w, bool first, bool last) {
+    using R = typename Raw<TX, V>::type;
+    const int lane_row = threadIdx.x >> w.g_log2;
+    const int64_t lane_col =
+        static_cast<int64_t>(threadIdx.x & ((1 << w.g_log2) - 1)) * V;
+    const int64_t items = (w.n + w.rows - 1) / w.rows * w.chunks;
+    for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+        const int64_t tile = item / w.chunks;
+        const int64_t chunk = item - tile * w.chunks;
+        const int64_t row = tile * w.rows + lane_row;
+        const int64_t col = ((chunk << w.g_log2) * V) + lane_col;
+        if (row >= w.n || col >= w.m) continue;
+        const int64_t at = row * w.ldx + col;
+        // the row's own d, in flight while the gathers are issued
+        const R d_raw = load_x<TX, V>(d + at);
+        TA acc[V];
+#pragma unroll
+        for (int c = 0; c < V; ++c) acc[c] = TA(0);
+        if (!last) {
+            if (w.vec_entries) {
+                if (w.k > 0) {
+                    row_sum<TV, TX, TA, V>(idx + row * w.k, val + row * w.k,
+                                           d + col, w.k, w.ldx, acc);
+                }
+            } else {
+                row_sum_scalar<TV, TX, TA, V>(idx + row * w.k,
+                                              val + row * w.k, d + col, w.k,
+                                              w.ldx, acc);
+            }
+        }
+        R y_raw{}, r_raw{};
+        if (!first) y_raw = load_own<TX, V>(y + at);
+        if (!last) r_raw = load_own<TX, V>(r + at);
+        TX dv[V];
+        widen<TX, TX, V>(d_raw, dv);
+        if (first) {
+            store_own<TX, V>(y + at, dv);
+        } else {
+            TX yv[V];
+            widen<TX, TX, V>(y_raw, yv);
+#pragma unroll
+            for (int c = 0; c < V; ++c) yv[c] = add_rn(yv[c], dv[c]);
+            store_own<TX, V>(y + at, yv);
+        }
+        if (last) continue;
+        TX rv[V];
+        widen<TX, TX, V>(r_raw, rv);
+#pragma unroll
+        for (int c = 0; c < V; ++c) {
+            rv[c] = sub_rn(rv[c], static_cast<TX>(acc[c]));
+            dv[c] = add_rn(mul_rn(c1, dv[c]), mul_rn(c2, rv[c]));
+        }
+        store_own<TX, V>(r + at, rv);
+        store_own<TX, V>(d_next + at, dv);
+    }
+}
+
 cudaError_t use_device(int device) {
     int current = -1;
     cudaError_t err = cudaGetDevice(&current);
@@ -394,6 +539,54 @@ int launch(const void* idx, const void* val, const void* x, void* y,
                                    ys_col, device, stream);
 }
 
+template <typename TV, typename TX, typename TA, int V>
+int launch_step_v(const void* idx, const void* val, const void* d,
+                  void* d_next, void* r, void* y, double c1, double c2,
+                  int64_t n, int64_t k, int64_t m, bool first, bool last,
+                  int device, void* stream) {
+    const Walk w = walk(idx, val, n, k, m, m, m, 1, V);
+    auto kernel = ell_step_kernel<TV, TX, TA, V>;
+    int per_sm = 0, sms = 0;
+    const cudaError_t err =
+        fit(reinterpret_cast<const void*>(kernel), device, &per_sm, &sms);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int64_t items = (n + w.rows - 1) / w.rows * w.chunks;
+    const int64_t most = static_cast<int64_t>(per_sm) * sms;
+    const int64_t blocks = items < most ? items : most;
+    // c1 and c2 rounded to the iterate's type as PyTorch rounds a Python
+    // float against a tensor of that type (a cast, to nearest)
+    kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(idx), static_cast<const TV*>(val),
+        static_cast<const TX*>(d), static_cast<TX*>(d_next),
+        static_cast<TX*>(r), static_cast<TX*>(y), static_cast<TX>(c1),
+        static_cast<TX>(c2), w, first, last);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// At 16 bytes a lane where m and all four iterates' bases allow, else one
+// value a lane.
+template <typename TV, typename TX, typename TA>
+int launch_step(const void* idx, const void* val, const void* d,
+                void* d_next, void* r, void* y, double c1, double c2,
+                int64_t n, int64_t k, int64_t m, int first, int last,
+                int device, void* stream) {
+    cudaError_t err = use_device(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (n <= 0 || m <= 0) return static_cast<int>(cudaSuccess);
+    constexpr int kVec = 16 / static_cast<int>(sizeof(TX));
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(d_next)
+        | reinterpret_cast<uintptr_t>(r) | reinterpret_cast<uintptr_t>(y);
+    if (wide_operand<TX>(d, m, m) && bases % 16 == 0) {
+        return launch_step_v<TV, TX, TA, kVec>(
+            idx, val, d, d_next, r, y, c1, c2, n, k, m, first != 0,
+            last != 0, device, stream);
+    }
+    return launch_step_v<TV, TX, TA, 1>(idx, val, d, d_next, r, y, c1, c2,
+                                        n, k, m, first != 0, last != 0,
+                                        device, stream);
+}
+
 // out: registers a thread, resident blocks an SM, threads a block, local
 // (spill) bytes a thread, for an operand of m columns that are whole
 // 16-byte vectors when m allows.
@@ -453,6 +646,39 @@ extern "C" int ell_spmm_f64_f64(const void* idx, const void* val,
                                 void* stream) {
     return launch<double, double, double>(
         idx, val, x, y, n, k, m, ldx, ys_row, ys_col, device, stream);
+}
+
+// entry points: ell_step_<value type>_<operand type>, one Chebyshev degree
+// step on (n, m) iterates d (read), d_next (written), r and y (updated);
+// first and last as 0 or 1
+extern "C" int ell_step_f32_f32(const void* idx, const void* val,
+                                const void* d, void* d_next, void* r,
+                                void* y, double c1, double c2, int64_t n,
+                                int64_t k, int64_t m, int first, int last,
+                                int device, void* stream) {
+    return launch_step<float, float, float>(
+        idx, val, d, d_next, r, y, c1, c2, n, k, m, first, last, device,
+        stream);
+}
+
+extern "C" int ell_step_f32_f64(const void* idx, const void* val,
+                                const void* d, void* d_next, void* r,
+                                void* y, double c1, double c2, int64_t n,
+                                int64_t k, int64_t m, int first, int last,
+                                int device, void* stream) {
+    return launch_step<float, double, double>(
+        idx, val, d, d_next, r, y, c1, c2, n, k, m, first, last, device,
+        stream);
+}
+
+extern "C" int ell_step_f64_f64(const void* idx, const void* val,
+                                const void* d, void* d_next, void* r,
+                                void* y, double c1, double c2, int64_t n,
+                                int64_t k, int64_t m, int first, int last,
+                                int device, void* stream) {
+    return launch_step<double, double, double>(
+        idx, val, d, d_next, r, y, c1, c2, n, k, m, first, last, device,
+        stream);
 }
 
 // pair: 0 f32_f32, 1 f32_bf16, 2 f32_f64, 3 f64_f64.  Fills out[4] as

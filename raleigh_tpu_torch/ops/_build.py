@@ -67,6 +67,10 @@ _DRAWN_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
 # device; stream
 _ELL_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6
              + [ctypes.c_int, ctypes.c_void_p])
+# idx, val, d, d_next, r, y; c1, c2; n, K, m; first, last, device; stream
+_ELL_STEP_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_double] * 2
+                  + [ctypes.c_int64] * 3 + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p])
 # instantiation, m, device, host int64[4]
 _ELL_OCCUPANCY_ARGS = [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
                        ctypes.c_void_p]
@@ -100,7 +104,9 @@ _SIGNATURES = {
                  for pair in _BSR_PAIRS},
     'ell_spmm': dict({'ell_spmm_%s_%s' % pair: _ELL_ARGS
                       for pair in _ELL_PAIRS},
-                     ell_spmm_occupancy=_ELL_OCCUPANCY_ARGS),
+                     ell_spmm_occupancy=_ELL_OCCUPANCY_ARGS,
+                     **{'ell_step_%s_%s' % pair: _ELL_STEP_ARGS
+                        for pair in _ELL_PAIRS if pair[1] != 'bf16'}),
     'stream_scale': {'stream_scale_f32': _STREAM_ARGS},
     'stream_probes': {
         # x, y, a, count, chunk, device, stream

@@ -369,9 +369,17 @@ ELL_LAUNCHES = {key: 0 for key in _ELL_PAIRS + [
     pair + ('complex',) for pair in _ELL_PAIRS if pair[1] != 'bf16']}
 
 
+# (value, operand) dtype pairs of the Chebyshev step kernel
+# (``_ell_step``): the ELL kernel's pairs but the bf16 operand
+_ELL_STEP_PAIRS = [('f32', 'f32'), ('f32', 'f64'), ('f64', 'f64')]
+# Chebyshev step kernel launches per (value dtype, operand dtype)
+ELL_STEP_LAUNCHES = {key: 0 for key in _ELL_STEP_PAIRS}
+
+
 def reset_launches():
-    for key in ELL_LAUNCHES:
-        ELL_LAUNCHES[key] = 0
+    for counts in (ELL_LAUNCHES, ELL_STEP_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def _ell_matmat_plain(idx, val, xt):
@@ -492,6 +500,117 @@ def _ell_matmat_rows(idx, val, x):
     return _ell_matmat(idx, val, x.T.contiguous(), rows=True)
 
 
+def ell_step_pair(val, d):
+    """True when the Chebyshev step kernel has an instantiation for
+    values ``val`` and iterates ``d``: real f32 or f64 iterates, f32
+    values or f64 values with f64 iterates."""
+    return (_ELL_NAMES.get(val.dtype), _ELL_NAMES.get(d.dtype)) \
+        in _ELL_STEP_PAIRS
+
+
+def _ell_step_plain(idx, val, d, d_next, r, y, c1, c2, first, last):
+    """``_ell_step``'s plain version: the recurrence's eager step, the same
+    operations in the same order on (n, m) iterates, any device; r and y
+    updated in place, d_next written (on the last step y alone)."""
+    if first:
+        y.copy_(d)
+    else:
+        y.add_(d)
+    if last:
+        return
+    r.sub_(_ell_matmat_plain(idx, val, d).to(d.dtype))
+    torch.mul(d, c1, out=d_next).add_(c2 * r)
+
+
+def _ell_step_check(idx, val, d, d_next, r, y):
+    """Raise on what the Chebyshev step kernel does not take."""
+    ts = (idx, val, d, d_next, r, y)
+    devices = {t.device for t in ts}
+    if len(devices) != 1:
+        raise ValueError('idx, val and the iterates must share a device '
+                         '(got %s)' % sorted(map(str, devices)))
+    if not ell_step_pair(val, d):
+        raise TypeError('the Chebyshev step kernel takes f32 values with '
+                        'f32 or f64 iterates, or f64 values with f64 '
+                        'iterates, not %s values with %s iterates'
+                        % (val.dtype, d.dtype))
+    if idx.dtype != torch.int32:
+        raise TypeError('the Chebyshev step kernel takes int32 idx (got %s)'
+                        % idx.dtype)
+    if any(t.dtype != d.dtype for t in (d_next, r, y)):
+        raise TypeError('the iterates must share a dtype (got %s)'
+                        % [str(t.dtype) for t in (d, d_next, r, y)])
+    if (idx.dim() != 2 or val.shape != idx.shape or d.dim() != 2
+            or d.shape[0] != idx.shape[0]
+            or any(t.shape != d.shape for t in (d_next, r, y))):
+        raise ValueError('shape mismatch: idx %s, val %s, iterates %s'
+                         % (tuple(idx.shape), tuple(val.shape),
+                            [tuple(t.shape) for t in (d, d_next, r, y)]))
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError('the Chebyshev step kernel takes contiguous '
+                         'tensors')
+    if len({t.data_ptr() for t in (d, d_next, r, y)}) != 4:
+        raise ValueError('d, d_next, r and y must be four buffers')
+    if d.device.type != 'cuda':
+        raise ValueError('no Chebyshev step for device %s' % d.device)
+
+
+@spanned('raleigh.spmm')
+def _ell_step(idx, val, d, d_next, r, y, c1, c2, first, last):
+    """One degree step of the Chebyshev recurrence on the ELL matrix
+    (``idx``, ``val``) with (n, m) iterates, A's own rows: r -= A d, y = d
+    on the ``first`` step and y += d after it, d_next = c1 d + c2 r; on
+    the ``last`` step y alone.  r and y are updated in place and d_next
+    written; d is read (and gathered), so d_next must be another buffer.
+    Each operation rounds to the iterates' dtype as the eager step's do,
+    c1 and c2 as Python floats against it, so the result is the eager
+    step's bit for bit.  CUDA tensors go through one launch of the step
+    kernel (``csrc/ell_spmm.cu``), counted in ``ELL_STEP_LAUNCHES``, on
+    buffers the caller has checked (``_ell_step_check``: ``_ell_steps``
+    checks once an apply, since its steps only swap d and d_next); CPU
+    tensors through ``_ell_step_plain``.  One ``raleigh.spmm`` span a
+    step."""
+    if d.device.type == 'cpu':
+        return _ell_step_plain(idx, val, d, d_next, r, y, c1, c2, first,
+                               last)
+    key = (_ELL_NAMES[val.dtype], _ELL_NAMES[d.dtype])
+    n, k = idx.shape
+    index = d.get_device()
+    entry = 'ell_step_%s_%s' % key
+    err = getattr(_build.library(), entry)(
+        idx.data_ptr(), val.data_ptr(), d.data_ptr(), d_next.data_ptr(),
+        r.data_ptr(), y.data_ptr(), c1, c2, n, k, d.shape[1], int(first),
+        int(last), index, _build.current_stream(index))
+    if err != 0:
+        raise RuntimeError('Chebyshev step kernel launch failed (%s): CUDA '
+                           'error %d' % (entry, err))
+    ELL_STEP_LAUNCHES[key] += 1
+
+
+def _ell_steps(ops, x, theta, coefficients):
+    """The Chebyshev recurrence on the ELL matrix ``ops`` = (idx, val) for
+    an (m, n) block ``x``, a step a launch (``_ell_step``), or None when the
+    step kernel has no instantiation for ``val`` and x's dtype (or there
+    is no step): r is a copy of x's transpose, d = r / theta, and step i
+    takes ``coefficients[i]`` = (c1, c2); d and a second buffer swap after
+    every step, and y is transposed back once.  Nothing is read back to
+    the host, so a CUDA graph can capture an apply."""
+    idx, val = ops
+    if not coefficients or not ell_step_pair(val, x):
+        return None
+    r = x.T.clone(memory_format=torch.contiguous_format)
+    d = r / theta
+    d_next = torch.empty_like(d)
+    y = torch.empty_like(d)
+    if d.device.type != 'cpu':
+        _ell_step_check(idx, val, d, d_next, r, y)
+    last = len(coefficients) - 1
+    for i, (c1, c2) in enumerate(coefficients):
+        _ell_step(idx, val, d, d_next, r, y, c1, c2, i == 0, i == last)
+        d, d_next = d_next, d
+    return y.T.contiguous()
+
+
 def _ell_sharded_apply(idx, val, x):
     """The ELL apply with ``idx`` and ``val`` split by rows: every shard
     multiplies its row block against the whole operand, gathered onto its
@@ -607,6 +726,20 @@ def rows_matmat_operands(dm):
             return bsr_matmat_rows(ops[0], ops[1], ops[2], x.contiguous(), n)
         return fn, (dm.blocks, dm.block_indptr_t, dm.block_cols)
     raise TypeError('unsupported device matrix %r' % type(dm).__name__)
+
+
+def rows_step_operands(dm, stream_bf16):
+    """``fn(operands, x, theta, coefficients)`` running the whole Chebyshev
+    recurrence on the device matrix ``dm`` with each degree step one
+    launch, on ``rows_matmat_operands(dm)``'s operands (``_ell_steps``:
+    None for a block the step kernel does not take); or None when dm has
+    no step kernel: an ``EllMatrix`` left whole has one, for iterates not
+    streamed in bfloat16; DIA, BSR and a matrix split over a mesh take the
+    recurrence's eager step."""
+    if (not isinstance(dm, EllMatrix) or dm._multi_device()
+            or stream_bf16):
+        return None
+    return _ell_steps
 
 
 # The constants of the ELL/BSR choice below are the JAX package's, kept as
