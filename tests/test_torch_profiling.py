@@ -33,15 +33,21 @@ EXPECTED = {
 }
 
 
-def _solve(engine):
-    """The three smallest eigenpairs of a 1-D Laplacian pencil with a
-    tridiagonal mass matrix, on the CPU."""
+def _pencil():
+    """A 1-D Laplacian pencil with a tridiagonal mass matrix, and the
+    bounds of its preconditioner: the set-up, which runs before a traced
+    solve (``spectral_bounds`` is a span of its own, outside the solve's)."""
     n = 300
     ones = np.ones(n - 1)
     a = scs.diags([-ones, 2 * np.ones(n), -ones], [-1, 0, 1], format='csr')
     b = scs.diags([0.1 * ones, np.ones(n), 0.1 * ones], [-1, 0, 1],
                   format='csr')
-    lo, hi = spectral_bounds(a)
+    return a, b, spectral_bounds(a)
+
+
+def _solve(engine, pencil):
+    """The three smallest eigenpairs of ``pencil`` on the CPU."""
+    a, b, (lo, hi) = pencil
     t = Chebyshev(a, lo, hi, degree=8, device='cpu')
     np.random.seed(1)       # the core Solver's start block
     lmd, _, status = partial_hevp(a, B=b, T=t, which=3, engine=engine,
@@ -59,19 +65,21 @@ def test_a_span_off_is_one_null_context_and_records_nothing(monkeypatch):
         opened.append(name)
         return contextlib.nullcontext()
     monkeypatch.setattr(profiling, '_RecordFunctionFast', recording)
-    _solve('core')
+    pencil = _pencil()
+    _solve('core', pencil)
     assert opened == []
     # the same solve under a profiler opens its spans through the guard
     with profile(activities=[ProfilerActivity.CPU]):
-        _solve('core')
+        _solve('core', pencil)
     assert opened[0] == 'raleigh.partial_hevp'
     assert 'raleigh.core_solver' in opened
 
 
 @pytest.mark.parametrize('engine', ['device', 'core'])
 def test_a_solve_gives_nested_spans(engine):
+    pencil = _pencil()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        lmd = _solve(engine)
+        lmd = _solve(engine, pencil)
     found = [(e.name, e.time_range.start, e.time_range.end)
              for e in prof.events() if e.name.startswith('raleigh.')]
     names = {n for n, _, _ in found}
@@ -83,13 +91,14 @@ def test_a_solve_gives_nested_spans(engine):
     start, end = outer[0]
     assert all(start <= s and e <= end for _, s, e in found)
     # the spans change nothing in the answer
-    assert np.array_equal(lmd, _solve(engine))
+    assert np.array_equal(lmd, _solve(engine, pencil))
 
 
 def test_device_trace_holds_the_spans(tmp_path):
     logdir = str(tmp_path / 'trace')
+    pencil = _pencil()
     with profiling.device_trace(logdir):
-        _solve('device')
+        _solve('device', pencil)
     with open(os.path.join(logdir, 'trace.json')) as f:
         names = {e.get('name', '') for e in json.load(f)['traceEvents']}
     assert EXPECTED['device'] <= names
