@@ -59,6 +59,14 @@ carries on, and no wrapper gives way to its plain version on the card.
      to the recurrence's eager step (the ELL kernel and its passes) and to
      the plain step bit for bit; a middle step timed in turns with the
      eager step and the plain step, beside its byte bound.
+   * The Gram kernel (``csrc/gram.cu``, ``phase_gram``) at the device
+     LOBPCG's Grams, (16, 16), a self-Gram and (48, 48), at n = 1,280,000
+     and 139,179: within the summation bound of its rounding chain of an
+     f64 product (``gram_chain``), bit-equal across calls, timed in CUDA
+     graphs in turns with the plain version and torch.matmul, with its
+     registers; kernel and torch.matmul in turns at shorter n, which place
+     the dispatch's crossover.  The Laplacian and FE-ELL solves below run
+     every non-empty Gram in it.
    * The f64 instantiations of the DIA kernel (f64 operand, f32 or f64
      values) on lap3d(100,100,128), equal to the plain version bit for
      bit, and of the BSR kernel (f64 operand, f32 or f64 tiles) on the FE
@@ -283,7 +291,7 @@ ITERATIONS = {(100, 100, 128): 32, (50, 50, 50): 16, 'FE-BSR': 16,
 # sources whose kernels were redesigned on the card: phase 1 prints each
 # kernel's registers, static shared memory and spills
 REDESIGNED = ('dia_spmm', 'bsr_spmm', 'stream_scale', 'stream_probes',
-              'dia_spmm_slide', 'dia_spmm_tiles', 'ell_spmm')
+              'dia_spmm_slide', 'dia_spmm_tiles', 'ell_spmm', 'gram')
 # the sharded main path: shards of the one card, and its field
 SHARDS = 8
 SHARDED_AGREE = 1e-5
@@ -1068,6 +1076,155 @@ def phase_ell_step(torch, np, ell, EllMatrix, k_rel):
     return rows
 
 
+GRAM = ('raleigh_tpu_torch/csrc/gram.cu',
+        "none: the device LOBPCG's Grams (an XLA dot; torch.matmul before)")
+# (row, ma = mb, self-Gram) of the Gram kernel on the LOBPCG cells' path
+GRAM_CASES = (('gram_f32_16x16', 16, False),
+              ('gram_f32_16x16_self', 16, True),
+              ('gram_f32_48x48', 48, False))
+# the LOBPCG cells' n (the Laplacian's first: its times go in the rows),
+# and the shorter contractions that place the crossover with torch.matmul
+GRAM_NS = (1280000, 139179)
+GRAM_SHORT_NS = (65536, 32768, 16384, 8192, 6144, 4096, 3072, 2048)
+
+
+def graph_ms(torch, fn, reps=20):
+    """Mean device milliseconds of ``fn`` over ``reps`` calls captured in
+    one CUDA graph, as the device LOBPCG's step runs them: the best of
+    five replays, after a warm-up on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        t = start.elapsed_time(end) / reps
+        best = t if best is None else min(best, t)
+    return best
+
+
+def graph_turns(torch, fns):
+    """``turns`` with each callable timed in a CUDA graph (``graph_ms``)."""
+    names = list(fns)
+    best = {}
+    for k in names + names[::-1]:
+        t = graph_ms(torch, fns[k])
+        best[k] = min(best.get(k, t), t)
+    return best
+
+
+def gram_chain(n, slots):
+    """The longest chain of f32 roundings behind one entry of the Gram
+    kernel's result at contraction length n, the launch holding ``slots``
+    partial tiles at most: a lane's FMAs over its share of a block's
+    chunk, the 4 shuffles of a tile's 16 lanes, a slice of the sum's 32
+    and the 31 adds of the slices."""
+    chunk = -(-(-(-n // slots)) // 4) * 4
+    return -(-chunk // 16) + 4 + -(-(-(-n // chunk)) // 32) + 31
+
+
+def phase_gram(torch, np):
+    """The Gram kernel (``csrc/gram.cu``) at the device LOBPCG's Grams,
+    (16, 16), a self-Gram (16, 16) and (48, 48), at the two LOBPCG cells'
+    n: against an f64 product within the summation bound of its rounding
+    chain (``gram_chain``, entrywise d 2^-24 sum_k |a_k b_k|), bit-equal
+    across two calls, timed in CUDA graphs in turns with the plain version
+    and torch.matmul (the same call here), beside its byte bound, with its
+    registers and resident blocks; then kernel and torch.matmul in turns
+    at shorter n, which place the dispatch's crossover
+    (``ops/gram.py::GRAM_MIN_N``).  Returns the kernel's rows, at the
+    Laplacian's n."""
+    from raleigh_tpu_torch.ops import gram
+    rows = {}
+    gen = torch.Generator('cuda').manual_seed(27)
+
+    def blocks(ma, own, n):
+        a = torch.randn((ma, n), generator=gen, device='cuda')
+        return a, (a if own else torch.randn((ma, n), generator=gen,
+                                             device='cuda'))
+
+    for name, ma, own in GRAM_CASES:
+        key = ('f32', ma, ma, own)
+        occ = gram.occupancy(ma, ma, own)
+        print('%s: %d registers, %d blocks an SM, %d partial tiles, %d '
+              'bytes spilled a thread' % (name, occ['registers'],
+                                          occ['blocks_per_sm'],
+                                          occ['slots'], occ['local_bytes']))
+        for n in GRAM_NS:
+            a, b = blocks(ma, own, n)
+            before = gram.GRAM_LAUNCHES[key]
+            got = gram.gram_kernel(a, b)
+            again = gram.gram_kernel(a, b)
+            torch.cuda.synchronize()
+            if gram.GRAM_LAUNCHES[key] - before != 2:
+                fail('%s n=%d: %d launches counted for two Grams'
+                     % (name, n, gram.GRAM_LAUNCHES[key] - before))
+            want = a.double() @ b.double().T
+            terms = a.double().abs() @ b.double().abs().T
+            excess = ((got.double() - want).abs()
+                      / (gram_chain(n, occ['slots']) * 2.0 ** -24
+                         * terms)).max().item()
+            if excess > 1:
+                fail('%s n=%d: %.3g times the summation bound'
+                     % (name, n, excess))
+            if not torch.equal(got, again):
+                fail('%s n=%d: two calls differ' % (name, n))
+            t = graph_turns(torch, {
+                'plain': lambda: gram.gram_plain(a, b),
+                'kernel': lambda: gram.gram_kernel(a, b),
+                'library': lambda: torch.matmul(a, b.T)})
+            nbytes = ((ma if own else 2 * ma) * n + ma * ma) * 4
+            bound_ms, bound_by = bound(nbytes, 2 * ma * ma * n)
+            print('%s n=%d: within %.3g of the summation bound, bit-equal '
+                  'across calls; kernel %.4f ms (%.1f%% of the bound), '
+                  'plain %.4f ms, torch.matmul %.4f ms (%.2fx), bound %.4f '
+                  'ms (%s, %.1f MB), in CUDA graphs, in turns'
+                  % (name, n, excess, t['kernel'],
+                     100 * bound_ms / t['kernel'], t['plain'], t['library'],
+                     t['library'] / t['kernel'], bound_ms, bound_by,
+                     nbytes / 1e6))
+            if n == GRAM_NS[0]:
+                rows[name] = dict(
+                    name=name, route='cuda', source=GRAM[0],
+                    replaces=GRAM[1], launches=0, max_abs_err=excess,
+                    ms=t['kernel'], plain_ms=t['plain'], bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=t['library'], m=ma,
+                    bytes=nbytes)
+            del a, b, want, terms
+        torch.cuda.empty_cache()
+    wins = {}
+    for n in GRAM_SHORT_NS:
+        for name, ma, own in GRAM_CASES:
+            a, b = blocks(ma, own, n)
+            t = graph_turns(torch, {
+                'kernel': lambda: gram.gram_kernel(a, b),
+                'library': lambda: torch.matmul(a, b.T)})
+            wins[n, name] = t['kernel'] < t['library']
+            print('%s n=%d: kernel %.4f ms, torch.matmul %.4f ms (%.2fx)'
+                  % (name, n, t['kernel'], t['library'],
+                     t['library'] / t['kernel']))
+    ns = sorted(GRAM_SHORT_NS)
+    won = [n for n in ns if all(wins[k] for k in wins if k[0] >= n)]
+    print('Gram crossover: the kernel wins every case at every n measured '
+          'from %s on; GRAM_MIN_N = %d'
+          % (won[0] if won else 'none', gram.GRAM_MIN_N))
+    return rows
+
+
 def ell_excess(torch, spmm, idx, val, xt, got, want):
     """Entrywise |got - want| over the bound for two (n, m) ELL applies
     that each sum a row's K terms in the promoted type of val and xt, in
@@ -1710,6 +1867,21 @@ def check_one_launch_per_device(sw, st, what, applies):
              % (what, stray))
 
 
+def check_grams(name, cases):
+    """The Gram launches of the solve just run, by row of ``cases``
+    (``GRAM_CASES``' entries), each > 0, with no non-empty device Gram left
+    to torch.matmul."""
+    from raleigh_tpu_torch.ops import gram
+    if gram.MATMUL_GRAMS['device']:
+        fail('%s left %d Grams to torch.matmul'
+             % (name, gram.MATMUL_GRAMS['device']))
+    launches = {row: gram.GRAM_LAUNCHES[('f32', ma, ma, own)]
+                for row, ma, own in cases}
+    if min(launches.values()) <= 0:
+        fail('%s skipped the Gram kernel: %s' % (name, launches))
+    return launches
+
+
 def check_iterations(name, field, counts):
     """Fails unless every solve of ``field`` took the iterations of the
     records (``ITERATIONS``)."""
@@ -1719,7 +1891,8 @@ def check_iterations(name, field, counts):
 
 
 def reset_counters(mods):
-    for mod in mods:
+    from raleigh_tpu_torch.ops import gram
+    for mod in mods + (gram,):
         mod.reset_launches()
 
 
@@ -1763,6 +1936,10 @@ def phase_lap3d(torch, np, mods, rows, card, profile=False):
                 fail('main path skipped a kernel: launches %s' % launches)
             rows['dia_spmm_rows_f32']['launches'] = launches['float32']
             rows['dia_spmm_rows_bf16']['launches'] = launches['bfloat16']
+            grams = check_grams(name, GRAM_CASES)
+            for row, count in grams.items():
+                rows[row]['launches'] = count
+            launches.update(grams)
         err = check_solution(np, name, lmd, x, st, exact, limit)
         lmd, x, st, its2, warm, lob, _ = hevp_call(
             torch, partial_hevp, a, T=ch, which=which, tol=tol)
@@ -1970,6 +2147,7 @@ def phase_fe(torch, np, mods, rows, card, pencils, profile=False):
         if set(steps) != {('f32', 'f32')}:
             fail('%s: Chebyshev step launches %s, not the f32 kernel alone'
                  % (name, steps))
+        check_grams(name, [c for c in GRAM_CASES if not c[2]])
         return out, launches[('f32', 'f32')], steps[('f32', 'f32')]
 
     (lmd, x, st, its, cold, _, _), launches, _ = ell_solve()
@@ -3301,6 +3479,7 @@ def main():
     rows.update(phase_ell(torch, np, ell, EllMatrix, pencils[0][0],
                           pencils[1][0]))
     rows.update(phase_ell_step(torch, np, ell, EllMatrix, pencils[0][0]))
+    rows.update(phase_gram(torch, np))
     rows.update(phase_wide(torch, np, lap3d, DiaMatrix, BsrMatrix, sw, sp,
                            pencils[1][0]))
     rows.update(phase_mesh_wide(torch, np, lap3d, DiaMatrix, sw))

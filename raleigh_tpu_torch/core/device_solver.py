@@ -33,7 +33,7 @@ import weakref
 import numpy as np
 import torch
 
-from ..ops import spmm, spmm_pallas, spmm_window
+from ..ops import gram, spmm, spmm_pallas, spmm_window
 from ..ops.spmm import (BsrMatrix, DiaMatrix, EllMatrix, storage_device,
                         torch_dtype)
 from ..parallel.mesh import ShardedRows, Sharding
@@ -44,20 +44,23 @@ GRAPH_COUNTS = {'captures': 0, 'replays': 0, 'eager_pieces': 0}
 # the device layouts whose applies (and Chebyshev recurrences) a step
 # captures: every launch they make is a kernel on torch's current stream
 _GRAPH_LAYOUTS = (DiaMatrix, EllMatrix, BsrMatrix)
-# the launch counters of those layouts' kernels, which count Python
+# the launch counters of those layouts' kernels and of the Grams (the
+# Gram kernel's, and the Grams left to torch.matmul), which count Python
 # calls: a replay adds the launches its capture counted
 _LAUNCH_COUNTERS = (spmm_window.LAUNCHES, spmm.ELL_LAUNCHES,
-                    spmm.ELL_STEP_LAUNCHES, spmm_pallas.LAUNCHES)
+                    spmm.ELL_STEP_LAUNCHES, spmm_pallas.LAUNCHES,
+                    gram.GRAM_LAUNCHES, gram.MATMUL_GRAMS)
 # _StepGraphs by what a capture depends on (``_graph_key``)
 _GRAPHS = {}
 
 
 def _gram(a, b):
     """Xᴴ Y for row-stored blocks: contraction over the vector
-    dimension."""
+    dimension; plain tensors through ``ops/gram.py::gram`` (the Gram
+    kernel where it takes them, else torch.matmul)."""
     if isinstance(a, ShardedRows):
         return a.gram(b)
-    return torch.matmul(a.conj(), b.transpose(0, 1))
+    return gram.gram(a, b)
 
 
 def _mixed(c, block, out=None):

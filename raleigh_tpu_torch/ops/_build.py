@@ -74,6 +74,12 @@ _ELL_STEP_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_double] * 2
 # instantiation, m, device, host int64[4]
 _ELL_OCCUPANCY_ARGS = [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
                        ctypes.c_void_p]
+# a, b, partial tiles, g; ma, mb, n; own (B is A), device; stream
+_GRAM_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
+              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+# ma, mb, own, device, host int64[4]
+_GRAM_OCCUPANCY_ARGS = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p]
 _ELL_PAIRS = (('f32', 'f32'), ('f32', 'bf16'), ('f32', 'f64'),
               ('f64', 'f64'))
 # (tile, operand) types of the BSR kernel's entries
@@ -107,6 +113,8 @@ _SIGNATURES = {
                      ell_spmm_occupancy=_ELL_OCCUPANCY_ARGS,
                      **{'ell_step_%s_%s' % pair: _ELL_STEP_ARGS
                         for pair in _ELL_PAIRS if pair[1] != 'bf16'}),
+    'gram': {'gram_f32': _GRAM_ARGS,
+             'gram_f32_occupancy': _GRAM_OCCUPANCY_ARGS},
     'stream_scale': {'stream_scale_f32': _STREAM_ARGS},
     'stream_probes': {
         # x, y, a, count, chunk, device, stream
