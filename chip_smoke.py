@@ -1891,9 +1891,11 @@ def check_iterations(name, field, counts):
 
 
 def reset_counters(mods):
+    from raleigh_tpu_torch.core import device_solver
     from raleigh_tpu_torch.ops import gram
     for mod in mods + (gram,):
         mod.reset_launches()
+    device_solver.reset_counts()
 
 
 def ell_launches(ell):

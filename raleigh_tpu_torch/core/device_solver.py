@@ -41,6 +41,9 @@ from ..utils.profiling import span, spanned
 
 # pieces of the step captured as CUDA graphs, replayed, and run eagerly
 GRAPH_COUNTS = {'captures': 0, 'replays': 0, 'eager_pieces': 0}
+# ``_eigh`` calls by (dtype, width): the whitenings at the block's width m
+# in the block's dtype, the Rayleigh-Ritz problem at 3m in float64
+EIGH_COUNTS = {}
 # the device layouts whose applies (and Chebyshev recurrences) a step
 # captures: every launch they make is a kernel on torch's current stream
 _GRAPH_LAYOUTS = (DiaMatrix, EllMatrix, BsrMatrix)
@@ -110,10 +113,19 @@ def _zeros_like(block):
     return torch.zeros_like(block)
 
 
+def reset_counts():
+    """Set ``GRAPH_COUNTS`` to 0 and empty ``EIGH_COUNTS``."""
+    for key in GRAPH_COUNTS:
+        GRAPH_COUNTS[key] = 0
+    EIGH_COUNTS.clear()
+
+
 def _eigh(a, out=None):
     """``torch.linalg.eigh`` (into ``out`` where given), a
-    ``raleigh.lobpcg.eigh`` span: on a card its info check waits for the
-    card."""
+    ``raleigh.lobpcg.eigh`` span, counted in ``EIGH_COUNTS``: on a card
+    its info check waits for the card."""
+    key = (gram.dtype_name(a.dtype), a.shape[-1])
+    EIGH_COUNTS[key] = EIGH_COUNTS.get(key, 0) + 1
     with span('raleigh.lobpcg.eigh'):
         return torch.linalg.eigh(a, out=out)
 
@@ -506,9 +518,10 @@ class _StepGraphs:
                 graph, out = _capture(self.pool, piece, *args, **kwargs)
             counted = []
             for counts, was in zip(_LAUNCH_COUNTERS, before):
-                counted.append({k: counts[k] - was[k] for k in counts
-                                if counts[k] != was[k]})
-                counts.update(was)
+                counted.append({k: counts[k] - was.get(k, 0) for k in counts
+                                if counts[k] != was.get(k, 0)})
+                for k in counts:    # a key the capture made stays, at 0
+                    counts[k] = was.get(k, 0)
             GRAPH_COUNTS['captures'] += 1
             self.graphs.append((graph, counted))
             self._replay(graph, counted)
@@ -587,7 +600,8 @@ def lobpcg(op, k, n=None, opB=None, precond=None, block_size=None,
     runs as four CUDA graph replays with the three ``eigh`` calls between
     them (``_StepGraphs``); the graphs are kept for later calls with the
     same operators, shape, dtype and TF32 mode.  ``GRAPH_COUNTS`` counts
-    the pieces captured, replayed and run eagerly.
+    the pieces captured, replayed and run eagerly, ``EIGH_COUNTS`` the
+    ``eigh`` calls by dtype and width (``reset_counts`` resets both).
 
     Under a profiler the call is a ``raleigh.lobpcg`` span, each
     iteration a ``raleigh.lobpcg.step`` span holding a span for each of

@@ -33,8 +33,12 @@ GRAM_MIN_N = 16384
 # is launched
 GRAM_LAUNCHES = {('f32', ma, mb, own): 0 for ma, mb in WIDTHS
                  for own in (False, True)}
-# Grams of two non-empty CUDA blocks that ``gram`` sent to torch.matmul
+# Grams of two non-empty CUDA blocks that ``gram`` sent to torch.matmul:
+# their total under 'device', and by (dtype, ma, mb) beside it
 MATMUL_GRAMS = {'device': 0}
+# the short names of the dtypes in the counters' keys
+_DTYPES = {torch.float32: 'f32', torch.float64: 'f64',
+           torch.complex64: 'c64', torch.complex128: 'c128'}
 # partial tiles a launch may leave, by (ma, mb, self-Gram, device index)
 _SLOTS = {}
 
@@ -43,6 +47,11 @@ def reset_launches():
     for counts in (GRAM_LAUNCHES, MATMUL_GRAMS):
         for key in counts:
             counts[key] = 0
+
+
+def dtype_name(dtype):
+    """The short name of ``dtype`` in the counters' keys ('f32', ...)."""
+    return _DTYPES.get(dtype, str(dtype).replace('torch.', ''))
 
 
 def takes_kernel(a, b):
@@ -62,11 +71,14 @@ def gram(a, b):
     """The (ma, mb) Gram ``a.conj() @ b.T`` of row blocks ``a`` (ma, n)
     and ``b`` (mb, n): through the kernel where ``takes_kernel`` says so
     (a self-Gram when ``a is b``), else through ``torch.matmul``, counted
-    in ``MATMUL_GRAMS`` when both blocks are non-empty CUDA tensors."""
+    in ``MATMUL_GRAMS`` when both blocks are non-empty CUDA tensors, in
+    all and by (dtype, ma, mb)."""
     if takes_kernel(a, b):
         return gram_kernel(a, b)
     if a.device.type == 'cuda' and a.numel() and b.numel():
         MATMUL_GRAMS['device'] += 1
+        key = (dtype_name(a.dtype), a.shape[0], b.shape[0])
+        MATMUL_GRAMS[key] = MATMUL_GRAMS.get(key, 0) + 1
     return gram_plain(a, b)
 
 

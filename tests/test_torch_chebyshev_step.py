@@ -359,7 +359,8 @@ def _solve(ch, m_ell, x0, m):
                  precond=ch.device_rows_operands(m, x0.shape[0]),
                  block_size=m, tol=1e-4, maxit=200, x0=x0)
     torch.cuda.synchronize()
-    return out, [{k: c[k] - was[k] for k in c if c[k] != was[k]}
+    return out, [{k: c[k] - was.get(k, 0) for k in c
+                  if c[k] != was.get(k, 0)}
                  for c, was in zip(ds._LAUNCH_COUNTERS, launches)]
 
 

@@ -69,7 +69,8 @@ def _solve(pb):
     out = lobpcg(pb.op, 6, **pb.kw)
     torch.cuda.synchronize()
     counted = {k: v - counts[k] for k, v in ds.GRAPH_COUNTS.items()}
-    launched = [{k: c[k] - was[k] for k in c if c[k] != was[k]}
+    launched = [{k: c[k] - was.get(k, 0) for k in c
+                  if c[k] != was.get(k, 0)}
                 for c, was in zip(ds._LAUNCH_COUNTERS, launches)]
     return out, counted, launched
 
